@@ -44,6 +44,7 @@ _SLOW_MODULES = {
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: compile-heavy/e2e tests")
     config.addinivalue_line("markers", "quick: fast tier (<3 min total)")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
