@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--profile] [--out results.json]
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -11,15 +11,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
    on the card at the shapes the path gives it (bf16 and f32), timed
    beside the twin, one library call where there is one, and the least
    time the card could take (bytes / 3.35 TB/s, or operations / peak);
-4. Llama-3-8B at full width (32 layers, bf16, weights from a seed) behind
+4. the same for the training path's kernels: flash attention forward,
+   dq and dk/dv at TinyLlama-1.1B's training shape (8, 2048, 32/4, 64)
+   and at Llama-3-8B's head shape (1, 4096, 32/8, 128), bf16, and in f32
+   at small shapes, each entry held to its own size and its head_dim
+   row's (`_check_rows`); the RMSNorm backward at (16384, 2048) with and
+   without the residual's gradient; the RoPE backward at
+   (8, 2048, 32|4, 64). SDPA (enable_gqa) is the flash yardstick;
+5. Llama-3-8B at full width (32 layers, bf16, weights from a seed) behind
    a PagedKVEngine serving 8 requests of 128..1024 prompt tokens and 64
    new tokens each, one of them joining mid-decode; the launch counters
    of the three kernels show that path went through them; a second run
    gives the same greedy tokens;
-5. continuous-batching parity on a 2-layer full-width f32 model: a
+6. continuous-batching parity on a 2-layer full-width f32 model: a
    request's greedy tokens alone equal its tokens when it joins
    mid-decode of 7 others (or, at a near-tie, the two tokens' logits
-   agree within 1e-3).
+   agree within 1e-3);
+7. TinyLlama-1.1B (22 layers, full width) trained through the Trainer:
+   f32 weights from a seed, bf16 compute, AdamW, flash attention, fused
+   RMSNorm and RoPE, recompute; one batch of 8 x 2048 tokens, one
+   warm-up step and 5 timed steps. The loss must be finite and fall, and
+   each kernel's launches per step must equal the count worked out from
+   the model's code;
+8. training parity: one Trainer step of a 2-layer model at TinyLlama's
+   full width on the card through the kernels against the same state and
+   batch on the CPU through the twins, in f32 and with bf16 compute.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero
@@ -41,6 +57,16 @@ BF16_TENSOR_FLOPS = 989e12     # H100 SXM dense bf16
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_TOL = 2 ** -7             # one bf16 rounding step, relative
 F32_TOL = 1e-4
+# flash kernels in bf16, entry by entry against |ref| + the RMS of its
+# head_dim row (`_check_rows`): four bf16 steps. The kernel and the twin
+# may round an output to neighbouring bf16 values (one step), and the
+# kernel rounds p against the running row max where the twin rounds the
+# normalised p: noise of about a third of a step of the row's RMS per
+# entry, which over millions of entries reaches 1.7 steps in o and 0.9 in
+# dq, dk and dv
+FLASH_BF16_TOL = 2 ** -5
+SERVING_KERNELS = ("paged_decode_attention", "rms_norm_residual",
+                   "rope_apply")
 
 
 def _card():
@@ -82,12 +108,61 @@ def _bound(nbytes, flops, peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _time_eager_ms(fn, inputs, iters=3):
+    """Device ms per call without a graph, for calls whose own time
+    dwarfs launch overhead (the plain twins at training shapes, which
+    allocate gigabytes per call, and autograd yardsticks)."""
+    fn(*inputs[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _check(name, out, ref, tol):
     out, ref = out.float(), ref.float()
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite output")
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol, msg=name)
     return float((out - ref).abs().max())
+
+
+def _check_to_max(name, out, ref, tol):
+    """|out - ref| <= tol * max(1, max |ref|); returns max |out - ref|."""
+    out, ref = out.float(), ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = float((out - ref).abs().max())
+    bound = tol * max(1.0, float(ref.abs().max()))
+    if err > bound:
+        raise AssertionError(f"{name}: max |err| {err} > {bound}")
+    return err
+
+
+def _check_rows(name, out, ref, tol):
+    """Entry by entry, |out - ref| <= tol * (|ref| + the RMS of ref's row
+    along the last dim + 2^-6 of the RMS of all of ref), so a row or key
+    of small values is held to its own size, not to the largest entry.
+    The last term covers rows whose exact value is 0 (dq of the first
+    causal row), where both sides give rounding noise. Returns (max |out
+    - ref|, the largest |out - ref| / bound)."""
+    out, ref = out.float(), ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite output")
+    diff = (out - ref).abs()
+    sq = ref.square()
+    bound = tol * (ref.abs() + sq.mean(-1, keepdim=True).sqrt()
+                   + 2 ** -6 * sq.mean().sqrt())
+    ratio = float((diff / bound).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: |err| reaches {ratio:.3g} x its bound "
+                             f"{tol:.3g} * (|ref| + row RMS + 2^-6 RMS)")
+    return float(diff.max()), ratio
 
 
 # -- phase 3: kernels against their twins ---------------------------------
@@ -266,7 +341,267 @@ def kernel_phases(dev, fn, pa):
     return {k["name"]: k for k in (dec, norm, rope)}
 
 
-# -- phase 4: Llama-3-8B serving ----------------------------------------------
+# -- phase 4: the training path's kernels ---------------------------------------
+
+def _flash_cost(b, s, hq, hk, d, causal):
+    """Visible (query, key) pairs and the bf16 bytes of one q-sized and
+    one k-sized (B, S, H, D) tensor."""
+    pairs = b * hq * (s * (s + 1) // 2 if causal else s * s)
+    return pairs, b * s * hq * d * 2, b * s * hk * d * 2
+
+
+def flash_phases(dev, fa):
+    """flash_fwd, flash_bwd_dq, flash_bwd_dkv entries: checked in f32 at
+    small shapes and in bf16 at the training and Llama-3 head shapes
+    (the twins at b <= 2 there: at b = 8 their (b, h, s, s) f32 scores
+    would take ~25 GB), timed at both shapes."""
+    g = torch.Generator(device=dev).manual_seed(10)
+
+    def inputs(b, s, hq, hk, d, dtype):
+        return [torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+                for h in (hq, hk, hk, hq)]
+
+    ratios = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+
+    def held(kernel, name, got, want, tol):
+        e, r = _check_rows(name, got, want, tol)
+        ratios[kernel] = max(ratios[kernel], r)
+        return e
+
+    for b, s, hq, hk, d in ((2, 200, 8, 2, 64), (1, 160, 8, 2, 128)):
+        for causal in (True, False):
+            q, k, v, do = inputs(b, s, hq, hk, d, torch.float32)
+            o, lse = fa.flash_attention_fwd(q, k, v, causal)
+            ro, rlse = fa.flash_attention_fwd_ref(q, k, v, causal)
+            tag = f"f32 {(b, s, hq, hk, d)} causal={causal}"
+            held("flash_fwd", f"flash fwd {tag}", o, ro, F32_TOL)
+            _check(f"flash lse {tag}", lse, rlse, F32_TOL)
+            for kern, name, got, want in zip(
+                    ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
+                    ("dq", "dk", "dv"),
+                    fa.flash_attention_bwd(q, k, v, o, lse, do, causal),
+                    fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)):
+                held(kern, f"flash {name} {tag}", got, want, F32_TOL)
+    print(f"[kernel] flash f32 at small shapes: |err| / bound at most "
+          f"{ratios} (bound {F32_TOL} * (|ref| + row RMS + 2^-6 RMS))")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for tag, (b, s, hq, hk, d) in (("train", (8, 2048, 32, 4, 64)),
+                                   ("llama3", (1, 4096, 32, 8, 128))):
+        ratios = dict.fromkeys(ratios, 0.0)
+        q, k, v, do = inputs(b, s, hq, hk, d, torch.bfloat16)
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        cb = min(b, 2)
+        q2, k2, v2, do2 = (t[:cb] for t in (q, k, v, do))
+        ro, rlse = fa.flash_attention_fwd_ref(q2, k2, v2, True)
+        err = {"flash_fwd": max(
+            held("flash_fwd", f"flash fwd {tag}", o[:cb], ro,
+                 FLASH_BF16_TOL),
+            _check(f"flash lse {tag}", lse[:cb], rlse, F32_TOL))}
+        del ro, rlse
+        rdq, rdk, rdv = fa.flash_attention_bwd_ref(q2, k2, v2, o[:cb],
+                                                   lse[:cb], do2, True)
+        err["flash_bwd_dq"] = held("flash_bwd_dq", f"flash dq {tag}",
+                                   dq[:cb], rdq, FLASH_BF16_TOL)
+        err["flash_bwd_dkv"] = max(
+            held("flash_bwd_dkv", f"flash dk {tag}", dk[:cb], rdk,
+                 FLASH_BF16_TOL),
+            held("flash_bwd_dkv", f"flash dv {tag}", dv[:cb], rdv,
+                 FLASH_BF16_TOL))
+        del rdq, rdk, rdv, q2, k2, v2, do2
+        torch.cuda.empty_cache()
+        # the two backward kernels alone, for their times
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_o = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        _check_to_max(f"sdpa yardstick {tag}", lib_o.transpose(1, 2), o,
+                      FLASH_BF16_TOL)
+        del lib_o
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            res = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
+            torch.autograd.grad(res, (qr, kr, vr), dot)
+
+        lib_fwd = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True), [()], iters=20)
+        lib_bwd = _time_eager_ms(sdpa_fwd_bwd, [()], iters=10) - lib_fwd
+        ms = {"flash_fwd": _time_ms(
+                  lambda: fa.flash_attention_fwd(q, k, v, True), [()],
+                  iters=20),
+              "flash_bwd_dq": _time_ms(lambda: fa._launch_dq(
+                  q, k, v, do, lse, delta, True, None), [()], iters=20),
+              "flash_bwd_dkv": _time_ms(lambda: fa._launch_dkv(
+                  q, k, v, do, lse, delta, True, None), [()], iters=20)}
+        fwd_plain = _time_eager_ms(
+            lambda: fa.flash_attention_fwd_ref(q, k, v, True), [()], iters=2)
+        bwd_plain = _time_eager_ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, True), [()], iters=2)
+        pairs, qbytes, kbytes = _flash_cost(b, s, hq, hk, d, True)
+        rows = b * hq * s * 4                       # one f32 per query row
+        bounds = {
+            "flash_fwd": _bound(2 * qbytes + 2 * kbytes + rows,
+                                4 * pairs * d, BF16_TENSOR_FLOPS),
+            "flash_bwd_dq": _bound(3 * qbytes + 2 * kbytes + 2 * rows,
+                                   6 * pairs * d, BF16_TENSOR_FLOPS),
+            "flash_bwd_dkv": _bound(2 * qbytes + 4 * kbytes + 2 * rows,
+                                    8 * pairs * d, BF16_TENSOR_FLOPS)}
+        shape = f"(b {b}, s {s}, hq {hq}, hk {hk}, d {d}) causal bf16"
+        for name in ms:
+            e = out.setdefault(name, {})
+            pre = "" if tag == "train" else "llama3_"
+            e[pre + "ms"] = ms[name]
+            e[pre + "plain_ms"] = (fwd_plain if name == "flash_fwd"
+                                   else bwd_plain)
+            e[pre + "bound_ms"], e[pre + "bound_by"] = bounds[name]
+            e[pre + "library_ms"] = (lib_fwd if name == "flash_fwd"
+                                     else lib_bwd)
+            e[pre + "shape"] = shape
+            # the largest |err| over its bound, FLASH_BF16_TOL * (|ref| +
+            # row RMS): under 1, or the run has failed
+            e[pre + "err_over_bound"] = ratios[name]
+            e["max_abs_err"] = max(e.get("max_abs_err", 0.0), err[name])
+        print(f"[kernel] flash {shape}: fwd {ms['flash_fwd']:.4f} ms "
+              f"(bound {bounds['flash_fwd'][0]:.4f}), dq "
+              f"{ms['flash_bwd_dq']:.4f} ms (bound "
+              f"{bounds['flash_bwd_dq'][0]:.4f}), dk/dv "
+              f"{ms['flash_bwd_dkv']:.4f} ms (bound "
+              f"{bounds['flash_bwd_dkv'][0]:.4f}); plain fwd "
+              f"{fwd_plain:.2f} ms, plain bwd {bwd_plain:.2f} ms; sdpa fwd "
+              f"{lib_fwd:.4f} ms, sdpa bwd {lib_bwd:.4f} ms; max |err| "
+              f"{err}, |err| / bound at most {ratios}")
+        del q, k, v, do, o, lse, delta, dq, dk, dv, qr, kr, vr
+        torch.cuda.empty_cache()
+    replaces = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:529",
+                "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:998",
+                "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:1016"}
+    for name, e in out.items():
+        e.update(name=name, route="cuda",
+                 source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+                 replaces=replaces[name])
+        if name != "flash_fwd":
+            e["library_note"] = ("the SDPA backward computes dq, dk and dv "
+                                 "together")
+    out["flash_bwd_dq"]["also_replaces"] = [
+        "paddle_tpu/kernels/flash_attention.py:980",
+        "paddle_tpu/kernels/flash_attention.py:945 (with flash_bwd_dkv)"]
+    return out
+
+
+def norm_rope_bwd_phases(dev, fn):
+    """rms_norm_residual_bwd and rope_apply_bwd entries at the training
+    shapes, and the forward kernels' times at those shapes."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    n, d, eps = 16384, 2048, 1e-5
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    err = 0.0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        h, gy, gh = randn(n, d, dtype=dtype), randn(n, d, dtype=dtype), \
+            randn(n, d, dtype=dtype)
+        w = randn(d, dtype=dtype)
+        _, _, rstd = fn._norm_fwd(h, w, None, eps, want_rstd=True)
+        _check(f"rms_norm rstd {dtype}", rstd,
+               fn._rmsn_fwd_math(h, w, eps)[1].reshape(-1), F32_TOL)
+        for gh_ in (None, gh):
+            dh, dw = fn.rms_norm_residual_bwd(h, w, rstd, gy, gh_)
+            rdh, rdw = fn.rms_norm_residual_bwd_ref(h, w, rstd, gy, gh_)
+            torch.cuda.synchronize()
+            tag = f"{dtype} gh={gh_ is not None}"
+            e = _check(f"rms_norm_bwd dh {tag}", dh, rdh, tol)
+            # dw sums 16384 rows: held to its largest entry
+            e = max(e, _check_to_max(f"rms_norm_bwd dw {tag}", dw, rdw, tol))
+            if not torch.equal(fn.rms_norm_residual_bwd(h, w, rstd, gy,
+                                                         gh_)[1], dw):
+                raise AssertionError("rms_norm_bwd: dw not deterministic")
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+    sets = [(h, w, rstd, gy)]
+    gsets = [(h, w, rstd, gy, gh)]
+    elem = n * d
+    norm = dict(
+        name="rms_norm_residual_bwd", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/fused_norm.cu",
+        replaces="paddle_tpu/kernels/fused_norm.py:225", max_abs_err=err,
+        ms=_time_ms(fn.rms_norm_residual_bwd, sets, iters=20),
+        plain_ms=_time_ms(fn.rms_norm_residual_bwd_ref, sets, iters=5),
+        library_ms=None,
+        library_note="no single PyTorch call computes the RMSNorm backward",
+        shape=f"h ({n}, {d}) bf16, no residual gradient",
+        gh_ms=_time_ms(fn.rms_norm_residual_bwd, gsets, iters=20),
+        gh_plain_ms=_time_ms(fn.rms_norm_residual_bwd_ref, gsets, iters=5))
+    norm["bound_ms"], norm["bound_by"] = _bound(
+        3 * elem * 2 + n * 4 + 2 * d * 2, 8 * elem, F32_FLOPS)
+    norm["gh_bound_ms"] = _bound(4 * elem * 2 + n * 4 + 2 * d * 2, 9 * elem,
+                                 F32_FLOPS)[0]
+    x, r = randn(n, d), randn(n, d)
+    fwd_train = dict(
+        train_ms=_time_ms(lambda a, b_, c: fn._norm_fwd(a, c, b_, eps, True),
+                          [(x, r, w)], iters=20),
+        train_plain_ms=_time_ms(
+            lambda a, b_, c: fn.rms_norm_residual_ref(a, c, b_, eps),
+            [(x, r, w)], iters=5),
+        train_bound_ms=_bound(4 * elem * 2 + n * 4 + d * 2, 5 * elem,
+                              F32_FLOPS)[0],
+        train_shape=f"x, residual ({n}, {d}) bf16, with rstd")
+    print(f"[kernel] rms_norm_residual_bwd bf16 ({n}, {d}): "
+          f"{norm['ms']:.4f} ms, plain {norm['plain_ms']:.4f} ms, bound "
+          f"{norm['bound_ms']:.4f} ms; with gh {norm['gh_ms']:.4f} ms, plain "
+          f"{norm['gh_plain_ms']:.4f} ms, bound {norm['gh_bound_ms']:.4f} "
+          f"ms; forward at this shape (residual, rstd) "
+          f"{fwd_train['train_ms']:.4f} ms, bound "
+          f"{fwd_train['train_bound_ms']:.4f} ms; max |err| {err:.3g}")
+    del h, gy, gh, x, r, dh, rdh, sets, gsets
+    torch.cuda.empty_cache()
+
+    b, s, hd = 8, 2048, 64
+    pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b)
+    tables = fn.rope_tables(pos, hd, 10000.0)
+    rerr = 0.0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for heads in (32, 4):
+            gq = randn(b, s, heads, hd, dtype=dtype)
+            e = _check(f"rope_bwd {dtype} h={heads}",
+                       fn.rope_apply_bwd(gq, *tables),
+                       fn.rope_apply_bwd_ref(gq, *tables), tol)
+            if dtype == torch.bfloat16:
+                rerr = max(rerr, e)
+    qs = [(randn(b, s, 32, hd),)]
+    relem = b * s * 32 * hd
+    rope = dict(
+        name="rope_apply_bwd", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/fused_norm.cu",
+        replaces="paddle_tpu/kernels/fused_norm.py:380", max_abs_err=rerr,
+        ms=_time_ms(lambda a: fn.rope_apply_bwd(a, *tables), qs, iters=20),
+        plain_ms=_time_ms(lambda a: fn.rope_apply_bwd_ref(a, *tables), qs,
+                          iters=5),
+        library_ms=None,
+        library_note="no single PyTorch call computes the RoPE rotation",
+        shape=f"dq ({b}, {s}, 32, {hd}) bf16, the RoPE kernel with the "
+              "sin table negated (fused_norm.py:415)")
+    rope["bound_ms"], rope["bound_by"] = _bound(
+        2 * relem * 2 + 2 * b * s * hd * 4, 3 * relem, F32_FLOPS)
+    rope_fwd_train = dict(
+        train_ms=_time_ms(lambda a: fn.rope_apply(a, tables=tables), qs,
+                          iters=20),
+        train_plain_ms=_time_ms(lambda a: fn.rope_apply_ref(a, tables=tables),
+                                qs, iters=5),
+        train_bound_ms=rope["bound_ms"],
+        train_shape=f"q ({b}, {s}, 32, {hd}) bf16")
+    print(f"[kernel] rope_apply_bwd bf16 ({b}, {s}, 32, {hd}): "
+          f"{rope['ms']:.4f} ms, plain {rope['plain_ms']:.4f} ms, bound "
+          f"{rope['bound_ms']:.4f} ms; forward at this shape "
+          f"{rope_fwd_train['train_ms']:.4f} ms; max |err| {rerr:.3g}")
+    return {"rms_norm_residual_bwd": norm, "rope_apply_bwd": rope}, \
+        {"rms_norm_residual": fwd_train, "rope_apply": rope_fwd_train}
+
+
+# -- phase 5: Llama-3-8B serving ----------------------------------------------
 
 def _prompts(n, vocab, seed, lo=128, hi=1024):
     rng = np.random.default_rng(seed)
@@ -306,7 +641,7 @@ def serving_phase(dev, counters, reset, card, profile=False):
     t0 = time.perf_counter()
     eng, toks = _serve(model, prompts, max_new, late=7, **geom)
     wall = time.perf_counter() - t0
-    launches = counters()
+    launches = {k: v for k, v in counters().items() if k in SERVING_KERNELS}
     for i, t in enumerate(toks):
         if len(t) != max_new or not all(0 <= x < cfg.vocab_size for x in t):
             raise AssertionError(f"request {i}: {len(t)} tokens, want "
@@ -400,7 +735,7 @@ def profile_serving(model, prompts, max_new, geom, card):
     return out
 
 
-# -- phase 5: continuous-batching parity ---------------------------------------
+# -- phase 6: continuous-batching parity ---------------------------------------
 
 def parity_phase(dev):
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
@@ -435,46 +770,280 @@ def parity_phase(dev):
     return {"identical": False, "step": t, "logit_gap": gap}
 
 
+# -- phase 7: TinyLlama-1.1B training ---------------------------------------
+
+def _tinyllama_config(**overrides):
+    """bench.py's TinyLlama-1.1B (paddle_tpu bench.py:1182-1192) with the
+    dense loss (loss_chunk=0) and the fused norm and RoPE kernels."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    base = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+                num_hidden_layers=22, num_attention_heads=32,
+                num_key_value_heads=4, max_position_embeddings=2048,
+                rope_theta=10000.0, seq_length=2048, recompute=True,
+                use_flash_attention=True, loss_chunk=0, fused_norm=True,
+                fused_rope=True)
+    base.update(overrides)
+    return LlamaConfig(**base)
+
+
+def expected_train_launches(layers):
+    """Kernel launches per training step, from the model's code: each
+    decoder layer runs two RMSNorms, RoPE on q and k and one flash
+    forward, twice with recompute (forward, then again in the backward),
+    and one backward of each; the final norm runs once each way."""
+    return {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers, "rms_norm_residual": 4 * layers + 1,
+            "rms_norm_residual_bwd": 2 * layers + 1,
+            "rope_apply": 4 * layers, "rope_apply_bwd": 2 * layers,
+            "paged_decode_attention": 0}
+
+
+def training_phase(dev, counters, reset, card, profile=False):
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, flops_per_token
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    cfg = _tinyllama_config()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    opt = topt.AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                     weight_decay=0.01)
+    trainer = Trainer(model, opt, TrainStepConfig(compute_dtype="bfloat16"))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[train] TinyLlama-1.1B f32 built on the card in "
+          f"{time.perf_counter() - t0:.1f} s ({n_params / 1e9:.3f} B params)")
+    batch, seq, timed = 8, 2048, 5
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (batch, seq)) \
+        .astype(np.int32)
+    data = {"input_ids": torch.from_numpy(ids).to(dev),
+            "labels": torch.from_numpy(ids).to(dev)}
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    losses = [trainer.step(data)]                    # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        losses.append(trainer.step(data))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall {losses}")
+    steps = timed + 1
+    want = expected_train_launches(cfg.num_hidden_layers)
+    per_step = {k: launches[k] / steps for k in want}
+    if per_step != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"train: launches per step {per_step} != the "
+                             f"count from the code {want}")
+    tokens_per_s = batch * seq * timed / wall
+    ftok = flops_per_token(cfg, seq) * 8.0 / 6.0     # recompute: ~8N
+    metrics = dict(
+        card=card, batch=batch, seq=seq, steps_timed=timed,
+        tokens_per_s=tokens_per_s, step_ms=wall / timed * 1e3,
+        warmup_s=warm, mfu=tokens_per_s * ftok / BF16_TENSOR_FLOPS,
+        flops_per_token=ftok,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        losses=losses, launches=launches, launches_per_step=per_step)
+    print(f"[train] {card}: {tokens_per_s:.1f} tokens/s, step "
+          f"{metrics['step_ms']:.1f} ms, MFU {metrics['mfu']:.4f} (of 989 "
+          f"TF/s, {ftok:.4g} flops/token with recompute), peak memory "
+          f"{metrics['peak_mem_gb']:.2f} GB, warm-up step {warm:.2f} s")
+    print(f"[train] losses {losses}")
+    print(f"[train] launches per step {per_step} (= the count from the "
+          "code)")
+    if profile:
+        metrics["profile"] = profile_training(trainer, data, card)
+    del trainer, opt, model, data
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def profile_training(trainer, data, card):
+    """Where the time goes (`--profile`): torch.profiler over one
+    training step; device busy time is the sum of the kernels' device
+    times (one stream), idle share = 1 - busy / host wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in kernels) / 1e6
+    top = sorted(kernels, key=_device_us, reverse=True)[:20]
+    out = dict(wall_s=wall, device_busy_s=busy,
+               idle_share=max(0.0, 1 - busy / wall) if wall else None,
+               top=[(e.key[:90], _device_us(e) / 1e3, e.count) for e in top])
+    print(f"[profile] {card} train step: wall {wall * 1e3:.1f} ms, device "
+          f"busy {busy * 1e3:.1f} ms, idle share {out['idle_share']:.3f}")
+    for name, ms, n in out["top"]:
+        print(f"[profile]   {ms:9.3f} ms  x{n:<6} {name}")
+    return out
+
+
+# -- phase 8: training parity, card against CPU -----------------------------
+
+# bf16-compute parity: the loss within this fraction of itself, and each
+# gradient within this fraction of its own norm (||card - cpu|| <=
+# tol * ||cpu||): the card's cuBLAS and the CPU round the same bf16
+# products after sums in other orders, and each flip of a rounding
+# travels through the layers
+TRAIN_BF16_LOSS_TOL = 1e-3
+TRAIN_BF16_GRAD_TOL = 4e-2
+
+
+def _parity_step(cfg, state, ids, dev, compute_dtype):
+    """(loss, {name: gradient on the CPU}) of one Trainer step from
+    `state`, on the CPU through the twins and on the card through the
+    kernels."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    results = []
+    for device in ("cpu", dev):
+        model = LlamaForCausalLM(cfg, device=device)
+        model.load_state_dict(state)
+        trainer = Trainer(model, topt.AdamW(
+            learning_rate=1e-4, parameters=model.named_parameters()),
+            TrainStepConfig(compute_dtype=compute_dtype))
+        loss = float(trainer.step({"input_ids": ids, "labels": ids}))
+        results.append((loss, {n: p.grad.cpu() for n, p in
+                               model.named_parameters()}))
+        del trainer, model
+    torch.cuda.empty_cache()
+    return results
+
+
+def training_parity_phase(dev):
+    """One Trainer step of a 2-layer model at TinyLlama's full width: the
+    card through the kernels against the CPU through the twins, with the
+    same state and batch, first in f32 and then with bf16 compute (the
+    twins round p and dS to bf16 where the kernels do, so this holds the
+    bf16 kernels against an independent path).
+
+    f32: the loss within 1e-5 relative; every gradient within 1e-4 of its
+    largest entry (the same f32 products summed in other orders). bf16:
+    TRAIN_BF16_LOSS_TOL and TRAIN_BF16_GRAD_TOL. The updated parameters
+    are not compared: Adam divides each gradient entry by its own
+    magnitude, so an entry within the noise of zero can step by the
+    learning rate either way."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _tinyllama_config(num_hidden_layers=2)
+    ids = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 256)) \
+        .astype(np.int32)
+    state = LlamaForCausalLM(cfg, device="cpu", seed=0).state_dict()
+    out = {}
+    (cpu_loss, cpu_g), (gpu_loss, gpu_g) = _parity_step(cfg, state, ids, dev,
+                                                         None)
+    if abs(gpu_loss - cpu_loss) > 1e-5 * abs(cpu_loss):
+        raise AssertionError(f"train parity: loss {gpu_loss} on the card, "
+                             f"{cpu_loss} on the CPU")
+    worst = 0.0
+    for name, g in cpu_g.items():
+        rel = float((gpu_g[name] - g).abs().max()) / max(
+            float(g.abs().max()), 1e-30)
+        if rel > 1e-4:
+            raise AssertionError(f"train parity: {name} gradient differs by "
+                                 f"{rel:.3g} of its largest entry")
+        worst = max(worst, rel)
+    print(f"[train-parity] 2-layer TinyLlama width f32: loss card "
+          f"{gpu_loss:.7f} cpu {cpu_loss:.7f}; worst gradient difference "
+          f"{worst:.3g} of its largest entry (tolerance 1e-4)")
+    out["f32"] = {"loss_card": gpu_loss, "loss_cpu": cpu_loss,
+                  "worst_grad_rel": worst}
+    (cpu_loss, cpu_g), (gpu_loss, gpu_g) = _parity_step(cfg, state, ids, dev,
+                                                         "bfloat16")
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    if loss_rel > TRAIN_BF16_LOSS_TOL:
+        raise AssertionError(f"train parity bf16: loss {gpu_loss} on the "
+                             f"card, {cpu_loss} on the CPU")
+    rels = {name: float((gpu_g[name] - g).norm() / g.norm().clamp_min(1e-30))
+            for name, g in cpu_g.items()}
+    name = max(rels, key=rels.get)
+    if rels[name] > TRAIN_BF16_GRAD_TOL:
+        raise AssertionError(f"train parity bf16: {name} gradient differs by "
+                             f"{rels[name]:.3g} of its norm")
+    print(f"[train-parity] 2-layer TinyLlama width bf16 compute: loss card "
+          f"{gpu_loss:.7f} cpu {cpu_loss:.7f} ({loss_rel:.3g} relative, "
+          f"tolerance {TRAIN_BF16_LOSS_TOL}); worst gradient difference "
+          f"{rels[name]:.3g} of its norm, {name} (tolerance "
+          f"{TRAIN_BF16_GRAD_TOL}); median "
+          f"{float(np.median(list(rels.values()))):.3g}")
+    out["bf16"] = {"loss_card": gpu_loss, "loss_cpu": cpu_loss,
+                   "loss_rel": loss_rel, "worst_grad_rel_norm": rels[name],
+                   "grad_rel_norm": rels}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the serving path with torch.profiler")
+                    help="also trace the serving path and one training step "
+                         "with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_norm as fn
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     card = _card()
     print(card)
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
+    t_build = time.perf_counter()
     _build.load_library()
     info = _build.build_info()
     regs = [ln.strip() for ln in info["log"].splitlines()
             if "registers" in ln or "spill" in ln]
     print(f"[build] {info['sources']} -> {info['path']} in "
-          f"{time.perf_counter() - t0:.1f} s (compiled: {info['built']})")
+          f"{time.perf_counter() - t_build:.1f} s (compiled: "
+          f"{info['built']})")
     for ln in regs:
         print(f"[build] {ln}")
 
+    t_start = time.perf_counter()
     kernels = kernel_phases(dev, fn, pa)
+    kernels.update(flash_phases(dev, fa))
+    bwd_entries, fwd_train = norm_rope_bwd_phases(dev, fn)
+    kernels.update(bwd_entries)
+    for name, extra in fwd_train.items():
+        kernels[name].update(extra)
 
     def reset():
-        for d in (fn.launches, pa.launches):
+        for d in (fn.launches, pa.launches, fa.launches):
             for k in d:
                 d[k] = 0
 
     def counters():
-        return {**pa.launches, **fn.launches}
+        return {**pa.launches, **fn.launches, **fa.launches}
 
     serving = serving_phase(dev, counters, reset, card, args.profile)
-    for name, n in serving["launches"].items():
-        kernels[name]["launches"] = n
     parity = parity_phase(dev)
+    training = training_phase(dev, counters, reset, card, args.profile)
+    train_parity = training_parity_phase(dev)
+    for name, e in kernels.items():
+        by_path = {"serving": serving["launches"].get(name, 0),
+                   "training": training["launches"].get(name, 0)}
+        if sum(by_path.values()) <= 0:
+            raise AssertionError(f"{name} was launched on no main path")
+        e["launches"] = sum(by_path.values())
+        e["launches_by_path"] = by_path
+    now = time.perf_counter()
+    print(f"[time] build {t_start - t_build:.1f} s, phases "
+          f"{now - t_start:.1f} s, total {now - t_build:.1f} s")
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -485,6 +1054,7 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": line["kernels"],
                        "serving": serving, "parity": parity,
+                       "training": training, "train_parity": train_parity,
                        "torch": torch.__version__}, f, indent=1)
     print(json.dumps(line))
     print(card)

@@ -35,12 +35,18 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
+_FLASH_TAIL = [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P]
 # C signatures of the entry points in csrc/ (all return a cudaError_t)
 _SIGNATURES = {
     "ptt_paged_decode_attention":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    "ptt_rms_norm_residual": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "ptt_rms_norm_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "ptt_rms_norm_bwd": [_P] * 7 + [_I, _I, _I, _I, _P],
     "ptt_rope_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ptt_flash_fwd": [_P] * 5 + _FLASH_TAIL,
+    "ptt_flash_bwd_dq": [_P] * 7 + _FLASH_TAIL,
+    "ptt_flash_bwd_dkv": [_P] * 8 + _FLASH_TAIL,
 }
 
 _lock = threading.Lock()

@@ -4,7 +4,10 @@ paddle_tpu keeps a Linear weight as (in, out) (paddle_tpu/nn/layer/
 common.py); torch.nn.Linear keeps (out, in). Parameter names are the same
 in both packages, so conversion is a transpose of every Linear weight
 and a copy of everything else (embeddings (vocab, d) and norm weights
-(d,) keep their layout).
+(d,) keep their layout). Training configs (flash attention, recompute,
+the fused kernels) hold the same parameters, so one conversion serves
+serving and training; bf16 arrays (numpy's `ml_dtypes.bfloat16`, which
+torch cannot take directly) come across exactly as torch.bfloat16.
 """
 from __future__ import annotations
 
@@ -46,5 +49,14 @@ def from_paddle_tpu_state(np_state, config):
         if arr.shape != expected[name]:
             raise ValueError(f"{name}: shape {arr.shape} after conversion, "
                              f"expected {expected[name]}")
-        out[name] = torch.from_numpy(np.array(arr, order="C"))  # own copy
+        out[name] = _to_torch(arr)
     return out
+
+
+def _to_torch(arr):
+    """An own, C-ordered torch copy of a numpy array; bf16 goes through
+    f32, which holds every bf16 value exactly."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.array(arr.astype(np.float32), order="C")).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, order="C"))

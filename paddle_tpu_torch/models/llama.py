@@ -1,13 +1,17 @@
-"""Llama-3 model family for serving, in PyTorch.
+"""Llama-3 model family, in PyTorch.
 
-Counterpart of paddle_tpu/models/llama.py, forward only: the no-cache
-causal forward (plain math) and the paged-KV forward the serving engine
-drives (inference/paged.py). Training-only knobs (recompute, blockwise
-loss, FSDP overlap) wait for the training slice.
+Counterpart of paddle_tpu/models/llama.py: the no-cache causal forward,
+the paged-KV forward the serving engine drives (inference/paged.py), and
+the training forward: `forward(input_ids, labels=...)` returns the
+shifted next-token loss and the logits, with flash attention
+(`use_flash_attention`) and per-layer recomputation (`recompute`) as in
+the JAX package. The blockwise loss (`loss_chunk > 0`) and the FSDP
+overlap are not ported yet.
 
 `fused_norm` routes the decoder's RMSNorms through the RMSNorm(+residual)
-kernel and `fused_rope` routes RoPE through the RoPE kernel
-(kernels/fused_norm.py); the plain paths compute the same function.
+kernels and `fused_rope` routes RoPE through the RoPE kernel
+(kernels/fused_norm.py), forward and backward; the plain paths compute
+the same function.
 
 Linear weights follow torch's (out, in) layout; models/convert.py
 carries a paddle_tpu state dict ((in, out) layout) across.
@@ -20,6 +24,7 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.distributed.recompute import recompute
 from paddle_tpu_torch.inference.paged import paged_attention_update
 from paddle_tpu_torch.kernels.fused_norm import (rms_norm_residual,
                                                  rope_apply, rope_tables)
@@ -27,18 +32,20 @@ from paddle_tpu_torch.nn import functional as F
 
 __all__ = ["LlamaConfig", "llama3_8b_config", "tiny_llama_config",
            "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
-           "LlamaForCausalLM"]
+           "LlamaForCausalLM", "next_token_loss", "param_count",
+           "flops_per_token"]
 
 
 @dataclass
 class LlamaConfig:
-    """The serving fields of the JAX package's LlamaConfig."""
+    """The serving and training fields of the JAX package's LlamaConfig."""
     vocab_size: int = 128256
     hidden_size: int = 4096
     intermediate_size: int = 14336
     num_hidden_layers: int = 32
     num_attention_heads: int = 32
     num_key_value_heads: int = 8
+    max_position_embeddings: int = 8192
     rms_norm_eps: float = 1e-5
     rope_theta: float = 500000.0
     tie_word_embeddings: bool = False
@@ -49,6 +56,16 @@ class LlamaConfig:
     # RMSNorm(+residual) and RoPE through the CUDA kernels
     fused_norm: bool = False
     fused_rope: bool = False
+    # no-cache attention through the flash kernels
+    use_flash_attention: bool = False
+    # rerun each decoder layer's forward in the backward when training
+    recompute: bool = False
+    # sequence length helpers use (benchmarks, example inputs)
+    seq_length: int = 4096
+    # > 0: the blockwise (chunked) loss of the JAX package, not ported
+    # yet; the model raises rather than take the dense loss instead
+    loss_chunk: int = 0
+    loss_vocab_block: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -63,9 +80,22 @@ def tiny_llama_config(**overrides) -> LlamaConfig:
     """4-layer toy config for tests / CPU dry runs."""
     base = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
                 num_hidden_layers=4, num_attention_heads=4,
-                num_key_value_heads=2, rope_theta=10000.0)
+                num_key_value_heads=2, max_position_embeddings=256,
+                rope_theta=10000.0, seq_length=32)
     base.update(overrides)
     return LlamaConfig(**base)
+
+
+def next_token_loss(logits, labels, vocab_size):
+    """Shifted next-token cross entropy: position t scores labels[t+1];
+    the last position is marked ignore_index (-100) instead of slicing
+    the logits, and the mean leaves ignored rows out (JAX
+    `next_token_loss`)."""
+    b = labels.shape[0]
+    shifted = torch.cat([labels[:, 1:], torch.full(
+        (b, 1), -100, dtype=labels.dtype, device=labels.device)], dim=1)
+    return F.cross_entropy(logits.reshape(-1, vocab_size),
+                           shifted.reshape(-1), ignore_index=-100)
 
 
 def _linear(d_in, d_out):
@@ -127,6 +157,9 @@ class LlamaAttention(nn.Module):
             k = F.rope_neox(k, position_ids, cfg.rope_theta)
         if cache is not None:
             out = paged_attention_update(q, k, v, cache, cache_index)
+        elif cfg.use_flash_attention:
+            out = F.flash_attention(q, k, v, causal=True)[0]
+            out = out.reshape(b, s, hq * hd)
         else:
             out = F.causal_attention(q, k, v).reshape(b, s, hq * hd)
         return self.o_proj(out)
@@ -213,7 +246,11 @@ class LlamaModel(nn.Module):
             else:
                 flat = position_ids.to(torch.int32).expand(b, s).reshape(-1)
             rope = rope_tables(flat, cfg.head_dim, cfg.rope_theta)
+        train_recompute = cfg.recompute and self.training and caches is None
         for i, layer in enumerate(self.layers):
+            if train_recompute:
+                h = recompute(layer, h, position_ids, None, None, rope)
+                continue
             cache = None if caches is None else caches[i]
             h = layer(h, position_ids, cache, cache_index, rope)
         if cfg.fused_norm:
@@ -230,6 +267,11 @@ class LlamaForCausalLM(nn.Module):
     then initialised in place from `seed` with a generator on the
     device, normal(0, initializer_range) for projections and embeddings
     and ones for norm weights, as the JAX package initialises them.
+
+    Built for serving: no parameter requires a gradient and the model is
+    in eval mode, so a forward records no autograd graph. The Trainer
+    (parallel/trainer.py) makes the parameters trainable and puts the
+    model in training mode.
     """
 
     def __init__(self, config: LlamaConfig, *, device="cuda",
@@ -269,8 +311,43 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(hidden)
 
     def forward(self, input_ids, position_ids=None, caches=None,
-                cache_index=None):
+                cache_index=None, labels=None):
         """Logits (B, S, vocab). With `caches`/`cache_index` (a
-        PagedState), the paged forward: pools are updated in place."""
+        PagedState), the paged forward: pools are updated in place. With
+        `labels` (B, S), (loss, logits): the shifted next-token loss, f32
+        (a no-cache forward only)."""
+        if labels is not None:
+            if caches is not None:
+                raise ValueError("the paged forward is inference-only; "
+                                 "drop labels or caches")
+            if self.config.loss_chunk:
+                raise NotImplementedError(
+                    "loss_chunk > 0 is the blockwise cross-entropy loss "
+                    "(paddle_tpu/kernels/blockwise_ce.py), which is not "
+                    "ported yet (the next slice); set loss_chunk=0 for "
+                    "the dense loss")
         h = self.model(input_ids, position_ids, caches, cache_index)
-        return self.logits(h)
+        logits = self.logits(h)
+        if labels is None:
+            return logits
+        return next_token_loss(logits, labels, self.config.vocab_size), \
+            logits
+
+
+def param_count(config: LlamaConfig) -> int:
+    """Analytic parameter count (JAX `param_count`)."""
+    d, f, v = config.hidden_size, config.intermediate_size, config.vocab_size
+    hd = config.head_dim
+    per_layer = (d * d + 2 * d * config.num_key_value_heads * hd + d * d
+                 + 3 * d * f + 2 * d)
+    head = 0 if config.tie_word_embeddings else d * v
+    return v * d + config.num_hidden_layers * per_layer + d + head
+
+
+def flops_per_token(config: LlamaConfig, seq_len: int) -> float:
+    """Training FLOPs per token ~= 6 N + the attention term, N without
+    the embedding and head (JAX `flops_per_token`)."""
+    n = param_count(config) - config.vocab_size * config.hidden_size * (
+        1 if config.tie_word_embeddings else 2)
+    attn = 12 * config.num_hidden_layers * config.hidden_size * seq_len
+    return 6.0 * n + attn

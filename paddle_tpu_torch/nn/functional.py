@@ -8,7 +8,12 @@
   tables of `_rope_cos_sin`, for `LlamaConfig(fused_rope=False)`;
 - `causal_attention`: the no-cache causal attention of `_sdpa_ref`
   (f32 scores, probabilities cast to the input type before the value
-  product), GQA by head groups instead of repeated K/V.
+  product), GQA by head groups instead of repeated K/V;
+- `flash_attention`: nn/functional/attention.py `flash_attention` over
+  the flash kernels (kernels/flash_attention.py);
+- `cross_entropy`: the pretrain-shape fast path of nn/functional/loss.py
+  (`_ce_mean_fused`): f32 log-softmax, mean over the rows that are not
+  `ignore_index`, the gradient in the logits' type.
 """
 from __future__ import annotations
 
@@ -16,7 +21,10 @@ import math
 
 import torch
 
-__all__ = ["rms_norm", "swiglu", "rope_neox", "causal_attention"]
+from paddle_tpu_torch.kernels.flash_attention import flash_attention_bshd
+
+__all__ = ["rms_norm", "swiglu", "rope_neox", "causal_attention",
+           "flash_attention", "cross_entropy"]
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -70,3 +78,51 @@ def causal_attention(q, k, v):
     p = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgsc,bhcd->bhgsd", p, vt)
     return out.reshape(b, hq, s, d).transpose(1, 2)
+
+
+def flash_attention(query, key, value, causal=False):
+    """(B, S, H, D) flash attention; returns (out, None) like the JAX
+    package's (out, softmax placeholder) pair."""
+    return flash_attention_bshd(query, key, value, causal=causal), None
+
+
+class _CrossEntropyMean(torch.autograd.Function):
+    """Mean softmax-CE over int labels keeping only the f32 lse per row:
+    the backward recomputes softmax from the logits in one pass,
+    dlogits = (softmax - onehot) * g * valid / count, in the logits'
+    type (JAX `_ce_mean_fused`)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, ignore_index):
+        m = torch.amax(logits, dim=-1).float()
+        sumexp = torch.sum(torch.exp(logits.float() - m[:, None]), dim=-1)
+        lse = m + torch.log(sumexp)
+        valid = labels != ignore_index
+        safe = torch.where(valid, labels, torch.zeros_like(labels))
+        picked = torch.gather(logits, 1, safe[:, None].long())[:, 0].float()
+        count = torch.clamp(valid.float().sum(), min=1.0)
+        loss = torch.where(valid, lse - picked,
+                           torch.zeros_like(lse)).sum() / count
+        ctx.save_for_backward(logits, safe, lse, valid, count)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, safe, lse, valid, count = ctx.saved_tensors
+        scale = (g / count) * valid.float()
+        d = torch.exp(logits.float() - lse[:, None])
+        rows = torch.arange(d.shape[0], device=d.device)
+        d[rows, safe.long()] -= 1.0
+        d *= scale[:, None]
+        return d.to(logits.dtype), None, None
+
+
+def cross_entropy(input, label, ignore_index=-100):
+    """Mean cross entropy of logits `input` (N, V) against int labels
+    (N,), rows labelled `ignore_index` left out of the mean: the
+    pretrain shape the Llama loss takes. f32 result."""
+    if input.dim() != 2 or label.dim() != 1 \
+            or label.dtype.is_floating_point:
+        raise NotImplementedError("cross_entropy: only the mean over 2-D "
+                                  "logits and 1-D int labels is ported")
+    return _CrossEntropyMean.apply(input, label, int(ignore_index))

@@ -9,16 +9,32 @@ and the CUDA toolkit alone:
 Tolerances: f32 outputs within 1e-4 (the kernel and the twin compute the
 same f32 expressions in another order); bf16 outputs within one bf16
 rounding step, 2^-7 relative; the decode kernel's f32 output from bf16
-pools within 1e-4, since both sides upcast the same bf16 values.
+pools within 1e-4, since both sides upcast the same bf16 values. The
+flash kernels' outputs entry by entry within the tolerance times (|ref|
++ the RMS of its head_dim row + 2^-6 of the RMS of the whole output), so
+a row or key of small values is held to its own size; 2^-5 in bf16 (four
+rounding steps: the kernel and the twin may round an output to
+neighbouring bf16 values, and the kernel rounds p against the running
+row max where the twin rounds the normalised p, noise that reaches 1.7
+steps of a row's RMS over millions of entries).
+`test_flash_bf16_rule_rejects_planted_faults` shows the rule failing
+kernels that are wrong on some rows only.
 """
+import shutil
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.inference.paged import PagedKVEngine
+from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import fused_norm as tfn
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, tiny_llama_config
+from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
 
 BF16_TOL = 2 ** -7
 
@@ -34,6 +50,35 @@ def cuda():
 
 def _tol(dtype):
     return 1e-4 if dtype == torch.float32 else BF16_TOL
+
+
+def _close_to_max(out, ref, dtype, what=""):
+    """|out - ref| within the tolerance times max(1, max |ref|)."""
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all(), what
+    err = float((out - ref).abs().max())
+    bound = tol * max(1.0, float(ref.abs().max()))
+    assert err <= bound, f"{what}: |err| {err} > {bound}"
+
+
+def _rows_ratio(out, ref, tol):
+    """The largest |out - ref| / (tol * (|ref| + RMS of ref's last-dim
+    row + 2^-6 RMS of ref)); the flash rule holds when it is at most 1.
+    The last term covers rows whose exact value is 0 (dq of the first
+    causal row), where both sides give rounding noise."""
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all()
+    sq = ref.square()
+    bound = tol * (ref.abs() + sq.mean(-1, keepdim=True).sqrt()
+                   + 2 ** -6 * sq.mean().sqrt())
+    return float(((out - ref).abs() / bound).max())
+
+
+def _close_rows(out, ref, dtype, what=""):
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -5
+    ratio = _rows_ratio(out, ref, tol)
+    assert ratio <= 1.0, f"{what}: |err| reaches {ratio:.3g} x its bound"
 
 
 @pytest.mark.cuda
@@ -76,6 +121,175 @@ def test_rope_kernel_matches_ref(cuda, dtype, seq):
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), ref.float(),
                                    rtol=_tol(dtype), atol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_backward_kernel_matches_ref(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    n, d = 2048, 4096
+    x, gy, gh = (torch.randn(n, d, generator=g, device=cuda).to(dtype)
+                 for _ in range(3))
+    w = torch.randn(d, generator=g, device=cuda).to(dtype)
+    _, h, rstd = tfn._norm_fwd(x, w, None, 1e-5, want_rstd=True)
+    _, ref_rstd = tfn._rmsn_fwd_math(x, w, 1e-5)
+    torch.testing.assert_close(rstd, ref_rstd.reshape(-1), rtol=1e-5,
+                               atol=1e-5)
+    for gh_ in (None, gh):
+        dh, dw = tfn.rms_norm_residual_bwd(h, w, rstd, gy, gh_)
+        rdh, rdw = tfn.rms_norm_residual_bwd_ref(h, w, rstd, gy, gh_)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dh.float(), rdh.float(), rtol=_tol(dtype),
+                                   atol=_tol(dtype))
+        # dw sums n rows: tolerance relative to its largest entry
+        _close_to_max(dw, rdw, dtype, "dw")
+        again = tfn.rms_norm_residual_bwd(h, w, rstd, gy, gh_)[1]
+        assert torch.equal(again, dw)           # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_backward_kernel_matches_ref(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    pos = torch.arange(512, dtype=torch.int32, device=cuda).repeat(2, 1)
+    tables = tfn.rope_tables(pos.reshape(-1), 64, 10000.0)
+    x = torch.randn(2, 512, 4, 64, generator=g, device=cuda).to(dtype)
+    out = tfn.rope_apply_bwd(x, *tables)
+    ref = tfn.rope_apply_bwd_ref(x, *tables)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    before = tfn.launches["rope_apply_bwd"]
+    xr = x.clone().requires_grad_(True)
+    tfn.rope_apply(xr, pos, 10000.0, tables=tables).backward(x)
+    assert tfn.launches["rope_apply_bwd"] == before + 1
+    torch.testing.assert_close(xr.grad.float(), ref.float(),
+                               rtol=_tol(dtype), atol=_tol(dtype))
+
+
+def _flash_inputs(device, dtype, b, s, hq, hk, d, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(b, s, h, d, generator=g, device=device).to(dtype)
+            for h in (hq, hk, hk, hq)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hk,d,causal", [
+    (2, 200, 8, 2, 64, True),       # ragged tail, GQA group of 4
+    (2, 200, 8, 2, 64, False),
+    (1, 256, 4, 4, 128, True),      # Llama-3's head width, no GQA
+    (1, 96, 8, 1, 128, False),      # one kv head for all
+])
+def test_flash_kernels_match_ref(cuda, dtype, b, s, hq, hk, d, causal):
+    q, k, v, do = _flash_inputs(cuda, dtype, b, s, hq, hk, d)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    ro, rlse = tfa.flash_attention_fwd_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    _close_rows(o, ro, dtype, "o")
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    refs = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        _close_rows(got, want, dtype, name)
+
+
+# Faults planted in the bf16 kernels of csrc/flash_attention.cu, each
+# wrong on a few rows or keys only: (the outputs it spoils, the line, its
+# faulty form)
+_FAULTS = {
+    # the last q tile's o leaves out the values of keys 0-7 (its row sums
+    # keep them, so the lse is still right)
+    "fwd_last_rows_drop_8_keys": (
+        ("o",), "    mma_c_b<D>(o, s, v_s + buf, LDT);\n",
+        "    if (qt == n_kv - 1 && j == 0)\n"
+        "      for (int e = 0; e < 4; ++e) s[0][e] = 0.f;\n"
+        "    mma_c_b<D>(o, s, v_s + buf, LDT);\n"),
+    # the last q tile's dq leaves out keys 0-7
+    "dq_last_rows_drop_8_keys": (
+        ("dq",), "    mma_c_b<D>(dq, s, kb, LDT);\n",
+        "    if (qt == n_kv - 1 && j == 0)\n"
+        "      for (int e = 0; e < 4; ++e) s[0][e] = 0.f;\n"
+        "    mma_c_b<D>(dq, s, kb, LDT);\n"),
+    # dk/dv leave out the last q tile of one query head of the group (but
+    # for the last keys, which no other q tile sees)
+    "dkv_drop_one_heads_last_q_tile": (
+        ("dk", "dv"),
+        "    mma_c_b<D>(dv, st, dob, LDT);\n"
+        "    mma_c_b<D>(dk, dpt, qb, LDT);\n",
+        "    if (i != nq - 1 || it / per_head != group - 1 ||\n"
+        "        kt == nq - 1) {\n"
+        "      mma_c_b<D>(dv, st, dob, LDT);\n"
+        "      mma_c_b<D>(dk, dpt, qb, LDT);\n    }\n"),
+}
+
+
+@pytest.mark.cuda
+def test_flash_bf16_rule_rejects_planted_faults(cuda, tmp_path, monkeypatch):
+    """At the training shape (one sequence of 2048, 32/4 heads, d 64,
+    causal), the kernels pass the row rule and each planted fault fails
+    it, by 23-37x on an H100. A rule relative to the largest entry (2^-6
+    of it) barely sees them: the largest entries sit in the first rows
+    and keys, the faults in the last ones (it fails them by 1.1-1.6x and
+    passes dv's, at 0.55 of its bound; both ratios are printed). Each
+    faulty library is built from a copy of csrc/ in tmp_path."""
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, 1, 2048, 32, 4, 64,
+                                seed=7)
+
+    def outputs():
+        o, lse = tfa.flash_attention_fwd(q, k, v, True)
+        dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+    good = outputs()
+    refs = dict(zip(("dq", "dk", "dv"), tfa.flash_attention_bwd_ref(
+        q, k, v, good["o"], good["lse"], do, True)))
+    refs["o"] = tfa.flash_attention_fwd_ref(q, k, v, True)[0]
+    for name, ref in refs.items():
+        _close_rows(good[name], ref, torch.bfloat16, name)
+    src = Path(_build.__file__).resolve().parent / "csrc"
+    seen = {}       # "fault output": (row-rule ratio, largest-entry ratio)
+    for fault, (spoiled, line, faulty) in _FAULTS.items():
+        csrc = tmp_path / fault / "csrc"
+        shutil.copytree(src, csrc)
+        cu = csrc / "flash_attention.cu"
+        text = cu.read_text()
+        assert text.count(line) == 1, f"{fault}: the line to spoil moved"
+        cu.write_text(text.replace(line, faulty))
+        with monkeypatch.context() as m:
+            m.setattr(_build, "_CSRC", csrc)
+            m.setattr(_build, "_BUILD_DIR", tmp_path / fault / "_build")
+            m.setattr(_build, "_lib", None)
+            bad = outputs()
+        for name in spoiled:
+            err = (bad[name].float() - refs[name].float()).abs().max()
+            seen[f"{fault} {name}"] = (
+                _rows_ratio(bad[name], refs[name], 2 ** -5),
+                float(err) / (2 ** -6 * max(
+                    1.0, float(refs[name].float().abs().max()))))
+    for what, (rows, to_max) in seen.items():
+        print(f"{what}: |err| / row-rule bound {rows:.3g}, / largest-entry "
+              f"bound {to_max:.3g}")
+    assert all(rows > 1.0 for rows, _ in seen.values()), seen
+
+
+@pytest.mark.cuda
+def test_flash_reads_strided_views(cuda):
+    # q/k/v as views of one fused qkv projection: no copy, same result
+    b, s, hq, hk, d = 2, 128, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(b, s, (hq + 2 * hk) * d, generator=g,
+                      device=cuda).bfloat16()
+    q, k, v = (t.reshape(b, s, -1, d) for t in
+               torch.split(qkv, [hq * d, hk * d, hk * d], dim=-1))
+    assert not q.is_contiguous()
+    o, _ = tfa.flash_attention_fwd(q, k, v, True)
+    o2, _ = tfa.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
 
 
 def _decode_inputs(device, dtype, lens, hq=32, hk=8, d=128, ps=16, mp=80,
@@ -128,6 +342,18 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                                             dtype=torch.float16))
     with pytest.raises(TypeError, match="one type"):
         tfn.rms_norm_residual(x.bfloat16(), torch.ones(64, device=cuda))
+    # flash: unsupported head_dim, type, and a head dim that is not dense
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 1, 64, 4, 2, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_fwd(*(torch.zeros(1, 64, 2, 96, device=cuda)
+                                  for _ in range(3)))
+    with pytest.raises(ValueError, match="dtype"):
+        tfa.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="strides"):
+        tfa.flash_attention_fwd(q.transpose(1, 3).contiguous()
+                                .transpose(1, 3), k, v)
+    with pytest.raises(ValueError, match="sequence"):
+        tfa.flash_attention_fwd(q, k[:, :32], v[:, :32])
 
 
 @pytest.mark.cuda
@@ -142,6 +368,7 @@ def test_tiny_engine_on_the_card_matches_the_cpu(cuda):
     gpu_model.load_state_dict(cpu_model.state_dict())
     geom = dict(max_slots=2, page_size=4, num_pages=24,
                 max_pages_per_slot=6, steps_per_tick=2)
+    serving = ("rms_norm_residual", "rope_apply", "paged_decode_attention")
     counts = {**tfn.launches, **tpa.launches}
     outs = []
     for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda)):
@@ -153,4 +380,78 @@ def test_tiny_engine_on_the_card_matches_the_cpu(cuda):
         outs.append((ra.result(), rb.result()))
     assert outs[0] == outs[1]
     after = {**tfn.launches, **tpa.launches}
-    assert all(after[k] > counts[k] for k in after)
+    assert all(after[k] > counts[k] for k in serving)
+
+
+@pytest.mark.cuda
+def test_training_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 Trainer step of a 2-layer model (flash attention, fused
+    norm and RoPE, recompute) on the card through the kernels against the
+    same state and batch on the CPU through the twins: the loss within
+    1e-5 relative and every gradient within 1e-4 of its largest entry
+    (the kernels sum the same f32 products in other orders). The updated
+    parameters are not compared: Adam divides each gradient entry by its
+    own magnitude, so an entry within the f32 noise of zero can step by
+    the learning rate either way."""
+    cfg = tiny_llama_config(num_hidden_layers=2, vocab_size=97,
+                            hidden_size=256, num_attention_heads=4,
+                            num_key_value_heads=2, use_flash_attention=True,
+                            fused_norm=True, fused_rope=True, recompute=True)
+    ids = np.random.RandomState(0).randint(0, 97, (2, 100)).astype(np.int32)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    gpu_model = LlamaForCausalLM(cfg, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    before = {**tfa.launches, **tfn.launches}
+    results = []
+    for model in (cpu_model, gpu_model):
+        tr = Trainer(model, topt.AdamW(learning_rate=1e-3,
+                                       parameters=model.named_parameters()),
+                     TrainStepConfig(compute_dtype=None))
+        loss = tr.step({"input_ids": ids, "labels": ids})
+        results.append((float(loss), {n: p.grad.cpu() for n, p in
+                                      model.named_parameters()}))
+    after = {**tfa.launches, **tfn.launches}
+    assert all(after[k] > before[k] for k in after), (before, after)
+    assert abs(results[0][0] - results[1][0]) <= 1e-5 * abs(results[0][0])
+    for name, g in results[0][1].items():
+        err = float((results[1][1][name] - g).abs().max())
+        assert err <= 1e-4 * float(g.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_bf16_training_step_on_the_card_matches_the_cpu(cuda):
+    """One bf16-compute Trainer step of the 2-layer model of the test
+    above, on the card through the bf16 kernels against the CPU through
+    the twins, which round p and dS to bf16 where the kernels do: the
+    loss within 1e-3 relative and every gradient within 3e-2 of its own
+    norm (cuBLAS and the CPU sum the same bf16 products in other orders,
+    and a flipped rounding travels through the layers: measured 8e-5 and
+    1.2e-2 on an H100)."""
+    cfg = tiny_llama_config(num_hidden_layers=2, vocab_size=97,
+                            hidden_size=256, num_attention_heads=4,
+                            num_key_value_heads=2, use_flash_attention=True,
+                            fused_norm=True, fused_rope=True, recompute=True)
+    ids = np.random.RandomState(0).randint(0, 97, (2, 100)).astype(np.int32)
+    state = LlamaForCausalLM(cfg, device="cpu", seed=0).state_dict()
+    results = []
+    for dev in ("cpu", cuda):
+        model = LlamaForCausalLM(cfg, device=dev)
+        model.load_state_dict(state)
+        tr = Trainer(model, topt.AdamW(learning_rate=1e-3,
+                                       parameters=model.named_parameters()),
+                     TrainStepConfig(compute_dtype="bfloat16"))
+        before = dict(tfa.launches)
+        loss = tr.step({"input_ids": ids, "labels": ids})
+        if dev is cuda:
+            assert all(tfa.launches[k] > before[k] for k in before)
+        results.append((float(loss), {n: p.grad.cpu() for n, p in
+                                      model.named_parameters()}))
+    (cpu_loss, cpu_g), (gpu_loss, gpu_g) = results
+    print(f"bf16 step: loss card {gpu_loss} cpu {cpu_loss}; gradient "
+          f"differences over their norms: " + ", ".join(
+              f"{n} {float((gpu_g[n] - g).norm() / g.norm()):.3g}"
+              for n, g in cpu_g.items()))
+    assert abs(gpu_loss - cpu_loss) <= 1e-3 * abs(cpu_loss)
+    for name, g in cpu_g.items():
+        rel = float((gpu_g[name] - g).norm() / g.norm())
+        assert rel <= 3e-2, (name, rel)

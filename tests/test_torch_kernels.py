@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.inference import paged as jpaged
@@ -50,6 +51,60 @@ def test_rms_norm_residual_ref_matches_pallas(with_residual):
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
 
 
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_rms_norm_backward_matches_pallas_and_vjp(with_residual):
+    """Gradients of x, weight (and residual) through the port's autograd
+    Function (twins on the CPU) against jax.vjp of the JAX op, and the
+    port's backward twin against the interpret-mode backward kernel
+    `_rmsn_bwd_pallas` on the same saved rstd (20 rows: one block of the
+    kernel's 256, padded)."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(4, 5, 128)).astype(np.float32)
+    res = rng.normal(size=x.shape).astype(np.float32) if with_residual \
+        else None
+    w = rng.normal(size=(128,)).astype(np.float32)
+    gy = rng.normal(size=x.shape).astype(np.float32)
+    gh = rng.normal(size=x.shape).astype(np.float32)
+    args = [jnp.asarray(x), jnp.asarray(w)] + (
+        [] if res is None else [jnp.asarray(res)])
+
+    def jfun(*a):
+        y, h = jfn.rms_norm_residual(a[0], a[1],
+                                     residual=a[2] if len(a) > 2 else None,
+                                     epsilon=1e-5, kernel="pallas")
+        return (y, h) if len(a) > 2 else y
+
+    _, vjp = jax.vjp(jfun, *args)
+    jgrads = vjp((jnp.asarray(gy), jnp.asarray(gh)) if with_residual
+                 else jnp.asarray(gy))
+    targs = [_t(a).requires_grad_(True) for a in
+             ([x, w] + ([] if res is None else [res]))]
+    ty, th = tfn.rms_norm_residual(targs[0], targs[1],
+                                   residual=targs[2] if res is not None
+                                   else None, epsilon=1e-5)
+    outs, cots = [ty], [_t(gy)]
+    if with_residual:
+        outs.append(th)
+        cots.append(_t(gh))
+    tgrads = torch.autograd.grad(outs, targs, cots)
+    for tg, jg in zip(tgrads, jgrads):
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **TOL)
+    # the backward twin against the Pallas backward kernel itself
+    h = x if res is None else x + res
+    rstd = 1 / np.sqrt(np.mean(h * h, axis=-1) + 1e-5)
+    h2, gy2, gh2 = (a.reshape(-1, 128) for a in (h, gy, gh))
+    rstd_t = np.broadcast_to(rstd.reshape(1, -1), (8, rstd.size))
+    jdh, jdw = jfn._rmsn_bwd_pallas(
+        jnp.asarray(h2), jnp.asarray(w), jnp.asarray(rstd_t),
+        jnp.asarray(gy2), jnp.asarray(gh2) if with_residual else None,
+        interpret=True)
+    tdh, tdw = tfn.rms_norm_residual_bwd(
+        _t(h2), _t(w), _t(rstd.reshape(-1).astype(np.float32)), _t(gy2),
+        _t(gh2) if with_residual else None)
+    np.testing.assert_allclose(tdh.numpy(), np.asarray(jdh), **TOL)
+    np.testing.assert_allclose(tdw.numpy(), np.asarray(jdw), **TOL)
+
+
 # -- RoPE --------------------------------------------------------------------
 
 @pytest.mark.parametrize("positions", ["none", "seq", "batch"])
@@ -68,6 +123,33 @@ def test_rope_ref_matches_pallas(positions):
     to = tfn.rope_apply(_t(x), None if pos is None else _t(pos),
                         theta=500000.0)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+
+
+@pytest.mark.parametrize("positions", ["none", "batch"])
+def test_rope_backward_matches_vjp(positions):
+    """dx through the port's RoPE Function (the inverse rotation, the
+    twin of the kernel launched with the sin table negated) against
+    jax.vjp of the JAX op."""
+    rng = np.random.default_rng(8)
+    b, s, h, d = 2, 6, 3, 16
+    x = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    pos = None if positions == "none" else \
+        rng.integers(0, 5000, size=(b, s)).astype(np.int32)
+    _, vjp = jax.vjp(lambda a: jfn.rope_apply(
+        a, positions=None if pos is None else jnp.asarray(pos),
+        theta=500000.0, kernel="pallas"), jnp.asarray(x))
+    (jdx,) = vjp(jnp.asarray(g))
+    tx = _t(x).requires_grad_(True)
+    out = tfn.rope_apply(tx, None if pos is None else _t(pos),
+                         theta=500000.0)
+    (tdx,) = torch.autograd.grad(out, tx, _t(g))
+    np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), **TOL)
+    # the inverse rotation undoes the forward
+    back = tfn.rope_apply_bwd(out.detach(), *tfn.rope_tables(
+        tfn._flat_positions(None if pos is None else _t(pos), b, s,
+                            tx.device), d, 500000.0))
+    np.testing.assert_allclose(back.numpy(), x, **TOL)
 
 
 def test_rope_shared_tables_equal_per_call_tables():
