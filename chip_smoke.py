@@ -35,7 +35,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the model's code;
 8. training parity: one Trainer step of a 2-layer model at TinyLlama's
    full width on the card through the kernels against the same state and
-   batch on the CPU through the twins, in f32 and with bf16 compute.
+   batch on the CPU through the twins, in f32 and with bf16 compute, and
+   an f32 step with the blockwise loss, ClipGradByGlobalNorm, a
+   LinearWarmup schedule and skip_nonfinite_grads;
+9. bench.py's own training configuration (bench.py:1182-1254):
+   TinyLlama-1.1B, 22 layers, recompute, flash attention, the blockwise
+   loss (loss_chunk=512), plain norm and RoPE; f32 weights from a seed,
+   AdamW(1e-4, weight decay 0.01), bf16 compute; one batch of 8 x 2048
+   ids fed through `trainer.data_iter(itertools.repeat(data, 11),
+   depth=3)`: a warm-up step, then 10 timed steps closed by
+   float(loss). The losses must be finite and fall, and each kernel's
+   launches per step must equal the count from the code.
+
+Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
+dx, dW) against their twin at the training shape (N 16384, D 2048,
+V 32000) in bf16 and at a small shape in f32, beside the dense path
+(torch.matmul logits and the port's dense cross_entropy) as yardstick.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero
@@ -44,6 +59,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -65,6 +81,10 @@ F32_TOL = 1e-4
 # entry, which over millions of entries reaches 1.7 steps in o and 0.9 in
 # dq, dk and dv
 FLASH_BF16_TOL = 2 ** -5
+# the blockwise cross-entropy's dx and dW, entry by entry (`_check_rows`):
+# both sides round dS to bf16 once, and a dS that rounds the other way
+# moves a row by 2^-8 of its size
+CE_BF16_TOL = 2 ** -6
 SERVING_KERNELS = ("paged_decode_attention", "rms_norm_residual",
                    "rope_apply")
 
@@ -601,6 +621,181 @@ def norm_rope_bwd_phases(dev, fn):
         {"rms_norm_residual": fwd_train, "rope_apply": rope_fwd_train}
 
 
+def ce_phases(dev, bce, fnl):
+    """ce_fwd, ce_dlogits, ce_dx, ce_dw entries: f32 at a small shape with
+    one and with eight backward super-blocks, bf16 at the training shape
+    (N 16384 = 8 x 2048 rows, D 2048, V 32000, every 2048th row ignored as
+    the shifted labels leave it), each held against the twin (chunk 512);
+    timed beside the twin and the dense path (torch.matmul logits and the
+    port's dense cross_entropy, `fnl`), with the peak memory of both."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    one = torch.ones((), device=dev)
+
+    def inputs(n, d, v, dtype):
+        x = torch.randn(n, d, generator=g, device=dev).to(dtype)
+        w = (torch.randn(v, d, generator=g, device=dev) * 0.02).to(dtype)
+        lab = torch.randint(0, v, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+        return x, w, lab
+
+    def kernels(x, w, lab):
+        loss, lse, count = bce.ce_fwd(x, w, lab)
+        return (loss, lse) + bce.ce_bwd(x, w, lab, lse, count, one)
+
+    def twins(x, w, lab):
+        loss, lse, count = bce.ce_fwd_ref(x, w, lab, 512)
+        return (loss, lse) + bce.ce_bwd_ref(x, w, lab, lse, count, one, 512)
+
+    def held(tag, got, want, tol):
+        if abs(float(got[0]) - float(want[0])) > 1e-5 * abs(float(want[0])):
+            raise AssertionError(f"ce loss {tag}: {float(got[0])} against "
+                                 f"{float(want[0])}")
+        err = {"lse": _check(f"ce lse {tag}", got[1], want[1], F32_TOL)}
+        ratio = {}
+        for name, a, b in (("dx", got[2], want[2]), ("dw", got[3], want[3])):
+            err[name], ratio[name] = _check_rows(f"ce {name} {tag}", a, b, tol)
+        return err, ratio
+
+    budget = bce._WORKSPACE_BYTES
+    f32_ratio = {}
+    for supers in (1, 8):
+        x, w, lab = inputs(300, 256, 1000, torch.float32)
+        lab[::10] = -100
+        bce._WORKSPACE_BYTES = 300 * 128 * 4 if supers > 1 else budget
+        try:
+            got = kernels(x, w, lab)
+        finally:
+            bce._WORKSPACE_BYTES = budget
+        _, r = held(f"f32 (300, 256, 1000) {supers} super-blocks", got,
+                    twins(x, w, lab), F32_TOL)
+        f32_ratio[supers] = r
+    print(f"[kernel] blockwise CE f32 (300, 256, 1000), 1 and 8 backward "
+          f"super-blocks: |err| / bound at most {f32_ratio} (bound "
+          f"{F32_TOL} * (|ref| + row RMS + 2^-6 RMS))")
+
+    n, d, v = 16384, 2048, 32000
+    x, w, lab = inputs(n, d, v, torch.bfloat16)
+    lab[2047::2048] = -100
+    got = kernels(x, w, lab)
+    torch.cuda.synchronize()
+    err, ratio = held("train", got, twins(x, w, lab), CE_BF16_TOL)
+    loss, lse, count = bce.ce_fwd(x, w, lab)
+    # one super-block's dS against the twin's, on its first 512 rows:
+    # entry by entry within one bf16 step
+    vs = bce.ce_super_block(n, v, 2)
+    n_super = -(-v // vs)
+    scale = torch.where(lab != -100, one / count, 0.0).contiguous()
+    ws = torch.empty((n, vs), dtype=x.dtype, device=dev)
+    bce._launch_dlogits(x, w, lab, lse, scale, ws, 0, vs)
+    s_ref = x[:512].float() @ w[:vs].float().t()
+    p_ref = torch.exp(s_ref - lse[:512, None])
+    onehot = torch.arange(vs, device=dev)[None, :] == lab[:512, None]
+    ds_ref = ((p_ref - onehot.float()) * scale[:512, None]).to(x.dtype)
+    ds_err = (ws[:512].float() - ds_ref.float()).abs()
+    if not (ds_err <= BF16_TOL * ds_ref.float().abs() + 1e-12).all():
+        raise AssertionError(f"ce dS: |err| {float(ds_err.max())} past one "
+                             "bf16 step")
+    err["ds"] = float(ds_err.max())
+    del s_ref, p_ref, onehot, ds_ref, ds_err
+
+    acc = torch.empty((n, d), dtype=torch.float32, device=dev)
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    blocks = [(i * vs, min(vs, v - i * vs)) for i in range(n_super)]
+    ms = {"ce_fwd": _time_ms(lambda: bce.ce_fwd(x, w, lab), [()], iters=10),
+          "ce_dlogits": _time_ms(lambda: [bce._launch_dlogits(
+              x, w, lab, lse, scale, ws, v0, vc) for v0, vc in blocks],
+              [()], iters=4),
+          "ce_dx": _time_ms(lambda: [bce._launch_dx(
+              ws, w, acc, dx, v0, vc, i == 0, i == n_super - 1)
+              for i, (v0, vc) in enumerate(blocks)], [()], iters=4),
+          "ce_dw": _time_ms(lambda: [bce._launch_dw(ws, x, dw, v0, vc)
+                                     for v0, vc in blocks], [()], iters=4)}
+    bwd_ms = _time_ms(lambda: bce.ce_bwd(x, w, lab, lse, count, one), [()],
+                      iters=4)
+    fwd_plain = _time_eager_ms(lambda: bce.ce_fwd_ref(x, w, lab, 512), [()],
+                               iters=2)
+    bwd_plain = _time_eager_ms(lambda: bce.ce_bwd_ref(
+        x, w, lab, lse, count, one, 512), [()], iters=1)
+    # the dense path at the same shape: logits, then the port's dense CE
+    xr, wr = (t.detach().requires_grad_(True) for t in (x, w))
+
+    def dense_fwd():
+        return fnl.cross_entropy(x @ w.t(), lab)
+
+    def dense_fwd_bwd():
+        torch.autograd.grad(fnl.cross_entropy(xr @ wr.t(), lab), (xr, wr))
+
+    def blockwise_fwd_bwd():
+        torch.autograd.grad(bce.blockwise_ce_loss(xr, wr, lab, chunk=512),
+                            (xr, wr))
+
+    dense_fwd_ms = _time_eager_ms(dense_fwd, [()], iters=3)
+    dense_fwd_bwd_ms = _time_eager_ms(dense_fwd_bwd, [()], iters=3)
+    peak = {}
+    for name, fn_ in (("dense", dense_fwd_bwd),
+                      ("blockwise", blockwise_fwd_bwd)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn_()
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    flops = 2 * n * d * v
+    in_bytes = n * d * 2 + v * d * 2 + n * 4
+    bounds = {"ce_fwd": _bound(in_bytes + 2 * n * 4, flops,
+                               BF16_TENSOR_FLOPS),
+              "ce_dlogits": _bound(in_bytes + 2 * n * 4 + n * v * 2, flops,
+                                   BF16_TENSOR_FLOPS),
+              "ce_dx": _bound(n * v * 2 + v * d * 2 + n * d * 2, flops,
+                              BF16_TENSOR_FLOPS),
+              "ce_dw": _bound(n * v * 2 + n * d * 2 + v * d * 2, flops,
+                              BF16_TENSOR_FLOPS)}
+    replaces = {"ce_fwd": "paddle_tpu/kernels/blockwise_ce.py:426",
+                "ce_dlogits": "paddle_tpu/kernels/blockwise_ce.py:467",
+                "ce_dx": "paddle_tpu/kernels/blockwise_ce.py:467",
+                "ce_dw": "paddle_tpu/kernels/blockwise_ce.py:485"}
+    errs = {"ce_fwd": err["lse"], "ce_dlogits": err["ds"], "ce_dx": err["dx"],
+            "ce_dw": err["dw"]}
+    shape = f"x ({n}, {d}), W ({v}, {d}) bf16, {n_super} super-blocks of {vs}"
+    out = {}
+    for name in ms:
+        out[name] = dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/blockwise_ce.cu",
+            replaces=replaces[name], max_abs_err=errs[name], ms=ms[name],
+            plain_ms=fwd_plain if name == "ce_fwd" else bwd_plain,
+            bound_ms=bounds[name][0], bound_by=bounds[name][1],
+            library_ms=None,
+            library_note=("no single PyTorch call computes the lm_head "
+                          "projection fused with the cross entropy or its "
+                          "gradient; the dense path is the yardstick"),
+            shape=shape, dense_fwd_ms=dense_fwd_ms,
+            dense_fwd_bwd_ms=dense_fwd_bwd_ms, backward_ms=bwd_ms,
+            backward_bound_ms=3 * flops / BF16_TENSOR_FLOPS * 1e3,
+            dense_peak_gb=peak["dense"], blockwise_peak_gb=peak["blockwise"],
+            f32_err_over_bound=f32_ratio)
+        if name != "ce_fwd":
+            out[name]["plain_note"] = "the twin's backward computes dx and dW"
+    out["ce_dlogits"]["also_replaces"] = [
+        "paddle_tpu/kernels/blockwise_ce.py:485 (the recompute of S)"]
+    out["ce_dx"]["err_over_bound"] = ratio["dx"]
+    out["ce_dw"]["err_over_bound"] = ratio["dw"]
+    print(f"[kernel] blockwise CE {shape}: fwd {ms['ce_fwd']:.4f} ms (bound "
+          f"{bounds['ce_fwd'][0]:.4f}), dS {ms['ce_dlogits']:.4f}, dx "
+          f"{ms['ce_dx']:.4f}, dW {ms['ce_dw']:.4f} ms (bound "
+          f"{bounds['ce_dx'][0]:.4f} each), whole backward {bwd_ms:.4f} ms "
+          f"(least work {3 * flops / BF16_TENSOR_FLOPS * 1e3:.4f}); plain "
+          f"fwd {fwd_plain:.2f} ms, plain bwd {bwd_plain:.2f} ms; dense "
+          f"logits + CE fwd {dense_fwd_ms:.2f} ms, fwd + bwd "
+          f"{dense_fwd_bwd_ms:.2f} ms; peak memory of fwd + bwd beyond the "
+          f"inputs: dense {peak['dense']:.3f} GB, blockwise "
+          f"{peak['blockwise']:.3f} GB; max |err| {errs}, dx / dW |err| / "
+          f"bound {ratio}")
+    del x, w, lab, got, ws, acc, dx, dw, xr, wr
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 5: Llama-3-8B serving ----------------------------------------------
 
 def _prompts(n, vocab, seed, lo=128, hi=1024):
@@ -774,7 +969,8 @@ def parity_phase(dev):
 
 def _tinyllama_config(**overrides):
     """bench.py's TinyLlama-1.1B (paddle_tpu bench.py:1182-1192) with the
-    dense loss (loss_chunk=0) and the fused norm and RoPE kernels."""
+    dense loss (loss_chunk=0) and the fused norm and RoPE kernels; phase
+    9 overrides these back to bench.py's own values."""
     from paddle_tpu_torch.models.llama import LlamaConfig
     base = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                 num_hidden_layers=22, num_attention_heads=32,
@@ -786,16 +982,30 @@ def _tinyllama_config(**overrides):
     return LlamaConfig(**base)
 
 
-def expected_train_launches(layers):
-    """Kernel launches per training step, from the model's code: each
-    decoder layer runs two RMSNorms, RoPE on q and k and one flash
-    forward, twice with recompute (forward, then again in the backward),
-    and one backward of each; the final norm runs once each way."""
-    return {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
-            "flash_bwd_dkv": layers, "rms_norm_residual": 4 * layers + 1,
-            "rms_norm_residual_bwd": 2 * layers + 1,
-            "rope_apply": 4 * layers, "rope_apply_bwd": 2 * layers,
-            "paged_decode_attention": 0}
+def expected_train_launches(cfg, tokens):
+    """Kernel launches per training step of `cfg` on `tokens` rows, from
+    the model's code. Each decoder layer runs one flash forward, and with
+    `fused_norm` two RMSNorms and with `fused_rope` RoPE on q and k; with
+    recompute all of these run twice (the forward, then again in the
+    backward), and one backward of each. The final norm runs once each
+    way. With `loss_chunk` > 0 the loss is one blockwise-CE forward and,
+    per backward super-block of `ce_super_block` vocab rows, one dS, one
+    dx and one dW kernel."""
+    from paddle_tpu_torch.kernels.blockwise_ce import ce_super_block
+    layers = cfg.num_hidden_layers
+    passes = 2 if cfg.recompute else 1
+    norm, rope = int(cfg.fused_norm), int(cfg.fused_rope)
+    supers = (-(-cfg.vocab_size // ce_super_block(tokens, cfg.vocab_size))
+              if cfg.loss_chunk else 0)
+    return {"flash_fwd": passes * layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers,
+            "rms_norm_residual": norm * (2 * passes * layers + 1),
+            "rms_norm_residual_bwd": norm * (2 * layers + 1),
+            "rope_apply": rope * 2 * passes * layers,
+            "rope_apply_bwd": rope * 2 * layers,
+            "paged_decode_attention": 0,
+            "ce_fwd": int(bool(cfg.loss_chunk)), "ce_dlogits": supers,
+            "ce_dx": supers, "ce_dw": supers}
 
 
 def training_phase(dev, counters, reset, card, profile=False):
@@ -835,7 +1045,7 @@ def training_phase(dev, counters, reset, card, profile=False):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train: the loss did not fall {losses}")
     steps = timed + 1
-    want = expected_train_launches(cfg.num_hidden_layers)
+    want = expected_train_launches(cfg, batch * seq)
     per_step = {k: launches[k] / steps for k in want}
     if per_step != {k: float(v) for k, v in want.items()}:
         raise AssertionError(f"train: launches per step {per_step} != the "
@@ -859,6 +1069,82 @@ def training_phase(dev, counters, reset, card, profile=False):
     if profile:
         metrics["profile"] = profile_training(trainer, data, card)
     del trainer, opt, model, data
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def bench_training_phase(dev, counters, reset, card, profile=False):
+    """Phase 9: bench.py's own training loop (bench.py:1182-1254) through
+    the port, with its configuration: the blockwise loss
+    (loss_chunk=512), plain norm and RoPE, recompute, flash attention;
+    the batch fed by `trainer.data_iter(..., depth=3)`, a warm-up step,
+    then 10 timed steps closed by float(loss)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, flops_per_token
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    cfg = _tinyllama_config(loss_chunk=512, loss_vocab_block=0,
+                            fused_norm=False, fused_rope=False)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    opt = topt.AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                     weight_decay=0.01)
+    trainer = Trainer(model, opt, TrainStepConfig(compute_dtype="bfloat16"))
+    torch.cuda.synchronize()
+    print(f"[bench-train] TinyLlama-1.1B f32, bench.py's config (loss_chunk "
+          f"512, plain norm and RoPE) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    batch, seq, steps = 8, 2048, 10
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (batch, seq)) \
+        .astype(np.int32)
+    data = {"input_ids": ids, "labels": ids}
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    it = trainer.data_iter(itertools.repeat(data, steps + 1), depth=3)
+    t0 = time.perf_counter()
+    losses = [float(trainer.step(next(it)))]          # warm-up
+    warm = time.perf_counter() - t0
+    step_losses = []
+    t0 = time.perf_counter()
+    for b in it:
+        loss = trainer.step(b)
+        step_losses.append(loss)
+    loss = float(loss)          # the last step's output closes the chain
+    dt = time.perf_counter() - t0
+    it.close()
+    launches = counters()
+    losses += [float(x) for x in step_losses]
+    if len(losses) != steps + 1 or not all(np.isfinite(losses)):
+        raise AssertionError(f"bench-train: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"bench-train: the loss did not fall {losses}")
+    want = expected_train_launches(cfg, batch * seq)
+    per_step = {k: launches[k] / (steps + 1) for k in want}
+    if per_step != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"bench-train: launches per step {per_step} != "
+                             f"the count from the code {want}")
+    tokens_per_s = batch * seq * steps / dt
+    ftok = flops_per_token(cfg, seq) * 8.0 / 6.0       # recompute: ~8N
+    metrics = dict(
+        card=card, batch=batch, seq=seq, steps_timed=steps,
+        tokens_per_s=tokens_per_s, step_ms=dt / steps * 1e3, warmup_s=warm,
+        mfu=tokens_per_s * ftok / BF16_TENSOR_FLOPS, flops_per_token=ftok,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
+        launches=launches, launches_per_step=per_step)
+    print(f"[bench-train] {card}: {tokens_per_s:.1f} tokens/s, step "
+          f"{metrics['step_ms']:.1f} ms, MFU {metrics['mfu']:.4f} (of 989 "
+          f"TF/s, {ftok:.4g} flops/token with recompute), peak memory "
+          f"{metrics['peak_mem_gb']:.2f} GB, warm-up step {warm:.2f} s")
+    print(f"[bench-train] losses {losses}")
+    print(f"[bench-train] launches per step {per_step} (= the count from "
+          "the code)")
+    placed = trainer._place(data)
+    metrics["phase_seconds"] = trainer.measure_phase_seconds(placed, iters=2)
+    print(f"[bench-train] {card}: measure_phase_seconds "
+          f"{metrics['phase_seconds']}")
+    if profile:
+        metrics["profile"] = profile_training(trainer, placed, card)
+    del trainer, opt, model, placed
     torch.cuda.empty_cache()
     return metrics
 
@@ -900,10 +1186,12 @@ TRAIN_BF16_LOSS_TOL = 1e-3
 TRAIN_BF16_GRAD_TOL = 4e-2
 
 
-def _parity_step(cfg, state, ids, dev, compute_dtype):
+def _parity_step(cfg, state, ids, dev, compute_dtype, opt_kw=dict,
+                 **step_kw):
     """(loss, {name: gradient on the CPU}) of one Trainer step from
     `state`, on the CPU through the twins and on the card through the
-    kernels."""
+    kernels. `opt_kw()` gives extra AdamW arguments (a fresh schedule per
+    device), `step_kw` extra TrainStepConfig fields."""
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
     from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
@@ -911,10 +1199,14 @@ def _parity_step(cfg, state, ids, dev, compute_dtype):
     for device in ("cpu", dev):
         model = LlamaForCausalLM(cfg, device=device)
         model.load_state_dict(state)
+        kw = {"learning_rate": 1e-4, **opt_kw()}
         trainer = Trainer(model, topt.AdamW(
-            learning_rate=1e-4, parameters=model.named_parameters()),
-            TrainStepConfig(compute_dtype=compute_dtype))
+            parameters=model.named_parameters(), **kw),
+            TrainStepConfig(compute_dtype=compute_dtype, **step_kw))
         loss = float(trainer.step({"input_ids": ids, "labels": ids}))
+        if step_kw.get("skip_nonfinite_grads") and trainer.nonfinite_skipped:
+            raise AssertionError(f"train parity: a finite step on {device} "
+                                 "was skipped")
         results.append((loss, {n: p.grad.cpu() for n, p in
                                model.named_parameters()}))
         del trainer, model
@@ -982,23 +1274,68 @@ def training_parity_phase(dev):
     out["bf16"] = {"loss_card": gpu_loss, "loss_cpu": cpu_loss,
                    "loss_rel": loss_rel, "worst_grad_rel_norm": rels[name],
                    "grad_rel_norm": rels}
+    out["blockwise_f32"] = _blockwise_parity(cfg, state, ids, dev)
     return out
+
+
+def _blockwise_parity(cfg, state, ids, dev):
+    """Phase 8's blockwise-loss step: the 2-layer model with loss_chunk
+    512, AdamW with ClipGradByGlobalNorm(1.0) and a LinearWarmup
+    schedule, skip_nonfinite_grads on; f32, the card's CE kernels against
+    the CPU's twin. The loss within 1e-5 relative, every gradient within
+    1e-4 of its largest entry (as the f32 step above)."""
+    from dataclasses import replace
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.kernels import blockwise_ce as bce
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    def opt_kw():
+        return dict(learning_rate=topt.lr.LinearWarmup(
+            learning_rate=1e-4, warmup_steps=10, start_lr=1e-5, end_lr=1e-4),
+            grad_clip=ClipGradByGlobalNorm(1.0))
+
+    before = dict(bce.launches)
+    (cpu_loss, cpu_g), (gpu_loss, gpu_g) = _parity_step(
+        replace(cfg, loss_chunk=512), state, ids, dev, None, opt_kw,
+        skip_nonfinite_grads=True)
+    if not all(bce.launches[k] > before[k] for k in before):
+        raise AssertionError(f"train parity: the blockwise step did not "
+                             f"launch every CE kernel {bce.launches}")
+    if abs(gpu_loss - cpu_loss) > 1e-5 * abs(cpu_loss):
+        raise AssertionError(f"train parity blockwise: loss {gpu_loss} on "
+                             f"the card, {cpu_loss} on the CPU")
+    worst = 0.0
+    for name, g in cpu_g.items():
+        rel = float((gpu_g[name] - g).abs().max()) / max(
+            float(g.abs().max()), 1e-30)
+        if rel > 1e-4:
+            raise AssertionError(f"train parity blockwise: {name} gradient "
+                                 f"differs by {rel:.3g} of its largest entry")
+        worst = max(worst, rel)
+    print(f"[train-parity] 2-layer TinyLlama width f32, blockwise loss "
+          f"(chunk 512), global-norm clip, LinearWarmup, skip_nonfinite: "
+          f"loss card {gpu_loss:.7f} cpu {cpu_loss:.7f}; worst gradient "
+          f"difference {worst:.3g} of its largest entry (tolerance 1e-4)")
+    return {"loss_card": gpu_loss, "loss_cpu": cpu_loss,
+            "worst_grad_rel": worst}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the serving path and one training step "
-                         "with torch.profiler")
+                    help="also trace the serving path and one step of each "
+                         "training configuration with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import blockwise_ce as bce
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_norm as fn
     from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.nn import functional as fnl
 
     card = _card()
     print(card)
@@ -1021,22 +1358,26 @@ def main(argv=None):
     kernels.update(bwd_entries)
     for name, extra in fwd_train.items():
         kernels[name].update(extra)
+    kernels.update(ce_phases(dev, bce, fnl))
 
     def reset():
-        for d in (fn.launches, pa.launches, fa.launches):
+        for d in (fn.launches, pa.launches, fa.launches, bce.launches):
             for k in d:
                 d[k] = 0
 
     def counters():
-        return {**pa.launches, **fn.launches, **fa.launches}
+        return {**pa.launches, **fn.launches, **fa.launches, **bce.launches}
 
     serving = serving_phase(dev, counters, reset, card, args.profile)
     parity = parity_phase(dev)
     training = training_phase(dev, counters, reset, card, args.profile)
     train_parity = training_parity_phase(dev)
+    bench_training = bench_training_phase(dev, counters, reset, card,
+                                          args.profile)
     for name, e in kernels.items():
         by_path = {"serving": serving["launches"].get(name, 0),
-                   "training": training["launches"].get(name, 0)}
+                   "training": training["launches"].get(name, 0),
+                   "training_bench": bench_training["launches"].get(name, 0)}
         if sum(by_path.values()) <= 0:
             raise AssertionError(f"{name} was launched on no main path")
         e["launches"] = sum(by_path.values())
@@ -1055,6 +1396,7 @@ def main(argv=None):
             json.dump({"card": card, "kernels": line["kernels"],
                        "serving": serving, "parity": parity,
                        "training": training, "train_parity": train_parity,
+                       "training_bench": bench_training,
                        "torch": torch.__version__}, f, indent=1)
     print(json.dumps(line))
     print(card)

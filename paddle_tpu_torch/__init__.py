@@ -7,10 +7,14 @@ follow the JAX package so each counterpart is easy to find:
 - `core.device`: the device rule every entry point follows;
 - `kernels`: hand-written CUDA kernels for Hopper (sm_90a), each beside a
   plain PyTorch twin that the CPU takes;
-- `nn.functional`: the plain ops the Llama model needs;
+- `nn.functional`: the plain ops the Llama model needs; `nn.clip`: the
+  gradient clipping policies;
 - `models.llama` / `models.convert`: the Llama family and weight
   conversion from a paddle_tpu state dict;
-- `inference.paged`: the continuous-batching paged-KV serving engine.
+- `inference.paged`: the continuous-batching paged-KV serving engine;
+- `optimizer` (with `optimizer.lr`, the LR schedules), `parallel.trainer`
+  and `io.prefetch`: the training step, its optimizer and its input
+  pipeline.
 
 Entry points (`LlamaForCausalLM(...)`, `PagedKVEngine(...)`) run on the
 CUDA card unless the caller passes `device="cpu"`; without a card they

@@ -47,6 +47,11 @@ _SIGNATURES = {
     "ptt_flash_fwd": [_P] * 5 + _FLASH_TAIL,
     "ptt_flash_bwd_dq": [_P] * 7 + _FLASH_TAIL,
     "ptt_flash_bwd_dkv": [_P] * 8 + _FLASH_TAIL,
+    "ptt_ce_vocab_tile": [_I],
+    "ptt_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    "ptt_ce_dlogits": [_P] * 6 + [_I] * 7 + [_P],
+    "ptt_ce_dx": [_P] * 4 + [_I] * 9 + [_P],
+    "ptt_ce_dw": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,619 @@
+// Blockwise cross-entropy: the lm_head projection fused with softmax-CE,
+// forward and backward, for Hopper (sm_90a).
+//
+// Replaces: paddle_tpu/kernels/blockwise_ce.py
+//   forward  _ce_fwd_kernel (launched by _fwd_pallas at :426)
+//   dx       _ce_dx_kernel  (launched by _bwd_pallas at :467)
+//   dW       _ce_dw_kernel  (launched by _bwd_pallas at :485)
+//
+// Functions, for x (N, D), W (V, D) (the port keeps W's vocab rows dense
+// along D, the transpose of the JAX package's (D, V)) and int32 labels:
+//   S[i, v]   = x_i . W_v                          f32
+//   lse_i     = log sum_v exp(S[i, v]);  picked_i = S[i, label_i]
+//   dS[i, v]  = T((exp(S[i, v] - lse_i) - [v == label_i]) * scale_i)
+//   dx        = T(sum_v dS[:, v] W_v)              f32 over all of V
+//   dW        = T(dS^T x)                          f32 over all rows
+// T rounds to the inputs' type (bf16 or f32), as the JAX kernels round
+// dS to x's type before both products; scale_i = g / count for a row
+// whose label is not ignore_index and 0 otherwise (the caller computes
+// it). A label outside [0, V) picks nothing and has no one-hot.
+//
+// Bound on this card: operations. At the training shape (N 16384, D 2048,
+// V 32000) the forward is 2NDV = 2.15e12 tensor-core operations (2.17 ms
+// at 989 TF/s) against 0.2 GB of traffic; the backward's least work is
+// three such products (6.5 ms).
+//
+// Design. Every product is one GEMM tile kernel: a block computes a tile
+// of C = A . B over the K loop with both operands streamed through shared
+// memory by cp.async (3 stages), then parks the f32 tile in shared memory,
+// where an epilogue that depends on the product reads it:
+// - ce_fwd: C = S (rows x vocab, K = D); per row and vocab tile the
+//   tile's max and sum of exp(S - max) go to a partial buffer and the
+//   label's S to picked; a second small kernel merges each row's partials
+//   into its lse in a fixed order.
+// - the backward runs per vocab super-block [v0, v0 + Vs), Vs chosen by
+//   the caller so the (N, Vs) dS workspace stays within a budget (never
+//   [N, V]):
+//   ce_dlogits: C = S of the super-block; dS, rounded to T, into the
+//     workspace;
+//   ce_dx: C = dS . W[v0:v0+Vs] (rows x D, K = Vs), added to an f32 dx
+//     accumulator; the first super-block writes it, the last casts the
+//     sum to T into dx;
+//   ce_dw: C = dS^T . x (Vs x D, K = N), cast to T into dW[v0:v0+Vs].
+//   S is recomputed once per super-block (the TPU recomputes it in both
+//   its dx and its dW kernel). Nothing uses atomics: every result is
+//   deterministic.
+// - bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate), 128 x 128 tiles, 8
+//   warps of 64 x 32, K in steps of 64 (110.6 KB of stages: two blocks
+//   fit an SM), 32 for dW. Every fragment comes through ldmatrix
+//   (common.cuh): plain for an operand whose K is contiguous in memory (x
+//   and W in the S products, dS in dx), .trans for one stored K-major (W
+//   in dx, dS and x in dW).
+// - f32: FFMA on the CUDA cores, 64 x 64 tiles, no TF32 (the JAX package
+//   computes f32 products at HIGHEST precision); a checking path.
+// Tiles run in groups of 16 row tiles so the operands of the blocks in
+// flight stay in L2. wgmma, TMA and one fused dx/dW pass are later work.
+#include <cmath>
+#include <cstdint>
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+using ptt::bf16;
+
+constexpr int kThreads = 256;
+constexpr int kStages = 3;
+constexpr int kGroupM = 16;
+
+// epilogues
+constexpr int kFwdStats = 0, kDlogits = 1, kDx = 2, kDw = 3;
+
+// Tile geometry. bf16: a K-contiguous operand tile is (128, KD + 8), a
+// K-major one (KD, 128 + 8) (rows padded by 16 bytes against bank
+// conflicts), KD the k-tile depth of the product (MmaSmem); f32: (BK,
+// 64 + 4) tiles; LDC: the parked f32 C tile.
+template <typename T>
+struct Tile;
+template <>
+struct Tile<bf16> {
+  static constexpr int BM = 128, BN = 128;
+  static constexpr int LDN = BM + 8, LDC = BN + 4;
+};
+template <>
+struct Tile<float> {
+  static constexpr int BM = 64, BN = 64, BK = 16;
+  static constexpr int LDF = BM + 4, LDC = BN + 4;
+};
+
+struct Args {
+  // C (m x n) = A (m x k) . B (k x n). An operand is K-contiguous (element
+  // (i, k) at p[i * ld + k]) or K-major (at p[k * ld + i]); ext is its
+  // extent along i, kv along k: elements past either read as 0.
+  const void* a;
+  int64_t lda;
+  int a_ext, a_kv;
+  const void* b;
+  int64_t ldb;
+  int b_ext, b_kv;
+  int m, n, k;
+  // epilogues
+  const int* labels;   // (rows,)
+  const float* lse;    // (rows,)
+  const float* scale;  // (rows,)
+  float* part;         // forward: (2, rows, n_vtiles) max, then sums
+  float* picked;       // forward: (rows,)
+  int n_vtiles;
+  int vocab;           // V
+  int v0;              // first vocab row of the super-block
+  void* out;           // dS workspace, dx, or dW's rows from v0
+  int64_t ldo;
+  float* acc;          // dx: f32 accumulator (rows, D)
+  int first, last;     // dx: first / last super-block
+};
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// This block's tile (mt, nt): the grid walks groups of kGroupM row tiles,
+// row tiles fastest inside a group.
+__device__ __forceinline__ void tile_coords(int tm, int tn, int& mt, int& nt) {
+  const int pid = blockIdx.x;
+  const int per_group = kGroupM * tn;
+  const int group = pid / per_group;
+  const int first = group * kGroupM;
+  const int size = min(tm - first, kGroupM);
+  const int r = pid - group * per_group;
+  mt = first + r % size;
+  nt = r / size;
+}
+
+// ---------------------------------------------------------------------
+// bf16 main loop: tensor cores
+// ---------------------------------------------------------------------
+
+// One operand's (128 x KD) slice of k-tile k0 into shared memory, 16-byte
+// cp.async chunks; a chunk past ext or kv is zero-filled (both are
+// multiples of 8 along the chunked dim).
+template <bool KC, int KD>
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
+                                               int64_t ld, int i0, int ext,
+                                               int k0, int kv) {
+  using G = Tile<bf16>;
+  if constexpr (KC) {
+    constexpr int kChunks = KD / 8;
+    for (int c = threadIdx.x; c < G::BM * kChunks; c += kThreads) {
+      const int r = c / kChunks, kk = (c % kChunks) * 8;
+      const bool ok = i0 + r < ext && k0 + kk < kv;
+      const bf16* s = ok ? src + (i0 + r) * ld + k0 + kk : src;
+      ptt::cp_async16(dst + r * (KD + 8) + kk, s, ok);
+    }
+  } else {
+    constexpr int kChunks = G::BM / 8;
+    for (int c = threadIdx.x; c < KD * kChunks; c += kThreads) {
+      const int r = c / kChunks, ii = (c % kChunks) * 8;
+      const bool ok = k0 + r < kv && i0 + ii < ext;
+      const bf16* s = ok ? src + (k0 + r) * ld + i0 + ii : src;
+      ptt::cp_async16(dst + r * G::LDN + ii, s, ok);
+    }
+  }
+}
+
+// The k-tile depth KD: 64 when an operand is K-contiguous; 32 for dW, whose
+// operands are both K-major (measured on the H100: 64 made it slower).
+template <bool AK, bool BK>
+struct MmaSmem {
+  using G = Tile<bf16>;
+  static constexpr int KD = AK || BK ? 64 : 32;
+  static constexpr int LDK = KD + 8;
+  static constexpr int kA = AK ? G::BM * LDK : KD * G::LDN;
+  static constexpr int kB = BK ? G::BN * LDK : KD * G::LDN;
+  static constexpr int kStage = kA + kB;  // elements
+  static constexpr size_t pipe = size_t(kStages) * kStage * sizeof(bf16);
+  static constexpr size_t park = size_t(G::BM) * G::LDC * sizeof(float);
+  static constexpr size_t bytes = pipe > park ? pipe : park;
+};
+
+// C tile (m0, n0) into cs (f32, row stride LDC). Warp w owns rows
+// 64 * (w / 4) .. +63 and columns 32 * (w % 4) .. +31.
+template <bool AK, bool BK>
+__device__ __forceinline__ void mma_tile(const Args& a, int m0, int n0,
+                                         unsigned char* smem) {
+  using G = Tile<bf16>;
+  using S = MmaSmem<AK, BK>;
+  bf16* sm = reinterpret_cast<bf16*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const bf16* ag = static_cast<const bf16*>(a.a);
+  const bf16* bg = static_cast<const bf16*>(a.b);
+  float acc[4][4][4] = {};
+  const int nk = cdiv(a.k, S::KD);
+  auto load = [&](int kt, int stage) {
+    bf16* st = sm + stage * S::kStage;
+    load_tile_bf16<AK, S::KD>(st, ag, a.lda, m0, a.a_ext, kt * S::KD,
+                              a.a_kv);
+    load_tile_bf16<BK, S::KD>(st + S::kA, bg, a.ldb, n0, a.b_ext,
+                              kt * S::KD, a.b_kv);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    ptt::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    ptt::cp_async_wait<kStages - 2>();
+    __syncthreads();  // k-tile kt landed; the stage of kt - 1 is released
+    if (kt + kStages - 1 < nk) load(kt + kStages - 1, (kt + kStages - 1) % kStages);
+    ptt::cp_async_commit();
+    const bf16* as = sm + (kt % kStages) * S::kStage;
+    const bf16* bs = as + S::kA;
+#pragma unroll
+    for (int kk = 0; kk < S::KD; kk += 16) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if constexpr (AK)
+          ptt::frag_a_ldm(af[mt], as, S::LDK, wm * 64 + 16 * mt, kk);
+        else
+          ptt::frag_a_trans(af[mt], as, G::LDN, kk, wm * 64 + 16 * mt);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t bf[4];
+        if constexpr (BK) {
+          ptt::frag_bt_ldm(bf, bs, S::LDK, wn * 32 + 16 * j, kk);
+        } else {
+          ptt::frag_b_trans(bf, bs, G::LDN, kk, wn * 32 + 16 * j);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          ptt::mma_bf16(acc[mt][2 * j], af[mt], bf[0], bf[1]);
+          ptt::mma_bf16(acc[mt][2 * j + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  ptt::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the stages: cs reuses them
+  float* cs = reinterpret_cast<float*>(smem);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = wm * 64 + 16 * mt + g + 8 * half;
+        const int col = wn * 32 + 8 * nt + 2 * t;
+        *reinterpret_cast<float2*>(cs + row * G::LDC + col) =
+            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+      }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------
+// f32 main loop: FFMA, each thread a 4 x 4 block of C
+// ---------------------------------------------------------------------
+
+struct FmaSmem {
+  using G = Tile<float>;
+  static constexpr int kTile = G::BK * G::LDF;  // floats
+  static constexpr size_t bytes =
+      (2 * size_t(kTile) + size_t(G::BM) * G::LDC) * sizeof(float);
+};
+
+// element (i, k) of an operand, 0 past ext or kv
+template <bool KC>
+__device__ __forceinline__ float elem(const float* p, int64_t ld, int i,
+                                      int k, int ext, int kv) {
+  if (i >= ext || k >= kv) return 0.f;
+  return KC ? p[i * ld + k] : p[k * ld + i];
+}
+
+template <bool AK, bool BK>
+__device__ __forceinline__ void fma_tile(const Args& a, int m0, int n0,
+                                         unsigned char* smem) {
+  using G = Tile<float>;
+  float* as = reinterpret_cast<float*>(smem);
+  float* bs = as + FmaSmem::kTile;
+  float* cs = bs + FmaSmem::kTile;
+  const float* ag = static_cast<const float*>(a.a);
+  const float* bg = static_cast<const float*>(a.b);
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < a.k; k0 += G::BK) {
+    // tiles stored k-major: as[k][i], bs[k][j]; consecutive threads read
+    // consecutive addresses of the operand as it is stored
+    for (int e = threadIdx.x; e < G::BM * G::BK; e += kThreads) {
+      const int i = AK ? e / G::BK : e % G::BM;
+      const int kk = AK ? e % G::BK : e / G::BM;
+      as[kk * G::LDF + i] =
+          elem<AK>(ag, a.lda, m0 + i, k0 + kk, a.a_ext, a.a_kv);
+    }
+    for (int e = threadIdx.x; e < G::BN * G::BK; e += kThreads) {
+      const int j = BK ? e / G::BK : e % G::BN;
+      const int kk = BK ? e % G::BK : e / G::BN;
+      bs[kk * G::LDF + j] =
+          elem<BK>(bg, a.ldb, n0 + j, k0 + kk, a.b_ext, a.b_kv);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < G::BK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(as + kk * G::LDF +
+                                                         4 * ty);
+      const float4 bv = *reinterpret_cast<const float4*>(bs + kk * G::LDF +
+                                                         4 * tx);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cs[(4 * ty + i) * G::LDC + 4 * tx + j] = acc[i][j];
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------
+// epilogues on the parked f32 tile cs (BM x BN at (m0, n0), tile nt)
+// ---------------------------------------------------------------------
+
+template <int Kind, typename T, int BM, int BN, int LDC>
+__device__ __forceinline__ void epilogue(const Args& a, const float* cs,
+                                         int m0, int n0, int nt) {
+  if constexpr (Kind == kFwdStats) {
+    // one warp per row: the tile's max and sum of exp(S - max) over its
+    // vocab columns below V, and the label's S
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < BM && m0 + r < a.m; r += kThreads / 32) {
+      const int row = m0 + r;
+      const float* cr = cs + r * LDC;
+      const int lab = a.labels[row];
+      float mx = -INFINITY;
+      for (int c = lane; c < BN; c += 32) {
+        const int v = n0 + c;
+        if (v < a.n) mx = fmaxf(mx, cr[c]);
+        if (v == lab && v < a.n) a.picked[row] = cr[c];
+      }
+      mx = ptt::warp_max(mx);
+      float s = 0.f;
+      for (int c = lane; c < BN; c += 32)
+        if (n0 + c < a.n) s += expf(cr[c] - mx);
+      s = ptt::warp_sum(s);
+      if (lane == 0) {
+        const int64_t at = static_cast<int64_t>(row) * a.n_vtiles + nt;
+        a.part[at] = mx;
+        a.part[static_cast<int64_t>(a.m) * a.n_vtiles + at] = s;
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < BM * BN; e += kThreads) {
+      const int r = e / BN, c = e - (e / BN) * BN;
+      const int row = m0 + r, col = n0 + c;
+      if (row >= a.m) continue;
+      const float val = cs[r * LDC + c];
+      if constexpr (Kind == kDlogits) {
+        // every column of the tile is written (0 at or past V), so the
+        // workspace holds whole tiles for the dx and dW products
+        const int v = a.v0 + col;
+        float d = 0.f;
+        if (v < a.vocab) {
+          d = expf(val - a.lse[row]);
+          if (v == a.labels[row]) d -= 1.f;
+          d *= a.scale[row];
+        }
+        static_cast<T*>(a.out)[row * a.ldo + col] = ptt::from_f32<T>(d);
+      } else if constexpr (Kind == kDx) {
+        if (col >= a.n) continue;
+        const int64_t i = row * a.ldo + col;
+        const float sum = a.first ? val : a.acc[i] + val;
+        if (a.last)
+          static_cast<T*>(a.out)[i] = ptt::from_f32<T>(sum);
+        else
+          a.acc[i] = sum;
+      } else {  // kDw
+        if (col >= a.n) continue;
+        static_cast<T*>(a.out)[row * a.ldo + col] = ptt::from_f32<T>(val);
+      }
+    }
+  }
+}
+
+template <typename T, bool AK, bool BK, int Kind>
+__global__ void __launch_bounds__(kThreads) ce_gemm(const Args a) {
+  using G = Tile<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int mt, nt;
+  tile_coords(cdiv(a.m, G::BM), cdiv(a.n, G::BN), mt, nt);
+  const int m0 = mt * G::BM, n0 = nt * G::BN;
+  const float* cs;
+  if constexpr (std::is_same_v<T, bf16>) {
+    mma_tile<AK, BK>(a, m0, n0, smem);
+    cs = reinterpret_cast<const float*>(smem);
+  } else {
+    fma_tile<AK, BK>(a, m0, n0, smem);
+    cs = reinterpret_cast<const float*>(smem) + 2 * FmaSmem::kTile;
+  }
+  epilogue<Kind, T, G::BM, G::BN, G::LDC>(a, cs, m0, n0, nt);
+}
+
+// lse of each row from its (max, sum) partials: one warp per row, merged
+// in a fixed order
+__global__ void __launch_bounds__(kThreads)
+    ce_fwd_combine(const float* part, int rows, int nvt, float* lse) {
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // a whole warp
+  const float* pm = part + static_cast<int64_t>(row) * nvt;
+  const float* pl = pm + static_cast<int64_t>(rows) * nvt;
+  float mx = -INFINITY;
+  for (int j = lane; j < nvt; j += 32) mx = fmaxf(mx, pm[j]);
+  mx = ptt::warp_max(mx);
+  float s = 0.f;
+  for (int j = lane; j < nvt; j += 32) s += pl[j] * expf(pm[j] - mx);
+  s = ptt::warp_sum(s);
+  if (lane == 0) lse[row] = mx + logf(s);
+}
+
+template <typename T, bool AK, bool BK, int Kind>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  using G = Tile<T>;
+  if (a.m <= 0 || a.n <= 0) return cudaSuccess;
+  size_t bytes;
+  if constexpr (std::is_same_v<T, bf16>)
+    bytes = MmaSmem<AK, BK>::bytes;
+  else
+    bytes = FmaSmem::bytes;
+  void (*kern)(const Args) = ce_gemm<T, AK, BK, Kind>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const long long tiles =
+      static_cast<long long>(cdiv(a.m, G::BM)) * cdiv(a.n, G::BN);
+  kern<<<static_cast<unsigned>(tiles), kThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+const T* rows_from(const void* p, int64_t row, int d) {
+  return static_cast<const T*>(p) + row * d;
+}
+
+template <typename T>
+int run_fwd(const void* x, const void* w, const void* labels, void* part,
+        void* picked, void* lse, int n, int d, int v, cudaStream_t s) {
+  Args a{};
+  a.a = x;
+  a.lda = d;
+  a.a_ext = n;
+  a.a_kv = d;
+  a.b = w;
+  a.ldb = d;
+  a.b_ext = v;
+  a.b_kv = d;
+  a.m = n;
+  a.n = v;
+  a.k = d;
+  a.labels = static_cast<const int*>(labels);
+  a.part = static_cast<float*>(part);
+  a.picked = static_cast<float*>(picked);
+  a.n_vtiles = cdiv(v, Tile<T>::BN);
+  cudaError_t err = launch<T, true, true, kFwdStats>(a, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ce_fwd_combine<<<cdiv(n, kThreads / 32), kThreads, 0, s>>>(
+      a.part, n, a.n_vtiles, static_cast<float*>(lse));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int run_dlogits(const void* x, const void* w, const void* labels,
+            const void* lse, const void* scale, void* ws, int n, int d,
+            int v, int v0, int vcur, int ldw, cudaStream_t s) {
+  Args a{};
+  a.a = x;
+  a.lda = d;
+  a.a_ext = n;
+  a.a_kv = d;
+  a.b = rows_from<T>(w, v0, d);
+  a.ldb = d;
+  a.b_ext = vcur;
+  a.b_kv = d;
+  a.m = n;
+  a.n = vcur;
+  a.k = d;
+  a.labels = static_cast<const int*>(labels);
+  a.lse = static_cast<const float*>(lse);
+  a.scale = static_cast<const float*>(scale);
+  a.vocab = v;
+  a.v0 = v0;
+  a.out = ws;
+  a.ldo = ldw;
+  return static_cast<int>(launch<T, true, true, kDlogits>(a, s));
+}
+
+template <typename T>
+int run_dx(const void* ws, const void* w, void* acc, void* out, int n, int d,
+       int v0, int vcur, int ldw, int first, int last, cudaStream_t s) {
+  Args a{};
+  a.a = ws;  // (n, vcur) of the workspace, K-contiguous
+  a.lda = ldw;
+  a.a_ext = n;
+  a.a_kv = (vcur + 7) / 8 * 8;  // columns up to there are written (0 past V)
+  a.b = rows_from<T>(w, v0, d);  // W[v0 + k][j]: K-major
+  a.ldb = d;
+  a.b_ext = d;
+  a.b_kv = vcur;
+  a.m = n;
+  a.n = d;
+  a.k = vcur;
+  a.out = out;
+  a.ldo = d;
+  a.acc = static_cast<float*>(acc);
+  a.first = first;
+  a.last = last;
+  return static_cast<int>(launch<T, true, false, kDx>(a, s));
+}
+
+template <typename T>
+int run_dw(const void* ws, const void* x, void* out, int n, int d, int v0,
+       int vcur, int ldw, cudaStream_t s) {
+  Args a{};
+  a.a = ws;  // A[i][k] = ws[k][i]: K-major
+  a.lda = ldw;
+  a.a_ext = (vcur + 7) / 8 * 8;
+  a.a_kv = n;
+  a.b = x;  // B[k][j] = x[k][j]: K-major
+  a.ldb = d;
+  a.b_ext = d;
+  a.b_kv = n;
+  a.m = vcur;
+  a.n = d;
+  a.k = n;
+  a.out = static_cast<T*>(out) + static_cast<int64_t>(v0) * d;
+  a.ldo = d;
+  return static_cast<int>(launch<T, false, false, kDw>(a, s));
+}
+
+bool bad_shape(int n, int d, int v, int dtype) {
+  return n <= 0 || d <= 0 || v <= 0 ||
+         (dtype == ptt::kDtypeBF16 && d % 8 != 0) ||
+         (dtype != ptt::kDtypeBF16 && dtype != ptt::kDtypeF32);
+}
+
+bool bad_block(int v, int v0, int vcur, int ldw, int dtype) {
+  const int bn = dtype == ptt::kDtypeBF16 ? Tile<bf16>::BN : Tile<float>::BN;
+  return v0 < 0 || vcur <= 0 || v0 + vcur > v ||
+         ldw < cdiv(vcur, bn) * bn || ldw % 8 != 0;
+}
+
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+
+}  // namespace
+
+// The vocab width of one forward tile: the partial buffer of ptt_ce_fwd
+// holds ceil(V / it) entries per row.
+extern "C" int ptt_ce_vocab_tile(int dtype) {
+  return dtype == ptt::kDtypeBF16 ? Tile<bf16>::BN : Tile<float>::BN;
+}
+
+// x (n, d) and w (v, d) dense in one type; labels (n,) int32; part
+// (2, n, ceil(v / ptt_ce_vocab_tile)) f32 scratch; picked (n,) f32,
+// zeroed by the caller; lse (n,) f32 out.
+extern "C" int ptt_ce_fwd(const void* x, const void* w, const void* labels,
+                          void* part, void* picked, void* lse, int n, int d,
+                          int v, int dtype, void* stream) {
+  if (bad_shape(n, d, v, dtype)) return kInvalid;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == ptt::kDtypeBF16
+             ? run_fwd<bf16>(x, w, labels, part, picked, lse, n, d, v, s)
+             : run_fwd<float>(x, w, labels, part, picked, lse, n, d, v, s);
+}
+
+// dS of vocab rows [v0, v0 + vcur) into ws (n, ldw) in the inputs' type,
+// columns from 0; lse and scale (n,) f32.
+extern "C" int ptt_ce_dlogits(const void* x, const void* w,
+                              const void* labels, const void* lse,
+                              const void* scale, void* ws, int n, int d,
+                              int v, int v0, int vcur, int ldw, int dtype,
+                              void* stream) {
+  if (bad_shape(n, d, v, dtype) || bad_block(v, v0, vcur, ldw, dtype))
+    return kInvalid;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == ptt::kDtypeBF16
+             ? run_dlogits<bf16>(x, w, labels, lse, scale, ws, n, d, v, v0, vcur,
+                             ldw, s)
+             : run_dlogits<float>(x, w, labels, lse, scale, ws, n, d, v, v0,
+                              vcur, ldw, s);
+}
+
+// dx (n, d) in the inputs' type += ws . w[v0:v0+vcur], through the f32
+// accumulator acc (n, d) (unused when first and last are both set).
+extern "C" int ptt_ce_dx(const void* ws, const void* w, void* acc, void* dx,
+                         int n, int d, int v, int v0, int vcur, int ldw,
+                         int first, int last, int dtype, void* stream) {
+  if (bad_shape(n, d, v, dtype) || bad_block(v, v0, vcur, ldw, dtype))
+    return kInvalid;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == ptt::kDtypeBF16
+             ? run_dx<bf16>(ws, w, acc, dx, n, d, v0, vcur, ldw, first, last, s)
+             : run_dx<float>(ws, w, acc, dx, n, d, v0, vcur, ldw, first, last,
+                           s);
+}
+
+// dW rows [v0, v0 + vcur) of dw (v, d) = ws^T . x.
+extern "C" int ptt_ce_dw(const void* ws, const void* x, void* dw, int n,
+                         int d, int v, int v0, int vcur, int ldw, int dtype,
+                         void* stream) {
+  if (bad_shape(n, d, v, dtype) || bad_block(v, v0, vcur, ldw, dtype))
+    return kInvalid;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == ptt::kDtypeBF16
+             ? run_dw<bf16>(ws, x, dw, n, d, v0, vcur, ldw, s)
+             : run_dw<float>(ws, x, dw, n, d, v0, vcur, ldw, s);
+}

@@ -120,12 +120,7 @@ struct Carve {
   }
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+using ptt::warp_max;
 
 // Rows [r0, r0 + BM) of a (S, D) slice with row stride `stride` into a
 // (BM, LDT) tile in 16-byte vectors; rows at or past S are zero.
@@ -499,80 +494,18 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(const Args a) {
 }
 
 // ---------------------------------------------------------------------
-// bf16 kernels: mma.sync m16n8k16 with register accumulators
-//
-// Fragment layouts (PTX ISA, mma.m16n8k16, per lane: g = lane / 4,
-// t = lane % 4): A (16 x 16, row-major) a0 = (g, 2t..2t+1), a1 = (g + 8,
-// 2t..), a2 = (g, 2t + 8..), a3 = (g + 8, 2t + 8..); B (16 x 8) b0 = (k
-// 2t..2t+1, n g), b1 = (k 2t + 8.., n g); C (16 x 8, f32) c0, c1 = (g,
-// 2t..2t+1), c2, c3 = (g + 8, 2t..). Two C tiles side by side, rounded to
-// bf16 and packed in pairs, are an A fragment.
+// bf16 kernels: mma.sync m16n8k16 with register accumulators (the
+// fragment helpers and cp.async loaders are in common.cuh)
 // ---------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo: low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A fragment: rows r0..r0+15, columns c0..c0+15 of a row-major tile
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s, int ld,
-                                       int r0, int c0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = s + (r0 + (lane >> 2)) * ld + c0 + 2 * (lane & 3);
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment with B[k][n] = s[n0 + n][k0 + k]: B^T stored row-major
-__device__ __forceinline__ void frag_bt(uint32_t& b0, uint32_t& b1,
-                                        const bf16* s, int ld, int n0,
-                                        int k0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// B fragments of the n-tiles n0 and n0 + 8 with B[k][n] = s[k0 + k][n0 + n]
-// (B stored row-major): ldmatrix .trans of four 8x8 matrices, lane i
-// addressing row i % 8 of matrix i / 8; r0, r1 = (b0, b1) of n-tile n0,
-// r2, r3 = (b0, b1) of n-tile n0 + 8.
-__device__ __forceinline__ void frag_b_trans(uint32_t (&r)[4], const bf16* s,
-                                             int ld, int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p =
-      s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// The A fragment for k-step kk of a (16 x 64) C-fragment row block held as
-// 8 n-tiles: its n-tiles 2kk and 2kk + 1, rounded to bf16.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], float (*c)[4],
-                                       int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
+using ptt::c_to_a;
+using ptt::cp_async_commit;
+using ptt::cp_async_wait;
+using ptt::frag_a;
+using ptt::frag_b_trans;
+using ptt::frag_bt;
+using ptt::mma_bf16;
+using ptt::store_acc;
 
 // acc (16 x D per warp, D/8 n-tiles) += A (16 x 64, as 8 C tiles) . B, where
 // B (64 x D) is a row-major tile read transposed
@@ -593,79 +526,20 @@ __device__ __forceinline__ void mma_c_b(float (*acc)[4], float (*c)[4],
   }
 }
 
-// Row r0 + r of a dense (S, D) slice (row stride `stride`) from a warp's
-// (16 x D) accumulator: rows g and g + 8 of the warp, times mul[0 or 1].
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* dst, int64_t stride,
-                                          float (*acc)[4], int r0,
-                                          const float (&mul)[2], int seq) {
-  const int lane = threadIdx.x & 31;
-  const int r = r0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
-  const int c = 2 * (lane & 3);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r + 8 * half;
-    if (row >= seq) continue;
-    bf16* out = dst + row * stride + c;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * dn) =
-          __floats2bfloat162_rn(acc[dn][2 * half] * mul[half],
-                                acc[dn][2 * half + 1] * mul[half]);
-  }
-}
-
-// Asynchronous copies global -> shared (cp.async): bytes past `valid`
-// are zero-filled, and an invalid row reads nothing (its source address
-// is only a placeholder inside the tensor).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N committed groups of this thread are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// load_rows and load_row_vals as asynchronous copies
+// the shared row loaders at this file's tile geometry
 template <int D>
 __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
                                                 int64_t stride, int r0,
                                                 int seq) {
   using G = Geo<bf16, D>;
-  constexpr int kPerRow = D / 8;
-  for (int i = threadIdx.x; i < G::BM * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i - r * kPerRow) * 8;
-    const bool valid = r0 + r < seq;
-    cp_async16(dst + r * G::LDT + c, src + (valid ? (r0 + r) * stride : 0) + c,
-               valid);
-  }
+  ptt::load_rows_async<G::BM, D, G::LDT, kThreads>(dst, src, stride, r0, seq);
 }
 
 template <int BM>
 __device__ __forceinline__ void load_row_vals_async(float* dst,
                                                     const float* src, int r0,
                                                     int seq) {
-  for (int r = threadIdx.x; r < BM; r += kThreads) {
-    const bool valid = r0 + r < seq;
-    cp_async4(dst + r, src + (valid ? r0 + r : 0), valid);
-  }
+  ptt::load_row_vals_async<BM, kThreads>(dst, src, r0, seq);
 }
 
 // bf16 tiles: 64 rows of D + 8. The streamed operand is double-buffered:

@@ -5,8 +5,10 @@ the paged-KV forward the serving engine drives (inference/paged.py), and
 the training forward: `forward(input_ids, labels=...)` returns the
 shifted next-token loss and the logits, with flash attention
 (`use_flash_attention`) and per-layer recomputation (`recompute`) as in
-the JAX package. The blockwise loss (`loss_chunk > 0`) and the FSDP
-overlap are not ported yet.
+the JAX package. With `loss_chunk > 0` the loss is the blockwise cross
+entropy (kernels/blockwise_ce.py) straight from the final hidden states,
+and the forward returns (loss, None), as in JAX. The FSDP overlap is not
+ported yet.
 
 `fused_norm` routes the decoder's RMSNorms through the RMSNorm(+residual)
 kernels and `fused_rope` routes RoPE through the RoPE kernel
@@ -32,8 +34,8 @@ from paddle_tpu_torch.nn import functional as F
 
 __all__ = ["LlamaConfig", "llama3_8b_config", "tiny_llama_config",
            "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
-           "LlamaForCausalLM", "next_token_loss", "param_count",
-           "flops_per_token"]
+           "LlamaForCausalLM", "next_token_loss", "next_token_loss_blockwise",
+           "param_count", "flops_per_token"]
 
 
 @dataclass
@@ -62,8 +64,8 @@ class LlamaConfig:
     recompute: bool = False
     # sequence length helpers use (benchmarks, example inputs)
     seq_length: int = 4096
-    # > 0: the blockwise (chunked) loss of the JAX package, not ported
-    # yet; the model raises rather than take the dense loss instead
+    # > 0: the blockwise loss (the lm_head projection fused with the CE,
+    # kernels/blockwise_ce.py); rows per streamed chunk on the CPU
     loss_chunk: int = 0
     loss_vocab_block: int = 0
 
@@ -91,11 +93,29 @@ def next_token_loss(logits, labels, vocab_size):
     the last position is marked ignore_index (-100) instead of slicing
     the logits, and the mean leaves ignored rows out (JAX
     `next_token_loss`)."""
-    b = labels.shape[0]
-    shifted = torch.cat([labels[:, 1:], torch.full(
-        (b, 1), -100, dtype=labels.dtype, device=labels.device)], dim=1)
     return F.cross_entropy(logits.reshape(-1, vocab_size),
-                           shifted.reshape(-1), ignore_index=-100)
+                           _shifted(labels), ignore_index=-100)
+
+
+def _shifted(labels):
+    """labels[:, t + 1] at position t, -100 at the last, flattened."""
+    b = labels.shape[0]
+    return torch.cat([labels[:, 1:], torch.full(
+        (b, 1), -100, dtype=labels.dtype, device=labels.device)],
+        dim=1).reshape(-1)
+
+
+def next_token_loss_blockwise(hidden, weight, labels, config,
+                              transpose_w=False):
+    """Shifted next-token CE straight from the final hidden states, the
+    lm_head projection fused into the blockwise loss: the [B*S, vocab]
+    logits never exist. `weight` is (D, V), or (V, D) with transpose_w;
+    the same label shift and ignore_index as `next_token_loss` (JAX
+    `next_token_loss_blockwise`)."""
+    return F.blockwise_cross_entropy(
+        hidden.reshape(-1, hidden.shape[-1]), weight, _shifted(labels),
+        chunk=config.loss_chunk, vocab_block=config.loss_vocab_block,
+        ignore_index=-100, transpose_w=transpose_w)
 
 
 def _linear(d_in, d_out):
@@ -315,18 +335,19 @@ class LlamaForCausalLM(nn.Module):
         """Logits (B, S, vocab). With `caches`/`cache_index` (a
         PagedState), the paged forward: pools are updated in place. With
         `labels` (B, S), (loss, logits): the shifted next-token loss, f32
-        (a no-cache forward only)."""
-        if labels is not None:
-            if caches is not None:
-                raise ValueError("the paged forward is inference-only; "
-                                 "drop labels or caches")
-            if self.config.loss_chunk:
-                raise NotImplementedError(
-                    "loss_chunk > 0 is the blockwise cross-entropy loss "
-                    "(paddle_tpu/kernels/blockwise_ce.py), which is not "
-                    "ported yet (the next slice); set loss_chunk=0 for "
-                    "the dense loss")
+        (a no-cache forward only); with `loss_chunk > 0`, (loss, None):
+        the blockwise loss builds no logits to return."""
+        if labels is not None and caches is not None:
+            raise ValueError("the paged forward is inference-only; drop "
+                             "labels or caches")
         h = self.model(input_ids, position_ids, caches, cache_index)
+        if labels is not None and self.config.loss_chunk:
+            # both heads hold W as (V, D): the embedding, and nn.Linear's
+            # (out, in) weight
+            w = (self.model.embed_tokens.weight if self.lm_head is None
+                 else self.lm_head.weight)
+            return next_token_loss_blockwise(h, w, labels, self.config,
+                                             transpose_w=True), None
         logits = self.logits(h)
         if labels is None:
             return logits

@@ -13,7 +13,10 @@
   the flash kernels (kernels/flash_attention.py);
 - `cross_entropy`: the pretrain-shape fast path of nn/functional/loss.py
   (`_ce_mean_fused`): f32 log-softmax, mean over the rows that are not
-  `ignore_index`, the gradient in the logits' type.
+  `ignore_index`, the gradient in the logits' type;
+- `blockwise_cross_entropy`: nn/functional/loss.py's, the lm_head
+  projection fused with the CE over the blockwise kernels
+  (kernels/blockwise_ce.py), so no [N, V] logits exist.
 """
 from __future__ import annotations
 
@@ -21,10 +24,11 @@ import math
 
 import torch
 
+from paddle_tpu_torch.kernels.blockwise_ce import blockwise_ce_loss
 from paddle_tpu_torch.kernels.flash_attention import flash_attention_bshd
 
 __all__ = ["rms_norm", "swiglu", "rope_neox", "causal_attention",
-           "flash_attention", "cross_entropy"]
+           "flash_attention", "cross_entropy", "blockwise_cross_entropy"]
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -126,3 +130,17 @@ def cross_entropy(input, label, ignore_index=-100):
         raise NotImplementedError("cross_entropy: only the mean over 2-D "
                                   "logits and 1-D int labels is ported")
     return _CrossEntropyMean.apply(input, label, int(ignore_index))
+
+
+def blockwise_cross_entropy(hidden, weight, label, chunk, vocab_block=0,
+                            ignore_index=-100, transpose_w=False):
+    """Mean CE of `hidden @ weight` against int `label` without the
+    [N, V] logits. hidden (N, D), weight (D, V), or (V, D) with
+    transpose_w=True, label (N,). On the CPU `chunk` rows (and
+    `vocab_block` vocab rows when > 0) stream per block; the CUDA kernels
+    pick their own tiles. The kernels read W as dense (V, D) rows, so a
+    (D, V) weight is transposed into a copy once per call."""
+    w = weight if transpose_w else weight.t().contiguous()
+    return blockwise_ce_loss(hidden, w, label, chunk=chunk,
+                             vocab_block=vocab_block,
+                             ignore_index=ignore_index)

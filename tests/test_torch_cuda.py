@@ -18,7 +18,12 @@ neighbouring bf16 values, and the kernel rounds p against the running
 row max where the twin rounds the normalised p, noise that reaches 1.7
 steps of a row's RMS over millions of entries).
 `test_flash_bf16_rule_rejects_planted_faults` shows the rule failing
-kernels that are wrong on some rows only.
+kernels that are wrong on some rows only. The blockwise cross-entropy
+kernels' dx and dW are held by the same rule (2^-6 in bf16: both sides
+round dS to bf16 once, and a dS that rounds the other way moves a row by
+2^-8 of its size), their lse within 1e-5 relative;
+`test_ce_bf16_rule_rejects_planted_faults` shows it failing a dx that
+drops one vocab tile and a dW that drops its last 32 rows.
 """
 import shutil
 from pathlib import Path
@@ -29,7 +34,9 @@ import torch
 
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.inference.paged import PagedKVEngine
+from paddle_tpu_torch.io.prefetch import DevicePrefetcher
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import blockwise_ce as tbce
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import fused_norm as tfn
 from paddle_tpu_torch.kernels import paged_attention as tpa
@@ -455,3 +462,214 @@ def test_bf16_training_step_on_the_card_matches_the_cpu(cuda):
     for name, g in cpu_g.items():
         rel = float((gpu_g[name] - g).norm() / g.norm())
         assert rel <= 3e-2, (name, rel)
+
+
+# -- blockwise cross-entropy ----------------------------------------------
+
+def _ce_inputs(device, dtype, n=300, d=256, v=1000, seed=0):
+    """x (n, d), W (v, d) at the model's init scale, labels with every
+    tenth row ignored; V = 1000 leaves a 104-wide tail past the last
+    128-wide tile."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(v, d)) * 0.02).astype(
+        np.float32))
+    lab = torch.from_numpy(rng.integers(0, v, n).astype(np.int32))
+    lab[::10] = -100
+    return x.to(device, dtype), w.to(device, dtype), lab.to(device)
+
+
+def _ce_close(out, ref, dtype, what):
+    """The CE rule: entry by entry within tol * (|ref| + row RMS + 2^-6
+    RMS), tol 2^-6 in bf16 and 1e-4 in f32."""
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    ratio = _rows_ratio(out, ref, tol)
+    assert ratio <= 1.0, f"{what}: |err| reaches {ratio:.3g} x its bound"
+
+
+def _ce_outputs(x, w, lab):
+    loss, lse, count = tbce.ce_fwd(x, w, lab)
+    g = torch.ones((), device=x.device)
+    dx, dw = tbce.ce_bwd(x, w, lab, lse, count, g)
+    torch.cuda.synchronize()
+    return {"loss": loss, "lse": lse, "dx": dx, "dw": dw}
+
+
+def _ce_refs(x, w, lab):
+    loss, lse, count = tbce.ce_fwd_ref(x, w, lab, 64)
+    dx, dw = tbce.ce_bwd_ref(x, w, lab, lse, count,
+                             torch.ones((), device=x.device), 64)
+    return {"loss": loss, "lse": lse, "dx": dx, "dw": dw}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("super_blocks", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_kernels_match_ref(cuda, dtype, super_blocks, monkeypatch):
+    """The forward, dlogits, dx and dW kernels against the twin, with one
+    backward super-block or eight (a 128-row workspace, so dx sums its
+    super-blocks through the f32 accumulator)."""
+    if super_blocks > 1:
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        monkeypatch.setattr(tbce, "_WORKSPACE_BYTES", 300 * 128 * itemsize)
+    x, w, lab = _ce_inputs(cuda, dtype)
+    before = dict(tbce.launches)
+    got = _ce_outputs(x, w, lab)
+    want = _ce_refs(x, w, lab)
+    launched = {k: tbce.launches[k] - before[k] for k in before}
+    assert launched == {"ce_fwd": 1, "ce_dlogits": super_blocks,
+                        "ce_dx": super_blocks, "ce_dw": super_blocks}
+    torch.testing.assert_close(got["lse"], want["lse"], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(got["loss"], want["loss"], rtol=1e-5, atol=0)
+    assert got["dx"].dtype == dtype and got["dw"].dtype == dtype
+    _ce_close(got["dx"], want["dx"], dtype, "dx")
+    _ce_close(got["dw"], want["dw"], dtype, "dW")
+    assert not got["dx"][::10].float().any()      # ignored rows
+    again = _ce_outputs(x, w, lab)
+    assert torch.equal(again["dx"], got["dx"])     # deterministic
+    assert torch.equal(again["dw"], got["dw"])
+
+
+@pytest.mark.cuda
+def test_ce_autograd_on_the_card(cuda):
+    """blockwise_ce_loss on CUDA tensors runs the kernels through the
+    autograd Function, with int64 labels."""
+    x, w, lab = _ce_inputs(cuda, torch.bfloat16, n=64, d=128, v=500)
+    xr, wr = (t.clone().requires_grad_(True) for t in (x, w))
+    before = dict(tbce.launches)
+    loss = tbce.blockwise_ce_loss(xr, wr, lab.long(), chunk=16)
+    loss.backward()
+    assert all(tbce.launches[k] == before[k] + 1 for k in before)
+    want = _ce_refs(x, w, lab)
+    torch.testing.assert_close(loss, want["loss"], rtol=1e-5, atol=0)
+    _ce_close(xr.grad, want["dx"], torch.bfloat16, "dx")
+    _ce_close(wr.grad, want["dw"], torch.bfloat16, "dW")
+
+
+@pytest.mark.cuda
+def test_ce_wrappers_raise_instead_of_falling_back(cuda):
+    x, w, lab = _ce_inputs(cuda, torch.bfloat16, n=32, d=64, v=100)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbce.ce_fwd(x.t().contiguous().t(), w, lab)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbce.ce_fwd(x, w.t().contiguous().t(), lab)
+    with pytest.raises(ValueError, match="float16"):
+        tbce.ce_fwd(x.half(), w.half(), lab)
+    with pytest.raises(ValueError, match="d=36"):
+        tbce.ce_fwd(x[:, :36].contiguous(), w[:, :36].contiguous(), lab)
+    with pytest.raises(ValueError, match="one type"):
+        tbce.ce_fwd(x, w.float(), lab)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        tbce.ce_fwd(x, w, lab.float())
+    with pytest.raises(ValueError, match="not on"):
+        tbce.ce_fwd(x, w, lab.cpu())
+
+
+# Faults planted in csrc/blockwise_ce.cu, with a 128-row backward
+# super-block: (the outputs it spoils, the line, its faulty form)
+_CE_FAULTS = {
+    # dx leaves out the vocab tile [256, 384) (the third super-block:
+    # its W rows read as zeros in the dx product only)
+    "dx_drop_one_vocab_tile": (
+        ("dx",), "  a.b_kv = vcur;\n",
+        "  a.b_kv = v0 == 256 ? 0 : vcur;\n"),
+    # dW leaves out the last 32 rows of its product
+    "dw_drop_one_row_tile": (
+        ("dw",), "  a.b_kv = n;\n  a.m = vcur;\n",
+        "  a.b_kv = n - 32;\n  a.m = vcur;\n"),
+}
+
+
+@pytest.mark.cuda
+def test_ce_bf16_rule_rejects_planted_faults(cuda, tmp_path, monkeypatch):
+    """The kernels pass the entry-by-entry rule and each planted fault
+    fails it: the rows whose label lies in the dropped vocab tile lose
+    their dominant term in dx, and the vocab rows labelled by the
+    dropped rows lose theirs in dW. Each faulty library is built from a
+    copy of csrc/ in tmp_path."""
+    monkeypatch.setattr(tbce, "_WORKSPACE_BYTES", 320 * 128 * 2)
+    x, w, lab = _ce_inputs(cuda, torch.bfloat16, n=320)
+    good = _ce_outputs(x, w, lab)
+    refs = _ce_refs(x, w, lab)
+    for name in ("dx", "dw"):
+        _ce_close(good[name], refs[name], torch.bfloat16, name)
+    src = Path(_build.__file__).resolve().parent / "csrc"
+    seen = {}
+    for fault, (spoiled, line, faulty) in _CE_FAULTS.items():
+        csrc = tmp_path / fault / "csrc"
+        shutil.copytree(src, csrc)
+        cu = csrc / "blockwise_ce.cu"
+        text = cu.read_text()
+        assert text.count(line) == 1, f"{fault}: the line to spoil moved"
+        cu.write_text(text.replace(line, faulty))
+        with monkeypatch.context() as m:
+            m.setattr(_build, "_CSRC", csrc)
+            m.setattr(_build, "_BUILD_DIR", tmp_path / fault / "_build")
+            m.setattr(_build, "_lib", None)
+            bad = _ce_outputs(x, w, lab)
+        for name in spoiled:
+            seen[f"{fault} {name}"] = _rows_ratio(bad[name], refs[name],
+                                                  2 ** -6)
+    print(f"|err| / row-rule bound of the planted faults: {seen}")
+    assert all(r > 1.0 for r in seen.values()), seen
+
+
+@pytest.mark.cuda
+def test_blockwise_training_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 Trainer step of a 2-layer model with the blockwise loss
+    (loss_chunk 16, tied and untied head) on the card through the
+    kernels against the CPU through the twins: the loss within 1e-5
+    relative, every gradient within 1e-4 of its largest entry."""
+    for tied in (False, True):
+        cfg = tiny_llama_config(num_hidden_layers=2, vocab_size=500,
+                                hidden_size=256, num_attention_heads=4,
+                                num_key_value_heads=2,
+                                use_flash_attention=True, recompute=True,
+                                loss_chunk=16, tie_word_embeddings=tied)
+        ids = np.random.RandomState(0).randint(0, 500, (2, 100)).astype(
+            np.int32)
+        state = LlamaForCausalLM(cfg, device="cpu", seed=0).state_dict()
+        results = []
+        for dev in ("cpu", cuda):
+            model = LlamaForCausalLM(cfg, device=dev)
+            model.load_state_dict(state)
+            tr = Trainer(model, topt.AdamW(
+                learning_rate=1e-3, parameters=model.named_parameters()),
+                TrainStepConfig(compute_dtype=None))
+            before = dict(tbce.launches)
+            loss = tr.step({"input_ids": ids, "labels": ids})
+            if dev is cuda:
+                assert all(tbce.launches[k] > before[k] for k in before)
+            results.append((float(loss), {n: p.grad.cpu() for n, p in
+                                          model.named_parameters()}))
+        (cpu_loss, cpu_g), (gpu_loss, gpu_g) = results
+        assert abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+        for name, g in cpu_g.items():
+            err = float((gpu_g[name] - g).abs().max())
+            assert err <= 1e-4 * float(g.abs().max()), (tied, name, err)
+
+
+# -- the prefetcher --------------------------------------------------------
+
+@pytest.mark.cuda
+def test_prefetcher_hands_over_on_the_side_stream(cuda):
+    """A batch read right after next() equals its host copy: the
+    consumer's stream waits for the side stream's copy. 64 MB batches,
+    so a read that did not wait would see the copy unfinished."""
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.normal(size=(4096, 4096)).astype(np.float32),
+             "ids": rng.integers(0, 100, (8, 16)).astype(np.int32)}
+            for _ in range(3)]
+    # copies finished before the prefetcher starts
+    placed = [torch.from_numpy(h["x"]).to(cuda) for h in host]
+    torch.cuda.synchronize()
+    with DevicePrefetcher(iter(host), device=cuda, depth=2) as it:
+        for want, ref in zip(host, placed):
+            got = next(it)
+            assert got["x"].is_cuda and got["ids"].dtype == torch.int32
+            # a kernel on the current stream right after next()
+            assert torch.equal(got["x"], ref)
+            assert np.array_equal(got["ids"].cpu().numpy(), want["ids"])
+        with pytest.raises(StopIteration):
+            next(it)
