@@ -11,6 +11,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    on the card at the shapes the path gives it (bf16 and f32), timed
    beside the twin, one library call where there is one, and the least
    time the card could take (bytes / 3.35 TB/s, or operations / peak);
+   with them the int8 serving path's kernels: the int8 decode kernel at
+   the same shapes (bf16 and f32 q; SDPA over the gathered, dequantized
+   window as yardstick) and W8A16 at every distinct Llama-3-8B
+   projection shape at M = 8 and at the M of the engine's first batched
+   prefill call (torch.matmul over the dequantized bf16 weight, the
+   unquantized layer's cost, as yardstick), and in f32 at a small ragged
+   shape;
 4. the same for the training path's kernels: flash attention forward,
    dq and dk/dv at TinyLlama-1.1B's training shape (8, 2048, 32/4, 64)
    and at Llama-3-8B's head shape (1, 4096, 32/8, 128), bf16, and in f32
@@ -45,12 +52,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ids fed through `trainer.data_iter(itertools.repeat(data, 11),
    depth=3)`: a warm-up step, then 10 timed steps closed by
    float(loss). The losses must be finite and fall, and each kernel's
-   launches per step must equal the count from the code.
+   launches per step must equal the count from the code;
+10. int8 serving: Llama-3-8B (seed 0, bf16) converted by
+   `quantize_weight_only` on the card (every Linear, the lm_head
+   included, W8A16), behind PagedKVEngine(kv_dtype="int8") with phase
+   5's geometry, prompts and late joiner. Each of layer 0's seven
+   projections must stay within 2 % (mean |q - f| / mean |f|) of the
+   float layer on a prefill activation; tokens in vocabulary, pages
+   back with their scale rows zeroed, int8 decode launches = 32 x decode
+   steps, W8A16 launches = 225 x model calls, a second run the same
+   tokens, KV bytes per slot at most 0.51 x phase 5's. It reports the
+   top-1 agreement of the first tokens with phase 5's bf16 model.
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
 V 32000) in bf16 and at a small shape in f32, beside the dense path
 (torch.matmul logits and the port's dense cross_entropy) as yardstick.
+
+`--profile` also traces one prefill and two decode ticks of phases 5 and
+10 and one step of each training configuration.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero
@@ -359,6 +379,187 @@ def kernel_phases(dev, fn, pa):
           f"{dec['library_ms']:.4f} ms, bound {dec['bound_ms']:.5f} ms; "
           f"max |err| {err:.3g}")
     return {k["name"]: k for k in (dec, norm, rope)}
+
+
+# -- phase 3, int8 serving: the int8 decode kernel and W8A16 -------------------
+
+# Llama-3-8B's distinct projection shapes (K, N): the layers that use them
+W8A16_SHAPES = (("q_proj, o_proj", 4096, 4096, 2),
+                ("k_proj, v_proj", 4096, 1024, 2),
+                ("gate_proj, up_proj", 4096, 14336, 2),
+                ("down_proj", 14336, 4096, 1),
+                ("lm_head", 4096, 128256, 0))
+
+
+def _first_prefill_m(prompts, late, bucket):
+    """M (rows of x) of the engine's first batched prefill call when
+    `prompts` but `late` are submitted at once: same-bucket prompts go
+    together in admission order, padded to the group's longest
+    (PagedKVEngine._admit)."""
+    groups = {}
+    for i, p in enumerate(prompts):
+        if i != late:
+            groups.setdefault(bucket(p.size), []).append(p.size)
+    first = next(iter(groups.values()))
+    return len(first) * max(first)
+
+
+def int8_kernel_phases(dev, pa, qm, prefill_m):
+    """paged_decode_attention_int8 and weight_only_int8_matmul entries,
+    each held against its twin on the card and timed."""
+    g = torch.Generator(device=dev).manual_seed(20)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(*shape, generator=g, device=dev) * 0.02 + 1e-3
+
+    # int8 decode at the serving shapes of row 1 (kernel_phases)
+    b, hq, hk, hd, ps, npages, mp = 8, 32, 8, 128, 16, 641, 80
+    lens_l = [0, 15, 16, 1000, 1279, 517, 64, 300]
+    rng = np.random.default_rng(0)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, npages))[:b * mp]
+                          .reshape(b, mp).astype(np.int32)).to(dev)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+
+    def pool_set(dtype=torch.bfloat16):
+        return (randn(b, hq, hd, dtype=dtype), codes(npages, hk, ps, hd),
+                codes(npages, hk, ps, hd), scales(npages, hk),
+                scales(npages, hk))
+
+    def kern(q, kp, vp, ks, vs):
+        return pa.paged_decode_attention(q, kp, vp, bt, lens, k_scale=ks,
+                                         v_scale=vs)
+
+    def plain(q, kp, vp, ks, vs):
+        return pa.paged_decode_attention_ref(q, kp, vp, bt, lens,
+                                             k_scale=ks, v_scale=vs)
+
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        args = pool_set(dtype)
+        e = _check(f"paged_decode_int8 q {dtype}", kern(*args), plain(*args),
+                   F32_TOL)
+        if dtype == torch.bfloat16:
+            err = e
+    # 4 pool sets (21 MB each) so the timed reads miss the 50 MB L2
+    psets = [pool_set() for _ in range(4)]
+    L = mp * ps
+    visible = (torch.arange(L, device=dev)[None, :]
+               <= lens[:, None].long())[:, None, None, :]
+    dense = []
+    for q, kp, vp, ks, vs in psets:     # gathered and dequantized, untimed
+        kd = pa.gather_window(kp, ks, bt.long()).to(torch.bfloat16)
+        vd = pa.gather_window(vp, vs, bt.long()).to(torch.bfloat16)
+        dense.append((q[:, :, None, :], kd.contiguous(), vd.contiguous()))
+
+    def library(q4, kd, vd):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=visible, enable_gqa=True)
+
+    _check("sdpa yardstick int8", library(*dense[0])[:, :, 0].float(),
+           plain(*psets[0]), 2e-2)
+    vis = sum(x + 1 for x in lens_l)
+    pages = sum(x // ps + 1 for x in lens_l)
+    dec = dict(
+        name="paged_decode_attention_int8", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+        replaces="paddle_tpu/kernels/paged_attention.py:274",
+        max_abs_err=err, ms=_time_ms(kern, psets),
+        plain_ms=_time_ms(plain, psets, iters=20),
+        library_ms=_time_ms(library, dense),
+        shape=f"b={b} hq={hq} hk={hk} d={hd} page={ps} lens={lens_l} int8 "
+              "pools, bf16 q; library: SDPA over the gathered, dequantized "
+              "bf16 window")
+    nbytes = (vis * hk * hd * 2 + pages * hk * 2 * 4 + b * hq * hd * 2
+              + b * hq * hd * 4 + b * mp * 4 + b * 4)
+    dec["bound_ms"], dec["bound_by"] = _bound(
+        nbytes, 4 * vis * hq * hd, BF16_TENSOR_FLOPS)
+    print(f"[kernel] paged_decode_attention_int8 {dec['shape']}: "
+          f"{dec['ms']:.4f} ms, plain {dec['plain_ms']:.4f} ms, sdpa "
+          f"{dec['library_ms']:.4f} ms, bound {dec['bound_ms']:.5f} ms; "
+          f"max |err| {err:.3g}")
+    del psets, dense
+
+    # W8A16 at every distinct projection shape, at the decode step's M = 8
+    # and at the M of the engine's first batched prefill call
+    print(f"[kernel] W8A16 at M = 8 and M = {prefill_m} (the first prefill "
+          "call: its prompts x their longest length)")
+    per_shape, err, ratio = [], 0.0, 0.0
+    for what, K, N, per_layer in W8A16_SHAPES:
+        n_sets = max(1, min(40, -(-150 * 2 ** 20 // (K * N))))
+        weights = [(codes(K, N), scales(N)) for _ in range(n_sets)]
+        deq = [((qw.float() * s).to(torch.bfloat16),) for qw, s in
+               weights[:max(1, n_sets // 2)]]
+        for M in (8, prefill_m):
+            x = randn(M, K)
+            out = qm.weight_only_int8_matmul(x, *weights[0])
+            ref = qm.weight_only_int8_matmul_ref(x, *weights[0])
+            e, r = _check_rows(f"w8a16 {what} M={M}", out, ref, BF16_TOL)
+            err, ratio = max(err, e), max(ratio, r)
+            iters = 50 if M == 8 else 10
+            row = dict(layers=what, M=M, K=K, N=N, per_layer=per_layer,
+                       ms=_time_ms(lambda qw, s: qm.weight_only_int8_matmul(
+                           x, qw, s), weights, iters=iters),
+                       plain_ms=_time_eager_ms(
+                           lambda qw, s: qm.weight_only_int8_matmul_ref(
+                               x, qw, s), weights, iters=2),
+                       library_ms=_time_ms(lambda w: torch.matmul(x, w), deq,
+                                           iters=iters),
+                       splits=qm.plan(M, K, N,
+                                      qm._sm_count(torch.device(dev)))[1])
+            row["bound_ms"], row["bound_by"] = _bound(
+                M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * N * K,
+                BF16_TENSOR_FLOPS)
+            per_shape.append(row)
+            print(f"[kernel] w8a16 {what} (M {M}, K {K}, N {N}, "
+                  f"{row['splits']} splits): {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, bf16 matmul of the dequantized "
+                  f"weight {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.5f} ms ({row['bound_by']}); |err| / "
+                  f"bound {r:.3g}")
+            del x, out, ref
+        del weights, deq
+    # f32 x at a small ragged shape (a last k-tile of 8, a last column
+    # tile of 80), both output types
+    x, qw, s = randn(37, 200, dtype=torch.float32), codes(200, 208), \
+        scales(208)
+    for out_dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16,
+                                                       BF16_TOL)):
+        _check_rows(f"w8a16 f32 x -> {out_dtype} (37, 200, 208)",
+                    qm.weight_only_int8_matmul(x, qw, s, out_dtype),
+                    qm.weight_only_int8_matmul_ref(x, qw, s, out_dtype), tol)
+    # the entry: one decode step's W8A16 work (M = 8): 32 layers of seven
+    # projections and the lm_head once
+    dec8 = [r for r in per_shape if r["M"] == 8]
+
+    def step_sum(key):
+        return sum(r[key] * (32 * r["per_layer"] if r["per_layer"] else 1)
+                   for r in dec8)
+
+    mm = dict(
+        name="weight_only_int8_matmul", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
+        replaces="paddle_tpu/kernels/quant_matmul.py:85",
+        max_abs_err=err, ms=step_sum("ms"), plain_ms=step_sum("plain_ms"),
+        bound_ms=step_sum("bound_ms"), bound_by="bytes",
+        library_ms=step_sum("library_ms"),
+        shape="one decode step at M = 8: 32 x (q, k, v, o, gate, up, down) "
+              "+ lm_head, bf16 x; library: torch.matmul over the "
+              "dequantized bf16 weights (the unquantized layers' cost)",
+        rule_ratio=ratio, prefill_m=prefill_m, shapes=per_shape)
+    print(f"[kernel] weight_only_int8_matmul, {mm['shape']}: {mm['ms']:.4f} "
+          f"ms, plain {mm['plain_ms']:.4f} ms, bf16 matmul "
+          f"{mm['library_ms']:.4f} ms, bound {mm['bound_ms']:.4f} ms; "
+          f"|err| / bound at most {ratio:.3g} (bound 2^-7 (|ref| + row RMS "
+          "+ 2^-6 RMS))")
+    torch.cuda.empty_cache()
+    return {k["name"]: k for k in (dec, mm)}
 
 
 # -- phase 4: the training path's kernels ---------------------------------------
@@ -870,7 +1071,7 @@ def serving_phase(dev, counters, reset, card, profile=False):
         ticks=st["ticks"], decode_steps=steps,
         kv_bytes_per_slot=kv_slot, wall_s=wall,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        launches=launches)
+        launches=launches, tokens=toks)
     print(f"[serve] {card}: decode {metrics['decode_tokens_per_s']:.1f} "
           f"tok/s, prefill {metrics['prefill_tokens_per_s']:.1f} tok/s, "
           f"tick {metrics['tick_ms']:.2f} ms ({geom['steps_per_tick']} steps "
@@ -891,7 +1092,7 @@ def _device_us(evt):
             or getattr(evt, "self_cuda_time_total", 0))
 
 
-def profile_serving(model, prompts, max_new, geom, card):
+def profile_serving(model, prompts, max_new, geom, card, label=""):
     """Where the time goes (`--profile`): torch.profiler over the prefill
     of all prompts and over two decode ticks; device busy time is the sum
     of the kernels' device times (one stream, so they do not overlap),
@@ -921,7 +1122,7 @@ def profile_serving(model, prompts, max_new, geom, card):
             wall_s=wall, device_busy_s=busy,
             idle_share=max(0.0, 1 - busy / wall) if wall else None,
             top=[(e.key[:90], _device_us(e) / 1e3, e.count) for e in top])
-        print(f"[profile] {card} {phase}: wall {wall * 1e3:.1f} ms, device "
+        print(f"[profile] {card} {label}{phase}: wall {wall * 1e3:.1f} ms, device "
               f"busy {busy * 1e3:.1f} ms, idle share "
               f"{out[phase]['idle_share']:.3f}")
         for name, ms, n in out[phase]["top"]:
@@ -1320,6 +1521,150 @@ def _blockwise_parity(cfg, state, ids, dev):
             "worst_grad_rel": worst}
 
 
+# -- phase 10: Llama-3-8B int8 serving ------------------------------------------
+
+INT8_SERVING_KERNELS = ("paged_decode_attention_int8", "weight_only_int8_matmul",
+                        "rms_norm_residual", "rope_apply")
+# mean |quantized - float| / mean |float| of one projection on a prefill
+# activation (the pin of tests/test_quantization_int8.py:63-74)
+W8A16_REL_TOL = 0.02
+
+
+def int8_serving_phase(dev, counters, reset, card, bf16_serving,
+                       profile=False):
+    """Phase 10: Llama-3-8B (seed 0, bf16) converted by
+    `quantize_weight_only` on the card, served through
+    PagedKVEngine(kv_dtype="int8") with phase 5's geometry, prompts and
+    late joiner."""
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.nn import functional as fnl
+    from paddle_tpu_torch.quantization import quantize_weight_only
+    cfg = llama3_8b_config(fused_norm=True, fused_rope=True)
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    prompts = _prompts(8, cfg.vocab_size, seed=0)
+    # layer 0's float projections and a prefill activation of each width,
+    # kept for the per-projection check
+    layer = model.model.layers[0]
+    projs = {n: getattr(layer.self_attn, n) for n in
+             ("q_proj", "k_proj", "v_proj", "o_proj")}
+    projs.update({n: getattr(layer.mlp, n) for n in
+                  ("gate_proj", "up_proj", "down_proj")})
+    floats = {n: m.weight.detach().clone() for n, m in projs.items()}
+    ids = torch.from_numpy(prompts[0].astype(np.int64)).to(dev)
+    x = layer.input_layernorm(model.model.embed_tokens(ids))
+    h = fnl.swiglu(x @ floats["gate_proj"].t(), x @ floats["up_proj"].t())
+    del projs
+    t0 = time.perf_counter()
+    quantize_weight_only(model)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    convert_peak = torch.cuda.max_memory_allocated() / 1e9
+    layer = model.model.layers[0]
+    rel = {}
+    for name, w in floats.items():
+        mod = getattr(layer.mlp if name in ("gate_proj", "up_proj",
+                                            "down_proj") else
+                      layer.self_attn, name)
+        xin = h if name == "down_proj" else x
+        ref = torch.nn.functional.linear(xin.float(), w.float())
+        got = mod(xin).float()
+        rel[name] = float((got - ref).abs().mean() / ref.abs().mean())
+    del floats, x, h
+    print(f"[int8] Llama-3-8B converted to W8A16 on the card in {convert_s:.1f}"
+          f" s (peak {convert_peak:.2f} GB); layer 0 mean |q - f| / mean |f| "
+          f"on a prefill activation: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rel.items()))
+    if not max(rel.values()) < W8A16_REL_TOL:
+        raise AssertionError(f"int8: a projection is off by more than "
+                             f"{W8A16_REL_TOL}: {rel}")
+    weight_gb = sum(t.numel() * t.element_size() for t in
+                    itertools.chain(model.parameters(), model.buffers())) / 1e9
+    geom = dict(max_slots=8, page_size=16, num_pages=641,
+                max_pages_per_slot=80, steps_per_tick=4, kv_dtype="int8")
+    max_new = 64
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    eng, toks = _serve(model, prompts, max_new, late=7, **geom)
+    wall = time.perf_counter() - t0
+    all_counts = counters()
+    launches = {k: all_counts[k] for k in INT8_SERVING_KERNELS}
+    for i, t in enumerate(toks):
+        if len(t) != max_new or not all(0 <= v < cfg.vocab_size for v in t):
+            raise AssertionError(f"int8 request {i}: {len(t)} tokens, want "
+                                 f"{max_new} in-vocab")
+    if sorted(eng._free) != list(range(1, eng.num_pages)) \
+            or eng._reserved_unalloc != 0:
+        raise AssertionError(f"int8: pages not returned: free "
+                             f"{len(eng._free)}, reserved "
+                             f"{eng._reserved_unalloc}")
+    # every page but the sink went back with its scale rows zeroed (page
+    # 0 is never written)
+    left = float(eng._scales[:, :, :-1].abs().sum())
+    if left != 0.0:
+        raise AssertionError(f"int8: freed pages kept scales (sum {left})")
+    steps = eng.stats["ticks"] * eng.steps_per_tick
+    calls = eng.stats["prefill_calls"] + steps
+    per_call = 7 * cfg.num_hidden_layers + 1
+    if launches["paged_decode_attention_int8"] != cfg.num_hidden_layers * steps:
+        raise AssertionError(f"int8 decode launches {launches} != 32 x "
+                             f"{steps}")
+    if launches["weight_only_int8_matmul"] != per_call * calls:
+        raise AssertionError(f"W8A16 launches {launches} != {per_call} x "
+                             f"{calls} model calls")
+    if all_counts["paged_decode_attention"] != 0:
+        raise AssertionError("int8 serving launched the float decode kernel")
+    kv_slot = eng.kv_bytes_per_slot()
+    kv_ratio = kv_slot / bf16_serving["kv_bytes_per_slot"]
+    if not kv_ratio <= 0.51:
+        raise AssertionError(f"int8 KV bytes per slot {kv_slot} = "
+                             f"{kv_ratio:.4f} x bf16's, want <= 0.51")
+    st = dict(eng.stats)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del eng
+    eng2, toks2 = _serve(model, prompts, max_new, late=7, **geom)
+    if toks2 != toks:
+        raise AssertionError("int8: a second identical run gave other tokens")
+    st2 = dict(eng2.stats)
+    del eng2
+    # top-1 agreement with phase 5's bf16 model (same seed, same prompts):
+    # its prefill token and its first decode step's token, per request
+    ref = bf16_serving["tokens"]
+    agree = {f"token_{j}": sum(a[j] == b[j] for a, b in zip(toks, ref))
+             / len(ref) for j in (0, 1)}
+    metrics = dict(
+        card=card, decode_tokens_per_s=st["decode_tokens"] / st["tick_s"],
+        prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_s"],
+        tick_ms=st["tick_s"] / st["ticks"] * 1e3,
+        repeat_decode_tokens_per_s=st2["decode_tokens"] / st2["tick_s"],
+        repeat_prefill_tokens_per_s=(st2["prefill_tokens"]
+                                     / st2["prefill_s"]),
+        ticks=st["ticks"], decode_steps=steps,
+        prefill_calls=st["prefill_calls"], kv_bytes_per_slot=kv_slot,
+        kv_ratio_to_bf16=kv_ratio, weight_gb=weight_gb, wall_s=wall,
+        peak_mem_gb=peak, convert_s=convert_s, convert_peak_gb=convert_peak,
+        projection_rel_err=rel, top1_agreement_with_bf16=agree,
+        launches=launches, tokens=toks)
+    print(f"[int8] {card}: decode {metrics['decode_tokens_per_s']:.1f} tok/s,"
+          f" prefill {metrics['prefill_tokens_per_s']:.1f} tok/s, tick "
+          f"{metrics['tick_ms']:.2f} ms ({geom['steps_per_tick']} steps of 8 "
+          f"slots), KV {kv_slot} B/slot ({kv_ratio:.4f} x bf16), weights "
+          f"{weight_gb:.2f} GB, peak {peak:.2f} GB, wall {wall:.2f} s, "
+          f"launches {launches} ({per_call} W8A16 x {calls} model calls); "
+          f"second run identical, decode "
+          f"{metrics['repeat_decode_tokens_per_s']:.1f} tok/s, prefill "
+          f"{metrics['repeat_prefill_tokens_per_s']:.1f} tok/s; top-1 "
+          f"agreement with phase 5's bf16 tokens {agree}")
+    if profile:
+        metrics["profile"] = profile_serving(model, prompts, max_new, geom,
+                                             card, label="int8 ")
+    del model
+    torch.cuda.empty_cache()
+    return metrics
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -1335,6 +1680,8 @@ def main(argv=None):
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_norm as fn
     from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.inference.paged import PagedKVEngine
     from paddle_tpu_torch.nn import functional as fnl
 
     card = _card()
@@ -1353,6 +1700,9 @@ def main(argv=None):
 
     t_start = time.perf_counter()
     kernels = kernel_phases(dev, fn, pa)
+    first_m = _first_prefill_m(_prompts(8, 128256, seed=0), 7,
+                               PagedKVEngine._bucket)
+    kernels.update(int8_kernel_phases(dev, pa, qm, first_m))
     kernels.update(flash_phases(dev, fa))
     bwd_entries, fwd_train = norm_rope_bwd_phases(dev, fn)
     kernels.update(bwd_entries)
@@ -1361,12 +1711,14 @@ def main(argv=None):
     kernels.update(ce_phases(dev, bce, fnl))
 
     def reset():
-        for d in (fn.launches, pa.launches, fa.launches, bce.launches):
+        for d in (fn.launches, pa.launches, fa.launches, bce.launches,
+                  qm.launches):
             for k in d:
                 d[k] = 0
 
     def counters():
-        return {**pa.launches, **fn.launches, **fa.launches, **bce.launches}
+        return {**pa.launches, **fn.launches, **fa.launches, **bce.launches,
+                **qm.launches}
 
     serving = serving_phase(dev, counters, reset, card, args.profile)
     parity = parity_phase(dev)
@@ -1374,10 +1726,13 @@ def main(argv=None):
     train_parity = training_parity_phase(dev)
     bench_training = bench_training_phase(dev, counters, reset, card,
                                           args.profile)
+    serving_int8 = int8_serving_phase(dev, counters, reset, card, serving,
+                                      args.profile)
     for name, e in kernels.items():
         by_path = {"serving": serving["launches"].get(name, 0),
                    "training": training["launches"].get(name, 0),
-                   "training_bench": bench_training["launches"].get(name, 0)}
+                   "training_bench": bench_training["launches"].get(name, 0),
+                   "serving_int8": serving_int8["launches"].get(name, 0)}
         if sum(by_path.values()) <= 0:
             raise AssertionError(f"{name} was launched on no main path")
         e["launches"] = sum(by_path.values())
@@ -1397,6 +1752,7 @@ def main(argv=None):
                        "serving": serving, "parity": parity,
                        "training": training, "train_parity": train_parity,
                        "training_bench": bench_training,
+                       "serving_int8": serving_int8,
                        "torch": torch.__version__}, f, indent=1)
     print(json.dumps(line))
     print(card)

@@ -22,11 +22,16 @@ Counterpart of the core of paddle_tpu/inference/paged.py:
   (the CUDA kernel on the card, its plain twin on the CPU).
 - The pools are updated in place (`index_put_`), where the JAX engine
   returns new pools from a functional update and donates the old ones.
+- `kv_dtype="int8"`: int8 pools with per-page-per-head f32 scales,
+  quantized at scatter time as the JAX engine does (scales only grow;
+  a touched page's earlier codes are rescaled to the new scale) and
+  dequantized inside the attend; a page's scales are zeroed when it
+  returns to the free list.
 
 Not in this slice (ROADMAP.md lists them): prefix cache, host tier,
 disaggregated roles, tenancy, deadlines and overload shedding,
-speculative decode, chunked prefill, int8 KV, observability and the
-background ticker (`start` / `stream`).
+speculative decode, chunked prefill, observability and the background
+ticker (`start` / `stream`).
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import torch
 
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.kernels.paged_attention import (check_decode_shapes,
+                                                      gather_window,
                                                       paged_decode_attention)
 
 __all__ = ["PagedState", "paged_attention_update", "PagedKVEngine"]
@@ -61,7 +67,8 @@ class PagedState(NamedTuple):
     n_valid: torch.Tensor
 
 
-def _scatter_kv(kp, vp, k, v, state: PagedState):
+def _scatter_kv(kp, vp, k, v, state: PagedState, k_scale=None,
+                v_scale=None):
     """Write this call's (b, s, hk, d) k/v into their pages, in place.
 
     Each pool holds one page more than block tables address: its last
@@ -70,6 +77,13 @@ def _scatter_kv(kp, vp, k, v, state: PagedState):
     them (`mode="drop"` past the pool) by one unconditional index_put_,
     with no host sync. They never reach page 0, which a caller's block
     table may legitimately hold.
+
+    int8 pools (k_scale / v_scale (num_pages + 1, hk) f32 given) quantize
+    here, as the JAX engine's `_scatter_kv` does, in the same expression
+    order so the codes agree bit for bit: the touched pages' scales grow
+    by a scatter-max of max|token| / 127, their earlier codes are
+    rescaled by old / new scale in one gather -> round -> clip -> scatter
+    pass, and the new tokens quantize with the final scale.
     """
     bt, lens, n_valid = state
     b, s, hk, d = k.shape
@@ -81,14 +95,63 @@ def _scatter_kv(kp, vp, k, v, state: PagedState):
     phys = torch.where(steps[None, :] < n_valid[:, None], phys, sink)
     phys = phys.reshape(-1).long()
     off = (pos % page_size).reshape(-1).long()
-    kp[phys, :, off] = k.reshape(b * s, hk, d).to(kp.dtype)
-    vp[phys, :, off] = v.reshape(b * s, hk, d).to(vp.dtype)
+    if k_scale is None:
+        kp[phys, :, off] = k.reshape(b * s, hk, d).to(kp.dtype)
+        vp[phys, :, off] = v.reshape(b * s, hk, d).to(vp.dtype)
+        return
+    pools, planes = _pair(kp, vp), _pair(k_scale, v_scale)
+    if pools is not None and planes is not None:
+        # one pass for both pools: half the launches of a host-bound tick
+        _quant_scatter(pools, planes, torch.stack([k, v]).reshape(
+            2, b * s, hk, d), phys, off)
+        return
+    for pool, plane, toks in ((kp, k_scale, k), (vp, v_scale, v)):
+        _quant_scatter(pool[None], plane[None],
+                       toks.reshape(1, b * s, hk, d), phys, off)
 
 
-def _attend_pages(q, kp, vp, state: PagedState):
-    """Plain attend over each slot's paged window: gather in f32, mask
-    with -1e9, softmax, GQA by reshape (the window is never repeated per
-    query head). q: (b, s, hq, d). Returns (b, s, hq*d) in q's type.
+def _pair(a, b):
+    """a and b as one (2, ...) view when b directly follows a in one
+    buffer (the engine allocates each layer's k and v pools, and their
+    scale planes, that way); else None."""
+    if (a.shape == b.shape and a.dtype == b.dtype and a.is_contiguous()
+            and b.is_contiguous()
+            and a.untyped_storage().data_ptr()
+            == b.untyped_storage().data_ptr()
+            and b.storage_offset() == a.storage_offset() + a.numel()):
+        return a.as_strided((2,) + tuple(a.shape), (a.numel(),) + a.stride(),
+                            a.storage_offset())
+    return None
+
+
+def _quant_scatter(pools, planes, toks, phys, off):
+    """G int8 pools (G, P, hk, ps, d) and their scale planes (G, P, hk),
+    in place (`_scatter_kv`): toks (G, n, hk, d) go to rows (phys, :,
+    off) of each. Rows of one page all compute the same rescaled page,
+    so repeated indices write equal values."""
+    g, n, hk = toks.shape[:3]
+    toks = toks.float()
+    cand = toks.abs().amax(dim=-1) / 127.0                   # (G, n, hk)
+    old_g = planes[:, phys]
+    planes.scatter_reduce_(1, phys[None, :, None].expand(g, n, hk), cand,
+                           "amax")
+    new_g = planes[:, phys]
+    den = new_g.clamp_min(1e-30)
+    ratio = torch.where(new_g > 0, old_g / den, 0.0)
+    # int8 codes times the f32 ratio compute in f32, as .float() * ratio
+    pages = (pools[:, phys] * ratio[..., None, None]).round()
+    pools[:, phys] = pages.clamp(-127, 127).to(torch.int8)
+    qtok = (toks / den[..., None]).round().clamp(-127, 127)
+    sel = torch.arange(g, device=toks.device)[:, None]
+    pools[sel, phys[None], :, off[None]] = qtok.to(torch.int8)
+
+
+def _attend_pages(q, kp, vp, state: PagedState, k_scale=None,
+                  v_scale=None):
+    """Plain attend over each slot's paged window: gather in f32
+    (dequantized for int8 pools), mask with -1e9, softmax, GQA by reshape
+    (the window is never repeated per query head). q: (b, s, hq, d).
+    Returns (b, s, hq*d) in q's type.
 
     The (b, hk, g, s, L) f32 scores live only for this layer's call."""
     bt, lens = state.block_tables.long(), state.lens.long()
@@ -97,8 +160,8 @@ def _attend_pages(q, kp, vp, state: PagedState):
     g = hq // hk
     pos = lens[:, None] + torch.arange(s, device=q.device)[None, :]
     # window column c IS logical position c, so the causal bound is c <= pos
-    ks = kp[bt].permute(0, 2, 1, 3, 4).reshape(b, hk, -1, d).float()
-    vs = vp[bt].permute(0, 2, 1, 3, 4).reshape(b, hk, -1, d).float()
+    ks = gather_window(kp, k_scale, bt)
+    vs = gather_window(vp, v_scale, bt)
     L = ks.shape[2]
     qg = q.transpose(1, 2).float().reshape(b, hk, g, s, d)
     scores = torch.einsum("bhgsd,bhcd->bhgsc", qg, ks) / math.sqrt(d)
@@ -117,23 +180,31 @@ def paged_attention_update(q, k, v, cache, state: PagedState):
     s = 1 (the decode kernel).
 
     q: (b, s, hq, d), k/v: (b, s, hk, d), already position-encoded.
-    cache: (k_pool, v_pool), each (num_pages + 1, hk, page_size, d),
-    updated in place; the last page is the sink for dropped writes and no
-    block table may name it. Returns (b, s, hq*d) in q's type.
+    cache: (k_pool, v_pool), each (num_pages + 1, hk, page_size, d), or
+    for int8 KV (k_pool, v_pool, k_scale, v_scale) with int8 pools and
+    (num_pages + 1, hk) f32 scale planes; updated in place. The last page
+    is the sink for dropped writes and no block table may name it.
+    Returns (b, s, hq*d) in q's type.
     """
-    if len(cache) != 2:
-        raise ValueError("cache must be a (k_pool, v_pool) pair; int8 KV "
-                         "(scale planes) is not ported yet")
-    kp, vp = cache
+    if len(cache) not in (2, 4):
+        raise ValueError("cache must be (k_pool, v_pool) or, for int8 KV, "
+                         "(k_pool, v_pool, k_scale, v_scale)")
+    kp, vp = cache[0], cache[1]
+    k_scale, v_scale = cache[2:] if len(cache) == 4 else (None, None)
+    if kp.dtype == torch.int8 and k_scale is None:
+        raise ValueError(
+            "int8 k/v pools need a 4-tuple cache (k_pool, v_pool, k_scale, "
+            "v_scale); got a 2-tuple (see PagedKVEngine(kv_dtype='int8'))")
     b, s, hq, d = q.shape
-    _scatter_kv(kp, vp, k, v, state)
+    _scatter_kv(kp, vp, k, v, state, k_scale, v_scale)
     if s == 1:
         # the query position is lens (this token's k/v just landed
         # there); the kernel attends cols <= lens and skips later pages
         out = paged_decode_attention(q[:, 0], kp, vp, state.block_tables,
-                                     state.lens)
+                                     state.lens, k_scale=k_scale,
+                                     v_scale=v_scale)
         return out.to(q.dtype).reshape(b, 1, hq * d)
-    return _attend_pages(q, kp, vp, state)
+    return _attend_pages(q, kp, vp, state, k_scale, v_scale)
 
 
 def _np_process_logits(logits, temperature, top_k, top_p):
@@ -236,7 +307,9 @@ class PagedKVEngine:
     steps_per_tick: decode steps per tick (admission granularity, and
         one host sync per tick).
     kv_dtype: None keeps the model's parameter type for the pools;
-        "bf16" stores bf16 pools.
+        "bf16" stores bf16 pools; "int8" stores int8 pools with f32
+        (num_pages + 1, kv_heads) scale planes per layer, about half the
+        KV bytes of bf16 (`kv_bytes_per_slot`).
     device: where the engine runs (default the CUDA card; "cpu" must be
         asked for) — the model must live there.
     """
@@ -260,19 +333,33 @@ class PagedKVEngine:
             max_pages_per_slot
             or min(num_pages - 1, max(1, (num_pages - 1) // max_slots)))
         self.steps_per_tick = int(steps_per_tick)
-        if kv_dtype not in (None, "bf16"):
-            raise ValueError(f"kv_dtype must be None or 'bf16' (got "
-                             f"{kv_dtype!r}; int8 KV is not ported yet)")
+        if kv_dtype not in (None, "bf16", "int8"):
+            raise ValueError(f"kv_dtype must be None, 'bf16' or 'int8' "
+                             f"(got {kv_dtype!r})")
         self.kv_dtype = kv_dtype
-        pool_dtype = torch.bfloat16 if kv_dtype == "bf16" else model.dtype
+        pool_dtype = {None: model.dtype, "bf16": torch.bfloat16,
+                      "int8": torch.int8}[kv_dtype]
         n_kv, hd = cfg.num_key_value_heads, cfg.head_dim
+        n_layers = cfg.num_hidden_layers
         if mdev.type == "cuda":      # the CPU twin takes any geometry
             check_decode_shapes(cfg.num_attention_heads, n_kv, hd,
-                                self.page_size)
+                                self.page_size, pool_dtype)
         shape = (self.num_pages + 1, n_kv, self.page_size, hd)   # + sink
-        self.pools = [(torch.zeros(shape, dtype=pool_dtype, device=mdev),
-                       torch.zeros(shape, dtype=pool_dtype, device=mdev))
-                      for _ in range(cfg.num_hidden_layers)]
+        # a layer's k and v pools are the two halves of one buffer: int8
+        # KV quantizes both in one pass (_scatter_kv)
+        pools = [tuple(torch.zeros((2,) + shape, dtype=pool_dtype,
+                                   device=mdev))
+                 for _ in range(n_layers)]
+        # int8: every layer's k and v scale planes are views of one
+        # tensor, so freed pages' scales reset in one launch (_retire)
+        self._scales = None
+        if kv_dtype == "int8":
+            self._scales = torch.zeros((n_layers, 2, self.num_pages + 1,
+                                        n_kv), dtype=torch.float32,
+                                       device=mdev)
+            pools = [(kp, vp, self._scales[i, 0], self._scales[i, 1])
+                     for i, (kp, vp) in enumerate(pools)]
+        self.pools = pools
         self._free = list(range(self.num_pages - 1, 0, -1))   # 0 = trash
         # pages promised to admitted slots but not yet popped from the
         # free list; admission headroom = len(_free) - _reserved_unalloc
@@ -284,14 +371,16 @@ class PagedKVEngine:
         self._seed = int(seed)
         self._submitted = 0
         self._gen = torch.Generator(device=mdev).manual_seed(self._seed)
-        self.stats = {"ticks": 0, "prefills": 0, "tokens_out": 0,
+        self.stats = {"ticks": 0, "prefills": 0, "prefill_calls": 0,
+                      "tokens_out": 0,
                       "admitted": 0, "finished": 0, "prefill_s": 0.0,
                       "tick_s": 0.0, "prefill_tokens": 0,
                       "decode_tokens": 0}
 
     def kv_bytes_per_slot(self):
         """Device bytes one fully grown slot pins across every layer's KV
-        pools, from the real buffer types."""
+        pools (and, for int8 KV, their scale rows), from the real buffer
+        types."""
         per_page = sum(t[0].numel() * t.element_size()
                        for grp in self.pools for t in grp)
         return per_page * self.max_pages_per_slot
@@ -327,7 +416,8 @@ class PagedKVEngine:
         return bool(self._pending) or any(s is not None for s in self._slots)
 
     # -- scheduling core -------------------------------------------------
-    def _bucket(self, n):
+    @staticmethod
+    def _bucket(n):
         return max(8, 1 << (n - 1).bit_length())
 
     def _alloc_pages(self, slot_idx, need_total):
@@ -412,6 +502,7 @@ class PagedKVEngine:
         last = h[torch.arange(bw, device=dev), nv_t.long() - 1]
         logits_np = self.model.logits(last).float().cpu().numpy()
         self.stats["prefills"] += bw
+        self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += int(nv.sum())
         self.stats["prefill_s"] += time.perf_counter() - t0
         for row, (idx, req) in enumerate(grp):
@@ -442,6 +533,13 @@ class PagedKVEngine:
 
     def _retire(self, slot_idx):
         slot = self._slots[slot_idx]
+        if self._scales is not None and slot.pages:
+            # scales only grow at scatter time: a recycled page keeping
+            # its old scale would quantize its next request's k/v on the
+            # largest magnitude any earlier request wrote (JAX
+            # `_recycle_pages`)
+            idx = torch.tensor(slot.pages, device=self.device)
+            self._scales[:, :, idx] = 0.0
         self._free.extend(reversed(slot.pages))
         # release the unallocated remainder of this slot's reservation
         self._reserved_unalloc -= slot.req.pages_needed - len(slot.pages)

@@ -39,8 +39,7 @@ _L = ctypes.c_longlong
 _FLASH_TAIL = [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P]
 # C signatures of the entry points in csrc/ (all return a cudaError_t)
 _SIGNATURES = {
-    "ptt_paged_decode_attention":
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "ptt_paged_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
     "ptt_rms_norm_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "ptt_rms_norm_bwd": [_P] * 7 + [_I, _I, _I, _I, _P],
     "ptt_rope_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -52,6 +51,7 @@ _SIGNATURES = {
     "ptt_ce_dlogits": [_P] * 6 + [_I] * 7 + [_P],
     "ptt_ce_dx": [_P] * 4 + [_I] * 9 + [_P],
     "ptt_ce_dw": [_P] * 3 + [_I] * 7 + [_P],
+    "ptt_w8a16_matmul": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

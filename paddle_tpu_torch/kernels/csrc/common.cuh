@@ -5,9 +5,10 @@
 // blockwise_ce.cu both use.
 //
 // Element types are passed across the C interface as a code:
-// 0 = float32, 1 = bfloat16 (kDtypeF32 / kDtypeBF16). Every kernel
-// loads its inputs into f32 registers, computes in f32, and rounds once
-// when it stores a result in the input's type.
+// 0 = float32, 1 = bfloat16, 2 = int8 (kDtypeF32 / kDtypeBF16 /
+// kDtypeI8; int8 only for quantized operands: KV pools, weights). Every
+// kernel loads its inputs into f32 registers, computes in f32, and
+// rounds once when it stores a result in the input's type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,6 +20,7 @@ namespace ptt {
 
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
+constexpr int kDtypeI8 = 2;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -84,6 +86,34 @@ __device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float* out) {
       out[2 * i + 1] = f.y;
     } else {
       out[i] = __bfloat162float(p[i]);
+    }
+  }
+}
+
+// int8 codes: N consecutive values as f32 (exact), with the widest
+// vector loads N allows (up to 16 bytes); p aligned to those loads.
+template <int N>
+__device__ __forceinline__ void load_f32(const int8_t* p, float* out) {
+  constexpr int kVec = N % 16 == 0 ? 16 : (N % 8 == 0 ? 8 : (N % 4 == 0 ? 4 : 1));
+#pragma unroll
+  for (int i = 0; i < N / kVec; ++i) {
+    if constexpr (kVec == 16) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+      for (int k = 0; k < 16; ++k) out[16 * i + k] = static_cast<float>(b[k]);
+    } else if constexpr (kVec == 8) {
+      const uint2 v = reinterpret_cast<const uint2*>(p)[i];
+      const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) out[8 * i + k] = static_cast<float>(b[k]);
+    } else if constexpr (kVec == 4) {
+      const uint32_t v = reinterpret_cast<const uint32_t*>(p)[i];
+      const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) out[4 * i + k] = static_cast<float>(b[k]);
+    } else {
+      out[i] = static_cast<float>(p[i]);
     }
   }
 }

@@ -1,8 +1,9 @@
 // Paged-attention decode for one query row per slot.
 //
-// Replaces: paddle_tpu/kernels/paged_attention.py:_decode_kernel_noquant
-// (the unquantized branch of _decode_kernel, reached through
-// paged_decode_attention).
+// Replaces: paddle_tpu/kernels/paged_attention.py:_decode_kernel, both
+// branches (the pallas_call at :274): _decode_kernel_noquant over bf16 or
+// f32 pools, and quantized=True over int8 pools with per-page-per-head
+// f32 scales (the TKV = int8_t instances below).
 //
 // Bound on this card: the bytes of K and V it must read. A decode step
 // reads every visible KV row of every slot once and does 4*d flops per
@@ -36,9 +37,22 @@
 // where each lane owns d/32 adjacent columns, so a warp reads each V row
 // as one contiguous run.
 //
+// int8 pools (KV quantized at scatter time, inference/paged.py): the
+// codes are read as 16-byte vectors of 16 values and converted to f32 in
+// registers, and the block reads each page's two scales,
+// k_scale[phys, kvh] and v_scale[phys, kvh], straight from the
+// (num_pages, hk) planes through its own block-table row (the TPU kernel
+// gathers per-slot scales into SMEM outside the kernel, because its
+// scalar memory is small; a block here has no such limit). As in the TPU
+// kernel, the score scale multiplies each row's q.k dot and the value
+// scale multiplies the chunk's p.v sum before it joins the accumulator;
+// p stays f32. The dequantized window never exists: the bytes read are
+// half those of bf16 pools, plus 8 bytes of scales per page and head.
+//
 // Right and simple first: no split of a slot over several blocks, no TMA,
 // no tensor cores.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -55,12 +69,17 @@ constexpr unsigned kFull = 0xffffffffu;
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
-    const TKV* __restrict__ v_pool, const int32_t* __restrict__ block_tables,
+    const TKV* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale,
+    const int32_t* __restrict__ block_tables,
     const int32_t* __restrict__ lens, float* __restrict__ out, int hq, int hk,
     int page_size, int max_pages, float scale_log2) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   constexpr int kHalf = D / 2;   // head dims per lane in the score pass
   constexpr int kCols = D / 32;  // adjacent head dims per lane, value pass
-  constexpr int kVec = 8;        // K elements per load in the score pass
+  // K elements per load in the score pass: one 16-byte vector of int8 or
+  // bf16 codes, two of f32 (kHalf is a whole number of them at d >= 64)
+  constexpr int kVec = kQuant ? 16 : 8;
   extern __shared__ __align__(16) float smem[];
   const int g = hq / hk;
   float* q_s = smem;              // (g, D) query rows, pre-scaled
@@ -99,6 +118,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int64_t head_off = static_cast<int64_t>(kvh) * page_size * D;
   for (int j = warp; j <= last; j += kWarps) {
     const int64_t base = static_cast<int64_t>(bt[j]) * page_stride + head_off;
+    float ks = 1.f, vs = 1.f;  // this page's scales (int8 pools)
+    if constexpr (kQuant) {
+      ks = k_scale[static_cast<int64_t>(bt[j]) * hk + kvh];
+      vs = v_scale[static_cast<int64_t>(bt[j]) * hk + kvh];
+    }
     for (int t0 = 0; t0 < page_size; t0 += kChunk) {
       // rows t0 .. t0 + n_vis - 1 of this page are visible (n_vis >= 1)
       const int n_vis = min(min(kChunk, page_size - t0),
@@ -137,6 +161,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
         p[gi] = 0.f;
         if (gi < g) {
           s[gi] += __shfl_xor_sync(kFull, s[gi], kChunk);
+          if constexpr (kQuant) s[gi] *= ks;  // after the dot, as the TPU
           float mx = vis ? s[gi] : kNegInf;
 #pragma unroll
           for (int o = kChunk / 2; o > 0; o >>= 1)
@@ -155,7 +180,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
         }
       }
 
-      // acc += p @ V over the visible rows
+      // acc += p @ V over the visible rows; int8: acc += (p @ codes) * vs
+      float pv[kQuant ? kMaxG : 1][kCols];
+      if constexpr (kQuant) {
+#pragma unroll
+        for (int gi = 0; gi < kMaxG; ++gi)
+#pragma unroll
+          for (int cc = 0; cc < kCols; ++cc) pv[gi][cc] = 0.f;
+      }
       for (int t = 0; t < n_vis; ++t) {
         const TKV* vr = v_pool + base + static_cast<int64_t>(t0 + t) * D;
         float pt[kMaxG];
@@ -167,9 +199,22 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
         for (int cc = 0; cc < kCols; ++cc) {
 #pragma unroll
-          for (int gi = 0; gi < kMaxG; ++gi)
-            if (gi < g) acc[gi][cc] += pt[gi] * v[cc];
+          for (int gi = 0; gi < kMaxG; ++gi) {
+            if (gi < g) {
+              if constexpr (kQuant)
+                pv[gi][cc] += pt[gi] * v[cc];
+              else
+                acc[gi][cc] += pt[gi] * v[cc];
+            }
+          }
         }
+      }
+      if constexpr (kQuant) {
+#pragma unroll
+        for (int gi = 0; gi < kMaxG; ++gi)
+#pragma unroll
+          for (int cc = 0; cc < kCols; ++cc)
+            if (gi < g) acc[gi][cc] += pv[gi][cc] * vs;
       }
     }
   }
@@ -220,37 +265,43 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
+struct Launch {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const float* k_scale;  // int8 pools only
+  const float* v_scale;
+  const int32_t* block_tables;
+  const int32_t* lens;
+  float* out;
+  int b, hq, hk, page_size, max_pages;
+  float scale_log2;
+  cudaStream_t stream;
+};
+
 template <typename TQ, typename TKV, int D>
-void launch_d(const void* q, const void* k_pool, const void* v_pool,
-              const int32_t* block_tables, const int32_t* lens, float* out,
-              int b, int hq, int hk, int page_size, int max_pages,
-              float scale_log2, cudaStream_t stream) {
-  const int g = hq / hk;
+void launch_d(const Launch& a) {
+  const int g = a.hq / a.hk;
   const size_t smem = sizeof(float) * (2 * g * D + 2 * kWarps * g);
-  paged_decode_kernel<TQ, TKV, D><<<dim3(b, hk), kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
-      static_cast<const TKV*>(v_pool), block_tables, lens, out, hq, hk,
-      page_size, max_pages, scale_log2);
+  paged_decode_kernel<TQ, TKV, D>
+      <<<dim3(a.b, a.hk), kThreads, smem, a.stream>>>(
+          static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k_pool),
+          static_cast<const TKV*>(a.v_pool), a.k_scale, a.v_scale,
+          a.block_tables, a.lens, a.out, a.hq, a.hk, a.page_size,
+          a.max_pages, a.scale_log2);
 }
 
 template <typename TQ, typename TKV>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const int32_t* block_tables, const int32_t* lens,
-                   float* out, int b, int hq, int hk, int d, int page_size,
-                   int max_pages, float sm_scale, cudaStream_t stream) {
-  const float scale_log2 = sm_scale * kLog2e;
+cudaError_t launch(const Launch& a, int d) {
   switch (d) {
     case 64:
-      launch_d<TQ, TKV, 64>(q, k_pool, v_pool, block_tables, lens, out, b,
-                            hq, hk, page_size, max_pages, scale_log2, stream);
+      launch_d<TQ, TKV, 64>(a);
       break;
     case 128:
-      launch_d<TQ, TKV, 128>(q, k_pool, v_pool, block_tables, lens, out, b,
-                             hq, hk, page_size, max_pages, scale_log2, stream);
+      launch_d<TQ, TKV, 128>(a);
       break;
     case 256:
-      launch_d<TQ, TKV, 256>(q, k_pool, v_pool, block_tables, lens, out, b,
-                             hq, hk, page_size, max_pages, scale_log2, stream);
+      launch_d<TQ, TKV, 256>(a);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -262,31 +313,40 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 
 // Shape limits (checked again by the Python wrapper): hq % hk == 0,
 // hq / hk <= 8, head_dim d in {64, 128, 256}, page_size >= 1. Types
-// (q, pools): (f32, f32), (bf16, bf16), or (f32, bf16) for an f32 model
-// over bf16 pools. Returns a cudaError_t code (0 = launched).
+// (q, pools): (f32, f32), (bf16, bf16), (f32, bf16) for an f32 model
+// over bf16 pools, and (f32 or bf16, int8) with k_scale / v_scale f32
+// (num_pages, hk) planes (null for float pools). Returns a cudaError_t
+// code (0 = launched).
 extern "C" int ptt_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* block_tables, const void* lens, void* out, int b, int hq,
-    int hk, int d, int page_size, int max_pages, float sm_scale, int q_dtype,
-    int kv_dtype, void* stream) {
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* lens, void* out, int b, int hq, int hk, int d, int page_size,
+    int max_pages, float sm_scale, int q_dtype, int kv_dtype, void* stream) {
   if (hk <= 0 || hq % hk != 0 || hq / hk > kMaxG || page_size <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool quant = kv_dtype == ptt::kDtypeI8;
+  if (quant != (k_scale != nullptr && v_scale != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
-  auto bt = static_cast<const int32_t*>(block_tables);
-  auto ln = static_cast<const int32_t*>(lens);
-  auto o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
+  const Launch a{q, k_pool, v_pool,
+                 static_cast<const float*>(k_scale),
+                 static_cast<const float*>(v_scale),
+                 static_cast<const int32_t*>(block_tables),
+                 static_cast<const int32_t*>(lens), static_cast<float*>(out),
+                 b, hq, hk, page_size, max_pages, sm_scale * kLog2e,
+                 static_cast<cudaStream_t>(stream)};
   using bf16 = __nv_bfloat16;
   cudaError_t err;
   if (q_dtype == ptt::kDtypeF32 && kv_dtype == ptt::kDtypeF32)
-    err = launch<float, float>(q, k_pool, v_pool, bt, ln, o, b, hq, hk, d,
-                               page_size, max_pages, sm_scale, s);
+    err = launch<float, float>(a, d);
   else if (q_dtype == ptt::kDtypeBF16 && kv_dtype == ptt::kDtypeBF16)
-    err = launch<bf16, bf16>(q, k_pool, v_pool, bt, ln, o, b, hq, hk, d,
-                             page_size, max_pages, sm_scale, s);
+    err = launch<bf16, bf16>(a, d);
   else if (q_dtype == ptt::kDtypeF32 && kv_dtype == ptt::kDtypeBF16)
-    err = launch<float, bf16>(q, k_pool, v_pool, bt, ln, o, b, hq, hk, d,
-                              page_size, max_pages, sm_scale, s);
+    err = launch<float, bf16>(a, d);
+  else if (q_dtype == ptt::kDtypeF32 && quant)
+    err = launch<float, int8_t>(a, d);
+  else if (q_dtype == ptt::kDtypeBF16 && quant)
+    err = launch<bf16, int8_t>(a, d);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -23,7 +23,14 @@ kernels' dx and dW are held by the same rule (2^-6 in bf16: both sides
 round dS to bf16 once, and a dS that rounds the other way moves a row by
 2^-8 of its size), their lse within 1e-5 relative;
 `test_ce_bf16_rule_rejects_planted_faults` shows it failing a dx that
-drops one vocab tile and a dW that drops its last 32 rows.
+drops one vocab tile and a dW that drops its last 32 rows. The int8
+decode kernel's f32 output within 1e-4 of its twin (both dequantize the
+same codes and scales in f32). The W8A16 kernel's output entry by entry
+within the tolerance times (|ref| + the RMS of its row + 2^-6 of the
+output's RMS): 1e-4 in f32 (the same exact products summed in another
+order), 2^-7 in bf16 (one rounding step: the two f32 sums may round to
+neighbouring bf16 values); `test_w8a16_rule_rejects_a_dropped_k_tile`
+shows it failing a kernel that leaves out one k-tile of 64.
 """
 import shutil
 from pathlib import Path
@@ -40,8 +47,10 @@ from paddle_tpu_torch.kernels import blockwise_ce as tbce
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import fused_norm as tfn
 from paddle_tpu_torch.kernels import paged_attention as tpa
+from paddle_tpu_torch.kernels import quant_matmul as tqm
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, tiny_llama_config
 from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+from paddle_tpu_torch.quantization import quantize_weight_only
 
 BF16_TOL = 2 ** -7
 
@@ -673,3 +682,170 @@ def test_prefetcher_hands_over_on_the_side_stream(cuda):
             assert np.array_equal(got["ids"].cpu().numpy(), want["ids"])
         with pytest.raises(StopIteration):
             next(it)
+
+
+# -- int8 serving: the int8 decode kernel and W8A16 ----------------------------
+
+def _int8_decode_inputs(device, qdtype, lens, hq=32, hk=8, d=128, ps=16,
+                        mp=80, npages=641, seed=0):
+    """int8 pools of random codes, positive (page, head) scales, q."""
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    kp, vp = (rng.integers(-127, 128, size=(npages, hk, ps, d))
+              .astype(np.int8) for _ in range(2))
+    ks, vs = (rng.uniform(0.005, 0.05, size=(npages, hk)).astype(np.float32)
+              for _ in range(2))
+    bt = rng.permutation(np.arange(1, npages))[:b * mp].reshape(b, mp)
+    q = rng.normal(size=(b, hq, d)).astype(np.float32)
+    t = [torch.from_numpy(a).to(device) for a in
+         (q, kp, vp, bt.astype(np.int32), np.asarray(lens, np.int32), ks, vs)]
+    t[0] = t[0].to(qdtype)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_int8_kernel_matches_ref(cuda, qdtype):
+    # Llama-3-8B's serving heads at lens on both sides of page boundaries,
+    # then d 64 and the other head widths and GQA folds
+    cases = [dict(lens=[0, 15, 16, 1000, 1279, 517, 64, 31])]
+    for hq, hk, d, ps in ((8, 2, 64, 16), (4, 4, 64, 16), (16, 2, 128, 16),
+                          (8, 4, 256, 16), (4, 2, 64, 5), (4, 2, 128, 40)):
+        cases.append(dict(lens=[0, ps - 1, ps, 2 * ps + 1, 4 * ps - 1],
+                          hq=hq, hk=hk, d=d, ps=ps, mp=4, npages=40))
+    for kw in cases:
+        q, kp, vp, bt, lens, ks, vs = _int8_decode_inputs(cuda, qdtype, **kw)
+        before = tpa.launches["paged_decode_attention_int8"]
+        out = tpa.paged_decode_attention(q, kp, vp, bt, lens, k_scale=ks,
+                                         v_scale=vs)
+        ref = tpa.paged_decode_attention_ref(q, kp, vp, bt, lens,
+                                             k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert tpa.launches["paged_decode_attention_int8"] == before + 1
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                   msg=str(kw))
+
+
+def _w8a16_inputs(device, dtype, M, K, N, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=device).to(dtype)
+    qw = torch.randint(-127, 128, (K, N), generator=g, device=device,
+                       dtype=torch.int8)
+    s = torch.rand(N, generator=g, device=device) * 0.01 + 1e-3
+    return x, qw, s
+
+
+def _w8a16_tol(dtype):
+    return 1e-4 if dtype == torch.float32 else 2 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 8, 17, 300])
+def test_w8a16_kernel_matches_ref(cuda, dtype, M):
+    # ragged K (200: a last k-tile of 8) and N (208: a last column tile
+    # of 80), a Llama-3 decode shape that splits K 32 ways, and f32 x
+    # with a bf16 output
+    for K, N in ((200, 208), (4096, 1024), (1024, 4096)):
+        x, qw, s = _w8a16_inputs(cuda, dtype, M, K, N)
+        before = tqm.launches["weight_only_int8_matmul"]
+        out = tqm.weight_only_int8_matmul(x, qw, s)
+        ref = tqm.weight_only_int8_matmul_ref(x, qw, s)
+        torch.cuda.synchronize()
+        assert tqm.launches["weight_only_int8_matmul"] == before + 1
+        assert out.dtype == dtype and out.shape == (M, N)
+        ratio = _rows_ratio(out, ref, _w8a16_tol(dtype))
+        assert ratio <= 1.0, (M, K, N, ratio)
+    x3 = x.reshape(1, M, K)            # leading dims fold into M
+    assert torch.equal(tqm.weight_only_int8_matmul(x3, qw, s)[0], out)
+    if dtype == torch.float32:
+        out16 = tqm.weight_only_int8_matmul(x, qw, s,
+                                            out_dtype=torch.bfloat16)
+        ref16 = tqm.weight_only_int8_matmul_ref(x, qw, s, torch.bfloat16)
+        assert _rows_ratio(out16, ref16, 2 ** -7) <= 1.0
+
+
+@pytest.mark.cuda
+def test_w8a16_wrapper_raises_instead_of_falling_back(cuda):
+    x, qw, s = _w8a16_inputs(cuda, torch.bfloat16, 8, 256, 256)
+    with pytest.raises(ValueError, match="K % 8"):
+        tqm.weight_only_int8_matmul(x[:, :100], qw[:100], s)
+    with pytest.raises(ValueError, match="N % 16"):
+        tqm.weight_only_int8_matmul(x, qw[:, :40].contiguous(), s[:40])
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm.weight_only_int8_matmul(x, qw.t().contiguous().t(), s)
+    with pytest.raises(TypeError, match="not supported"):
+        tqm.weight_only_int8_matmul(x.half(), qw, s)
+    with pytest.raises(ValueError, match="on"):
+        tqm.weight_only_int8_matmul(x, qw.cpu(), s)
+
+
+# the planted fault: every split whose k range holds k-tile 1 leaves it out
+_W8A16_FAULT = ("    __syncthreads();  // the B tile is whole\n",
+                "    __syncthreads();  // the B tile is whole\n"
+                "    if (kt == 1) continue;\n")
+
+
+@pytest.mark.cuda
+def test_w8a16_rule_rejects_a_dropped_k_tile(cuda, tmp_path, monkeypatch):
+    """The kernel passes the entry-by-entry rule and a copy that leaves
+    out one k-tile of 64 fails it, in the 128-row tile (prefill) and in
+    the 16-row tile with K split (decode). The faulty library is built
+    from a copy of csrc/ in tmp_path."""
+    shapes = ((300, 4096, 1024), (8, 4096, 1024), (8, 14336, 4096))
+    inputs = [_w8a16_inputs(cuda, torch.bfloat16, *sh) for sh in shapes]
+    refs = [tqm.weight_only_int8_matmul_ref(*a) for a in inputs]
+    for a, ref in zip(inputs, refs):
+        assert _rows_ratio(tqm.weight_only_int8_matmul(*a), ref,
+                           2 ** -7) <= 1.0
+    src = Path(_build.__file__).resolve().parent / "csrc"
+    csrc = tmp_path / "csrc"
+    shutil.copytree(src, csrc)
+    cu = csrc / "quant_matmul.cu"
+    line, faulty = _W8A16_FAULT
+    text = cu.read_text()
+    assert text.count(line) == 1, "the line to spoil moved"
+    cu.write_text(text.replace(line, faulty))
+    with monkeypatch.context() as m:
+        m.setattr(_build, "_CSRC", csrc)
+        m.setattr(_build, "_BUILD_DIR", tmp_path / "_build")
+        m.setattr(_build, "_lib", None)
+        bad = [tqm.weight_only_int8_matmul(*a) for a in inputs]
+        torch.cuda.synchronize()
+    seen = [_rows_ratio(b, r, 2 ** -7) for b, r in zip(bad, refs)]
+    print(f"|err| / rule bound of the dropped k-tile: {seen}")
+    assert all(r > 1.0 for r in seen), seen
+
+
+@pytest.mark.cuda
+def test_tiny_int8_engine_on_the_card_matches_the_cpu(cuda):
+    """W8A16 projections and int8 KV: the same greedy tokens on the card
+    (the int8 decode kernel, W8A16, the norm and RoPE kernels) as on the
+    CPU (their twins), from the same int8 state."""
+    cfg = tiny_llama_config(num_hidden_layers=2, vocab_size=256,
+                            hidden_size=256, intermediate_size=512,
+                            num_attention_heads=4, num_key_value_heads=2,
+                            fused_norm=True, fused_rope=True)
+    cpu_model = quantize_weight_only(LlamaForCausalLM(cfg, device="cpu",
+                                                      seed=0))
+    gpu_model = quantize_weight_only(LlamaForCausalLM(cfg, device=cuda,
+                                                      seed=1))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    geom = dict(max_slots=2, page_size=4, num_pages=24,
+                max_pages_per_slot=6, steps_per_tick=2, kv_dtype="int8")
+    path = ("paged_decode_attention_int8", "weight_only_int8_matmul",
+            "rms_norm_residual", "rope_apply")
+    counts = {**tfn.launches, **tpa.launches, **tqm.launches}
+    outs = []
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda)):
+        eng = PagedKVEngine(model, device=dev, **geom)
+        ra = eng.submit([5, 9, 2, 14], max_new_tokens=10)
+        eng.step()
+        rb = eng.submit([17, 3, 11], max_new_tokens=6)
+        eng.run_until_idle()
+        outs.append((ra.result(), rb.result()))
+        assert float(eng._scales[:, :, 1:-1].abs().sum()) == 0.0
+    assert outs[0] == outs[1]
+    after = {**tfn.launches, **tpa.launches, **tqm.launches}
+    assert all(after[k] > counts[k] for k in path)
+    assert after["paged_decode_attention"] == counts["paged_decode_attention"]

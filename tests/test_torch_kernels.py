@@ -216,6 +216,62 @@ def test_paged_decode_ref_matches_pallas(hq, hk, lens):
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
 
 
+def _int8_case(npages=20, hk=2, ps=4, d=8, seed=0):
+    """int8 pools of random codes and positive per-page-per-head scales."""
+    rng = np.random.default_rng(seed)
+    kp = rng.integers(-127, 128, size=(npages, hk, ps, d)).astype(np.int8)
+    vp = rng.integers(-127, 128, size=(npages, hk, ps, d)).astype(np.int8)
+    ks = rng.uniform(0.005, 0.05, size=(npages, hk)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.05, size=(npages, hk)).astype(np.float32)
+    return kp, vp, ks, vs
+
+
+@pytest.mark.parametrize("hq,hk", [(4, 2), (2, 2), (8, 1)])
+@pytest.mark.parametrize("lens", [[0, 3, 4], [7, 8, 15], [1, 9, 12]])
+def test_paged_decode_int8_ref_matches_pallas(hq, hk, lens):
+    # the lens cases above over int8 pools: the twin dequantizes the
+    # window as JAX's _attend_pages does, the Pallas kernel scales after
+    # each dot; both in f32
+    q, _, _, bt, ln = _decode_case(hq, hk, lens)
+    kp, vp, ks, vs = _int8_case(hk=hk)
+    jo = jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(ln), k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+        interpret=True)
+    before = dict(tpa.launches)
+    to = tpa.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(ln),
+                                    k_scale=_t(ks), v_scale=_t(vs))
+    assert to.dtype == torch.float32
+    assert tpa.launches == before      # the CPU takes the twin: no launch
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    # a bf16 query is upcast first and computed in f32, as the JAX
+    # package's _attend_pages does (the TPU kernel instead rounds the
+    # scaled query to bf16, one step of the query's own rounding)
+    qb = _t(q).bfloat16()
+    got = tpa.paged_decode_attention(qb, _t(kp), _t(vp), _t(bt), _t(ln),
+                                     k_scale=_t(ks), v_scale=_t(vs))
+    assert torch.equal(got, tpa.paged_decode_attention(
+        qb.float(), _t(kp), _t(vp), _t(bt), _t(ln), k_scale=_t(ks),
+        v_scale=_t(vs)))
+
+
+def test_paged_decode_int8_needs_scales_and_float_pools_refuse_them():
+    q, kp, vp, bt, ln = (_t(a) for a in _decode_case(4, 2, [0, 3, 4]))
+    ikp, ivp, ks, vs = (_t(a) for a in _int8_case())
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        tpa.paged_decode_attention(q, ikp, ivp, bt, ln)
+    with pytest.raises(ValueError, match="int8 pools"):
+        tpa.paged_decode_attention(q, kp, vp, bt, ln, k_scale=ks,
+                                   v_scale=vs)
+    with pytest.raises(ValueError, match="scales must be"):
+        tpa.paged_decode_attention(q, ikp, ivp, bt, ln, k_scale=ks[:5],
+                                   v_scale=vs)
+    assert tpa.decode_shape_problems(32, 8, 128, 16, torch.int8) == []
+    assert tpa.decode_shape_problems(32, 8, 64, 16, torch.int8) == []
+    assert "not compiled" in tpa.decode_shape_problems(
+        32, 8, 128, 16, torch.float16)[0]
+
+
 def _jax_state(bt, lens, nv):
     return jpaged.PagedState(jnp.asarray(bt), jnp.asarray(lens),
                              jnp.asarray(nv))
@@ -274,6 +330,69 @@ def test_paged_attention_update_padded_prefill_matches_jax():
         np.testing.assert_allclose(tout.numpy()[i, :n], jo[i, :n], **TOL)
     np.testing.assert_array_equal(tkp.numpy()[:-1], np.asarray(jkp._value))
     np.testing.assert_array_equal(tvp.numpy()[:-1], np.asarray(jvp._value))
+
+
+def _int8_update_case(s, seed=3):
+    q, k, v, _, _, bt = _update_case(s, seed)
+    # a pool already half written: earlier codes under earlier scales,
+    # some pages still at scale 0 (never written or recycled)
+    kp, vp, ks, vs = _int8_case(npages=16, seed=seed)
+    ks[::3] = 0.0
+    vs[1::4] = 0.0
+    return q, k, v, kp, vp, ks, vs, bt
+
+
+def _with_sink_scale(plane):
+    return _t(np.concatenate([plane, np.zeros_like(plane[:1])]))
+
+
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+def test_paged_attention_update_int8_bit_identical_to_jax(phase, paired):
+    """Quantize-at-scatter: the pools' codes and the scale planes after one
+    update equal the JAX engine's bit for bit (the same f32 expressions in
+    the same order, round half to even on both sides); the attention
+    output within the f32 tolerance. `paired`: k and v pools (and scale
+    planes) as the two halves of one buffer, as the engine allocates
+    them, which quantizes both in one pass."""
+    s = 1 if phase == "decode" else 5
+    q, k, v, kp, vp, ks, vs, bt = _int8_update_case(s)
+    if phase == "decode":
+        lens, nv = np.array([0, 4, 11], np.int32), np.array([1, 0, 1],
+                                                             np.int32)
+    else:
+        lens, nv = np.array([0, 3, 6], np.int32), np.array([5, 2, 4],
+                                                            np.int32)
+    with jpaged.decode_kernel_scope("pallas", interpret=True):
+        jout, jcache = jpaged.paged_attention_update(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            tuple(jnp.asarray(a) for a in (kp, vp, ks, vs)),
+            _jax_state(bt, lens, nv))
+    cache = (_with_sink(kp), _with_sink(vp), _with_sink_scale(ks),
+             _with_sink_scale(vs))
+    if paired:
+        cache = tuple(torch.stack(cache[:2])) + tuple(torch.stack(cache[2:]))
+        assert tpaged._pair(*cache[:2]) is not None
+        assert tpaged._pair(*cache[2:]) is not None
+    tout = tpaged.paged_attention_update(_t(q), _t(k), _t(v), cache,
+                                         _torch_state(bt, lens, nv))
+    for got, want in zip(cache, jcache):
+        want = np.asarray(want._value)
+        assert got.dtype == {np.int8: torch.int8,
+                             np.float32: torch.float32}[want.dtype.type]
+        np.testing.assert_array_equal(got.numpy()[:-1], want)
+    jo = np.asarray(jout._value)
+    for i, n in enumerate(nv):
+        np.testing.assert_allclose(tout.numpy()[i, :n], jo[i, :n], **TOL)
+    assert not np.array_equal(cache[0].numpy()[:-1], kp)   # it wrote
+
+
+def test_paged_attention_update_int8_needs_the_scale_planes():
+    q, k, v, kp, vp, ks, vs, bt = _int8_update_case(1)
+    st = _torch_state(bt, np.zeros(3, np.int32), np.ones(3, np.int32))
+    with pytest.raises(ValueError, match="4-tuple"):
+        tpaged.paged_attention_update(_t(q), _t(k), _t(v),
+                                      (_with_sink(kp), _with_sink(vp)), st)
 
 
 @pytest.mark.parametrize("s", [1, 3])
