@@ -13,7 +13,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    time the card could take (bytes / 3.35 TB/s, or operations / peak);
    with them the int8 serving path's kernels: the int8 decode kernel at
    the same shapes (bf16 and f32 q; SDPA over the gathered, dequantized
-   window as yardstick) and W8A16 at every distinct Llama-3-8B
+   window as yardstick), both decode kernels also at the full window
+   (every slot at its block table's last position), and W8A16 at every
+   distinct Llama-3-8B
    projection shape at M = 8 and at the M of the engine's first batched
    prefill call (torch.matmul over the dequantized bf16 weight, the
    unquantized layer's cost, as yardstick), and in f32 at a small ragged
@@ -362,6 +364,7 @@ def kernel_phases(dev, fn, pa):
     ref_lib = library(*dense[0])[:, :, 0].float()
     _check("sdpa yardstick", ref_lib, plain(*psets[0]), 2e-2)
     vis = sum(x + 1 for x in lens_l)
+    per, n_split = pa.plan(mp, ps)
     dec = dict(
         name="paged_decode_attention", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -369,16 +372,56 @@ def kernel_phases(dev, fn, pa):
         max_abs_err=err, ms=_time_ms(kern, psets),
         plain_ms=_time_ms(plain, psets, iters=20),
         library_ms=_time_ms(library, dense),
-        shape=f"b={b} hq={hq} hk={hk} d={hd} page={ps} lens={lens_l} bf16")
+        shape=f"b={b} hq={hq} hk={hk} d={hd} page={ps} lens={lens_l} bf16",
+        pages_per_split=per, n_split=n_split)
     nbytes = (vis * hk * hd * 2 * 2 + b * hq * hd * 2 + b * hq * hd * 4
               + b * mp * 4 + b * 4)
     dec["bound_ms"], dec["bound_by"] = _bound(
         nbytes, 4 * vis * hq * hd, BF16_TENSOR_FLOPS)
+    dec.update(_full_window(pa, psets, dense, bt, mp * ps, hq, hk, hd,
+                            kv_bytes=2))
     print(f"[kernel] paged_decode_attention bf16 {dec['shape']}: "
           f"{dec['ms']:.4f} ms, plain {dec['plain_ms']:.4f} ms, sdpa "
           f"{dec['library_ms']:.4f} ms, bound {dec['bound_ms']:.5f} ms; "
-          f"max |err| {err:.3g}")
+          f"max |err| {err:.3g}; P {per} pages, {n_split} splits; full "
+          f"window (lens {mp * ps - 1} x {b}) {dec['full_window_ms']:.4f} "
+          f"ms, sdpa {dec['full_window_library_ms']:.4f} ms, bound "
+          f"{dec['full_window_bound_ms']:.5f} ms")
     return {k["name"]: k for k in (dec, norm, rope)}
+
+
+def _full_window(pa, psets, dense, bt, L, hq, hk, hd, kv_bytes):
+    """The decode kernel with every slot at lens L - 1 (the whole window
+    of every block table visible, the steady state of long generation):
+    held against its twin, timed over the same pool sets beside SDPA over
+    the gathered windows (`dense`, as the caller built them), and its
+    bytes bound. int8 pools (kv_bytes 1) also read a scale pair per page
+    and head."""
+    b, mp = bt.shape
+    lens = torch.full((b,), L - 1, dtype=torch.int32, device=bt.device)
+    ps = L // mp
+
+    def kw(sc):
+        return dict(k_scale=sc[0], v_scale=sc[1]) if sc else {}
+
+    def kern(q, kp, vp, *sc):
+        return pa.paged_decode_attention(q, kp, vp, bt, lens, **kw(sc))
+
+    def library(q4, kd, vd):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, kd, vd, enable_gqa=True)
+
+    q, kp, vp, *sc = psets[0]
+    _check("paged_decode full window", kern(*psets[0]),
+           pa.paged_decode_attention_ref(q, kp, vp, bt, lens, **kw(sc)),
+           F32_TOL)
+    nbytes = (b * L * hk * hd * kv_bytes * 2 + b * hq * hd * 2
+              + b * hq * hd * 4 + b * mp * 4 + b * 4
+              + (b * mp * hk * 2 * 4 if kv_bytes == 1 else 0))
+    return dict(full_window_ms=_time_ms(kern, psets),
+                full_window_bound_ms=_bound(nbytes, 4 * b * L * hq * hd,
+                                            BF16_TENSOR_FLOPS)[0],
+                full_window_library_ms=_time_ms(library, dense))
 
 
 # -- phase 3, int8 serving: the int8 decode kernel and W8A16 -------------------
@@ -466,6 +509,7 @@ def int8_kernel_phases(dev, pa, qm, prefill_m):
            plain(*psets[0]), 2e-2)
     vis = sum(x + 1 for x in lens_l)
     pages = sum(x // ps + 1 for x in lens_l)
+    per, n_split = pa.plan(mp, ps)
     dec = dict(
         name="paged_decode_attention_int8", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -475,15 +519,21 @@ def int8_kernel_phases(dev, pa, qm, prefill_m):
         library_ms=_time_ms(library, dense),
         shape=f"b={b} hq={hq} hk={hk} d={hd} page={ps} lens={lens_l} int8 "
               "pools, bf16 q; library: SDPA over the gathered, dequantized "
-              "bf16 window")
+              "bf16 window",
+        pages_per_split=per, n_split=n_split)
     nbytes = (vis * hk * hd * 2 + pages * hk * 2 * 4 + b * hq * hd * 2
               + b * hq * hd * 4 + b * mp * 4 + b * 4)
     dec["bound_ms"], dec["bound_by"] = _bound(
         nbytes, 4 * vis * hq * hd, BF16_TENSOR_FLOPS)
+    dec.update(_full_window(pa, psets, dense, bt, L, hq, hk, hd,
+                            kv_bytes=1))
     print(f"[kernel] paged_decode_attention_int8 {dec['shape']}: "
           f"{dec['ms']:.4f} ms, plain {dec['plain_ms']:.4f} ms, sdpa "
           f"{dec['library_ms']:.4f} ms, bound {dec['bound_ms']:.5f} ms; "
-          f"max |err| {err:.3g}")
+          f"max |err| {err:.3g}; P {per} pages, {n_split} splits; full "
+          f"window (lens {L - 1} x {b}) {dec['full_window_ms']:.4f} ms, "
+          f"sdpa {dec['full_window_library_ms']:.4f} ms, bound "
+          f"{dec['full_window_bound_ms']:.5f} ms")
     del psets, dense
 
     # W8A16 at every distinct projection shape, at the decode step's M = 8

@@ -13,6 +13,7 @@ the wrappers take their plain PyTorch twins for CPU tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,7 +28,7 @@ import torch
 
 from paddle_tpu_torch.core.device import is_hopper
 
-__all__ = ["load_library", "build_info"]
+__all__ = ["load_library", "sources", "build_info"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -39,7 +40,7 @@ _L = ctypes.c_longlong
 _FLASH_TAIL = [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P]
 # C signatures of the entry points in csrc/ (all return a cudaError_t)
 _SIGNATURES = {
-    "ptt_paged_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
+    "ptt_paged_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
     "ptt_rms_norm_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "ptt_rms_norm_bwd": [_P] * 7 + [_I, _I, _I, _I, _P],
     "ptt_rope_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -72,9 +73,9 @@ def _nvcc():
     return found
 
 
-def _sources():
-    srcs = sorted(_CSRC.glob("*.cu"))
-    headers = sorted(_CSRC.glob("*.cuh"))
+def _sources(csrc):
+    srcs = sorted(csrc.glob("*.cu"))
+    headers = sorted(csrc.glob("*.cuh"))
     digest = hashlib.sha256()
     for p in srcs + headers:
         digest.update(p.name.encode())
@@ -99,8 +100,8 @@ def _run_all(cmds):
 
 def _build(srcs, so_path):
     nvcc = _nvcc()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+    so_path.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=so_path.parent) as tmp:
         objs = [str(Path(tmp) / (s.stem + ".o")) for s in srcs]
         log = _run_all([[nvcc, *_ARCH, *_FLAGS, "-c", str(s), "-o", o]
                         for s, o in zip(srcs, objs)])
@@ -110,35 +111,58 @@ def _build(srcs, so_path):
     return log
 
 
+def _load(csrc, build_dir):
+    if not is_hopper():
+        # an sm_90a binary has no image for any other card
+        raise RuntimeError(
+            "the CUDA kernels are built for sm_90a (Hopper, compute "
+            "capability 9.0); this device is "
+            f"{torch.cuda.get_device_capability()}")
+    srcs, digest = _sources(csrc)
+    so_path = build_dir / f"libptt_kernels_{digest}.so"
+    t0 = time.perf_counter()
+    log = ""
+    built = not so_path.exists()
+    if built:
+        log = _build(srcs, so_path)
+    lib = ctypes.CDLL(str(so_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _info.update(path=str(so_path), built=built, log=log,
+                 seconds=time.perf_counter() - t0,
+                 sources=[s.name for s in srcs])
+    return lib
+
+
 def load_library():
     """The kernels' shared library, built from `csrc/` on first use."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        if not is_hopper():
-            # an sm_90a binary has no image for any other card
-            raise RuntimeError(
-                "the CUDA kernels are built for sm_90a (Hopper, compute "
-                "capability 9.0); this device is "
-                f"{torch.cuda.get_device_capability()}")
-        srcs, digest = _sources()
-        so_path = _BUILD_DIR / f"libptt_kernels_{digest}.so"
-        t0 = time.perf_counter()
-        log = ""
-        built = not so_path.exists()
-        if built:
-            log = _build(srcs, so_path)
-        lib = ctypes.CDLL(str(so_path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _info.update(path=str(so_path), built=built, log=log,
-                     seconds=time.perf_counter() - t0,
-                     sources=[s.name for s in srcs])
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = _load(_CSRC, _BUILD_DIR)
+        return _lib
+
+
+@contextlib.contextmanager
+def sources(csrc, build_dir=None):
+    """Within the block, every wrapper launches the kernels built from
+    another tree of CUDA sources laid out as `csrc/` (a copy with a fault
+    planted, another revision to time beside this one), built into
+    `build_dir` (default: the package's build directory; the library's
+    name carries the sources' hash). The package's own library is back
+    afterwards. Yields the library."""
+    global _lib
+    with _lock:
+        lib = _load(Path(csrc).resolve(),
+                    Path(build_dir) if build_dir else _BUILD_DIR)
+        saved, _lib = _lib, lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            _lib = saved
 
 
 def build_info():

@@ -3,14 +3,19 @@
 Counterpart of paddle_tpu/kernels/paged_attention.py, both branches:
 bf16/f32 pools, and int8 pools with per-page-per-head f32 scales
 (`k_scale` / `v_scale`, (num_pages, hk)). The CUDA kernel
-(csrc/paged_attention.cu) runs one block per (slot, kv_head) whose warps
-share out the slot's pages up to its length, folds the g = hq/hk query
-heads of a KV head into the block so each K/V row is read once, and
-keeps an f32 online softmax per warp, merged at the end; over int8 pools
-it reads the codes and each page's scales and never forms the
-dequantized window. `paged_decode_attention_ref` is the plain twin:
-gather the window in f32 (dequantized as the JAX package's
-`_attend_pages` does), masked softmax, GQA by reshape.
+(csrc/paged_attention.cu) splits each slot's window into runs of P pages
+(split-KV): one block per (slot, kv_head, tile of at most 8 of its query
+heads, split), so a long window is read by many blocks at once. Each
+block folds its query heads so each K/V row it reads serves all of them,
+keeps an f32 online softmax, and writes a partial (o, m, l) to a
+workspace; a second kernel merges the splits in split order (the same
+bits every run). Over int8 pools it reads the codes and each page's
+scales and never forms the dequantized window. P and the split count
+come from `plan`, from static shapes only, never from
+`lens`: a call reads nothing back to the host, and a CUDA graph can
+capture it. `paged_decode_attention_ref` is the plain twin: gather the
+window in f32 (dequantized as the JAX package's `_attend_pages` does),
+masked softmax, GQA by reshape.
 
 Masking contract (as in the JAX package): the query of slot i sits at
 position lens[i], its own k/v already scattered there, so column c is
@@ -26,7 +31,7 @@ from paddle_tpu_torch.kernels import _build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref",
            "gather_window", "decode_shape_problems", "check_decode_shapes",
-           "launches"]
+           "plan", "launches"]
 
 # one count per pool type: float pools, and int8 pools with scales
 launches = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0}
@@ -41,8 +46,24 @@ _DTYPE_PAIRS = {(torch.float32, torch.float32),
                 (torch.float32, torch.int8),
                 (torch.bfloat16, torch.int8)}
 # csrc/paged_attention.cu limits
-_MAX_G = 8
 _HEAD_DIMS = (64, 128, 256)
+# window rows a split starts from: 4 warps x one 16-row chunk
+# (chosen on the card, PERF.md)
+_SPLIT_ROWS = 64
+_MAX_SPLITS = 65535   # the grid's third dimension
+
+
+def plan(max_pages, page_size):
+    """(P, n_split): the decode kernel's pages per split and split count
+    for block tables of max_pages pages of page_size rows. Static shapes
+    only, never the lengths: P = _SPLIT_ROWS // page_size pages (at least
+    one), doubled only where the split count would pass the grid's limit.
+    The workspace then holds hq * (d + 2) f32 per slot and split, about
+    g / 64 of the bf16 KV bytes a full split of 64 rows covers."""
+    per = max(1, _SPLIT_ROWS // page_size)
+    while -(-max_pages // per) > _MAX_SPLITS:
+        per *= 2
+    return per, max(1, -(-max_pages // per))
 
 
 def decode_shape_problems(hq, hk, d, page_size, kv_dtype=None):
@@ -61,9 +82,6 @@ def decode_shape_problems(hq, hk, d, page_size, kv_dtype=None):
         problems.append(f"q heads must be a multiple of kv heads "
                         f"(hq={hq}, hk={hk})")
         return problems
-    if hq // hk > _MAX_G:
-        problems.append(f"hq/hk <= {_MAX_G} required (the query heads of "
-                        f"a kv head are held in registers; got {hq // hk})")
     if d not in _HEAD_DIMS:
         problems.append(f"head_dim in {_HEAD_DIMS} required (compiled per "
                         f"width; got d={d})")
@@ -185,14 +203,20 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lens, *,
     if block_tables.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError("paged_decode_attention: block_tables and lens "
                         "must be int32")
+    max_pages = block_tables.shape[1]
+    per, n_split = plan(max_pages, page_size)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    # the splits' partials: o (b, hq, n_split, d), then m and l
+    ws = torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
+                     device=q.device)
     lib = _build.load_library()
     status = lib.ptt_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        b, hq, hk, d, page_size, block_tables.shape[1], float(sm_scale),
+        ws.data_ptr(), b, hq, hk, d, page_size, max_pages, per, n_split,
+        float(sm_scale),
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_decode_attention")

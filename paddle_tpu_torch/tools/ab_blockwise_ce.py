@@ -7,16 +7,13 @@ card, in one process, at the training shape (x (16384, 2048), W (32000,
 Run from the repository root (it reuses chip_smoke.py's timing and
 checks). Each TREE is a directory of CUDA sources laid out as
 `paddle_tpu_torch/kernels/csrc` (pass a tree more than once, in the
-order parent, change, change, parent, to see the spread). Each is built
-into its own directory under `paddle_tpu_torch/kernels/_build/`, held
-against the twin with chip_smoke's bf16 rule, and its forward, dS, dx,
+order parent, change, change, parent, to see the spread). Each is built,
+held against the twin with chip_smoke's bf16 rule, and its forward, dS, dx,
 dW and whole-backward times printed (CUDA-graph replay, ms).
 """
 from __future__ import annotations
 
-import hashlib
 import sys
-from pathlib import Path
 
 import torch
 
@@ -44,35 +41,30 @@ def main(trees):
     dx, dw = torch.empty_like(x), torch.empty_like(w)
     print(cs._card())
     for tree in trees:
-        src = Path(tree).resolve()
-        tag = hashlib.sha256(str(src).encode()).hexdigest()[:8]
-        _build._CSRC, _build._lib = src, None
-        _build._BUILD_DIR = (Path(_build.__file__).resolve().parent
-                             / "_build" / f"ab_{tag}")
-        _build.load_library()
-        loss, lse, count = bce.ce_fwd(x, w, lab)
-        gx, gw = bce.ce_bwd(x, w, lab, lse, count, one)
-        torch.cuda.synchronize()
-        cs._check(f"{tree} lse", lse, lse_r, cs.F32_TOL)
-        ratio = {k: cs._check_rows(f"{tree} {k}", a, b, cs.CE_BF16_TOL)[1]
-                 for k, a, b in (("dx", gx, dx_r), ("dw", gw, dw_r))}
-        scale = torch.where(lab != -100, one / count, 0.0).contiguous()
-        ms = {"fwd": cs._time_ms(lambda: bce.ce_fwd(x, w, lab), [()],
-                                 iters=10),
-              "dS": cs._time_ms(lambda: [bce._launch_dlogits(
-                  x, w, lab, lse, scale, ws, v0, vc) for v0, vc in blocks],
-                  [()], iters=4),
-              "dx": cs._time_ms(lambda: [bce._launch_dx(
-                  ws, w, acc, dx, v0, vc, i == 0, i == len(blocks) - 1)
-                  for i, (v0, vc) in enumerate(blocks)], [()], iters=4),
-              "dW": cs._time_ms(lambda: [bce._launch_dw(ws, x, dw, v0, vc)
-                                         for v0, vc in blocks], [()],
-                                iters=4),
-              "bwd": cs._time_ms(lambda: bce.ce_bwd(x, w, lab, lse, count,
-                                                    one), [()], iters=4)}
-        print(f"[ab] {tree}: " + ", ".join(f"{k} {t:.4f} ms"
-                                           for k, t in ms.items())
-              + f"; dx / dW |err| / bound {ratio}", flush=True)
+        with _build.sources(tree):
+            loss, lse, count = bce.ce_fwd(x, w, lab)
+            gx, gw = bce.ce_bwd(x, w, lab, lse, count, one)
+            torch.cuda.synchronize()
+            cs._check(f"{tree} lse", lse, lse_r, cs.F32_TOL)
+            ratio = {k: cs._check_rows(f"{tree} {k}", a, b, cs.CE_BF16_TOL)[1]
+                     for k, a, b in (("dx", gx, dx_r), ("dw", gw, dw_r))}
+            scale = torch.where(lab != -100, one / count, 0.0).contiguous()
+            ms = {"fwd": cs._time_ms(lambda: bce.ce_fwd(x, w, lab), [()],
+                                     iters=10),
+                  "dS": cs._time_ms(lambda: [bce._launch_dlogits(
+                      x, w, lab, lse, scale, ws, v0, vc) for v0, vc in blocks],
+                      [()], iters=4),
+                  "dx": cs._time_ms(lambda: [bce._launch_dx(
+                      ws, w, acc, dx, v0, vc, i == 0, i == len(blocks) - 1)
+                      for i, (v0, vc) in enumerate(blocks)], [()], iters=4),
+                  "dW": cs._time_ms(lambda: [bce._launch_dw(ws, x, dw, v0, vc)
+                                             for v0, vc in blocks], [()],
+                                    iters=4),
+                  "bwd": cs._time_ms(lambda: bce.ce_bwd(x, w, lab, lse, count,
+                                                        one), [()], iters=4)}
+            print(f"[ab] {tree}: " + ", ".join(f"{k} {t:.4f} ms"
+                                               for k, t in ms.items())
+                  + f"; dx / dW |err| / bound {ratio}", flush=True)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,14 @@ round dS to bf16 once, and a dS that rounds the other way moves a row by
 `test_ce_bf16_rule_rejects_planted_faults` shows it failing a dx that
 drops one vocab tile and a dW that drops its last 32 rows. The int8
 decode kernel's f32 output within 1e-4 of its twin (both dequantize the
-same codes and scales in f32). The W8A16 kernel's output entry by entry
+same codes and scales in f32). The decode kernel splits each slot's
+window over blocks and merges the splits in a fixed order: its cases put
+lens on both sides of a split's edge, and
+`test_paged_decode_is_bit_identical_from_call_to_call`,
+`test_paged_decode_replays_in_a_cuda_graph` (the split plan reads no lens
+on the host) and `test_decode_rule_rejects_a_dropped_split` (a combine
+that leaves out the last split fails the 1e-4 rule) cover the design.
+The W8A16 kernel's output entry by entry
 within the tolerance times (|ref| + the RMS of its row + 2^-6 of the
 output's RMS): 1e-4 in f32 (the same exact products summed in another
 order), 2^-7 in bf16 (one rounding step: the two f32 sums may round to
@@ -242,7 +249,7 @@ _FAULTS = {
 
 
 @pytest.mark.cuda
-def test_flash_bf16_rule_rejects_planted_faults(cuda, tmp_path, monkeypatch):
+def test_flash_bf16_rule_rejects_planted_faults(cuda, tmp_path):
     """At the training shape (one sequence of 2048, 32/4 heads, d 64,
     causal), the kernels pass the row rule and each planted fault fails
     it, by 23-37x on an H100. A rule relative to the largest entry (2^-6
@@ -274,10 +281,7 @@ def test_flash_bf16_rule_rejects_planted_faults(cuda, tmp_path, monkeypatch):
         text = cu.read_text()
         assert text.count(line) == 1, f"{fault}: the line to spoil moved"
         cu.write_text(text.replace(line, faulty))
-        with monkeypatch.context() as m:
-            m.setattr(_build, "_CSRC", csrc)
-            m.setattr(_build, "_BUILD_DIR", tmp_path / fault / "_build")
-            m.setattr(_build, "_lib", None)
+        with _build.sources(csrc, tmp_path / fault / "_build"):
             bad = outputs()
         for name in spoiled:
             err = (bad[name].float() - refs[name].float()).abs().max()
@@ -322,23 +326,140 @@ def _decode_inputs(device, dtype, lens, hq=32, hk=8, d=128, ps=16, mp=80,
                 torch.tensor(lens, dtype=torch.int32, device=device)]
 
 
+def _split_cases(lens_serving):
+    """Decode geometries for the split-KV kernel: Llama-3-8B's serving
+    heads; no GQA fold (g = 1), the widest fold of one tile (g = 8) and
+    two and four tiles (g = 16, 32); the other head widths; page sizes
+    that are not a multiple of the 16-row chunk (5, 40). Each
+    geometry's block tables span several splits, and its lens sit at
+    P * page_size - 1, P * page_size and P * page_size + 1 (the first
+    split's last column, the second's first and the one after), at 0,
+    and at the table's last position; then every slot at 0 and every
+    slot at the last position."""
+    cases = [dict(lens=lens_serving)]
+    for hq, hk, d, ps in ((8, 8, 128, 16), (32, 8, 128, 16),
+                          (16, 2, 128, 16), (16, 1, 128, 16),
+                          (32, 1, 64, 16), (8, 2, 64, 16), (8, 4, 256, 16),
+                          (4, 2, 128, 5), (4, 2, 128, 40)):
+        mp = 3 * max(1, 64 // ps) + 1      # four splits, the last short
+        per, n_split = tpa.plan(mp, ps)
+        assert n_split > 1
+        geo = dict(hq=hq, hk=hk, d=d, ps=ps, mp=mp, npages=5 * mp + 1)
+        edge = per * ps
+        for lens in ([edge - 1, edge, edge + 1, 0, mp * ps - 1], [0] * 5,
+                     [mp * ps - 1] * 5):
+            cases.append(dict(lens=lens, **geo))
+    return cases
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_decode_kernel_matches_ref(cuda, dtype):
-    args = _decode_inputs(cuda, dtype, [0, 15, 16, 1000, 1279, 517, 64, 31])
-    out = tpa.paged_decode_attention(*args)
-    ref = tpa.paged_decode_attention_ref(*args)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
-    # no GQA fold (g = 1), the widest fold (g = 8), the other head widths
-    # and a page size that is not a multiple of the 16-row chunk
-    for hq, hk, d, ps in ((8, 8, 128, 16), (16, 2, 128, 16), (8, 2, 64, 16),
-                          (8, 4, 256, 16), (4, 2, 128, 5), (4, 2, 128, 40)):
-        args = _decode_inputs(cuda, dtype, [0, 16, 33, 4 * ps - 1], hq=hq,
-                              hk=hk, d=d, ps=ps, mp=4, npages=40)
-        torch.testing.assert_close(tpa.paged_decode_attention(*args),
-                                   tpa.paged_decode_attention_ref(*args),
-                                   rtol=1e-4, atol=1e-4)
+    for kw in _split_cases([0, 15, 16, 1000, 1279, 517, 64, 31]):
+        args = _decode_inputs(cuda, dtype, **kw)
+        before = tpa.launches["paged_decode_attention"]
+        out = tpa.paged_decode_attention(*args)
+        ref = tpa.paged_decode_attention_ref(*args)
+        torch.cuda.synchronize()
+        assert tpa.launches["paged_decode_attention"] == before + 1
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                   msg=str(kw))
+
+
+@pytest.mark.cuda
+def test_paged_decode_is_bit_identical_from_call_to_call(cuda):
+    """The splits merge in a fixed order: two calls give the same bits,
+    over bf16 and over int8 pools, at g = 4 and at g = 32."""
+    lens = [0, 15, 16, 1000, 1279, 517, 64, 31]
+    for hq in (32, 256):
+        args = _decode_inputs(cuda, torch.bfloat16, lens, hq=hq)
+        assert torch.equal(tpa.paged_decode_attention(*args),
+                           tpa.paged_decode_attention(*args))
+    q, kp, vp, bt, ln, ks, vs = _int8_decode_inputs(cuda, torch.bfloat16,
+                                                    lens)
+    a, b = (tpa.paged_decode_attention(q, kp, vp, bt, ln, k_scale=ks,
+                                       v_scale=vs) for _ in range(2))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_paged_decode_replays_in_a_cuda_graph(cuda):
+    """The split plan reads no lens on the host: the wrapper captured in
+    a CUDA graph, then lens and block tables changed in place and the
+    graph replayed, gives the bits of an eager call on the new values
+    (over bf16 and over int8 pools)."""
+    rng = np.random.default_rng(3)
+    for int8 in (False, True):
+        if int8:
+            q, kp, vp, bt, lens, ks, vs = _int8_decode_inputs(
+                cuda, torch.bfloat16, [5, 300, 17, 1279])
+            kw = dict(k_scale=ks, v_scale=vs)
+        else:
+            q, kp, vp, bt, lens = _decode_inputs(cuda, torch.bfloat16,
+                                                 [5, 300, 17, 1279])
+            kw = {}
+
+        def run():
+            return tpa.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):          # warm-up, as capture wants
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = run()
+        for new_lens in ([1279, 0, 640, 63], [64, 65, 1000, 16]):
+            lens.copy_(torch.tensor(new_lens, dtype=torch.int32))
+            bt.copy_(torch.from_numpy(rng.permutation(np.arange(
+                1, kp.shape[0]))[:bt.numel()].reshape(bt.shape)
+                .astype(np.int32)))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, run()), (int8, new_lens)
+            torch.testing.assert_close(
+                out, tpa.paged_decode_attention_ref(q, kp, vp, bt, lens,
+                                                    **kw),
+                rtol=1e-4, atol=1e-4)
+
+
+# the planted fault: the combine leaves out the last non-empty split
+_DECODE_FAULT = ("  for (int s = 0; s < used; ++s) {  // in split order\n",
+                 "  for (int s = 0; s < used - 1; ++s) {  // in split order\n")
+
+
+@pytest.mark.cuda
+def test_decode_rule_rejects_a_dropped_split(cuda, tmp_path):
+    """The kernel passes the 1e-4 rule and a copy whose combine leaves
+    out each slot's last non-empty split fails it, over bf16 and int8
+    pools (the factor by which it fails is printed). The faulty library
+    is built from a copy of csrc/ in tmp_path."""
+    lens = [0, 15, 16, 1000, 1279, 517, 64, 31]
+    calls = [(_decode_inputs(cuda, torch.bfloat16, lens), {})]
+    q, kp, vp, bt, ln, ks, vs = _int8_decode_inputs(cuda, torch.bfloat16,
+                                                    lens)
+    calls.append(((q, kp, vp, bt, ln), dict(k_scale=ks, v_scale=vs)))
+    refs = [tpa.paged_decode_attention_ref(*a, **kw) for a, kw in calls]
+    for (a, kw), ref in zip(calls, refs):
+        torch.testing.assert_close(tpa.paged_decode_attention(*a, **kw),
+                                   ref, rtol=1e-4, atol=1e-4)
+    src = Path(_build.__file__).resolve().parent / "csrc"
+    csrc = tmp_path / "csrc"
+    shutil.copytree(src, csrc)
+    cu = csrc / "paged_attention.cu"
+    line, faulty = _DECODE_FAULT
+    text = cu.read_text()
+    assert text.count(line) == 1, "the line to spoil moved"
+    cu.write_text(text.replace(line, faulty))
+    with _build.sources(csrc, tmp_path / "_build"):
+        bad = [tpa.paged_decode_attention(*a, **kw) for a, kw in calls]
+        torch.cuda.synchronize()
+    # |err| over the rule's bound, 1e-4 * (1 + |ref|), at its worst entry
+    seen = [float(((b - r).abs() / (1e-4 * (1 + r.abs()))).max())
+            for b, r in zip(bad, refs)]
+    print(f"|err| / 1e-4 rule bound of the dropped split: {seen}")
+    assert all(r > 1.0 for r in seen), seen
 
 
 @pytest.mark.cuda
@@ -612,10 +733,7 @@ def test_ce_bf16_rule_rejects_planted_faults(cuda, tmp_path, monkeypatch):
         text = cu.read_text()
         assert text.count(line) == 1, f"{fault}: the line to spoil moved"
         cu.write_text(text.replace(line, faulty))
-        with monkeypatch.context() as m:
-            m.setattr(_build, "_CSRC", csrc)
-            m.setattr(_build, "_BUILD_DIR", tmp_path / fault / "_build")
-            m.setattr(_build, "_lib", None)
+        with _build.sources(csrc, tmp_path / fault / "_build"):
             bad = _ce_outputs(x, w, lab)
         for name in spoiled:
             seen[f"{fault} {name}"] = _rows_ratio(bad[name], refs[name],
@@ -707,12 +825,14 @@ def _int8_decode_inputs(device, qdtype, lens, hq=32, hk=8, d=128, ps=16,
 @pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
 def test_paged_decode_int8_kernel_matches_ref(cuda, qdtype):
     # Llama-3-8B's serving heads at lens on both sides of page boundaries,
-    # then d 64 and the other head widths and GQA folds
+    # then d 64 and the other head widths and GQA folds; then the split
+    # geometries of the float pools' test
     cases = [dict(lens=[0, 15, 16, 1000, 1279, 517, 64, 31])]
     for hq, hk, d, ps in ((8, 2, 64, 16), (4, 4, 64, 16), (16, 2, 128, 16),
                           (8, 4, 256, 16), (4, 2, 64, 5), (4, 2, 128, 40)):
         cases.append(dict(lens=[0, ps - 1, ps, 2 * ps + 1, 4 * ps - 1],
                           hq=hq, hk=hk, d=d, ps=ps, mp=4, npages=40))
+    cases += _split_cases([0, 16, 1279, 300])[1:]
     for kw in cases:
         q, kp, vp, bt, lens, ks, vs = _int8_decode_inputs(cuda, qdtype, **kw)
         before = tpa.launches["paged_decode_attention_int8"]
@@ -787,7 +907,7 @@ _W8A16_FAULT = ("    __syncthreads();  // the B tile is whole\n",
 
 
 @pytest.mark.cuda
-def test_w8a16_rule_rejects_a_dropped_k_tile(cuda, tmp_path, monkeypatch):
+def test_w8a16_rule_rejects_a_dropped_k_tile(cuda, tmp_path):
     """The kernel passes the entry-by-entry rule and a copy that leaves
     out one k-tile of 64 fails it, in the 128-row tile (prefill) and in
     the 16-row tile with K split (decode). The faulty library is built
@@ -806,10 +926,7 @@ def test_w8a16_rule_rejects_a_dropped_k_tile(cuda, tmp_path, monkeypatch):
     text = cu.read_text()
     assert text.count(line) == 1, "the line to spoil moved"
     cu.write_text(text.replace(line, faulty))
-    with monkeypatch.context() as m:
-        m.setattr(_build, "_CSRC", csrc)
-        m.setattr(_build, "_BUILD_DIR", tmp_path / "_build")
-        m.setattr(_build, "_lib", None)
+    with _build.sources(csrc, tmp_path / "_build"):
         bad = [tqm.weight_only_int8_matmul(*a) for a in inputs]
         torch.cuda.synchronize()
     seen = [_rows_ratio(b, r, 2 ** -7) for b, r in zip(bad, refs)]

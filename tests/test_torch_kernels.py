@@ -167,9 +167,11 @@ def test_shape_contracts_name_the_dims():
     assert tfn.rope_shape_problems(128) == []
     assert tfn.rope_shape_problems(7)
     assert tpa.decode_shape_problems(32, 8, 128, 16) == []
+    # any GQA group (g = 32 here; the kernel tiles query heads by 8),
+    # and still only the compiled head widths
+    assert tpa.decode_shape_problems(64, 2, 128, 16) == []
     probs = tpa.decode_shape_problems(64, 2, 96, 16)
-    assert any("hq/hk" in p for p in probs)
-    assert any("head_dim" in p for p in probs)
+    assert len(probs) == 1 and "head_dim" in probs[0]
     with pytest.raises(ValueError, match="multiple of kv heads"):
         tpa.check_decode_shapes(6, 4, 64, 16)
 
@@ -203,7 +205,8 @@ def _decode_case(hq, hk, lens, ps=4, d=8, mp=4, npages=20, seed=0):
     return q, kp, vp, bt.astype(np.int32), np.asarray(lens, np.int32)
 
 
-@pytest.mark.parametrize("hq,hk", [(4, 2), (2, 2), (8, 1)])
+@pytest.mark.parametrize("hq,hk", [(4, 2), (2, 2), (8, 1), (16, 1),
+                                   (32, 1)])
 @pytest.mark.parametrize("lens", [[0, 3, 4], [7, 8, 15], [1, 9, 12]])
 def test_paged_decode_ref_matches_pallas(hq, hk, lens):
     # lens at 0, page_size - 1, page_size and later page boundaries
@@ -226,7 +229,8 @@ def _int8_case(npages=20, hk=2, ps=4, d=8, seed=0):
     return kp, vp, ks, vs
 
 
-@pytest.mark.parametrize("hq,hk", [(4, 2), (2, 2), (8, 1)])
+@pytest.mark.parametrize("hq,hk", [(4, 2), (2, 2), (8, 1), (16, 1),
+                                   (32, 1)])
 @pytest.mark.parametrize("lens", [[0, 3, 4], [7, 8, 15], [1, 9, 12]])
 def test_paged_decode_int8_ref_matches_pallas(hq, hk, lens):
     # the lens cases above over int8 pools: the twin dequantizes the
@@ -253,6 +257,28 @@ def test_paged_decode_int8_ref_matches_pallas(hq, hk, lens):
     assert torch.equal(got, tpa.paged_decode_attention(
         qb.float(), _t(kp), _t(vp), _t(bt), _t(ln), k_scale=_t(ks),
         v_scale=_t(vs)))
+
+
+@pytest.mark.parametrize("mp,ps", [
+    (80, 16),      # Llama-3-8B serving (chip_smoke phase 3)
+    (6, 4),        # the tiny engine of the card tests
+    (1024, 16),    # long block tables
+    (70000, 64),   # more pages than the grid has splits
+    (9, 40), (54, 5), (0, 16)])
+def test_decode_plan_covers_the_table_from_static_shapes(mp, ps):
+    """The decode kernel's split plan: P pages per split and n_split
+    splits cover the block table exactly once over (no split starts past
+    it), within the grid's 65535 splits, and the plan takes no lengths.
+    A split is 64 rows (at least one page) unless the grid's limit
+    forces more: the serving shape splits its 80 pages into runs of 4
+    (the choice measured on the card, PERF.md)."""
+    per, n = tpa.plan(mp, ps)
+    assert per >= 1 and 1 <= n <= 65535
+    assert (n - 1) * per < max(mp, 1) <= n * per
+    if -(-mp // max(1, 64 // ps)) <= 65535:
+        assert per == max(1, 64 // ps)
+    if (mp, ps) == (80, 16):
+        assert (per, n) == (4, 20)
 
 
 def test_paged_decode_int8_needs_scales_and_float_pools_refuse_them():
