@@ -15,11 +15,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the same shapes (bf16 and f32 q; SDPA over the gathered, dequantized
    window as yardstick), both decode kernels also at the full window
    (every slot at its block table's last position), and W8A16 at every
-   distinct Llama-3-8B
-   projection shape at M = 8 and at the M of the engine's first batched
-   prefill call (torch.matmul over the dequantized bf16 weight, the
-   unquantized layer's cost, as yardstick), and in f32 at a small ragged
-   shape;
+   distinct Llama-3-8B projection shape at M = 8 (the 16-row split-K
+   kernel), at the M of the engine's first batched prefill call and at
+   the late joiner's (the wgmma kernel), each row with its route
+   (torch.matmul over the dequantized bf16 weight, the unquantized
+   layer's cost, as yardstick), and in f32 at a small ragged shape;
 4. the same for the training path's kernels: flash attention forward,
    dq and dk/dv at TinyLlama-1.1B's training shape (8, 2048, 32/4, 64)
    and at Llama-3-8B's head shape (1, 4096, 32/8, 128), bf16, and in f32
@@ -62,7 +62,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    projections must stay within 2 % (mean |q - f| / mean |f|) of the
    float layer on a prefill activation; tokens in vocabulary, pages
    back with their scale rows zeroed, int8 decode launches = 32 x decode
-   steps, W8A16 launches = 225 x model calls, a second run the same
+   steps, W8A16 launches = 225 x model calls, of which the wgmma route's
+   = 224 x prefill calls above its threshold, a second run the same
    tokens, KV bytes per slot at most 0.51 x phase 5's. It reports the
    top-1 agreement of the first tokens with phase 5's bf16 model.
 
@@ -434,22 +435,22 @@ W8A16_SHAPES = (("q_proj, o_proj", 4096, 4096, 2),
                 ("lm_head", 4096, 128256, 0))
 
 
-def _first_prefill_m(prompts, late, bucket):
-    """M (rows of x) of the engine's first batched prefill call when
-    `prompts` but `late` are submitted at once: same-bucket prompts go
-    together in admission order, padded to the group's longest
-    (PagedKVEngine._admit)."""
+def _prefill_call_ms(prompts, late, bucket):
+    """M (rows of x) of each of the engine's batched prefill calls when
+    `prompts` but `late` are submitted at once and `late` joins later:
+    same-bucket prompts go together in admission order, padded to the
+    group's longest (PagedKVEngine._admit); the late joiner comes alone."""
     groups = {}
     for i, p in enumerate(prompts):
         if i != late:
             groups.setdefault(bucket(p.size), []).append(p.size)
-    first = next(iter(groups.values()))
-    return len(first) * max(first)
+    return [len(g) * max(g) for g in groups.values()] + [prompts[late].size]
 
 
-def int8_kernel_phases(dev, pa, qm, prefill_m):
+def int8_kernel_phases(dev, pa, qm, prefill_m, late_m):
     """paged_decode_attention_int8 and weight_only_int8_matmul entries,
-    each held against its twin on the card and timed."""
+    each held against its twin on the card and timed; the W8A16 entries
+    also at the M of the first prefill call and of the late joiner's."""
     g = torch.Generator(device=dev).manual_seed(20)
 
     def randn(*shape, dtype=torch.bfloat16):
@@ -536,17 +537,20 @@ def int8_kernel_phases(dev, pa, qm, prefill_m):
           f"{dec['full_window_bound_ms']:.5f} ms")
     del psets, dense
 
-    # W8A16 at every distinct projection shape, at the decode step's M = 8
-    # and at the M of the engine's first batched prefill call
-    print(f"[kernel] W8A16 at M = 8 and M = {prefill_m} (the first prefill "
-          "call: its prompts x their longest length)")
+    # W8A16 at every distinct projection shape, at the decode step's M = 8,
+    # at the M of the engine's first batched prefill call and at the late
+    # joiner's
+    print(f"[kernel] W8A16 at M = 8, M = {prefill_m} (the first prefill "
+          f"call: its prompts x their longest length) and M = {late_m} (the "
+          "late joiner's prefill)")
+    sms = qm._sm_count(torch.device(dev))
     per_shape, err, ratio = [], 0.0, 0.0
     for what, K, N, per_layer in W8A16_SHAPES:
         n_sets = max(1, min(40, -(-150 * 2 ** 20 // (K * N))))
         weights = [(codes(K, N), scales(N)) for _ in range(n_sets)]
         deq = [((qw.float() * s).to(torch.bfloat16),) for qw, s in
                weights[:max(1, n_sets // 2)]]
-        for M in (8, prefill_m):
+        for M in (8, prefill_m, late_m):
             x = randn(M, K)
             out = qm.weight_only_int8_matmul(x, *weights[0])
             ref = qm.weight_only_int8_matmul_ref(x, *weights[0])
@@ -554,20 +558,22 @@ def int8_kernel_phases(dev, pa, qm, prefill_m):
             err, ratio = max(err, e), max(ratio, r)
             iters = 50 if M == 8 else 10
             row = dict(layers=what, M=M, K=K, N=N, per_layer=per_layer,
+                       err=e, rule_ratio=r,
                        ms=_time_ms(lambda qw, s: qm.weight_only_int8_matmul(
                            x, qw, s), weights, iters=iters),
                        plain_ms=_time_eager_ms(
                            lambda qw, s: qm.weight_only_int8_matmul_ref(
                                x, qw, s), weights, iters=2),
                        library_ms=_time_ms(lambda w: torch.matmul(x, w), deq,
-                                           iters=iters),
-                       splits=qm.plan(M, K, N,
-                                      qm._sm_count(torch.device(dev)))[1])
+                                           iters=iters))
+            row["route"], row["tile_rows"], row["splits"] = qm.plan(M, K, N,
+                                                                   sms)
             row["bound_ms"], row["bound_by"] = _bound(
                 M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * N * K,
                 BF16_TENSOR_FLOPS)
             per_shape.append(row)
-            print(f"[kernel] w8a16 {what} (M {M}, K {K}, N {N}, "
+            print(f"[kernel] w8a16 {what} (M {M}, K {K}, N {N}, route "
+                  f"{row['route']}, {row['tile_rows']}-row tile, "
                   f"{row['splits']} splits): {row['ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms, bf16 matmul of the dequantized "
                   f"weight {row['library_ms']:.4f} ms, bound "
@@ -608,8 +614,32 @@ def int8_kernel_phases(dev, pa, qm, prefill_m):
           f"{mm['library_ms']:.4f} ms, bound {mm['bound_ms']:.4f} ms; "
           f"|err| / bound at most {ratio:.3g} (bound 2^-7 (|ref| + row RMS "
           "+ 2^-6 RMS))")
+    # the wgmma route's entry: one first prefill call's projections (32
+    # layers of seven; its lm_head runs at M = the group's prompt count)
+    pre = [r for r in per_shape if r["M"] == prefill_m and r["per_layer"]]
+    if any(r["route"] != "wgmma" for r in pre):
+        raise AssertionError(f"W8A16 at M = {prefill_m} did not take the "
+                             f"wgmma route: {[r['route'] for r in pre]}")
+
+    def call_sum(key):
+        return sum(r[key] * 32 * r["per_layer"] for r in pre)
+
+    wg = dict(
+        name="weight_only_int8_matmul_wgmma", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
+        replaces="paddle_tpu/kernels/quant_matmul.py:85",
+        max_abs_err=max(r["err"] for r in pre), ms=call_sum("ms"),
+        plain_ms=call_sum("plain_ms"), bound_ms=call_sum("bound_ms"),
+        bound_by="operations", library_ms=call_sum("library_ms"),
+        shape=f"one prefill call at M = {prefill_m}: 32 x (q, k, v, o, gate, "
+              "up, down), bf16 x; library: torch.matmul over the dequantized "
+              "bf16 weights (the unquantized layers' cost)",
+        rule_ratio=max(r["rule_ratio"] for r in pre), prefill_m=prefill_m)
+    print(f"[kernel] weight_only_int8_matmul_wgmma, {wg['shape']}: "
+          f"{wg['ms']:.4f} ms, plain {wg['plain_ms']:.4f} ms, bf16 matmul "
+          f"{wg['library_ms']:.4f} ms, bound {wg['bound_ms']:.4f} ms")
     torch.cuda.empty_cache()
-    return {k["name"]: k for k in (dec, mm)}
+    return {k["name"]: k for k in (dec, mm, wg)}
 
 
 # -- phase 4: the training path's kernels ---------------------------------------
@@ -819,14 +849,21 @@ def norm_rope_bwd_phases(dev, fn):
             [(x, r, w)], iters=5),
         train_bound_ms=_bound(4 * elem * 2 + n * 4 + d * 2, 5 * elem,
                               F32_FLOPS)[0],
-        train_shape=f"x, residual ({n}, {d}) bf16, with rstd")
+        train_shape=f"x, residual ({n}, {d}) bf16, with rstd",
+        # the library yardstick at this shape: F.rms_norm of x alone (no
+        # residual add, no rstd), as the decode entry's
+        train_library_ms=_time_ms(
+            lambda a, c: torch.nn.functional.rms_norm(a, (d,), c, eps),
+            [(x, w)], iters=20))
     print(f"[kernel] rms_norm_residual_bwd bf16 ({n}, {d}): "
           f"{norm['ms']:.4f} ms, plain {norm['plain_ms']:.4f} ms, bound "
           f"{norm['bound_ms']:.4f} ms; with gh {norm['gh_ms']:.4f} ms, plain "
           f"{norm['gh_plain_ms']:.4f} ms, bound {norm['gh_bound_ms']:.4f} "
           f"ms; forward at this shape (residual, rstd) "
           f"{fwd_train['train_ms']:.4f} ms, bound "
-          f"{fwd_train['train_bound_ms']:.4f} ms; max |err| {err:.3g}")
+          f"{fwd_train['train_bound_ms']:.4f} ms, torch rms_norm (no "
+          f"residual) {fwd_train['train_library_ms']:.4f} ms; max |err| "
+          f"{err:.3g}")
     del h, gy, gh, x, r, dh, rdh, sets, gsets
     torch.cuda.empty_cache()
 
@@ -1574,7 +1611,8 @@ def _blockwise_parity(cfg, state, ids, dev):
 # -- phase 10: Llama-3-8B int8 serving ------------------------------------------
 
 INT8_SERVING_KERNELS = ("paged_decode_attention_int8", "weight_only_int8_matmul",
-                        "rms_norm_residual", "rope_apply")
+                        "weight_only_int8_matmul_wgmma", "rms_norm_residual",
+                        "rope_apply")
 # mean |quantized - float| / mean |float| of one projection on a prefill
 # activation (the pin of tests/test_quantization_int8.py:63-74)
 W8A16_REL_TOL = 0.02
@@ -1664,6 +1702,20 @@ def int8_serving_phase(dev, counters, reset, card, bf16_serving,
     if launches["weight_only_int8_matmul"] != per_call * calls:
         raise AssertionError(f"W8A16 launches {launches} != {per_call} x "
                              f"{calls} model calls")
+    # the projections of every prefill call above the route's threshold
+    # take the wgmma kernel (the lm_head runs at M = the group's size)
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.inference.paged import PagedKVEngine
+    call_ms = _prefill_call_ms(prompts, 7, PagedKVEngine._bucket)
+    big = sum(m > qm._SMALL_M for m in call_ms)
+    if eng.stats["prefill_calls"] != len(call_ms):
+        raise AssertionError(f"int8: {eng.stats['prefill_calls']} prefill "
+                             f"calls, want {len(call_ms)} ({call_ms})")
+    if launches["weight_only_int8_matmul_wgmma"] != \
+            7 * cfg.num_hidden_layers * big:
+        raise AssertionError(f"wgmma W8A16 launches {launches} != 7 x "
+                             f"{cfg.num_hidden_layers} x {big} prefill calls "
+                             f"of M {call_ms}")
     if all_counts["paged_decode_attention"] != 0:
         raise AssertionError("int8 serving launched the float decode kernel")
     kv_slot = eng.kv_bytes_per_slot()
@@ -1750,9 +1802,9 @@ def main(argv=None):
 
     t_start = time.perf_counter()
     kernels = kernel_phases(dev, fn, pa)
-    first_m = _first_prefill_m(_prompts(8, 128256, seed=0), 7,
+    call_ms = _prefill_call_ms(_prompts(8, 128256, seed=0), 7,
                                PagedKVEngine._bucket)
-    kernels.update(int8_kernel_phases(dev, pa, qm, first_m))
+    kernels.update(int8_kernel_phases(dev, pa, qm, call_ms[0], call_ms[-1]))
     kernels.update(flash_phases(dev, fa))
     bwd_entries, fwd_train = norm_rope_bwd_phases(dev, fn)
     kernels.update(bwd_entries)

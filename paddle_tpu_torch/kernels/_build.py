@@ -53,6 +53,7 @@ _SIGNATURES = {
     "ptt_ce_dx": [_P] * 4 + [_I] * 9 + [_P],
     "ptt_ce_dw": [_P] * 3 + [_I] * 7 + [_P],
     "ptt_w8a16_matmul": [_P] * 5 + [_I] * 7 + [_P],
+    "ptt_w8a16_matmul_wgmma": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -127,6 +128,10 @@ def _load(csrc, build_dir):
         log = _build(srcs, so_path)
     lib = ctypes.CDLL(str(so_path))
     for name, argtypes in _SIGNATURES.items():
+        # a tree from before an entry point existed (an older revision
+        # to time beside this one) lacks it: calling it raises
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

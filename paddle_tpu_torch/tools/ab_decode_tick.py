@@ -14,9 +14,11 @@ call), then builds Llama-3-8B (bf16, random weights from seed 0, the
 fused norm and RoPE), serves chip_smoke's 8 prompts of 64 new tokens
 REPEAT times over bf16 KV pages, converts the model with
 `quantize_weight_only` and serves them REPEAT times over int8 pages. It
-prints each run's tick (host wall ms of 4 decode steps of 8 slots) and
-decode tokens/s, and their medians over all runs but the first (which
-warms the allocator).
+prints each run's tick (host wall ms of 4 decode steps of 8 slots),
+decode tokens/s, the batched prefill calls' host wall (ms, each call
+closed by the copy of its logits to the host, so the device work is in
+it) and prefill tokens/s, and their medians over all runs but the first
+(which warms the allocator).
 """
 from __future__ import annotations
 
@@ -76,7 +78,9 @@ for kv in ("bf16", "int8"):
         eng, _ = cs._serve(model, prompts, 64, late=7, kv_dtype=kv, **geom)
         st = eng.stats
         runs.append((st["tick_s"] / st["ticks"] * 1e3,
-                     st["decode_tokens"] / st["tick_s"]))
+                     st["decode_tokens"] / st["tick_s"],
+                     st["prefill_s"] * 1e3,
+                     st["prefill_tokens"] / st["prefill_s"]))
         del eng
     out[kv] = runs
 print("@@" + json.dumps(out))
@@ -109,13 +113,13 @@ def main(argv=None):
         parts = [f"decode call {res['decode_call_host_us']:.2f} us host, "
                  f"{res['decode_call_ms']:.4f} ms device"]
         for kv in ("bf16", "int8"):
-            ticks = [t for t, _ in res[kv]]
-            rates = [r for _, r in res[kv]]
-            parts.append(
-                f"{kv} tick ms {[round(t, 2) for t in ticks]} median "
-                f"{statistics.median(ticks[1:] or ticks):.2f}, tok/s "
-                f"{[round(r, 1) for r in rates]} median "
-                f"{statistics.median(rates[1:] or rates):.1f}")
+            cols = list(zip(*res[kv]))
+            for (name, nd), col in zip((("tick ms", 2), ("tok/s", 1),
+                                        ("prefill ms", 2),
+                                        ("prefill tok/s", 1)), cols):
+                parts.append(
+                    f"{kv} {name} {[round(v, nd) for v in col]} median "
+                    f"{statistics.median(col[1:] or col):.{nd}f}")
         print(f"[tick] {tree}: " + "; ".join(parts), flush=True)
 
 

@@ -37,7 +37,8 @@ within the tolerance times (|ref| + the RMS of its row + 2^-6 of the
 output's RMS): 1e-4 in f32 (the same exact products summed in another
 order), 2^-7 in bf16 (one rounding step: the two f32 sums may round to
 neighbouring bf16 values); `test_w8a16_rule_rejects_a_dropped_k_tile`
-shows it failing a kernel that leaves out one k-tile of 64.
+shows it failing a split-K kernel and a wgmma kernel that leave out one
+k-tile of 64, and a converter whose byte lane reads its neighbour.
 """
 import shutil
 from pathlib import Path
@@ -861,18 +862,26 @@ def _w8a16_tol(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M", [1, 8, 17, 300])
+@pytest.mark.parametrize("M", [1, 8, 17, 64, tqm._SMALL_M + 1, 300, 1000,
+                               5460])
 def test_w8a16_kernel_matches_ref(cuda, dtype, M):
-    # ragged K (200: a last k-tile of 8) and N (208: a last column tile
-    # of 80), a Llama-3 decode shape that splits K 32 ways, and f32 x
-    # with a bf16 output
-    for K, N in ((200, 208), (4096, 1024), (1024, 4096)):
+    # M on both sides of the route's threshold; ragged K (200: a last
+    # k-tile of 8; 4104: 64 whole k-tiles and one of 8) and N (208: a last
+    # column tile of 80 in the 16-row kernel, 208 of 256 in the wgmma
+    # kernel; 1040: 16 of 256), a Llama-3 decode shape that splits K 32
+    # ways, and f32 x (rounded to bf16 before the wgmma kernel) with a
+    # bf16 output
+    for K, N in ((200, 208), (4104, 1040), (4096, 1024), (1024, 4096)):
         x, qw, s = _w8a16_inputs(cuda, dtype, M, K, N)
-        before = tqm.launches["weight_only_int8_matmul"]
+        wgmma = tqm.plan(M, K, N, tqm._sm_count(cuda))[0] == "wgmma"
+        before = dict(tqm.launches)
         out = tqm.weight_only_int8_matmul(x, qw, s)
         ref = tqm.weight_only_int8_matmul_ref(x, qw, s)
         torch.cuda.synchronize()
-        assert tqm.launches["weight_only_int8_matmul"] == before + 1
+        assert tqm.launches["weight_only_int8_matmul"] == \
+            before["weight_only_int8_matmul"] + 1
+        assert tqm.launches["weight_only_int8_matmul_wgmma"] == \
+            before["weight_only_int8_matmul_wgmma"] + wgmma
         assert out.dtype == dtype and out.shape == (M, N)
         ratio = _rows_ratio(out, ref, _w8a16_tol(dtype))
         assert ratio <= 1.0, (M, K, N, ratio)
@@ -883,6 +892,18 @@ def test_w8a16_kernel_matches_ref(cuda, dtype, M):
                                             out_dtype=torch.bfloat16)
         ref16 = tqm.weight_only_int8_matmul_ref(x, qw, s, torch.bfloat16)
         assert _rows_ratio(out16, ref16, 2 ** -7) <= 1.0
+
+
+@pytest.mark.cuda
+def test_w8a16_is_bit_identical_from_call_to_call(cuda):
+    """Neither route splits K with atomics: a repeat gives the same bits
+    (the wgmma kernel at a prefill shape, the split-K kernel at a decode
+    shape)."""
+    for M, K, N in ((5460, 4096, 1024), (8, 4096, 1024)):
+        x, qw, s = _w8a16_inputs(cuda, torch.bfloat16, M, K, N)
+        first = tqm.weight_only_int8_matmul(x, qw, s)
+        for _ in range(3):
+            assert torch.equal(tqm.weight_only_int8_matmul(x, qw, s), first)
 
 
 @pytest.mark.cuda
@@ -900,19 +921,36 @@ def test_w8a16_wrapper_raises_instead_of_falling_back(cuda):
         tqm.weight_only_int8_matmul(x, qw.cpu(), s)
 
 
-# the planted fault: every split whose k range holds k-tile 1 leaves it out
-_W8A16_FAULT = ("    __syncthreads();  // the B tile is whole\n",
-                "    __syncthreads();  // the B tile is whole\n"
-                "    if (kt == 1) continue;\n")
+# planted faults: (line to spoil, its faulty replacement, shapes it shows at)
+_W8A16_FAULTS = {
+    # every split whose k range holds k-tile 1 leaves it out
+    "split_k_drops_a_k_tile": (
+        "    __syncthreads();  // the B tile is whole\n",
+        "    __syncthreads();  // the B tile is whole\n"
+        "    if (kt == 1) continue;\n",
+        ((8, 4096, 1024), (8, 14336, 4096))),
+    # k-tile 1's products are not issued (both row tiles)
+    "wgmma_drops_a_k_tile": (
+        "        mma_step<BM>(acc, a[p], h::desc_sw128(xb + 32 * kk, 16, 1024));\n",
+        "        if (kt != 1)\n"
+        "          mma_step<BM>(acc, a[p], h::desc_sw128(xb + 32 * kk, 16, 1024));\n",
+        ((300, 4096, 1024), (5460, 4104, 1040))),
+    # the converter's byte lane 1 reads lane 0's byte
+    "converter_lane_reads_its_neighbour": (
+        "__byte_perm(u, kMagic, 0x7441)", "__byte_perm(u, kMagic, 0x7440)",
+        ((300, 4096, 1024), (5460, 4104, 1040))),
+}
 
 
 @pytest.mark.cuda
-def test_w8a16_rule_rejects_a_dropped_k_tile(cuda, tmp_path):
-    """The kernel passes the entry-by-entry rule and a copy that leaves
-    out one k-tile of 64 fails it, in the 128-row tile (prefill) and in
-    the 16-row tile with K split (decode). The faulty library is built
-    from a copy of csrc/ in tmp_path."""
-    shapes = ((300, 4096, 1024), (8, 4096, 1024), (8, 14336, 4096))
+@pytest.mark.parametrize("fault", sorted(_W8A16_FAULTS))
+def test_w8a16_rule_rejects_a_dropped_k_tile(cuda, tmp_path, fault):
+    """The kernels pass the entry-by-entry rule and a copy with a planted
+    fault fails it: a k-tile of 64 left out by the 16-row split-K kernel
+    (decode) or by the wgmma kernel (prefill), or one byte lane of the
+    wgmma kernel's int8 -> bf16 converter reading its neighbour. The
+    faulty library is built from a copy of csrc/ in tmp_path."""
+    line, faulty, shapes = _W8A16_FAULTS[fault]
     inputs = [_w8a16_inputs(cuda, torch.bfloat16, *sh) for sh in shapes]
     refs = [tqm.weight_only_int8_matmul_ref(*a) for a in inputs]
     for a, ref in zip(inputs, refs):
@@ -922,7 +960,6 @@ def test_w8a16_rule_rejects_a_dropped_k_tile(cuda, tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(src, csrc)
     cu = csrc / "quant_matmul.cu"
-    line, faulty = _W8A16_FAULT
     text = cu.read_text()
     assert text.count(line) == 1, "the line to spoil moved"
     cu.write_text(text.replace(line, faulty))
@@ -930,7 +967,7 @@ def test_w8a16_rule_rejects_a_dropped_k_tile(cuda, tmp_path):
         bad = [tqm.weight_only_int8_matmul(*a) for a in inputs]
         torch.cuda.synchronize()
     seen = [_rows_ratio(b, r, 2 ** -7) for b, r in zip(bad, refs)]
-    print(f"|err| / rule bound of the dropped k-tile: {seen}")
+    print(f"|err| / rule bound, {fault}: {seen}")
     assert all(r > 1.0 for r in seen), seen
 
 

@@ -111,15 +111,20 @@ def test_w8a16_shape_contract_and_wrapper_checks():
         tqm.weight_only_int8_matmul(_t(x).half(), _t(qw), _t(s))
 
 
-@pytest.mark.parametrize("M,K,N,bm,splits", [
-    (8, 4096, 1024, 16, 32),       # k/v_proj in decode: 8 tiles, split K
-    (8, 4096, 128256, 16, 1),      # lm_head: 1002 tiles fill the card
-    (8, 14336, 4096, 16, 9),       # down_proj in decode
-    (2730, 4096, 14336, 128, 1),   # a prefill's gate/up
-    (300, 200, 208, 128, 4),       # ragged: K splits into 4 k-tiles of 64
+@pytest.mark.parametrize("M,K,N,route,bm,splits", [
+    (8, 4096, 1024, "split_k", 16, 32),    # k/v_proj in decode: 8 tiles
+    (8, 4096, 128256, "split_k", 16, 1),   # lm_head: 1002 tiles fill the card
+    (8, 14336, 4096, "split_k", 16, 9),    # down_proj in decode
+    (2730, 4096, 14336, "wgmma", 256, 1),  # a prefill's gate/up
+    (5460, 4096, 1024, "wgmma", 256, 1),   # k/v: 176 tiles of 256 rows
+    (656, 4096, 1024, "wgmma", 128, 1),    # 24 or 48 tiles: one wave
+    (656, 4096, 4096, "wgmma", 256, 1),    # 96 tiles, where 192 take two
+    (300, 200, 208, "wgmma", 128, 1),      # ragged: no split on this route
+    (tqm._SMALL_M, 4096, 4096, "split_k", 16, 5),    # at the threshold
+    (tqm._SMALL_M + 1, 4096, 4096, "wgmma", 128, 1),  # just past it
 ])
-def test_w8a16_launch_plan(M, K, N, bm, splits):
-    assert tqm.plan(M, K, N, sms=132) == (bm, splits)
+def test_w8a16_launch_plan(M, K, N, route, bm, splits):
+    assert tqm.plan(M, K, N, sms=132) == (route, bm, splits)
     nk = -(-K // 64)
     per = -(-nk // splits)
     assert -(-nk // per) == splits           # no split is empty
