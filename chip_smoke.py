@@ -779,10 +779,16 @@ def flash_phases(dev, fa):
     replaces = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:529",
                 "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:998",
                 "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:1016"}
+    # the kernels in flash_attention.cu and the instructions they run on
+    kernel = {"flash_fwd": "flash_fwd_mma (mma.sync m16n8k16, cp.async)",
+              "flash_bwd_dq": "wg::flash_dq_wgmma (wgmma m64n64k16, TMA, "
+                              "128-byte swizzle)",
+              "flash_bwd_dkv": "wg::flash_dkv_wgmma (wgmma m64n64k16, TMA, "
+                               "128-byte swizzle)"}
     for name, e in out.items():
         e.update(name=name, route="cuda",
                  source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
-                 replaces=replaces[name])
+                 replaces=replaces[name], kernel=kernel[name])
         if name != "flash_fwd":
             e["library_note"] = ("the SDPA backward computes dq, dk and dv "
                                  "together")

@@ -302,13 +302,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -333,17 +326,6 @@ __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
     const bool valid = r0 + r < seq;
     cp_async16(dst + r * LD + c, src + (valid ? (r0 + r) * stride : 0) + c,
                valid);
-  }
-}
-
-// Per-row f32 values [r0, r0 + Rows) of a vector; rows at or past seq get 0
-template <int Rows, int Threads>
-__device__ __forceinline__ void load_row_vals_async(float* dst,
-                                                    const float* src, int r0,
-                                                    int seq) {
-  for (int r = threadIdx.x; r < Rows; r += Threads) {
-    const bool valid = r0 + r < seq;
-    cp_async4(dst + r, src + (valid ? r0 + r : 0), valid);
   }
 }
 

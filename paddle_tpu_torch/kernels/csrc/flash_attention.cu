@@ -29,32 +29,75 @@
 // of traffic (0.03 ms); the dq kernel does 1.5 and the dk/dv kernel 2
 // times the forward's operations (each recomputes the scores).
 //
-// Design: a block of 4 warps per (64-row q tile, q head, batch) for the
-// forward and dq, per (64-row k tile, kv head, batch) for dk/dv; tiles of
-// the other operand stream through shared memory (rows padded by 16
-// bytes, so fragment loads do not conflict on banks). The causal forward
-// and dq stop at the diagonal tile and dk/dv start there; the element mask
-// runs only on the diagonal tile and on tiles holding the ragged edge.
-// - bf16 (the training path): each warp owns 16 rows. The products run on
-//   the tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate)
-//   with every accumulator in registers, FlashAttention-2 style: the
-//   scores of a tile stay in the accumulator fragments, the online
-//   softmax runs on them (row max and sum by two quad shuffles), and they
-//   become the A operand of the next product without touching shared
-//   memory; operands read transposed come through ldmatrix .trans. dk/dv
-//   work in the transposed orientation (rows are keys), so dS^T and P^T
-//   are A operands too.
-//   The streamed tiles are double-buffered through cp.async, so the
-//   copy of the next tile runs under the products of this one.
+// Design of the forward and the f32 path: a block of 4 warps per (64-row
+// q tile, q head, batch) for the forward and dq, per (64-row k tile, kv
+// head, batch) for dk/dv; tiles of the other operand stream through
+// shared memory (rows padded by 16 bytes, so fragment loads do not
+// conflict on banks). The causal forward and dq stop at the diagonal tile
+// and dk/dv start there; the element mask runs only on the diagonal tile
+// and on tiles holding the ragged edge.
+// - bf16 forward: each warp owns 16 rows. The products run on the tensor
+//   cores through mma.sync m16n8k16 (bf16 in, f32 accumulate) with every
+//   accumulator in registers, FlashAttention-2 style: the scores of a
+//   tile stay in the accumulator fragments, the online softmax runs on
+//   them (row max and sum by two quad shuffles), and they become the A
+//   operand of the next product without touching shared memory; v is
+//   read through ldmatrix .trans. k and v tiles are double-buffered
+//   through cp.async. wgmma, TMA and warp specialisation for the forward
+//   are later work.
 // - f32: CUDA-core FMA loops over 32-row tiles with the accumulators in
 //   shared memory (a checking path; the model trains in bf16).
-// Blocks of the heaviest causal tiles launch first (see q_tile). wgmma,
-// TMA and warp specialisation are later work.
+//
+// The bf16 backward (namespace wg) runs on wgmma, the only way to
+// Hopper's full tensor-core rate. Blocks of 256 threads, two warpgroups
+// that both compute, each owning 64 rows (wgmma's M) of a 128-row block:
+// - dq, grid (Hq, B, q tiles of 128): Q and dO of the block's rows stay
+//   in shared memory; k/v tiles of 64 keys stream through a 4-stage ring
+//   up to the diagonal. S = Q K^T and dP = dO V^T (m64n64k16), p =
+//   exp(s * scale - lse) in the S accumulators, dS packed to bf16 A
+//   fragments in registers, dQ += dS K (m64nDk16 with A in registers, K
+//   read MN-major through the transpose bit). dq sums over the k tiles
+//   of one block, in order.
+// - dk/dv, grid (Hk, B, k tiles of 128), the heaviest causal tiles
+//   first: K and V of the block's keys are loaded once; (Q, dO, lse,
+//   delta) of each (query head of the group, q tile of 64) stream through
+//   a 4-stage ring in a fixed order. Rows are keys: S^T = K Q^T and dP^T
+//   = V dO^T, P^T and dS^T in registers (lse and delta by column), dV +=
+//   P^T dO and dK += dS^T Q (A in registers). A 64-wide bf16 row is one
+//   128-byte swizzled row, so each Q or dO tile is the K-major B of one
+//   product and the MN-major B of another: no transposed copy. No
+//   atomics: dk and dv sum over the group's heads and q tiles in order.
+// A step issues S and dP of its tile, then the dS products of the step
+// before, and waits for S alone: the exp pass runs under the other
+// products. Every product is issued on every step (a tile that adds
+// nothing gets zero fragments): ptxas serialises all of a kernel's
+// wgmmas, each waiting for the last, when one is issued under a branch.
+// At d 64 the block-fixed A operand of S and dP (Q and dO for dq, K and V
+// for dk/dv) stays in registers, loaded once by ldmatrix from the
+// swizzled tile, so those products read only B from shared memory; at
+// d 128 the accumulators leave no room and both operands come from
+// shared memory. The exp is 2^(s * scale * log2(e) - lse * log2(e)) by
+// ex2.approx.ftz (one FFMA and one MUFU an entry), branch-free: a branch
+// per entry serialises each entry's load and exp.
+// Operands arrive by TMA (cp.async.bulk.tensor) with the 128-byte swizzle
+// that wgmma's descriptors read: q, k, v through a 4-D map (D, H, S, B)
+// over the tensor's own strides (so the strided views the wrapper takes
+// need no copy, and rows past S arrive as zeros), lse and delta through
+// a 1-D map. TMA rather than a producer warp writing the swizzle by
+// cp.async: one thread issues a whole tile, no registers or address
+// arithmetic in the compute warps, and the ragged edge is the hardware's
+// bound fill. Thread 0 is the producer: it refills a stage once every
+// warp has arrived on the stage's `empty` mbarrier. Registers: dK and dV
+// (D / 2 each) plus S^T and dP^T (32 each) and the fragments a thread:
+// over 240 at d 128, which a 384-thread block cannot hold (ptxas caps it
+// at 168 registers a thread whatever setmaxnreg grants later), hence two
+// warpgroups and no separate producer warpgroup.
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -535,24 +578,14 @@ __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
   ptt::load_rows_async<G::BM, D, G::LDT, kThreads>(dst, src, stride, r0, seq);
 }
 
-template <int BM>
-__device__ __forceinline__ void load_row_vals_async(float* dst,
-                                                    const float* src, int r0,
-                                                    int seq) {
-  ptt::load_row_vals_async<BM, kThreads>(dst, src, r0, seq);
-}
-
-// bf16 tiles: 64 rows of D + 8. The streamed operand is double-buffered:
-// the copy of tile j + 1 runs while tile j is computed. Forward: q, k[2],
-// v[2]; dq: q, dO, k[2], v[2], lse and delta of its rows; dk/dv: k, v,
-// q[2], dO[2], lse[2], delta[2].
+// The forward's bf16 tiles: 64 rows of D + 8, q, k[2], v[2]. The streamed
+// operand is double-buffered: the copy of tile j + 1 runs while tile j is
+// computed.
 template <int D>
 struct MmaGeo : Geo<bf16, D> {
   using G = Geo<bf16, D>;
   static constexpr int kTile = static_cast<int>(G::kT / sizeof(bf16));
   static constexpr size_t fwd_bytes = 5 * G::kT;
-  static constexpr size_t dq_bytes = 6 * G::kT + 2 * G::kRow;
-  static constexpr size_t dkv_bytes = 6 * G::kT + 4 * G::kRow;
 };
 
 // Forward: grid (Hq, B, q tiles)
@@ -668,218 +701,626 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma(const Args a) {
       if (q0 + rows[i] < a.seq) lg[q0 + rows[i]] = m[i] + logf(l[i]);
 }
 
-// dq: grid (Hq, B, q tiles)
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_mma(const Args a) {
-  using G = MmaGeo<D>;
-  constexpr int BM = G::BM, LDT = G::LDT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  bf16* q_s = cv.take<bf16>(G::kT);
-  bf16* do_s = cv.take<bf16>(G::kT);
-  bf16* k_s = cv.take<bf16>(2 * G::kT);
-  bf16* v_s = cv.take<bf16>(2 * G::kT);
-  float* lse_s = cv.take<float>(G::kRow);
-  float* dl_s = cv.take<float>(G::kRow);
+constexpr int kFwd = 0, kDq = 1, kDkv = 2;
 
-  const int h = blockIdx.x, b = blockIdx.y, qt = q_tile();
-  const int kvh = h / (a.hq / a.hk);
-  const int q0 = qt * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int rows[2] = {16 * warp + (lane >> 2), 16 * warp + (lane >> 2) + 8};
-  const int64_t row = static_cast<int64_t>(a.hq) * D;
-  const int64_t dense = static_cast<int64_t>(b) * a.seq * row +
-                        static_cast<int64_t>(h) * D;
-  const int64_t bh = (static_cast<int64_t>(b) * a.hq + h) * a.seq;
-  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
-  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
-  load_rows<bf16, D>(q_s, static_cast<const bf16*>(a.q) + b * a.qs[0] +
-                              h * a.qs[2], a.qs[1], q0, a.seq);
-  load_rows<bf16, D>(do_s, static_cast<const bf16*>(a.dout) + dense, row, q0,
-                     a.seq);
-  load_row_vals<BM>(lse_s, a.lse + bh, q0, a.seq);
-  load_row_vals<BM>(dl_s, a.delta + bh, q0, a.seq);
-  load_rows_async<D>(k_s, kg, a.ks[1], 0, a.seq);
-  load_rows_async<D>(v_s, vg, a.vs[1], 0, a.seq);
-  cp_async_commit();
-  __syncthreads();
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    frag_a(qf[kk], q_s, LDT, 16 * warp, 16 * kk);
-    frag_a(dof[kk], do_s, LDT, 16 * warp, 16 * kk);
-  }
-  const float lse_r[2] = {lse_s[rows[0]], lse_s[rows[1]]};
-  const float dl_r[2] = {dl_s[rows[0]], dl_s[rows[1]]};
-  float dq[D / 8][4] = {};
-  const int n_kv = (a.seq + BM - 1) / BM;
-  const int nk = a.causal ? min(qt + 1, n_kv) : n_kv;
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BM;
-    const int buf = (j & 1) * G::kTile;
-    if (j + 1 < nk) {
-      load_rows_async<D>(k_s + G::kTile - buf, kg, a.ks[1], k0 + BM, a.seq);
-      load_rows_async<D>(v_s + G::kTile - buf, vg, a.vs[1], k0 + BM, a.seq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kb = k_s + buf;
-    const bf16* vb = v_s + buf;
-    float s[8][4] = {}, dp[8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        frag_bt(b0, b1, kb, LDT, 8 * n, 16 * kk);
-        mma_bf16(s[n], qf[kk], b0, b1);
-        frag_bt(b0, b1, vb, LDT, 8 * n, 16 * kk);
-        mma_bf16(dp[n], dof[kk], b0, b1);
-      }
-    const bool masked = (a.causal && j == qt) || k0 + BM > a.seq ||
-                        q0 + BM > a.seq;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float p = 0.f;
-        if (!masked || visible(q0, rows[i], k0, 8 * n + 2 * t + (e & 1),
-                               a.seq, a.causal))
-          p = __expf(s[n][e] * a.scale - lse_r[i]);
-        s[n][e] = p * (dp[n][e] - dl_r[i]) * a.scale;  // dS
-      }
-    mma_c_b<D>(dq, s, kb, LDT);
-    __syncthreads();
-  }
-  const float one[2] = {1.f, 1.f};
-  store_acc<D>(static_cast<bf16*>(a.dq) + dense, row, dq, q0, one, a.seq);
+// ---------------------------------------------------------------------
+// bf16 backward: wgmma on 128-byte-swizzled tiles loaded by TMA
+// ---------------------------------------------------------------------
+
+namespace wg {
+
+namespace h = ptt::sm90;
+
+constexpr int kThreads = 256;   // two warpgroups, both compute
+constexpr int kRows = 64;       // a warpgroup's rows: wgmma's M
+constexpr int kBlockRows = 2 * kRows;
+constexpr int kStages = 4;      // the streamed operand's ring
+constexpr int kLseBytes = kRows * 4;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// A tile of R rows x D bf16 columns in shared memory: D / 64 halves, each
+// R rows of 128 bytes as TMA's 128-byte swizzle lays them (a 64-column
+// box each), 1024-byte aligned.
+template <int D>
+struct Tiles {
+  static constexpr int kHalves = D / 64;
+  static constexpr uint32_t kStep = kRows * 128;              // one half
+  static constexpr uint32_t kTile = kHalves * kStep;          // 64 rows
+  static constexpr uint32_t kBlockStep = kBlockRows * 128;
+  static constexpr uint32_t kBlockTile = kHalves * kBlockStep;  // 128 rows
+  // dq: q, dO (128 rows) | k, v ring | barriers
+  static constexpr size_t dq_bytes = 2 * kBlockTile + 2 * kStages * kTile +
+                                     (1 + 2 * kStages) * 8 + 1024;
+  // dk/dv: k, v (128 rows) | q, dO ring | lse, delta ring | barriers
+  static constexpr size_t dkv_bytes = 2 * kBlockTile + 2 * kStages * kTile +
+                                      2 * kStages * kLseBytes +
+                                      (1 + 2 * kStages) * 8 + 1024;
+};
+
+// wgmma descriptors of a tile at shared address `base` whose 64-column
+// halves are `step` bytes apart. K-major (the tile's columns are the
+// product's K): k16 step kk is +32 bytes in the row of half kk / 4.
+// MN-major (its rows are the product's K, its columns the N): k16 step kk
+// is rows 16 kk.. (+2048 bytes), the halves are the N atoms (LBO).
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, uint32_t step,
+                                           int kk) {
+  return h::desc_sw128(base + (kk >> 2) * step + 32 * (kk & 3), 16, 1024);
 }
 
-// dk, dv: grid (Hk, B, k tiles). Rows of the products are keys: S^T =
-// K Q^T and dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q. The block
-// walks its (query head of the group, q tile) pairs as one stream.
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_mma(const Args a) {
-  using G = MmaGeo<D>;
-  constexpr int BM = G::BM, LDT = G::LDT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  bf16* k_s = cv.take<bf16>(G::kT);
-  bf16* v_s = cv.take<bf16>(G::kT);
-  bf16* q_s = cv.take<bf16>(2 * G::kT);
-  bf16* do_s = cv.take<bf16>(2 * G::kT);
-  float* lse_s = cv.take<float>(2 * G::kRow);
-  float* dl_s = cv.take<float>(2 * G::kRow);
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, uint32_t step,
+                                            int kk) {
+  return h::desc_sw128(base + 2048 * kk, step, 1024);
+}
 
-  const int kvh = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+// acc (64 x 64) = A . B^T over D: A the warpgroup's 64 rows of a tile at
+// `a` (halves a_step apart), B 64 rows of a tile at `b`; both K-major
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&acc)[32], uint32_t a,
+                                        uint32_t a_step, uint32_t b,
+                                        uint32_t b_step) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    h::wgmma_m64n64k16_ss<0>(acc, desc_k(a, a_step, kk),
+                             desc_k(b, b_step, kk), kk > 0);
+}
+
+// The same with A held in registers (d 64): F the A fragments of the
+// warpgroup's 64 rows over the 64 columns
+__device__ __forceinline__ void mma_fbt(float (&acc)[32],
+                                        const uint32_t (&f)[4][4], uint32_t b,
+                                        uint32_t b_step) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    h::wgmma_m64n64k16_rs<0>(acc, f[kk], desc_k(b, b_step, kk), kk > 0);
+}
+
+// A warp's rows of a block-fixed operand as A fragments, held at d 64
+// only (at d 128 they would not fit beside the accumulators)
+template <int D>
+struct HeldFrags {
+  uint32_t f[4][4];
+};
+template <>
+struct HeldFrags<128> {};
+
+// The A fragments (a set of 4 registers a k16 step) of a warp's 16 rows
+// row0.. of a 64-column swizzled tile at `base`, by ldmatrix .x4: lane L
+// reads row row0 + L % 8 + 8 (L / 8 % 2), 16-byte chunk 2 kk + L / 16,
+// found at chunk ^ (row % 8) under the 128-byte swizzle.
+__device__ __forceinline__ void load_frags(uint32_t (&f)[4][4], uint32_t base,
+                                           int row0) {
+  const int lane = threadIdx.x & 31;
+  const int r = row0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int chunk = 2 * kk + (lane >> 4);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(f[kk][0]), "=r"(f[kk][1]), "=r"(f[kk][2]), "=r"(f[kk][3])
+        : "r"(base + r * 128 + ((chunk ^ (r & 7)) << 4)));
+  }
+}
+
+// acc (64 x D) += F . B over 64: F the bf16 A fragments of a 64 x 64
+// tile (one set a k16 step), B the 64 x D tile at `b` read MN-major
+template <int D>
+__device__ __forceinline__ void mma_fb(float (&acc)[D / 2],
+                                       const uint32_t (&f)[4][4], uint32_t b,
+                                       uint32_t b_step) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 64)
+      h::wgmma_m64n64k16_rs<1>(acc, f[kk], desc_mn(b, b_step, kk), 1);
+    else
+      h::wgmma_m64n128k16_rs<1>(acc, f[kk], desc_mn(b, b_step, kk), 1);
+  }
+}
+
+// The layout of an m64n64 accumulator: entry 4 j + 2 v + u of a thread is
+// row 16 warp + g + 8 v, column 8 j + 2 t + u of the warpgroup's tile; the
+// A fragment of k16 step kk takes columns 16 kk.., entry pairs (8 kk + 2 r,
+// + 1) into register r. fill_frag packs one such pair.
+__device__ __forceinline__ void fill_frag(uint32_t (&f)[4][4], int j, int v,
+                                          float lo, float hi) {
+  f[j >> 1][2 * (j & 1) + v] = ptt::pack_bf16(lo, hi);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x (ex2.approx.ftz: a result below 2^-126 is 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p = exp(s * scale - lse) in place over a warpgroup's 64 x 64 score
+// tile, as 2^(s * scale2 - lse2(i)) with scale2 = scale * log2(e) and
+// lse2(i) = lse * log2(e) of entry i: one FFMA and one ex2 an entry. When
+// `masked`, 0 where vis(i) is false. Branch-free inside (the exp for
+// every entry, then a select): a branch per entry serialises each
+// entry's load and exp behind a reconvergence.
+template <typename Lse, typename Vis>
+__device__ __forceinline__ void exp_scores(float (&s)[32], float scale2,
+                                           bool masked, Lse lse2, Vis vis) {
+  if (!masked) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], scale2, -lse2(i)));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = ex2(fmaf(s[i], scale2, -lse2(i)));
+      s[i] = vis(i) ? p : 0.f;
+    }
+  }
+}
+
+
+// keep fragments that an RS wgmma reads in place until its wait
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) h::fence_operands(f[kk]);
+}
+
+// dq: grid (Hq, B, q tiles of 128). Warpgroup w owns query rows 64 w.. of
+// the block; both stream the k/v tiles of 64 keys up to the diagonal:
+// S = Q K^T and dP = dO V^T (SS), dS in registers, dQ += dS K (RS, K read
+// MN-major).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using T = Tiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s =
+      smem_raw + ((1024 - (h::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* do_s = q_s + T::kBlockTile;
+  unsigned char* k_s = do_s + T::kBlockTile;
+  unsigned char* v_s = k_s + kStages * T::kTile;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(v_s + kStages * T::kTile);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int hq = blockIdx.x, b = blockIdx.y;
+  const int kvh = hq / (a.hq / a.hk);
+  const int q0 = q_tile() * kBlockRows;
+  const int n_kv = cdiv(a.seq, kRows);
+  const int nk = a.causal ? cdiv(min(q0 + kBlockRows, a.seq), kRows) : n_kv;
+  const int w = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int qw0 = q0 + kRows * w;   // the warpgroup's first row
+
+  auto load_kv = [&](int j) {       // k/v tile j into stage j % kStages
+    const int s = j % kStages;
+    h::mbar_arrive_expect_tx(&full[s], 2 * T::kTile);
+#pragma unroll
+    for (int c = 0; c < T::kHalves; ++c) {
+      h::tma_load_4d(k_s + s * T::kTile + c * T::kStep, &tk, &full[s], 64 * c,
+                     kvh, j * kRows, b);
+      h::tma_load_4d(v_s + s * T::kTile + c * T::kStep, &tv, &full[s], 64 * c,
+                     kvh, j * kRows, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    h::mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      h::mbar_init(&full[s], 1);
+      h::mbar_init(&empty[s], 8);   // lane 0 of every warp
+    }
+    h::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    h::mbar_arrive_expect_tx(qbar, 2 * T::kBlockTile);
+#pragma unroll
+    for (int c = 0; c < T::kHalves; ++c) {
+      h::tma_load_4d(q_s + c * T::kBlockStep, &tq, qbar, 64 * c, hq, q0, b);
+      h::tma_load_4d(do_s + c * T::kBlockStep, &tdo, qbar, 64 * c, hq, q0, b);
+    }
+    for (int j = 0; j < min(kStages, nk); ++j) load_kv(j);
+  }
+  const int64_t bh = (static_cast<int64_t>(b) * a.hq + hq) * a.seq;
+  float lse2[2], dl_r[2];           // lse * log2(e) and delta of two rows
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    const int row = qw0 + 16 * warp + g + 8 * v;
+    lse2[v] = row < a.seq ? a.lse[bh + row] * kLog2e : 0.f;
+    dl_r[v] = row < a.seq ? a.delta[bh + row] : 0.f;
+  }
+  const float scale2 = a.scale * kLog2e;
+  const uint32_t qa = h::smem_u32(q_s) + kRows * 128 * w;
+  const uint32_t doa = h::smem_u32(do_s) + kRows * 128 * w;
+  float dq[D / 2], s[32], dp[32];
+  uint32_t ds[4][4] = {};           // dS of the last tile computed
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  // ds holds dS of tile j - 1 (zeros if that tile added nothing), whose
+  // dQ product step j issues with the tile's k from its stage
+  uint32_t prev_kb = h::smem_u32(k_s);
+  h::mbar_wait(qbar, 0);
+  // At d 64 the warp's rows of Q and dO stay in registers as A fragments:
+  // S and dP then read only K and V from shared memory.
+  HeldFrags<D> qf, dof;
+  if constexpr (D == 64) {
+    load_frags(qf.f, h::smem_u32(q_s), kRows * w + 16 * warp);
+    load_frags(dof.f, h::smem_u32(do_s), kRows * w + 16 * warp);
+  }
+  // Step j issues S and dP of tile j, then dQ += dS K of tile j - 1, and
+  // waits for S alone: the exp pass runs under dP and the dQ product.
+  // Every product is issued on every step (a skipped tile's S and dP go
+  // unused, its dS is zeros): a wgmma issued under a branch makes ptxas
+  // serialise them all.
+  for (int j = 0; j < nk; ++j) {
+    if (threadIdx.x == 0 && j >= 2 && j + kStages - 2 < nk) {
+      // both warpgroups released tile j - 2's stage in step j - 1
+      h::mbar_wait(&empty[(j - 2) % kStages], ((j - 2) / kStages) & 1);
+      load_kv(j + kStages - 2);
+    }
+    __syncwarp();
+    const int stage = j % kStages;
+    h::mbar_wait(&full[stage], (j / kStages) & 1);
+    const int k0 = j * kRows;
+    // a warpgroup whose rows are past the end, or all above the diagonal
+    // of this tile, has nothing to add
+    const bool live = qw0 < a.seq && (!a.causal || k0 <= qw0);
+    const uint32_t kb = h::smem_u32(k_s + stage * T::kTile);
+    const uint32_t vb = h::smem_u32(v_s + stage * T::kTile);
+    h::fence_operands(s);
+    h::fence_operands(dp);
+    h::fence_operands(dq);
+    fence_frags(ds);
+    h::wgmma_fence();
+    if constexpr (D == 64)
+      mma_fbt(s, qf.f, kb, T::kStep);
+    else
+      mma_abt<D>(s, qa, T::kBlockStep, kb, T::kStep);
+    h::wgmma_commit();
+    if constexpr (D == 64)
+      mma_fbt(dp, dof.f, vb, T::kStep);
+    else
+      mma_abt<D>(dp, doa, T::kBlockStep, vb, T::kStep);
+    h::wgmma_commit();
+    mma_fb<D>(dq, ds, prev_kb, T::kStep);
+    h::wgmma_commit();
+    h::wgmma_wait<2>();             // S has landed
+    h::fence_operands(s);
+    if (live) {
+      const bool masked = (a.causal && k0 == qw0) || k0 + kRows > a.seq ||
+                          qw0 + kRows > a.seq;
+      exp_scores(
+          s, scale2, masked, [&](int i) { return lse2[(i >> 1) & 1]; },
+          [&](int i) {
+            return visible(qw0, 16 * warp + g + 8 * ((i >> 1) & 1), k0,
+                           8 * (i >> 2) + 2 * t + (i & 1), a.seq, a.causal);
+          });
+    }
+    h::wgmma_wait<0>();             // dP, and dQ of tile j - 1, have landed
+    h::fence_operands(dp);
+    h::fence_operands(dq);
+    fence_frags(ds);
+    if (j > 0) {                    // tile j - 1's k and v are read
+      __syncwarp();
+      if (lane == 0) h::mbar_arrive(&empty[(j - 1) % kStages]);
+    }
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int i = 4 * j8 + 2 * v;
+        fill_frag(ds, j8, v,
+                  live ? s[i] * (dp[i] - dl_r[v]) * a.scale : 0.f,
+                  live ? s[i + 1] * (dp[i + 1] - dl_r[v]) * a.scale : 0.f);
+      }
+    prev_kb = kb;
+  }
+  h::fence_operands(dq);
+  fence_frags(ds);
+  h::wgmma_fence();
+  mma_fb<D>(dq, ds, prev_kb, T::kStep);
+  h::wgmma_commit();
+  h::wgmma_wait<0>();
+  h::fence_operands(dq);
+  const int64_t row = static_cast<int64_t>(a.hq) * D;
+  const float one[2] = {1.f, 1.f};
+  store_acc<D>(static_cast<bf16*>(a.dq) + static_cast<int64_t>(b) * a.seq *
+                   row + static_cast<int64_t>(hq) * D,
+               row, reinterpret_cast<float(*)[4]>(dq), q0, one, a.seq);
+}
+
+// dk, dv: grid (Hk, B, k tiles of 128), the heaviest causal tiles first.
+// Warpgroup w owns keys 64 w.. of the block, K and V loaded once; the
+// block walks its (query head of the group, q tile of 64) pairs as one
+// stream through a ring of (Q, dO, lse, delta) stages. Rows of the
+// products are keys: S^T = K Q^T and dP^T = V dO^T (SS, Q and dO
+// K-major), P^T and dS^T in registers (lse and delta by column), then
+// dV += P^T dO and dK += dS^T Q (RS, dO and Q read MN-major: the same
+// tiles, no transposed copy).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tlse,
+    const __grid_constant__ CUtensorMap tdl, const Args a, int lse_at,
+    int dl_at) {
+  using T = Tiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* k_s =
+      smem_raw + ((1024 - (h::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* v_s = k_s + T::kBlockTile;
+  unsigned char* q_s = v_s + T::kBlockTile;
+  unsigned char* do_s = q_s + kStages * T::kTile;
+  float* lse_s = reinterpret_cast<float*>(do_s + kStages * T::kTile);
+  float* dl_s = lse_s + kStages * kRows;
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(dl_s + kStages * kRows);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kBlockRows;
   const int group = a.hq / a.hk;
-  const int k0 = kt * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int keys[2] = {16 * warp + (lane >> 2), 16 * warp + (lane >> 2) + 8};
-  const int64_t qrow = static_cast<int64_t>(a.hq) * D;
-  const int nq = (a.seq + BM - 1) / BM;
-  const int i0 = a.causal ? kt : 0;  // the first q tile that sees k0
+  const int nq = cdiv(a.seq, kRows);
+  const int i0 = a.causal ? k0 / kRows : 0;   // the first q tile that sees k0
   const int per_head = nq - i0;
   const int total = group * per_head;
-  // the copies of step `it` (query head, q tile) into buffer `buf`
-  auto prefetch = [&](int it, int buf) {
-    const int h = kvh * group + it / per_head;
-    const int q0 = (i0 + it % per_head) * BM;
-    const int64_t bh = (static_cast<int64_t>(b) * a.hq + h) * a.seq;
-    load_rows_async<D>(q_s + buf * G::kTile,
-                       static_cast<const bf16*>(a.q) + b * a.qs[0] +
-                           h * a.qs[2],
-                       a.qs[1], q0, a.seq);
-    load_rows_async<D>(do_s + buf * G::kTile,
-                       static_cast<const bf16*>(a.dout) +
-                           static_cast<int64_t>(b) * a.seq * qrow +
-                           static_cast<int64_t>(h) * D,
-                       qrow, q0, a.seq);
-    load_row_vals_async<BM>(lse_s + buf * BM, a.lse + bh, q0, a.seq);
-    load_row_vals_async<BM>(dl_s + buf * BM, a.delta + bh, q0, a.seq);
-    cp_async_commit();
+  const int w = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + kRows * w;   // the warpgroup's first key
+
+  auto load_q = [&](int it) {       // step `it` into stage it % kStages
+    const int s = it % kStages;
+    const int hq = kvh * group + it / per_head;
+    const int q0 = (i0 + it % per_head) * kRows;
+    const int row = (b * a.hq + hq) * a.seq + q0;
+    h::mbar_arrive_expect_tx(&full[s], 2 * T::kTile + 2 * kLseBytes);
+#pragma unroll
+    for (int c = 0; c < T::kHalves; ++c) {
+      h::tma_load_4d(q_s + s * T::kTile + c * T::kStep, &tq, &full[s],
+                     64 * c, hq, q0, b);
+      h::tma_load_4d(do_s + s * T::kTile + c * T::kStep, &tdo, &full[s],
+                     64 * c, hq, q0, b);
+    }
+    h::tma_load_1d(lse_s + s * kRows, &tlse, &full[s], lse_at + row);
+    h::tma_load_1d(dl_s + s * kRows, &tdl, &full[s], dl_at + row);
   };
-  load_rows<bf16, D>(k_s, static_cast<const bf16*>(a.k) + b * a.ks[0] +
-                              kvh * a.ks[2], a.ks[1], k0, a.seq);
-  load_rows<bf16, D>(v_s, static_cast<const bf16*>(a.v) + b * a.vs[0] +
-                              kvh * a.vs[2], a.vs[1], k0, a.seq);
-  prefetch(0, 0);
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < total) {  // the other buffer was released by the barrier
-      prefetch(it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    h::mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      h::mbar_init(&full[s], 1);
+      h::mbar_init(&empty[s], 8);   // lane 0 of every warp
     }
-    __syncthreads();  // this step's tiles (and k, v) have landed
-    const int i = i0 + it % per_head;
-    const int q0 = i * BM;
-    const bf16* qb = q_s + buf * G::kTile;
-    const bf16* dob = do_s + buf * G::kTile;
-    const float* lse_b = lse_s + buf * BM;
-    const float* dl_b = dl_s + buf * BM;
-    float st[8][4] = {}, dpt[8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t kf[4], vf[4];
-      frag_a(kf, k_s, LDT, 16 * warp, 16 * kk);
-      frag_a(vf, v_s, LDT, 16 * warp, 16 * kk);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        frag_bt(b0, b1, qb, LDT, 8 * n, 16 * kk);
-        mma_bf16(st[n], kf, b0, b1);
-        frag_bt(b0, b1, dob, LDT, 8 * n, 16 * kk);
-        mma_bf16(dpt[n], vf, b0, b1);
-      }
-    }
-    const bool masked = (a.causal && i == kt) || q0 + BM > a.seq ||
-                        k0 + BM > a.seq;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qr = 8 * n + 2 * t + (e & 1);
-        float p = 0.f;
-        if (!masked || visible(q0, qr, k0, keys[e >> 1], a.seq, a.causal))
-          p = __expf(st[n][e] * a.scale - lse_b[qr]);
-        st[n][e] = p;                                      // P^T
-        dpt[n][e] = p * (dpt[n][e] - dl_b[qr]) * a.scale;  // dS^T
-      }
-    mma_c_b<D>(dv, st, dob, LDT);
-    mma_c_b<D>(dk, dpt, qb, LDT);
-    __syncthreads();  // every warp is done with this buffer
+    h::fence_barrier_init();
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    h::mbar_arrive_expect_tx(kvbar, 2 * T::kBlockTile);
+#pragma unroll
+    for (int c = 0; c < T::kHalves; ++c) {
+      h::tma_load_4d(k_s + c * T::kBlockStep, &tk, kvbar, 64 * c, kvh, k0, b);
+      h::tma_load_4d(v_s + c * T::kBlockStep, &tv, kvbar, 64 * c, kvh, k0, b);
+    }
+    for (int it = 0; it < min(kStages, total); ++it) load_q(it);
+  }
+  const uint32_t ka = h::smem_u32(k_s) + kRows * 128 * w;
+  const uint32_t va = h::smem_u32(v_s) + kRows * 128 * w;
+  const float scale2 = a.scale * kLog2e;
+  float dk[D / 2], dv[D / 2], st[32], dpt[32];
+  uint32_t pt[4][4] = {}, dst[4][4] = {};   // P^T, dS^T of the last step
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+  // pt, dst hold P^T, dS^T of step it - 1 (zeros if that step added
+  // nothing), whose products step `it` issues with the step's Q and dO
+  uint32_t prev_qb = h::smem_u32(q_s), prev_dob = h::smem_u32(do_s);
+  h::mbar_wait(kvbar, 0);
+  HeldFrags<D> kf, vf;              // K and V as A fragments at d 64
+  if constexpr (D == 64) {
+    load_frags(kf.f, h::smem_u32(k_s), kRows * w + 16 * warp);
+    load_frags(vf.f, h::smem_u32(v_s), kRows * w + 16 * warp);
+  }
+  // Step `it` issues S^T and dP^T of step it, then dV += P^T dO and dK +=
+  // dS^T Q of step it - 1, and waits for S^T alone: the exp pass runs
+  // under dP^T and the two products. Every product is issued on every
+  // step, as in the dq kernel.
+  for (int it = 0; it < total; ++it) {
+    if (threadIdx.x == 0 && it >= 2 && it + kStages - 2 < total) {
+      // both warpgroups released step it - 2's stage in step it - 1
+      h::mbar_wait(&empty[(it - 2) % kStages], ((it - 2) / kStages) & 1);
+      load_q(it + kStages - 2);
+    }
+    __syncwarp();
+    const int s = it % kStages;
+    h::mbar_wait(&full[s], (it / kStages) & 1);
+    const int q0 = (i0 + it % per_head) * kRows;
+    // keys past the end, or a q tile wholly above this warpgroup's keys,
+    // add nothing
+    const bool live = kw0 < a.seq && (!a.causal || q0 >= kw0);
+    const uint32_t qb = h::smem_u32(q_s + s * T::kTile);
+    const uint32_t dob = h::smem_u32(do_s + s * T::kTile);
+    h::fence_operands(st);
+    h::fence_operands(dpt);
+    h::fence_operands(dv);
+    h::fence_operands(dk);
+    fence_frags(pt);
+    fence_frags(dst);
+    h::wgmma_fence();
+    // At d 128, P^T and dS^T in flight through the exp pass would not fit
+    // beside dK, dV, S^T and dP^T: there dV's product goes first and lands
+    // with S^T (groups complete in order), so only dS^T stays in flight.
+    if constexpr (D == 128) {
+      mma_fb<D>(dv, pt, prev_dob, T::kStep);
+      h::wgmma_commit();
+    }
+    if constexpr (D == 64)
+      mma_fbt(st, kf.f, qb, T::kStep);
+    else
+      mma_abt<D>(st, ka, T::kBlockStep, qb, T::kStep);
+    h::wgmma_commit();
+    if constexpr (D == 64)
+      mma_fbt(dpt, vf.f, dob, T::kStep);
+    else
+      mma_abt<D>(dpt, va, T::kBlockStep, dob, T::kStep);
+    h::wgmma_commit();
+    if constexpr (D == 64) mma_fb<D>(dv, pt, prev_dob, T::kStep);
+    mma_fb<D>(dk, dst, prev_qb, T::kStep);
+    h::wgmma_commit();
+    const float* dl_b = dl_s + s * kRows;
+    h::wgmma_wait<2>();             // S^T has landed (and dV at d 128)
+    h::fence_operands(st);
+    if (live) {
+      const float* lse_b = lse_s + s * kRows;
+      const bool masked = (a.causal && q0 == kw0) || q0 + kRows > a.seq ||
+                          kw0 + kRows > a.seq;
+      // lse by column, read where it is used: held in registers beside
+      // the fragments in flight it would spill at d 128
+      exp_scores(
+          st, scale2, masked,
+          [&](int i) {
+            return lse_b[8 * (i >> 2) + 2 * t + (i & 1)] * kLog2e;
+          },
+          [&](int i) {
+            return visible(q0, 8 * (i >> 2) + 2 * t + (i & 1), kw0,
+                           16 * warp + g + 8 * ((i >> 1) & 1), a.seq,
+                           a.causal);
+          });
+    }
+    h::wgmma_wait<0>();             // dP^T and step it - 1's products landed
+    h::fence_operands(dpt);
+    h::fence_operands(dv);
+    h::fence_operands(dk);
+    fence_frags(pt);
+    fence_frags(dst);
+    if (it > 0) {                   // step it - 1's Q and dO are read
+      __syncwarp();
+      if (lane == 0) h::mbar_arrive(&empty[(it - 1) % kStages]);
+    }
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const float2 dl = *reinterpret_cast<const float2*>(dl_b + 8 * j8 +
+                                                         2 * t);
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int i = 4 * j8 + 2 * v;
+        fill_frag(pt, j8, v, live ? st[i] : 0.f, live ? st[i + 1] : 0.f);
+        fill_frag(dst, j8, v,
+                  live ? st[i] * (dpt[i] - dl.x) * a.scale : 0.f,
+                  live ? st[i + 1] * (dpt[i + 1] - dl.y) * a.scale : 0.f);
+      }
+    }
+    prev_qb = qb;
+    prev_dob = dob;
+  }
+  h::fence_operands(dv);
+  h::fence_operands(dk);
+  fence_frags(pt);
+  fence_frags(dst);
+  h::wgmma_fence();
+  mma_fb<D>(dv, pt, prev_dob, T::kStep);
+  mma_fb<D>(dk, dst, prev_qb, T::kStep);
+  h::wgmma_commit();
+  h::wgmma_wait<0>();
+  h::fence_operands(dv);
+  h::fence_operands(dk);
   const int64_t krow = static_cast<int64_t>(a.hk) * D;
   const int64_t dense = static_cast<int64_t>(b) * a.seq * krow +
                         static_cast<int64_t>(kvh) * D;
   const float one[2] = {1.f, 1.f};
-  store_acc<D>(static_cast<bf16*>(a.dk) + dense, krow, dk, k0, one, a.seq);
-  store_acc<D>(static_cast<bf16*>(a.dv) + dense, krow, dv, k0, one, a.seq);
+  store_acc<D>(static_cast<bf16*>(a.dk) + dense, krow,
+               reinterpret_cast<float(*)[4]>(dk), k0, one, a.seq);
+  store_acc<D>(static_cast<bf16*>(a.dv) + dense, krow,
+               reinterpret_cast<float(*)[4]>(dv), k0, one, a.seq);
 }
 
-constexpr int kFwd = 0, kDq = 1, kDkv = 2;
+// A (B, S, H, D) bf16 tensor with element strides st (batch, sequence,
+// head; the head dim dense) as a 4-D map (D, H, S, B) read in boxes of
+// 64 columns x `rows` rows of one head. TMA takes no stride of 0; a dim
+// of extent 1 is never stepped, so a 0 there becomes 16 bytes.
+cudaError_t encode_bshd(CUtensorMap* map, const void* p, int batch, int seq,
+                        int heads, int d, const int64_t (&st)[3],
+                        int rows) {
+  const uint64_t dims[4] = {uint64_t(d), uint64_t(heads), uint64_t(seq),
+                            uint64_t(batch)};
+  auto bytes = [](int64_t s) { return s == 0 ? uint64_t(16) : uint64_t(s) * 2; };
+  const uint64_t strides[3] = {bytes(st[2]), bytes(st[1]), bytes(st[0])};
+  const uint32_t box[4] = {64, 1, uint32_t(rows), 1};
+  return ptt::encode_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims,
+                          strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// n f32 values at p (4-byte aligned) as a 1-D map in boxes of 64. TMA
+// wants a 16-byte-aligned base: the map starts at p rounded down, and
+// element i of p is coordinate *at + i.
+cudaError_t encode_vals(CUtensorMap* map, const float* p, int64_t n,
+                        int* at) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+  *at = static_cast<int>((addr & 15) / 4);
+  const uint64_t dims[1] = {uint64_t(n + *at)};
+  const uint32_t box[1] = {kRows};
+  return ptt::encode_tmap(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                          reinterpret_cast<const void*>(addr & ~uintptr_t(15)),
+                          dims, nullptr, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+template <int Kind, int D>
+cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
+  using T = Tiles<D>;
+  const int64_t qd[3] = {int64_t(a.seq) * a.hq * D, int64_t(a.hq) * D, D};
+  const int box = Kind == kDq ? kBlockRows : kRows;   // q and dO rows
+  const int kv_box = Kind == kDq ? kRows : kBlockRows;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = encode_bshd(&tq, a.q, batch, a.seq, a.hq, D, a.qs, box)) ||
+      (err = encode_bshd(&tk, a.k, batch, a.seq, a.hk, D, a.ks, kv_box)) ||
+      (err = encode_bshd(&tv, a.v, batch, a.seq, a.hk, D, a.vs, kv_box)) ||
+      (err = encode_bshd(&tdo, a.dout, batch, a.seq, a.hq, D, qd, box)))
+    return err;
+  const dim3 grid(Kind == kDq ? a.hq : a.hk, batch, cdiv(a.seq, kBlockRows));
+  if constexpr (Kind == kDq) {
+    auto kern = flash_dq_wgmma<D>;
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             static_cast<int>(T::dq_bytes))))
+      return err;
+    kern<<<grid, kThreads, T::dq_bytes, stream>>>(tq, tk, tv, tdo, a);
+  } else {
+    const int64_t rows = int64_t(batch) * a.hq * a.seq;
+    CUtensorMap tl, tdl;
+    int lse_at, dl_at;
+    if ((err = encode_vals(&tl, a.lse, rows, &lse_at)) ||
+        (err = encode_vals(&tdl, a.delta, rows, &dl_at)))
+      return err;
+    auto kern = flash_dkv_wgmma<D>;
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             static_cast<int>(T::dkv_bytes))))
+      return err;
+    kern<<<grid, kThreads, T::dkv_bytes, stream>>>(tq, tk, tv, tdo, tl, tdl,
+                                                   a, lse_at, dl_at);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 
 template <int Kind, typename T, int D>
 cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, bf16> && Kind != kFwd)
+    return wg::launch<Kind, D>(a, batch, stream);
   void (*kern)(const Args);
   size_t bytes;
   int rows;
   if constexpr (std::is_same_v<T, bf16>) {
-    using G = MmaGeo<D>;
-    rows = G::BM;
-    bytes = Kind == kFwd ? G::fwd_bytes
-                         : (Kind == kDq ? G::dq_bytes : G::dkv_bytes);
-    kern = Kind == kFwd ? flash_fwd_mma<D>
-                        : (Kind == kDq ? flash_dq_mma<D> : flash_dkv_mma<D>);
+    rows = MmaGeo<D>::BM;
+    bytes = MmaGeo<D>::fwd_bytes;
+    kern = flash_fwd_mma<D>;
   } else {
     using G = Geo<float, D>;
     rows = G::BM;

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks, as inline PTX in the idiom of
-// common.cuh: mbarriers, TMA tile loads from a CUtensorMap, wgmma
-// shared-memory descriptors for the 128-byte swizzle, the wgmma fence /
-// commit / wait, wgmma.mma_async bf16 -> f32 with both operands in shared
-// memory and with A in registers, setmaxnreg, and on the host the
-// encoding of a 2-D tensor map through the driver entry point (so the
-// library links no -lcuda).
+// common.cuh: mbarriers, TMA tile loads (1-, 2- and 4-D) from a
+// CUtensorMap, wgmma shared-memory descriptors for the 128-byte swizzle,
+// the wgmma fence / commit / wait, wgmma.mma_async bf16 -> f32 with both
+// operands in shared memory and with A in registers, setmaxnreg, and on
+// the host the encoding of an n-D tensor map through the driver entry
+// point (so the library links no -lcuda).
 //
 // The 128-byte swizzle. A TMA box whose inner extent is 128 bytes lands
 // in shared memory as rows of 128 bytes, 16-byte chunk c of row r stored
@@ -97,6 +97,28 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// The same for a 1-D map (element coordinate c0) and a 4-D map
+// (coordinates c0 innermost .. c3 outermost).
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -276,6 +298,55 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "r"(accumulate), "n"(TransB));
 }
 
+// D (64 x 64, f32) = A (64 x 16, K-major in shared memory) * B (16 x 64,
+// in shared memory; TransB 1 = MN-major) + (accumulate ? D : 0)
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TransB));
+}
+
+// D (64 x 64, f32) = A (64 x 16, in registers: the mma.sync A fragment of
+// each warp's 16 rows) * B (16 x 64, in shared memory; TransB 1 =
+// MN-major) + (accumulate ? D : 0). Keep `a` unchanged until a wait shows
+// the group done.
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(TransB));
+}
+
 // ---- register reallocation (warp specialisation) ---------------------
 
 // every warp of the warpgroup executes it, each branch never reconverging
@@ -291,17 +362,19 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 }  // namespace sm90
 
-// ---- host: 2-D tensor maps -------------------------------------------
+// ---- host: tensor maps ------------------------------------------------
 
-// A (rows, cols) row-major tensor (`row_bytes` apart, a multiple of 16;
-// base 16-byte aligned) read in boxes of (box_rows, box_cols) with the
-// 128-byte swizzle (box_cols * element size == 128) and zero fill past
-// the bounds. cuTensorMapEncodeTiled comes from the driver through the
-// runtime's entry-point query. Returns a cudaError_t code.
-inline cudaError_t encode_tmap_2d(CUtensorMap* map, CUtensorMapDataType type,
-                                  const void* base, uint64_t rows,
-                                  uint64_t cols, uint64_t row_bytes,
-                                  uint32_t box_rows, uint32_t box_cols) {
+// A rank-`rank` tensor (dims innermost first; strides in bytes of dims
+// 1.., each a multiple of 16; base 16-byte aligned) read in boxes of
+// `box` elements with the given swizzle (for the 128-byte swizzle the
+// box's inner extent is 128 bytes) and zero fill past the bounds.
+// cuTensorMapEncodeTiled comes from the driver through the runtime's
+// entry-point query. Returns a cudaError_t code.
+inline cudaError_t encode_tmap(CUtensorMap* map, CUtensorMapDataType type,
+                               int rank, const void* base,
+                               const uint64_t* dims, const uint64_t* strides,
+                               const uint32_t* box,
+                               CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -317,15 +390,33 @@ inline cudaError_t encode_tmap_2d(CUtensorMap* map, CUtensorMapDataType type,
     return reinterpret_cast<Encode>(fn);
   }();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
+  if (rank < 1 || rank > 5) return cudaErrorInvalidValue;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], e[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    e[i] = 1;
+    if (i > 0) s[i - 1] = strides[i - 1];
+  }
   const CUresult r = encode(
-      map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), d,
+      s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A (rows, cols) row-major tensor (`row_bytes` apart, a multiple of 16;
+// base 16-byte aligned) in boxes of (box_rows, box_cols), 128-byte
+// swizzled (box_cols * element size == 128).
+inline cudaError_t encode_tmap_2d(CUtensorMap* map, CUtensorMapDataType type,
+                                  const void* base, uint64_t rows,
+                                  uint64_t cols, uint64_t row_bytes,
+                                  uint32_t box_rows, uint32_t box_cols) {
+  const uint64_t dims[2] = {cols, rows};
+  const uint32_t box[2] = {box_cols, box_rows};
+  return encode_tmap(map, type, 2, base, dims, &row_bytes, box,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace ptt

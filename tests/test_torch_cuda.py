@@ -230,22 +230,21 @@ _FAULTS = {
         "    if (qt == n_kv - 1 && j == 0)\n"
         "      for (int e = 0; e < 4; ++e) s[0][e] = 0.f;\n"
         "    mma_c_b<D>(o, s, v_s + buf, LDT);\n"),
-    # the last q tile's dq leaves out keys 0-7
-    "dq_last_rows_drop_8_keys": (
-        ("dq",), "    mma_c_b<D>(dq, s, kb, LDT);\n",
-        "    if (qt == n_kv - 1 && j == 0)\n"
-        "      for (int e = 0; e < 4; ++e) s[0][e] = 0.f;\n"
-        "    mma_c_b<D>(dq, s, kb, LDT);\n"),
+    # the last q tile's dq leaves out the k tile of keys 0-63
+    "dq_last_rows_drop_a_k_tile": (
+        ("dq",),
+        "    const bool live = qw0 < a.seq && (!a.causal || k0 <= qw0);\n",
+        "    const bool live = qw0 < a.seq && (!a.causal || k0 <= qw0) &&\n"
+        "                      !(q0 + kBlockRows >= a.seq && j == 0);\n"),
     # dk/dv leave out the last q tile of one query head of the group (but
-    # for the last keys, which no other q tile sees)
+    # for the block of the last keys, which no other q tile sees)
     "dkv_drop_one_heads_last_q_tile": (
         ("dk", "dv"),
-        "    mma_c_b<D>(dv, st, dob, LDT);\n"
-        "    mma_c_b<D>(dk, dpt, qb, LDT);\n",
-        "    if (i != nq - 1 || it / per_head != group - 1 ||\n"
-        "        kt == nq - 1) {\n"
-        "      mma_c_b<D>(dv, st, dob, LDT);\n"
-        "      mma_c_b<D>(dk, dpt, qb, LDT);\n    }\n"),
+        "    const bool live = kw0 < a.seq && (!a.causal || q0 >= kw0);\n",
+        "    const bool live = kw0 < a.seq && (!a.causal || q0 >= kw0) &&\n"
+        "                      !(q0 + kRows >= a.seq &&\n"
+        "                        it / per_head == group - 1 &&\n"
+        "                        k0 + kBlockRows < a.seq);\n"),
 }
 
 
@@ -253,11 +252,14 @@ _FAULTS = {
 def test_flash_bf16_rule_rejects_planted_faults(cuda, tmp_path):
     """At the training shape (one sequence of 2048, 32/4 heads, d 64,
     causal), the kernels pass the row rule and each planted fault fails
-    it, by 23-37x on an H100. A rule relative to the largest entry (2^-6
-    of it) barely sees them: the largest entries sit in the first rows
-    and keys, the faults in the last ones (it fails them by 1.1-1.6x and
-    passes dv's, at 0.55 of its bound; both ratios are printed). Each
-    faulty library is built from a copy of csrc/ in tmp_path."""
+    it: on an H100 the forward's by 23x, the wgmma dq's (a k tile left
+    out of the last rows) by 50x, the wgmma dk/dv's (one head's last q
+    tile left out) by 36x (dk) and 28x (dv). A rule relative to the
+    largest entry (2^-6 of it) barely sees them: the largest entries sit
+    in the first rows and keys, the faults in the last ones (it fails them
+    by 1.2-2.1x and passes dv's, at 0.55 of its bound; both ratios are
+    printed). Each faulty library is built from a copy of csrc/ in
+    tmp_path."""
     q, k, v, do = _flash_inputs(cuda, torch.bfloat16, 1, 2048, 32, 4, 64,
                                 seed=7)
 
@@ -294,6 +296,79 @@ def test_flash_bf16_rule_rejects_planted_faults(cuda, tmp_path):
         print(f"{what}: |err| / row-rule bound {rows:.3g}, / largest-entry "
               f"bound {to_max:.3g}")
     assert all(rows > 1.0 for rows, _ in seen.values()), seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,hq,hk,d", [
+    (1, 200, 32, 4, 64),        # ragged against the 128-row block tiles
+    (1, 1000, 32, 4, 64),       # a group of 8, a ragged 8th block
+    (1, 1000, 8, 2, 128),       # d 128, a group of 4
+    (2, 136, 8, 1, 128),        # one kv head for 8 q heads, 8 ragged rows
+    (1, 60, 4, 1, 64),          # one block, its second warpgroup all past s
+])
+def test_flash_backward_matches_ref_at_tile_edges(cuda, b, s, hq, hk, d,
+                                                  causal):
+    """The wgmma backward against the twin where its tiles are cut: blocks
+    of 128 rows (two warpgroups of 64), k/v and q streams of 64, groups of
+    1-8, both head widths."""
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, b, s, hq, hk, d,
+                                seed=s + d)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    refs = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        _close_rows(got, want, torch.bfloat16, name)
+
+
+@pytest.mark.cuda
+def test_flash_backward_reads_strided_views(cuda):
+    """dq, dk, dv through flash_attention_bhsd's transposed views and
+    through views of one fused qkv projection: bit-equal to the same
+    gradients from contiguous copies (the kernels read through TMA maps
+    over the tensors' own strides), and held to the twin."""
+    b, s, hq, hk, d = 2, 200, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(11)
+    do = torch.randn(b, s, hq, d, generator=g, device=cuda).bfloat16()
+    bhsd = [torch.randn(b, h, s, d, generator=g, device=cuda).bfloat16()
+            for h in (hq, hk, hk)]
+    qkv = torch.randn(b, s, (hq + 2 * hk) * d, generator=g,
+                      device=cuda).bfloat16()
+    fused = [t.reshape(b, s, -1, d) for t in
+             torch.split(qkv, [hq * d, hk * d, hk * d], dim=-1)]
+    for views in ([t.transpose(1, 2) for t in bhsd], fused):
+        assert not views[0].is_contiguous()
+        dense = [t.contiguous() for t in views]
+        o, lse = tfa.flash_attention_fwd(*dense, True)
+        got = tfa.flash_attention_bwd(*views, o, lse, do, True)
+        want = tfa.flash_attention_bwd(*dense, o, lse, do, True)
+        refs = tfa.flash_attention_bwd_ref(*dense, o, lse, do, True)
+        torch.cuda.synchronize()
+        for name, x, y, r in zip(("dq", "dk", "dv"), got, want, refs):
+            assert torch.equal(x, y), name
+            _close_rows(x, r, torch.bfloat16, name)
+    # the autograd entry on (B, H, S, D) tensors reaches the same kernels
+    leaves = [t.detach().requires_grad_(True) for t in bhsd]
+    out = tfa.flash_attention_bhsd(*leaves, causal=True)
+    out.backward(do.transpose(1, 2))
+    dense = [t.transpose(1, 2).contiguous() for t in bhsd]
+    o, lse = tfa.flash_attention_fwd(*dense, True)
+    for leaf, want in zip(leaves, tfa.flash_attention_bwd(*dense, o, lse,
+                                                           do, True)):
+        assert torch.equal(leaf.grad.transpose(1, 2), want)
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_bit_identical_from_call_to_call(cuda):
+    """No atomics: every sum of dq, dk and dv is taken in a fixed order."""
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, 2, 1000, 32, 4, 64,
+                                seed=3)
+    o, lse = tfa.flash_attention_fwd(q, k, v, True)
+    first = tfa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    for _ in range(3):
+        again = tfa.flash_attention_bwd(q, k, v, o, lse, do, True)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.cuda
