@@ -780,7 +780,11 @@ def flash_phases(dev, fa):
                 "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:998",
                 "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:1016"}
     # the kernels in flash_attention.cu and the instructions they run on
-    kernel = {"flash_fwd": "flash_fwd_mma (mma.sync m16n8k16, cp.async)",
+    kernel = {"flash_fwd": "wg::flash_fwd_wgmma (wgmma m64n128k16 S = Q K^T, "
+                           "Q from shared memory at d 64 and in registers at "
+                           "d 128; m64nDk16 O += P V with P in registers; "
+                           "TMA, 128-byte swizzle; a persistent grid of 3 "
+                           "warpgroups a block at d 64, 2 at d 128)",
               "flash_bwd_dq": "wg::flash_dq_wgmma (wgmma m64n64k16, TMA, "
                               "128-byte swizzle)",
               "flash_bwd_dkv": "wg::flash_dkv_wgmma (wgmma m64n64k16, TMA, "
@@ -856,19 +860,22 @@ def norm_rope_bwd_phases(dev, fn):
         train_bound_ms=_bound(4 * elem * 2 + n * 4 + d * 2, 5 * elem,
                               F32_FLOPS)[0],
         train_shape=f"x, residual ({n}, {d}) bf16, with rstd",
-        # the library yardstick at this shape: F.rms_norm of x alone (no
-        # residual add, no rstd), as the decode entry's
+        # the library yardstick at this shape: the residual add, then
+        # F.rms_norm of the sum (two calls; the kernel also writes rstd)
         train_library_ms=_time_ms(
-            lambda a, c: torch.nn.functional.rms_norm(a, (d,), c, eps),
-            [(x, w)], iters=20))
+            lambda a, b_, c: torch.nn.functional.rms_norm(a + b_, (d,), c,
+                                                          eps),
+            [(x, r, w)], iters=20),
+        train_library_note="x + residual, then F.rms_norm: two calls, no "
+                           "rstd out")
     print(f"[kernel] rms_norm_residual_bwd bf16 ({n}, {d}): "
           f"{norm['ms']:.4f} ms, plain {norm['plain_ms']:.4f} ms, bound "
           f"{norm['bound_ms']:.4f} ms; with gh {norm['gh_ms']:.4f} ms, plain "
           f"{norm['gh_plain_ms']:.4f} ms, bound {norm['gh_bound_ms']:.4f} "
           f"ms; forward at this shape (residual, rstd) "
           f"{fwd_train['train_ms']:.4f} ms, bound "
-          f"{fwd_train['train_bound_ms']:.4f} ms, torch rms_norm (no "
-          f"residual) {fwd_train['train_library_ms']:.4f} ms; max |err| "
+          f"{fwd_train['train_bound_ms']:.4f} ms, x + residual and torch "
+          f"rms_norm {fwd_train['train_library_ms']:.4f} ms; max |err| "
           f"{err:.3g}")
     del h, gy, gh, x, r, dh, rdh, sets, gsets
     torch.cuda.empty_cache()

@@ -1,8 +1,9 @@
 // Small helpers shared by the kernels of this directory: element loads
 // and casts, warp and block reductions, and the building blocks of the
 // bf16 tensor-core products (mma.sync m16n8k16 fragments read from shared
-// memory, cp.async copies into it), which flash_attention.cu and
-// blockwise_ce.cu both use.
+// memory, cp.async copies into it, the store of a warp's accumulator
+// rows), which blockwise_ce.cu, quant_matmul.cu and flash_attention.cu
+// use.
 //
 // Element types are passed across the C interface as a code:
 // 0 = float32, 1 = bfloat16, 2 = int8 (kDtypeF32 / kDtypeBF16 /
@@ -168,34 +169,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo: low half
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A fragment: rows r0..r0+15, columns c0..c0+15 of a row-major tile
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s, int ld,
-                                       int r0, int c0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = s + (r0 + (lane >> 2)) * ld + c0 + 2 * (lane & 3);
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment with B[k][n] = s[n0 + n][k0 + k]: B^T stored row-major
-__device__ __forceinline__ void frag_bt(uint32_t& b0, uint32_t& b1,
-                                        const bf16* s, int ld, int n0,
-                                        int k0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
 }
 
 // B fragments of the n-tiles n0 and n0 + 8 with B[k][n] = s[k0 + k][n0 + n]
@@ -214,7 +190,8 @@ __device__ __forceinline__ void frag_b_trans(uint32_t (&r)[4], const bf16* s,
       : "r"(addr));
 }
 
-// frag_a by one ldmatrix.x4 (tile rows 16-byte aligned): lane i addresses
+// The A fragment of rows r0..r0+15, columns c0..c0+15 of a row-major
+// tile by one ldmatrix.x4 (tile rows 16-byte aligned): lane i addresses
 // row i % 8 of matrix i / 8, matrices (r0, c0), (r0 + 8, c0), (r0, c0 + 8),
 // (r0 + 8, c0 + 8) giving a0..a3.
 __device__ __forceinline__ void frag_a_ldm(uint32_t (&a)[4], const bf16* s,
@@ -229,9 +206,9 @@ __device__ __forceinline__ void frag_a_ldm(uint32_t (&a)[4], const bf16* s,
       : "r"(addr));
 }
 
-// frag_bt of the n-tiles n0 and n0 + 8 by one ldmatrix.x4 (B^T stored
-// row-major, rows 16-byte aligned): r0, r1 = (b0, b1) of n-tile n0, r2, r3
-// = (b0, b1) of n-tile n0 + 8.
+// B fragments of the n-tiles n0 and n0 + 8 with B[k][n] = s[n0 + n][k0 +
+// k] (B^T stored row-major, rows 16-byte aligned) by one ldmatrix.x4: r0,
+// r1 = (b0, b1) of n-tile n0, r2, r3 = (b0, b1) of n-tile n0 + 8.
 __device__ __forceinline__ void frag_bt_ldm(uint32_t (&r)[4], const bf16* s,
                                             int ld, int n0, int k0) {
   const int lane = threadIdx.x & 31;
@@ -258,16 +235,6 @@ __device__ __forceinline__ void frag_a_trans(uint32_t (&a)[4], const bf16* s,
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
       : "r"(addr));
-}
-
-// The A fragment for k-step kk of a (16 x 64) C-fragment row block held as
-// 8 n-tiles: its n-tiles 2kk and 2kk + 1, rounded to bf16.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], float (*c)[4],
-                                       int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
 // Row r0 + r of a dense (S, D) slice (row stride `stride`) from a warp's
@@ -310,23 +277,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [r0, r0 + Rows) of a (seq, D) bf16 slice with row stride `stride`
-// into a (Rows, LD) shared tile, one 16-byte cp.async per 8 values; rows
-// at or past seq are zero-filled. Threads: the block's thread count.
-template <int Rows, int D, int LD, int Threads>
-__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
-                                                int64_t stride, int r0,
-                                                int seq) {
-  constexpr int kPerRow = D / 8;
-  for (int i = threadIdx.x; i < Rows * kPerRow; i += Threads) {
-    const int r = i / kPerRow;
-    const int c = (i - r * kPerRow) * 8;
-    const bool valid = r0 + r < seq;
-    cp_async16(dst + r * LD + c, src + (valid ? (r0 + r) * stride : 0) + c,
-               valid);
-  }
 }
 
 }  // namespace ptt

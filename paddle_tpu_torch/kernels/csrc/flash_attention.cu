@@ -29,56 +29,54 @@
 // of traffic (0.03 ms); the dq kernel does 1.5 and the dk/dv kernel 2
 // times the forward's operations (each recomputes the scores).
 //
-// Design of the forward and the f32 path: a block of 4 warps per (64-row
-// q tile, q head, batch) for the forward and dq, per (64-row k tile, kv
-// head, batch) for dk/dv; tiles of the other operand stream through
-// shared memory (rows padded by 16 bytes, so fragment loads do not
-// conflict on banks). The causal forward and dq stop at the diagonal tile
-// and dk/dv start there; the element mask runs only on the diagonal tile
-// and on tiles holding the ragged edge.
-// - bf16 forward: each warp owns 16 rows. The products run on the tensor
-//   cores through mma.sync m16n8k16 (bf16 in, f32 accumulate) with every
-//   accumulator in registers, FlashAttention-2 style: the scores of a
-//   tile stay in the accumulator fragments, the online softmax runs on
-//   them (row max and sum by two quad shuffles), and they become the A
-//   operand of the next product without touching shared memory; v is
-//   read through ldmatrix .trans. k and v tiles are double-buffered
-//   through cp.async. wgmma, TMA and warp specialisation for the forward
-//   are later work.
-// - f32: CUDA-core FMA loops over 32-row tiles with the accumulators in
-//   shared memory (a checking path; the model trains in bf16).
-//
-// The bf16 backward (namespace wg) runs on wgmma, the only way to
-// Hopper's full tensor-core rate. Blocks of 256 threads, two warpgroups
-// that both compute, each owning 64 rows (wgmma's M) of a 128-row block:
-// - dq, grid (Hq, B, q tiles of 128): Q and dO of the block's rows stay
-//   in shared memory; k/v tiles of 64 keys stream through a 4-stage ring
-//   up to the diagonal. S = Q K^T and dP = dO V^T (m64n64k16), p =
-//   exp(s * scale - lse) in the S accumulators, dS packed to bf16 A
-//   fragments in registers, dQ += dS K (m64nDk16 with A in registers, K
-//   read MN-major through the transpose bit). dq sums over the k tiles
-//   of one block, in order.
-// - dk/dv, grid (Hk, B, k tiles of 128), the heaviest causal tiles
-//   first: K and V of the block's keys are loaded once; (Q, dO, lse,
-//   delta) of each (query head of the group, q tile of 64) stream through
-//   a 4-stage ring in a fixed order. Rows are keys: S^T = K Q^T and dP^T
-//   = V dO^T, P^T and dS^T in registers (lse and delta by column), dV +=
-//   P^T dO and dK += dS^T Q (A in registers). A 64-wide bf16 row is one
-//   128-byte swizzled row, so each Q or dO tile is the K-major B of one
-//   product and the MN-major B of another: no transposed copy. No
-//   atomics: dk and dv sum over the group's heads and q tiles in order.
-// A step issues S and dP of its tile, then the dS products of the step
-// before, and waits for S alone: the exp pass runs under the other
-// products. Every product is issued on every step (a tile that adds
+// The bf16 kernels (namespace wg) run on wgmma, the only way to Hopper's
+// full tensor-core rate. Their blocks are warpgroups that all compute,
+// each owning 64 rows (wgmma's M):
+// - forward: a persistent grid of at most one block an SM walks the work
+//   items (q tile, q head, batch), the heaviest causal tiles first. An
+//   item's q rows are 64 a warpgroup: three warpgroups (192 rows) at
+//   d 64, where the exp pass costs as much as the products and a third
+//   warp a scheduler overlaps them; two (128 rows) at d 128. k/v tiles of
+//   128 keys stream through a ring (4 stages at d 64, 3 at d 128) that
+//   runs on from item to item, as do the Q buffers, so the next item's
+//   loads overlap this one's end. S = Q K^T (m64n128k16; Q read from
+//   shared memory at d 64, held in registers as A fragments at d 128),
+//   the online softmax on the S accumulators in base 2 (one FFMA and one
+//   ex2 an entry; the mask, a select, only on diagonal tiles and the
+//   ragged edge), P packed to bf16 A fragments in registers, O += P V
+//   (m64nDk16, V read MN-major through the transpose bit). A step issues
+//   S of its tile and P V of the tile before, and waits for S alone: the
+//   exp pass runs under P V. Each warpgroup stops at its own diagonal.
+//   o = O / l leaves from registers; lse = (m + log2 l) ln 2 with an
+//   accurate log2.
+// - dq, grid (Hq, B, q tiles of 128), two warpgroups: Q and dO of the block's
+//   rows stay in shared memory; k/v tiles of 64 keys stream through a 4-stage
+//   ring up to the diagonal. S = Q K^T and dP = dO V^T (m64n64k16), p = exp(s *
+//   scale - lse) in the S accumulators, dS packed to bf16 A fragments in
+//   registers, dQ += dS K (m64nDk16 with A in registers, K read MN-major
+//   through the transpose bit). dq sums over the k tiles of one block, in
+//   order.
+// - dk/dv, grid (Hk, B, k tiles of 128), two warpgroups, the heaviest causal
+//   tiles first: K and V of the block's keys are loaded once; (Q, dO, lse,
+//   delta) of each (query head of the group, q tile of 64) stream through a
+//   4-stage ring in a fixed order. Rows are keys: S^T = K Q^T and dP^T = V
+//   dO^T, P^T and dS^T in registers (lse and delta by column), dV += P^T dO and
+//   dK += dS^T Q (A in registers). A 64-wide bf16 row is one 128-byte swizzled
+//   row, so each Q or dO tile is the K-major B of one product and the MN-major
+//   B of another: no transposed copy. No atomics: dk and dv sum over the
+//   group's heads and q tiles in order.
+// A backward step issues S and dP of its tile, then the dS products of
+// the step before, and waits for S alone: the exp pass runs under the
+// other products. Every product is issued on every step (a tile that adds
 // nothing gets zero fragments): ptxas serialises all of a kernel's
 // wgmmas, each waiting for the last, when one is issued under a branch.
 // At d 64 the block-fixed A operand of S and dP (Q and dO for dq, K and V
 // for dk/dv) stays in registers, loaded once by ldmatrix from the
 // swizzled tile, so those products read only B from shared memory; at
 // d 128 the accumulators leave no room and both operands come from
-// shared memory. The exp is 2^(s * scale * log2(e) - lse * log2(e)) by
-// ex2.approx.ftz (one FFMA and one MUFU an entry), branch-free: a branch
-// per entry serialises each entry's load and exp.
+// shared memory. The exp is 2^(s * scale * log2(e) - m) by ex2.approx.ftz
+// (one FFMA and one MUFU an entry), branch-free: a branch per entry
+// serialises each entry's load and exp.
 // Operands arrive by TMA (cp.async.bulk.tensor) with the 128-byte swizzle
 // that wgmma's descriptors read: q, k, v through a 4-D map (D, H, S, B)
 // over the tensor's own strides (so the strided views the wrapper takes
@@ -87,11 +85,22 @@
 // cp.async: one thread issues a whole tile, no registers or address
 // arithmetic in the compute warps, and the ragged edge is the hardware's
 // bound fill. Thread 0 is the producer: it refills a stage once every
-// warp has arrived on the stage's `empty` mbarrier. Registers: dK and dV
-// (D / 2 each) plus S^T and dP^T (32 each) and the fragments a thread:
-// over 240 at d 128, which a 384-thread block cannot hold (ptxas caps it
-// at 168 registers a thread whatever setmaxnreg grants later), hence two
-// warpgroups and no separate producer warpgroup.
+// warp has arrived on the stage's `empty` mbarrier. Registers: a
+// 384-thread block has at most 168 a thread (ptxas caps it there whatever
+// setmaxnreg grants later), hence no separate producer warpgroup. The
+// forward holds O (D / 2), S (64) and P (32) a thread, and Q (32) at
+// d 128: 168 at d 64 in three warpgroups, 232 at d 128 in two; the dk/dv
+// kernel dK and dV (D / 2 each) plus S^T and dP^T (32 each) and the
+// fragments: over 240 at d 128, so two warpgroups.
+//
+// The f32 kernels are a checking path (the model trains in bf16):
+// CUDA-core FMA loops over 32-row tiles with the accumulators in shared
+// memory, a block of 4 warps per (q tile, q head, batch) for the forward
+// and dq, per (k tile, kv head, batch) for dk/dv; the other operand's
+// tiles stream through shared memory (rows padded by 16 bytes). The
+// causal forward and dq stop at the diagonal tile and dk/dv start there;
+// the element mask runs only on the diagonal tile and on tiles holding
+// the ragged edge.
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -110,13 +119,12 @@ __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) / 128 * 128;
 }
 
-// Tile geometry for element type T and head_dim D: 64-row tiles in bf16,
-// 32-row tiles in f32 (whose shared-memory path needs 4 bytes a value).
-// Leading dimensions are in elements; k* sizes in bytes, each a multiple
-// of 128; the *_bytes totals are the f32 kernels'.
+// Tile geometry of the f32 kernels for element type T and head_dim D:
+// 32-row tiles (the shared-memory path needs 4 bytes a value). Leading
+// dimensions are in elements; k* sizes in bytes, each a multiple of 128.
 template <typename T, int D>
 struct Geo {
-  static constexpr int BM = sizeof(T) == 2 ? 64 : 32;  // rows per tile
+  static constexpr int BM = 32;  // rows per tile
   static constexpr int LDT = D + 16 / static_cast<int>(sizeof(T));
   static constexpr int LDP = BM + 16 / static_cast<int>(sizeof(T));
   static constexpr int LDF = BM + 4;
@@ -536,175 +544,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(const Args a) {
                    k0, a.seq);
 }
 
-// ---------------------------------------------------------------------
-// bf16 kernels: mma.sync m16n8k16 with register accumulators (the
-// fragment helpers and cp.async loaders are in common.cuh)
-// ---------------------------------------------------------------------
-
-using ptt::c_to_a;
-using ptt::cp_async_commit;
-using ptt::cp_async_wait;
-using ptt::frag_a;
-using ptt::frag_b_trans;
-using ptt::frag_bt;
-using ptt::mma_bf16;
-using ptt::store_acc;
-
-// acc (16 x D per warp, D/8 n-tiles) += A (16 x 64, as 8 C tiles) . B, where
-// B (64 x D) is a row-major tile read transposed
-template <int D>
-__device__ __forceinline__ void mma_c_b(float (*acc)[4], float (*c)[4],
-                                        const bf16* b, int ld) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    c_to_a(a, c, kk);
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t r[4];
-      frag_b_trans(r, b, ld, 16 * kk, 16 * dn);
-      mma_bf16(acc[2 * dn], a, r[0], r[1]);
-      mma_bf16(acc[2 * dn + 1], a, r[2], r[3]);
-    }
-  }
-}
-
-// the shared row loaders at this file's tile geometry
-template <int D>
-__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
-                                                int64_t stride, int r0,
-                                                int seq) {
-  using G = Geo<bf16, D>;
-  ptt::load_rows_async<G::BM, D, G::LDT, kThreads>(dst, src, stride, r0, seq);
-}
-
-// The forward's bf16 tiles: 64 rows of D + 8, q, k[2], v[2]. The streamed
-// operand is double-buffered: the copy of tile j + 1 runs while tile j is
-// computed.
-template <int D>
-struct MmaGeo : Geo<bf16, D> {
-  using G = Geo<bf16, D>;
-  static constexpr int kTile = static_cast<int>(G::kT / sizeof(bf16));
-  static constexpr size_t fwd_bytes = 5 * G::kT;
-};
-
-// Forward: grid (Hq, B, q tiles)
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_mma(const Args a) {
-  using G = MmaGeo<D>;
-  constexpr int BM = G::BM, LDT = G::LDT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  bf16* q_s = cv.take<bf16>(G::kT);
-  bf16* k_s = cv.take<bf16>(2 * G::kT);
-  bf16* v_s = cv.take<bf16>(2 * G::kT);
-
-  const int h = blockIdx.x, b = blockIdx.y, qt = q_tile();
-  const int kvh = h / (a.hq / a.hk);
-  const int q0 = qt * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int rows[2] = {16 * warp + g, 16 * warp + g + 8};
-  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.qs[0] + h * a.qs[2];
-  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
-  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
-  load_rows<bf16, D>(q_s, qg, a.qs[1], q0, a.seq);
-  load_rows_async<D>(k_s, kg, a.ks[1], 0, a.seq);
-  load_rows_async<D>(v_s, vg, a.vs[1], 0, a.seq);
-  cp_async_commit();
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) frag_a(qf[kk], q_s, LDT, 16 * warp, 16 * kk);
-  float o[D / 8][4] = {};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int n_kv = (a.seq + BM - 1) / BM;
-  const int nk = a.causal ? min(qt + 1, n_kv) : n_kv;
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BM;
-    const int buf = (j & 1) * G::kTile;
-    if (j + 1 < nk) {  // the other buffer was released by the last barrier
-      load_rows_async<D>(k_s + G::kTile - buf, kg, a.ks[1], k0 + BM, a.seq);
-      load_rows_async<D>(v_s + G::kTile - buf, vg, a.vs[1], k0 + BM, a.seq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile j has landed for every thread
-    const bf16* kb = k_s + buf;
-    float s[8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        frag_bt(b0, b1, kb, LDT, 8 * n, 16 * kk);
-        mma_bf16(s[n], qf[kk], b0, b1);
-      }
-    const bool masked = (a.causal && j == qt) || k0 + BM > a.seq ||
-                        q0 + BM > a.seq;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v = s[n][e] * a.scale;
-        if (masked && !visible(q0, rows[e >> 1], k0, 8 * n + 2 * t + (e & 1),
-                               a.seq, a.causal))
-          v = -INFINITY;
-        s[n][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    float mu[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      mu[i] = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = __expf(m[i] - mu[i]);
-      m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        o[dn][2 * i] *= alpha;
-        o[dn][2 * i + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[n][e] - mu[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;  // this lane's columns; the quad sums at the end
-      }
-    mma_c_b<D>(o, s, v_s + buf, LDT);
-    __syncthreads();  // every warp is done with this buffer
-  }
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    inv[i] = 1.f / l[i];
-  }
-  const int64_t row = static_cast<int64_t>(a.hq) * D;
-  store_acc<D>(static_cast<bf16*>(a.out) + static_cast<int64_t>(b) * a.seq * row +
-                   static_cast<int64_t>(h) * D,
-               row, o, q0, inv, a.seq);
-  float* lg = a.lse_out + (static_cast<int64_t>(b) * a.hq + h) * a.seq;
-  if (t == 0)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (q0 + rows[i] < a.seq) lg[q0 + rows[i]] = m[i] + logf(l[i]);
-}
-
 constexpr int kFwd = 0, kDq = 1, kDkv = 2;
 
 // ---------------------------------------------------------------------
-// bf16 backward: wgmma on 128-byte-swizzled tiles loaded by TMA
+// bf16 kernels: wgmma on 128-byte-swizzled tiles loaded by TMA
 // ---------------------------------------------------------------------
 
 namespace wg {
@@ -785,31 +628,35 @@ template <>
 struct HeldFrags<128> {};
 
 // The A fragments (a set of 4 registers a k16 step) of a warp's 16 rows
-// row0.. of a 64-column swizzled tile at `base`, by ldmatrix .x4: lane L
-// reads row row0 + L % 8 + 8 (L / 8 % 2), 16-byte chunk 2 kk + L / 16,
+// row0.. of a swizzled tile at `base` over K16 * 16 columns (64-column
+// halves `step` bytes apart), by ldmatrix .x4: lane L reads row row0 + L %
+// 8 + 8 (L / 8 % 2), 16-byte chunk 2 (kk % 4) + L / 16 of half kk / 4,
 // found at chunk ^ (row % 8) under the 128-byte swizzle.
-__device__ __forceinline__ void load_frags(uint32_t (&f)[4][4], uint32_t base,
-                                           int row0) {
+template <int K16>
+__device__ __forceinline__ void load_frags(uint32_t (&f)[K16][4],
+                                           uint32_t base, int row0,
+                                           uint32_t step = 0) {
   const int lane = threadIdx.x & 31;
   const int r = row0 + (lane & 7) + 8 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int chunk = 2 * kk + (lane >> 4);
+  for (int kk = 0; kk < K16; ++kk) {
+    const int chunk = 2 * (kk & 3) + (lane >> 4);
     asm volatile(
         "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
         : "=r"(f[kk][0]), "=r"(f[kk][1]), "=r"(f[kk][2]), "=r"(f[kk][3])
-        : "r"(base + r * 128 + ((chunk ^ (r & 7)) << 4)));
+        : "r"(base + (kk >> 2) * step + r * 128 + ((chunk ^ (r & 7)) << 4)));
   }
 }
 
-// acc (64 x D) += F . B over 64: F the bf16 A fragments of a 64 x 64
-// tile (one set a k16 step), B the 64 x D tile at `b` read MN-major
-template <int D>
+// acc (64 x D) += F . B over K16 * 16: F the bf16 A fragments of a 64 x
+// (K16 * 16) tile (one set a k16 step), B the (K16 * 16) x D tile at `b`
+// read MN-major
+template <int D, int K16>
 __device__ __forceinline__ void mma_fb(float (&acc)[D / 2],
-                                       const uint32_t (&f)[4][4], uint32_t b,
-                                       uint32_t b_step) {
+                                       const uint32_t (&f)[K16][4],
+                                       uint32_t b, uint32_t b_step) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < K16; ++kk) {
     if constexpr (D == 64)
       h::wgmma_m64n64k16_rs<1>(acc, f[kk], desc_mn(b, b_step, kk), 1);
     else
@@ -817,12 +664,13 @@ __device__ __forceinline__ void mma_fb(float (&acc)[D / 2],
   }
 }
 
-// The layout of an m64n64 accumulator: entry 4 j + 2 v + u of a thread is
+// The layout of an m64nN accumulator: entry 4 j + 2 v + u of a thread is
 // row 16 warp + g + 8 v, column 8 j + 2 t + u of the warpgroup's tile; the
 // A fragment of k16 step kk takes columns 16 kk.., entry pairs (8 kk + 2 r,
 // + 1) into register r. fill_frag packs one such pair.
-__device__ __forceinline__ void fill_frag(uint32_t (&f)[4][4], int j, int v,
-                                          float lo, float hi) {
+template <int K16>
+__device__ __forceinline__ void fill_frag(uint32_t (&f)[K16][4], int j,
+                                          int v, float lo, float hi) {
   f[j >> 1][2 * (j & 1) + v] = ptt::pack_bf16(lo, hi);
 }
 
@@ -858,9 +706,335 @@ __device__ __forceinline__ void exp_scores(float (&s)[32], float scale2,
 
 
 // keep fragments that an RS wgmma reads in place until its wait
-__device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
+template <int K16>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[K16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) h::fence_operands(f[kk]);
+  for (int kk = 0; kk < K16; ++kk) h::fence_operands(f[kk]);
+}
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The forward's geometry. An item's q rows are 64 a computing warpgroup:
+// three at d 64, where the exp pass costs as much as the products and a
+// third warp a scheduler overlaps them; two at d 128, where the
+// accumulators leave registers for no third. Q stays in registers as A
+// fragments at d 128 (kQHeld), where a second Q buffer would not fit,
+// and is read from shared memory by S at d 64, where registers are
+// short. Buffers: a ring of stages of one 128-key k tile and one v tile
+// each, and Q buffers for every item the producer can reach running
+// kStages - 2 tiles ahead (one fewer when Q is held: its buffer is free
+// once read into registers): 200 KB at d 64, 224 KB at d 128 of the 227 a
+// block may have.
+template <int D>
+struct FwdTiles {
+  static constexpr int kGroups = D == 64 ? 3 : 2;
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kQRows = kRows * kGroups;
+  static constexpr bool kQHeld = kGroups == 2;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kQBufs = kQHeld ? kStages - 2 : kStages - 1;
+  static constexpr uint32_t kQStep = kQRows * 128;   // a 64-column half
+  static constexpr uint32_t kQTile = Tiles<D>::kHalves * kQStep;
+  // q buffers | k ring | v ring | barriers
+  static constexpr size_t bytes =
+      kQBufs * size_t(kQTile) + 2 * kStages * size_t(Tiles<D>::kBlockTile) +
+      (kQBufs + kStages) * 16 + 1024;
+};
+
+// S (64 x 128) = Q . K^T over D: Q the warpgroup's 64 rows, as A
+// fragments in registers (qf) or read from the Q buffer at `qa`; K the
+// 128 keys of the tile at `kb` (K-major)
+template <int D, int K16>
+__device__ __forceinline__ void mma_qk(float (&s)[64],
+                                       const uint32_t (&qf)[K16][4],
+                                       uint32_t qa, uint32_t kb) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t k_desc = desc_k(kb, Tiles<D>::kBlockStep, kk);
+    if constexpr (FwdTiles<D>::kQHeld)
+      h::wgmma_m64n128k16_rs<0>(s, qf[kk], k_desc, kk > 0);
+    else
+      h::wgmma_m64n128k16_ss<0>(s, desc_k(qa, FwdTiles<D>::kQStep, kk),
+                                k_desc, kk > 0);
+  }
+}
+
+// Forward: a persistent grid of at most one block an SM. The work items
+// are (q tile of F::kQRows, q head, batch), the heaviest causal tiles
+// first; block i takes item i of each round of gridDim.x items, counted
+// from the other end in odd rounds, so the blocks' loads even out.
+// Warpgroup w owns query rows 64 w.. of an item; all stream its k/v
+// tiles of 128 keys up to the diagonal: S = Q K^T, the online softmax on
+// the S accumulators, O += P V (P in registers, V read MN-major). The k/v
+// ring and the Q buffers run on from one item to the next, so the next
+// item's loads overlap this one's last steps and its store.
+template <int D>
+__global__ void __launch_bounds__(FwdTiles<D>::kThreads, 1) flash_fwd_wgmma(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const Args a, int batch) {
+  using T = Tiles<D>;
+  using F = FwdTiles<D>;
+  constexpr int kRing = F::kStages;
+  constexpr int kQBufs = F::kQBufs;
+  constexpr int kWarps = 4 * F::kGroups;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s =
+      smem_raw + ((1024 - (h::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* k_s = q_s + kQBufs * F::kQTile;
+  unsigned char* v_s = k_s + kRing * T::kBlockTile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + kRing * T::kBlockTile);
+  uint64_t* empty = full + kRing;
+  uint64_t* qfull = empty + kRing;
+  uint64_t* qempty = qfull + kQBufs;
+
+  const int n_qt = cdiv(a.seq, F::kQRows), n_kt = cdiv(a.seq, kBlockRows);
+  const int heads = a.hq * batch;
+  const int n_items = n_qt * heads;
+  // the item block blockIdx.x takes in round r (past n_items: none left)
+  auto item_of = [&](int r) {
+    const int n = gridDim.x, i = blockIdx.x;
+    return r * n + (r & 1 ? n - 1 - i : i);
+  };
+  struct Item {
+    int q0, hq, kvh, b, nk;
+  };
+  auto item = [&](int it) {
+    const int q0 = (n_qt - 1 - it / heads) * F::kQRows;
+    const int hq = it % heads % a.hq;
+    return Item{q0, hq, hq / (a.hq / a.hk), it % heads / a.hq,
+                a.causal ? cdiv(min(q0 + F::kQRows, a.seq), kBlockRows)
+                         : n_kt};
+  };
+  const int w = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  // The producer, thread 0: the item it loads next (its round and
+  // decoded form; none past the block's last), that item's next k/v tile,
+  // and the counts of items and tiles it has begun. Tile n of the block's
+  // stream goes to stage n % kRing, the Q of its item n to buffer n %
+  // kQBufs.
+  int p_round = 0, p_j = 0, p_items = 0, p_tiles = 0;
+  bool p_live = item_of(0) < n_items;
+  Item x = item(item_of(0));
+  auto produce = [&]() {
+    if (!p_live) return;
+    if (p_j == 0) {                 // the item's Q, once the buffer is read
+      const int qb = p_items % kQBufs;
+      if (p_items >= kQBufs)
+        h::mbar_wait(&qempty[qb], (p_items / kQBufs - 1) & 1);
+      h::mbar_arrive_expect_tx(&qfull[qb], F::kQTile);
+#pragma unroll
+      for (int c = 0; c < T::kHalves; ++c)
+        h::tma_load_4d(q_s + qb * F::kQTile + c * F::kQStep, &tq, &qfull[qb],
+                       64 * c, x.hq, x.q0, x.b);
+    }
+    const int s = p_tiles % kRing;
+    h::mbar_arrive_expect_tx(&full[s], 2 * T::kBlockTile);
+#pragma unroll
+    for (int c = 0; c < T::kHalves; ++c) {
+      h::tma_load_4d(k_s + s * T::kBlockTile + c * T::kBlockStep, &tk,
+                     &full[s], 64 * c, x.kvh, p_j * kBlockRows, x.b);
+      h::tma_load_4d(v_s + s * T::kBlockTile + c * T::kBlockStep, &tv,
+                     &full[s], 64 * c, x.kvh, p_j * kBlockRows, x.b);
+    }
+    ++p_tiles;
+    if (++p_j == x.nk) {
+      p_j = 0;
+      ++p_items;
+      p_live = item_of(++p_round) < n_items;
+      x = item(item_of(p_round));
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      h::mbar_init(&full[s], 1);
+      h::mbar_init(&empty[s], kWarps);  // lane 0 of every warp
+    }
+    for (int s = 0; s < kQBufs; ++s) {
+      h::mbar_init(&qfull[s], 1);
+      h::mbar_init(&qempty[s], kWarps);
+    }
+    h::fence_barrier_init();
+  }
+  __syncthreads();
+  // the producer keeps kRing - 2 tiles ahead of the tile being computed
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kRing - 2; ++i) produce();
+  const float scale2 = a.scale * kLog2e;
+  float o[D / 2], s[64];
+  uint32_t p[8][4];                 // P of the last tile
+  uint32_t qf[F::kQHeld ? D / 16 : 1][4];  // the warp's Q rows, when held
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  int step = 0;                     // the block's tile count
+  for (int r = 0; item_of(r) < n_items; ++r) {
+    const Item it = item(item_of(r));
+    const int q0 = it.q0, qw0 = q0 + kRows * w;
+    // Items taller than a k tile: this warpgroup's k tiles end at its own
+    // last row's diagonal; the item's others it only releases.
+    constexpr bool kSkip = F::kQRows > kBlockRows;
+    const int nk = kSkip && a.causal
+                       ? cdiv(min(qw0 + kRows, a.seq), kBlockRows)
+                       : it.nk;
+    // the last key each of the thread's two rows sees (-1 for a row past
+    // the end), for the mask of the diagonal tile and the ragged edge
+    int last[2];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int row = qw0 + 16 * warp + g + 8 * v;
+      last[v] = row >= a.seq ? -1 : (a.causal ? row : a.seq - 1);
+    }
+    // per row: the running max of s * scale2, and this thread's share of
+    // the running sum of 2^(s * scale2 - max)
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[kk][e] = 0u;
+    const int qb = r % kQBufs;      // item r of this block
+    const uint32_t qa = h::smem_u32(q_s + qb * F::kQTile) + kRows * 128 * w;
+    h::mbar_wait(&qfull[qb], (r / kQBufs) & 1);
+    if constexpr (F::kQHeld) {
+      load_frags(qf, h::smem_u32(q_s + qb * F::kQTile), kRows * w + 16 * warp,
+                 F::kQStep);
+      __syncwarp();
+      if (lane == 0) h::mbar_arrive(&qempty[qb]);
+    }
+    // p holds P of tile j - 1 (zeros before the first), whose product step
+    // j issues with that tile's v from its stage
+    uint32_t prev_vb = h::smem_u32(v_s + (step % kRing) * T::kBlockTile);
+    // Step j issues S of tile j and O += P V of tile j - 1, and waits for
+    // S alone: the exp pass runs under the P V product. Both are issued on
+    // every step: a wgmma issued under a branch makes ptxas serialise them
+    // all.
+    for (int j = 0; j < nk; ++j, ++step) {
+      const int stage = step % kRing;
+      h::mbar_wait(&full[stage], (step / kRing) & 1);
+      const int k0 = j * kBlockRows;
+      const uint32_t kb = h::smem_u32(k_s + stage * T::kBlockTile);
+      const uint32_t vb = h::smem_u32(v_s + stage * T::kBlockTile);
+      h::fence_operands(s);
+      h::fence_operands(o);
+      fence_frags(p);
+      h::wgmma_fence();
+      mma_qk<D>(s, qf, qa, kb);
+      h::wgmma_commit();
+      mma_fb<D>(o, p, prev_vb, T::kBlockStep);
+      h::wgmma_commit();
+      if (threadIdx.x == 0) {
+        // tile step - 2's stage was released in the step before
+        if (step >= 2)
+          h::mbar_wait(&empty[(step - 2) % kRing], ((step - 2) / kRing) & 1);
+        produce();
+      }
+      __syncwarp();
+      h::wgmma_wait<1>();           // S has landed
+      h::fence_operands(s);
+      // keys past the warpgroup's first row, or the ragged edge
+      const bool masked = (a.causal && k0 + kBlockRows > qw0 + 1) ||
+                          k0 + kBlockRows > a.seq || qw0 + kRows > a.seq;
+      if (masked) {                 // a select an entry: -inf past `last`
+        int lim[2];
+#pragma unroll
+        for (int v = 0; v < 2; ++v) lim[v] = last[v] - k0 - 2 * t;
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          s[i] = 8 * (i >> 2) + (i & 1) <= lim[(i >> 1) & 1] ? s[i]
+                                                             : -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY}, alpha[2], nmu[2];
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        mx[v] = fmaxf(mx[v], __shfl_xor_sync(0xffffffffu, mx[v], 1));
+        mx[v] = fmaxf(mx[v], __shfl_xor_sync(0xffffffffu, mx[v], 2));
+        const float m_new = fmaxf(m[v], mx[v] * scale2);
+        // a row that sees no key yet keeps -inf; its exponents are taken
+        // against 0, giving 0 and not NaN
+        const float mu = m_new == -INFINITY ? 0.f : m_new;
+        alpha[v] = ex2(m[v] - mu);
+        nmu[v] = -mu;
+        m[v] = m_new;
+        l[v] *= alpha[v];
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        s[i] = ex2(fmaf(s[i], scale2, nmu[(i >> 1) & 1]));
+        l[(i >> 1) & 1] += s[i];    // this lane's columns; the quad sums
+      }                             // them at the end
+      h::wgmma_wait<0>();           // O += P V of tile j - 1 has landed
+      h::fence_operands(o);
+      fence_frags(p);
+      if (j > 0) {                  // tile j - 1's k and v are read
+        __syncwarp();
+        if (lane == 0) h::mbar_arrive(&empty[(step - 1) % kRing]);
+      }
+      // rescale O when a row's max moved (a warp-wide vote: after the
+      // first tiles most do not)
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int j8 = 0; j8 < 16; ++j8)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int i = 4 * j8 + 2 * v;
+          fill_frag(p, j8, v, s[i], s[i + 1]);
+        }
+      prev_vb = vb;
+    }
+    h::fence_operands(o);
+    fence_frags(p);
+    h::wgmma_fence();
+    mma_fb<D>(o, p, prev_vb, T::kBlockStep);
+    h::wgmma_commit();
+    h::wgmma_wait<0>();
+    h::fence_operands(o);
+    __syncwarp();                   // the item's last tile (and Q) are read
+    if (lane == 0) {
+      h::mbar_arrive(&empty[(step - 1) % kRing]);
+      if constexpr (!F::kQHeld) h::mbar_arrive(&qempty[qb]);
+    }
+    // the item's tiles past this warpgroup's diagonal: released once
+    // landed, in order, while thread 0 keeps producing
+    if constexpr (kSkip) {
+      for (int j = nk; j < it.nk; ++j, ++step) {
+        h::mbar_wait(&full[step % kRing], (step / kRing) & 1);
+        if (threadIdx.x == 0) {
+          if (step >= 2)
+            h::mbar_wait(&empty[(step - 2) % kRing],
+                         ((step - 2) / kRing) & 1);
+          produce();
+        }
+        __syncwarp();
+        if (lane == 0) h::mbar_arrive(&empty[step % kRing]);
+      }
+    }
+    float inv[2];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      l[v] += __shfl_xor_sync(0xffffffffu, l[v], 1);
+      l[v] += __shfl_xor_sync(0xffffffffu, l[v], 2);
+      inv[v] = 1.f / l[v];
+    }
+    const int64_t row = static_cast<int64_t>(a.hq) * D;
+    ptt::store_acc<D>(static_cast<bf16*>(a.out) + static_cast<int64_t>(it.b) *
+                          a.seq * row + static_cast<int64_t>(it.hq) * D,
+                      row, reinterpret_cast<float(*)[4]>(o), q0, inv, a.seq);
+    float* lg =
+        a.lse_out + (static_cast<int64_t>(it.b) * a.hq + it.hq) * a.seq;
+    if (t == 0)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int qrow = qw0 + 16 * warp + g + 8 * v;
+        if (qrow < a.seq) lg[qrow] = (m[v] + log2f(l[v])) * kLn2;
+      }
+  }
 }
 
 // dq: grid (Hq, B, q tiles of 128). Warpgroup w owns query rows 64 w.. of
@@ -1027,7 +1201,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
   h::fence_operands(dq);
   const int64_t row = static_cast<int64_t>(a.hq) * D;
   const float one[2] = {1.f, 1.f};
-  store_acc<D>(static_cast<bf16*>(a.dq) + static_cast<int64_t>(b) * a.seq *
+  ptt::store_acc<D>(static_cast<bf16*>(a.dq) + static_cast<int64_t>(b) * a.seq *
                    row + static_cast<int64_t>(hq) * D,
                row, reinterpret_cast<float(*)[4]>(dq), q0, one, a.seq);
 }
@@ -1232,9 +1406,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
   const int64_t dense = static_cast<int64_t>(b) * a.seq * krow +
                         static_cast<int64_t>(kvh) * D;
   const float one[2] = {1.f, 1.f};
-  store_acc<D>(static_cast<bf16*>(a.dk) + dense, krow,
+  ptt::store_acc<D>(static_cast<bf16*>(a.dk) + dense, krow,
                reinterpret_cast<float(*)[4]>(dk), k0, one, a.seq);
-  store_acc<D>(static_cast<bf16*>(a.dv) + dense, krow,
+  ptt::store_acc<D>(static_cast<bf16*>(a.dv) + dense, krow,
                reinterpret_cast<float(*)[4]>(dv), k0, one, a.seq);
 }
 
@@ -1271,15 +1445,36 @@ cudaError_t encode_vals(CUtensorMap* map, const float* p, int64_t n,
 template <int Kind, int D>
 cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
   using T = Tiles<D>;
-  const int64_t qd[3] = {int64_t(a.seq) * a.hq * D, int64_t(a.hq) * D, D};
-  const int box = Kind == kDq ? kBlockRows : kRows;   // q and dO rows
+  // rows a box: q (and dO) 64 in dk/dv, else the block's 128; k and v 64
+  // in dq, else 128
+  const int box = Kind == kDkv ? kRows
+                  : (Kind == kFwd ? FwdTiles<D>::kQRows : kBlockRows);
   const int kv_box = Kind == kDq ? kRows : kBlockRows;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err;
   if ((err = encode_bshd(&tq, a.q, batch, a.seq, a.hq, D, a.qs, box)) ||
       (err = encode_bshd(&tk, a.k, batch, a.seq, a.hk, D, a.ks, kv_box)) ||
-      (err = encode_bshd(&tv, a.v, batch, a.seq, a.hk, D, a.vs, kv_box)) ||
-      (err = encode_bshd(&tdo, a.dout, batch, a.seq, a.hq, D, qd, box)))
+      (err = encode_bshd(&tv, a.v, batch, a.seq, a.hk, D, a.vs, kv_box)))
+    return err;
+  if constexpr (Kind == kFwd) {     // persistent: at most a block an SM
+    int dev, sms;
+    if ((err = cudaGetDevice(&dev)) ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)))
+      return err;
+    const int items = cdiv(a.seq, FwdTiles<D>::kQRows) * a.hq * batch;
+    auto kern = flash_fwd_wgmma<D>;
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             static_cast<int>(FwdTiles<D>::bytes))))
+      return err;
+    kern<<<items < sms ? items : sms, FwdTiles<D>::kThreads,
+           FwdTiles<D>::bytes, stream>>>(
+        tq, tk, tv, a, batch);
+    return cudaGetLastError();
+  }
+  const int64_t qd[3] = {int64_t(a.seq) * a.hq * D, int64_t(a.hq) * D, D};
+  if ((err = encode_bshd(&tdo, a.dout, batch, a.seq, a.hq, D, qd, box)))
     return err;
   const dim3 grid(Kind == kDq ? a.hq : a.hk, batch, cdiv(a.seq, kBlockRows));
   if constexpr (Kind == kDq) {
@@ -1312,23 +1507,15 @@ cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
 
 template <int Kind, typename T, int D>
 cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, bf16> && Kind != kFwd)
+  if constexpr (std::is_same_v<T, bf16>)
     return wg::launch<Kind, D>(a, batch, stream);
-  void (*kern)(const Args);
-  size_t bytes;
-  int rows;
-  if constexpr (std::is_same_v<T, bf16>) {
-    rows = MmaGeo<D>::BM;
-    bytes = MmaGeo<D>::fwd_bytes;
-    kern = flash_fwd_mma<D>;
-  } else {
-    using G = Geo<float, D>;
-    rows = G::BM;
-    bytes = Kind == kFwd ? G::fwd_bytes
-                         : (Kind == kDq ? G::dq_bytes : G::dkv_bytes);
-    kern = Kind == kFwd ? flash_fwd_f32<D>
-                        : (Kind == kDq ? flash_dq_f32<D> : flash_dkv_f32<D>);
-  }
+  using G = Geo<float, D>;
+  const int rows = G::BM;
+  const size_t bytes = Kind == kFwd ? G::fwd_bytes
+                       : (Kind == kDq ? G::dq_bytes : G::dkv_bytes);
+  void (*kern)(const Args) =
+      Kind == kFwd ? flash_fwd_f32<D>
+                   : (Kind == kDq ? flash_dq_f32<D> : flash_dkv_f32<D>);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));

@@ -104,7 +104,7 @@ __device__ __forceinline__ void store2<bf16>(bf16* p, float a, float b) {
 }
 
 // The A fragment of rows r0.., columns c0.. of an f32 tile, each pair
-// rounded to bf16 (the layout of ptt::frag_a)
+// rounded to bf16 (the mma.sync A layout of common.cuh)
 __device__ __forceinline__ void frag_a_f32(uint32_t (&a)[4], const float* s,
                                            int ld, int r0, int c0) {
   const int lane = threadIdx.x & 31;

@@ -223,13 +223,15 @@ def test_flash_kernels_match_ref(cuda, dtype, b, s, hq, hk, d, causal):
 # wrong on a few rows or keys only: (the outputs it spoils, the line, its
 # faulty form)
 _FAULTS = {
-    # the last q tile's o leaves out the values of keys 0-7 (its row sums
-    # keep them, so the lse is still right)
+    # the last q block's o leaves out the values of keys 0-7 (P of the
+    # first k tile packs zeros there; its row sums keep them, so the lse is
+    # still right)
     "fwd_last_rows_drop_8_keys": (
-        ("o",), "    mma_c_b<D>(o, s, v_s + buf, LDT);\n",
-        "    if (qt == n_kv - 1 && j == 0)\n"
-        "      for (int e = 0; e < 4; ++e) s[0][e] = 0.f;\n"
-        "    mma_c_b<D>(o, s, v_s + buf, LDT);\n"),
+        ("o",), "          fill_frag(p, j8, v, s[i], s[i + 1]);\n",
+        "          const bool drop = q0 + kBlockRows >= a.seq && j == 0 &&\n"
+        "                            j8 == 0;\n"
+        "          fill_frag(p, j8, v, drop ? 0.f : s[i],\n"
+        "                    drop ? 0.f : s[i + 1]);\n"),
     # the last q tile's dq leaves out the k tile of keys 0-63
     "dq_last_rows_drop_a_k_tile": (
         ("dq",),
@@ -252,13 +254,13 @@ _FAULTS = {
 def test_flash_bf16_rule_rejects_planted_faults(cuda, tmp_path):
     """At the training shape (one sequence of 2048, 32/4 heads, d 64,
     causal), the kernels pass the row rule and each planted fault fails
-    it: on an H100 the forward's by 23x, the wgmma dq's (a k tile left
-    out of the last rows) by 50x, the wgmma dk/dv's (one head's last q
-    tile left out) by 36x (dk) and 28x (dv). A rule relative to the
-    largest entry (2^-6 of it) barely sees them: the largest entries sit
-    in the first rows and keys, the faults in the last ones (it fails them
-    by 1.2-2.1x and passes dv's, at 0.55 of its bound; both ratios are
-    printed). Each faulty library is built from a copy of csrc/ in
+    it: on an H100 the wgmma forward's (keys 0-7 left out of the last q
+    block's o) by 28.8x, the wgmma dq's (a k tile left out of the last
+    rows) by 50x, the wgmma dk/dv's (one head's last q tile left out) by
+    36x (dk) and 28x (dv). A rule relative to the largest entry (2^-6 of
+    it) barely sees them: the largest entries sit in the first rows and
+    keys, the faults in the last ones (it fails them by 1.3-2.1x and
+    passes dv's, at 0.55 of its bound; both ratios are printed). Each faulty library is built from a copy of csrc/ in
     tmp_path."""
     q, k, v, do = _flash_inputs(cuda, torch.bfloat16, 1, 2048, 32, 4, 64,
                                 seed=7)
@@ -320,6 +322,46 @@ def test_flash_backward_matches_ref_at_tile_edges(cuda, b, s, hq, hk, d,
     torch.cuda.synchronize()
     for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
         _close_rows(got, want, torch.bfloat16, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,hq,hk,d", [
+    (1, 200, 32, 4, 64),        # ragged against the 128-row block tiles
+    (1, 1000, 32, 4, 64),       # a group of 8, a ragged 8th block
+    (1, 1000, 8, 2, 128),       # d 128, a group of 4
+    (2, 136, 8, 1, 128),        # one kv head for 8 q heads, 8 ragged rows
+    (1, 60, 4, 1, 64),          # one block, its second warpgroup all past s
+    (2, 129, 4, 2, 64),         # one key past the first 128-key tile
+    (1, 129, 8, 8, 128),
+])
+def test_flash_forward_matches_ref_at_tile_edges(cuda, b, s, hq, hk, d,
+                                                 causal):
+    """The wgmma forward against the twin where its tiles are cut: blocks
+    of 128 query rows (two warpgroups of 64), k/v tiles of 128 keys (s 129
+    leaves one key in the second), groups of 1-8, both head widths. o
+    within the bf16 row rule, lse within 1e-4."""
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, b, s, hq, hk, d,
+                               seed=s + d + 1)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    ro, rlse = tfa.flash_attention_fwd_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    _close_rows(o, ro, torch.bfloat16, "o")
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_forward_is_bit_identical_from_call_to_call(cuda):
+    """The forward sums each row over its k tiles in a fixed order: a
+    repeat gives the same o and lse bits, at both head widths."""
+    for b, s, hq, hk, d in ((2, 1000, 32, 4, 64), (1, 1000, 8, 2, 128)):
+        q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, b, s, hq, hk, d,
+                                   seed=4)
+        for causal in (True, False):
+            o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+            for _ in range(3):
+                o2, lse2 = tfa.flash_attention_fwd(q, k, v, causal)
+                assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda

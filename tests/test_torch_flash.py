@@ -4,7 +4,8 @@ The port's plain twins (which its wrappers and its autograd Function
 take for CPU tensors) are held against the JAX Pallas kernels run in
 interpret mode (`_flash_fwd_pallas` / `_flash_bwd_pallas`, blocks of 32
 so a 64-row sequence spans several tiles and a 40-row one has a ragged
-tail; the backward also at 136 rows, a group of 8 and head_dim 128) and against JAX's own chunked attention and its `jax.vjp`. Off the
+tail; also at 136 rows, a group of 8 and head_dim 128) and against JAX's
+own chunked attention and its `jax.vjp`. Off the
 TPU the JAX package runs GQA by repeating k/v (`jnp.repeat`), so the
 port's per-kv-head dk/dv are held against the sum over each group.
 
@@ -28,10 +29,10 @@ from paddle_tpu_torch.nn import functional as tF
 TOL = dict(rtol=1e-5, atol=1e-5)
 CASES = [(s, causal, hq, hk) for s in (64, 40) for causal in (True, False)
          for hq, hk in ((2, 2), (4, 2))]
-# the backward also where the CUDA kernels cut their tiles: a sequence
-# ragged against 32-row Pallas blocks (and the kernels' 64- and 128-row
-# tiles), a group of 8 query heads on one kv head, head_dim 128
-BWD_CASES = [pytest.param(*c, 64, id="-".join(map(str, c))) for c in CASES] + [
+# also where the CUDA kernels cut their tiles: a sequence ragged against
+# 32-row Pallas blocks (and the kernels' 64- and 128-row tiles), a group
+# of 8 query heads on one kv head, head_dim 128
+TILE_CASES = [pytest.param(*c, 64, id="-".join(map(str, c))) for c in CASES] + [
     pytest.param(136, True, 2, 2, 64, id="136-True-2-2-d64"),
     pytest.param(136, False, 8, 1, 64, id="136-False-8-1-d64"),
     pytest.param(64, True, 8, 1, 128, id="64-True-8-1-d128"),
@@ -66,9 +67,9 @@ def _group_sum(x, hk):
     return _bshd(np.asarray(x).reshape(b, hk, hq // hk, s, d).sum(2))
 
 
-@pytest.mark.parametrize("s,causal,hq,hk", CASES)
-def test_flash_fwd_ref_matches_pallas_and_chunked(s, causal, hq, hk):
-    q, k, v, _ = _inputs(s, hq, hk)
+@pytest.mark.parametrize("s,causal,hq,hk,d", TILE_CASES)
+def test_flash_fwd_ref_matches_pallas_and_chunked(s, causal, hq, hk, d):
+    q, k, v, _ = _inputs(s, hq, hk, d)
     scale = 1 / math.sqrt(q.shape[-1])
     jq, jk, jv = _jax_bhsd(q, k, v, hq // hk)
     jo, jlse = jfa._flash_fwd_pallas(jq, jk, jv, causal, scale, block_q=32,
@@ -85,7 +86,7 @@ def test_flash_fwd_ref_matches_pallas_and_chunked(s, causal, hq, hk):
                                **TOL)
 
 
-@pytest.mark.parametrize("s,causal,hq,hk,d", BWD_CASES)
+@pytest.mark.parametrize("s,causal,hq,hk,d", TILE_CASES)
 def test_flash_bwd_matches_pallas_and_vjp(s, causal, hq, hk, d):
     q, k, v, do = _inputs(s, hq, hk, d, seed=1)
     scale = 1 / math.sqrt(q.shape[-1])
