@@ -25,7 +25,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and at Llama-3-8B's head shape (1, 4096, 32/8, 128), bf16, and in f32
    at small shapes, each entry held to its own size and its head_dim
    row's (`_check_rows`); the RMSNorm backward at (16384, 2048) with and
-   without the residual's gradient; the RoPE backward at
+   without the residual's gradient, and its forward at the prefill
+   call's (6370, 4096) and the training (16384, 2048) shapes with a
+   residual (x + residual, then F.rms_norm, as yardstick; each norm entry
+   carries the launch plan it ran); the RoPE backward at
    (8, 2048, 32|4, 64). SDPA (enable_gqa) is the flash yardstick;
 5. Llama-3-8B at full width (32 layers, bf16, weights from a seed) behind
    a PagedKVEngine serving 8 requests of 128..1024 prompt tokens and 64
@@ -210,6 +213,178 @@ def _check_rows(name, out, ref, tol):
 
 # -- phase 3: kernels against their twins ---------------------------------
 
+def _plan_json(p):
+    """The RMSNorm launch plan a timed call ran (fused_norm.plan)."""
+    return {"threads_per_row": p.threads_per_row,
+            "rows_per_block": p.rows_per_block,
+            "instance": "vector" if p.vector else "scalar",
+            "chunks": p.chunks, "blocks": p.blocks}
+
+
+def norm_phases(dev, fn):
+    """The rms_norm_residual and rms_norm_residual_bwd entries: each kernel
+    held against its twin (h bit-equal to x + residual, y and dh within one
+    rounding step in bf16 and 1e-4 in f32, rstd within 1e-4, dw within the
+    tolerance of its largest entry and the same bits twice), then timed
+    beside its twin, its bound and a library yardstick at the decode
+    (8, 4096), prefill (6370, 4096) and training (16384, 2048) shapes;
+    each shape's entry carries the launch plan it ran."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    eps, d = 1e-5, 4096
+    rms = torch.nn.functional.rms_norm
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def held(tag, x, r, w, tol):
+        y, h = fn.rms_norm_residual(x, w, r, eps)
+        ry, rh = fn.rms_norm_residual_ref(x, w, r, eps)
+        torch.cuda.synchronize()
+        if not torch.equal(h, rh):
+            raise AssertionError(f"rms_norm {tag}: h != x + residual")
+        return _check(f"rms_norm {tag}", y, ry, tol)
+
+    # decode rows, a 4096-row block and the prefill call's 6370 rows
+    err = 0.0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for n in (8, 4096, 6370):
+            x, r, w = randn(n, d, dtype=dtype), randn(n, d, dtype=dtype), \
+                randn(d, dtype=dtype)
+            for res in (None, r):
+                e = held(f"{dtype} n={n} res={res is not None}", x, res, w,
+                         tol)
+                if dtype == torch.bfloat16:
+                    err = max(err, e)
+    rows = 8
+    sets = [(randn(rows, d), randn(rows, d), randn(d)) for _ in range(4)]
+    nores = [(s[0], s[2]) for s in sets]
+    elem = rows * d
+    norm = dict(
+        name="rms_norm_residual", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/fused_norm.cu",
+        replaces="paddle_tpu/kernels/fused_norm.py:185",
+        ms=_time_ms(lambda a, b: fn.rms_norm_residual(a, b, None, eps),
+                    nores),
+        plain_ms=_time_ms(lambda a, b: fn.rms_norm_residual_ref(a, b, None,
+                                                                eps), nores),
+        library_ms=_time_ms(lambda a, b: rms(a, (d,), b, eps), nores),
+        shape=f"x ({rows}, {d}) bf16, no residual",
+        plan=_plan_json(fn.plan(rows, d, torch.bfloat16,
+                                sms=fn._sm_count(dev))),
+        residual_ms=_time_ms(lambda a, b, c: fn.rms_norm_residual(
+            a, c, b, eps), sets),
+        residual_plain_ms=_time_ms(lambda a, b, c: fn.rms_norm_residual_ref(
+            a, c, b, eps), sets),
+        # the library yardstick with a residual: the add, then F.rms_norm
+        # of the sum (two calls)
+        residual_library_ms=_time_ms(lambda a, b, c: rms(a + b, (d,), c,
+                                                         eps), sets))
+    norm["bound_ms"], norm["bound_by"] = _bound(
+        2 * elem * 2 + d * 2, 4 * elem, F32_FLOPS)
+    norm["residual_bound_ms"] = _bound(4 * elem * 2 + d * 2, 5 * elem,
+                                       F32_FLOPS)[0]
+
+    def timed_fwd(tag, n, dd, want_rstd):
+        x, r, w = randn(n, dd), randn(n, dd), randn(dd)
+        e = held(f"bf16 {tag} ({n}, {dd}) res=True", x, r, w, BF16_TOL)
+        one = [(x, r, w)]
+        out = {f"{tag}_ms": _time_ms(
+                   lambda a, b_, c: fn._norm_fwd(a, c, b_, eps, want_rstd),
+                   one, iters=20),
+               f"{tag}_plain_ms": _time_ms(
+                   lambda a, b_, c: fn.rms_norm_residual_ref(a, c, b_, eps),
+                   one, iters=5),
+               f"{tag}_library_ms": _time_ms(
+                   lambda a, b_, c: rms(a + b_, (dd,), c, eps), one,
+                   iters=20),
+               f"{tag}_bound_ms": _bound(
+                   4 * n * dd * 2 + dd * 2 + (n * 4 if want_rstd else 0),
+                   5 * n * dd, F32_FLOPS)[0],
+               f"{tag}_shape": f"x, residual ({n}, {dd}) bf16"
+                               + (", with rstd" if want_rstd else ""),
+               f"{tag}_plan": _plan_json(fn.plan(n, dd, torch.bfloat16,
+                                                 sms=fn._sm_count(dev)))}
+        return e, out
+
+    e, pre = timed_fwd("prefill", 6370, d, False)
+    norm.update(pre)
+    e2, train = timed_fwd("train", 16384, 2048, True)
+    norm.update(train)
+    norm["library_note"] = (
+        "decode without a residual: F.rms_norm, the same function; with a "
+        "residual (residual_, prefill_, train_library_ms): x + residual, "
+        "then F.rms_norm, two calls that write no rstd")
+    norm["max_abs_err"] = max(err, e, e2)
+    print(f"[kernel] rms_norm_residual bf16 (8, 4096): {norm['ms']:.4f} ms, "
+          f"plain {norm['plain_ms']:.4f} ms, torch rms_norm "
+          f"{norm['library_ms']:.4f} ms, bound {norm['bound_ms']:.5f} ms; "
+          f"with residual {norm['residual_ms']:.4f} ms, plain "
+          f"{norm['residual_plain_ms']:.4f} ms, x + r and rms_norm "
+          f"{norm['residual_library_ms']:.4f} ms, bound "
+          f"{norm['residual_bound_ms']:.5f} ms; prefill (6370, 4096) "
+          f"{norm['prefill_ms']:.4f} ms, x + r and rms_norm "
+          f"{norm['prefill_library_ms']:.4f} ms, bound "
+          f"{norm['prefill_bound_ms']:.4f} ms; training (16384, 2048) "
+          f"{norm['train_ms']:.4f} ms, x + r and rms_norm "
+          f"{norm['train_library_ms']:.4f} ms, bound "
+          f"{norm['train_bound_ms']:.4f} ms; max |err| "
+          f"{norm['max_abs_err']:.3g}; plans {norm['plan']}, "
+          f"{norm['prefill_plan']}, {norm['train_plan']}")
+
+    # the backward at the training shape, with and without gh
+    n, d = 16384, 2048
+    err = 0.0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        h, gy, gh = randn(n, d, dtype=dtype), randn(n, d, dtype=dtype), \
+            randn(n, d, dtype=dtype)
+        w = randn(d, dtype=dtype)
+        _, _, rstd = fn._norm_fwd(h, w, None, eps, want_rstd=True)
+        _check(f"rms_norm rstd {dtype}", rstd,
+               fn._rmsn_fwd_math(h, w, eps)[1].reshape(-1), F32_TOL)
+        for gh_ in (None, gh):
+            dh, dw = fn.rms_norm_residual_bwd(h, w, rstd, gy, gh_)
+            rdh, rdw = fn.rms_norm_residual_bwd_ref(h, w, rstd, gy, gh_)
+            torch.cuda.synchronize()
+            tag = f"{dtype} gh={gh_ is not None}"
+            e = _check(f"rms_norm_bwd dh {tag}", dh, rdh, tol)
+            # dw sums 16384 rows: held to its largest entry
+            e = max(e, _check_to_max(f"rms_norm_bwd dw {tag}", dw, rdw, tol))
+            if not torch.equal(fn.rms_norm_residual_bwd(h, w, rstd, gy,
+                                                         gh_)[1], dw):
+                raise AssertionError("rms_norm_bwd: dw not deterministic")
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+    sets = [(h, w, rstd, gy)]
+    gsets = [(h, w, rstd, gy, gh)]
+    elem = n * d
+    bwd = dict(
+        name="rms_norm_residual_bwd", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/fused_norm.cu",
+        replaces="paddle_tpu/kernels/fused_norm.py:225", max_abs_err=err,
+        ms=_time_ms(fn.rms_norm_residual_bwd, sets, iters=20),
+        plain_ms=_time_ms(fn.rms_norm_residual_bwd_ref, sets, iters=5),
+        library_ms=None,
+        library_note="no single PyTorch call computes the RMSNorm backward",
+        shape=f"h ({n}, {d}) bf16, no residual gradient; ms includes the "
+              "sum of the dw partials",
+        plan=_plan_json(fn.plan(n, d, torch.bfloat16, backward=True,
+                                sms=fn._sm_count(dev))),
+        gh_ms=_time_ms(fn.rms_norm_residual_bwd, gsets, iters=20),
+        gh_plain_ms=_time_ms(fn.rms_norm_residual_bwd_ref, gsets, iters=5))
+    bwd["bound_ms"], bwd["bound_by"] = _bound(
+        3 * elem * 2 + n * 4 + 2 * d * 2, 8 * elem, F32_FLOPS)
+    bwd["gh_bound_ms"] = _bound(4 * elem * 2 + n * 4 + 2 * d * 2, 9 * elem,
+                                F32_FLOPS)[0]
+    print(f"[kernel] rms_norm_residual_bwd bf16 ({n}, {d}): "
+          f"{bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, bound "
+          f"{bwd['bound_ms']:.4f} ms; with gh {bwd['gh_ms']:.4f} ms, plain "
+          f"{bwd['gh_plain_ms']:.4f} ms, bound {bwd['gh_bound_ms']:.4f} ms; "
+          f"max |err| {err:.3g}; plan {bwd['plan']}")
+    del h, gy, gh, dh, rdh, sets, gsets
+    torch.cuda.empty_cache()
+    return {"rms_norm_residual": norm, "rms_norm_residual_bwd": bwd}
+
+
 def kernel_phases(dev, fn, pa):
     """Returns {kernel name: JSON entry without launches}."""
     g = torch.Generator(device=dev).manual_seed(0)
@@ -217,57 +392,6 @@ def kernel_phases(dev, fn, pa):
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
-
-    # RMSNorm(+residual): decode rows and a prefill-sized block, both types
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for n in (rows, 4096):
-            x, r, w = randn(n, d, dtype=dtype), randn(n, d, dtype=dtype), \
-                randn(d, dtype=dtype)
-            for res in (None, r):
-                y, h = fn.rms_norm_residual(x, w, res, eps)
-                ry, rh = fn.rms_norm_residual_ref(x, w, res, eps)
-                torch.cuda.synchronize()
-                _check(f"rms_norm {dtype} n={n} res={res is not None}", y,
-                       ry, tol)
-                if not torch.equal(h, rh):
-                    raise AssertionError("rms_norm: h != x + residual")
-    sets = [(randn(rows, d), randn(rows, d), randn(d)) for _ in range(4)]
-    x, r, w = sets[0]
-    err = _check("rms_norm bf16", fn.rms_norm_residual(x, w, None, eps)[0],
-                 fn.rms_norm_residual_ref(x, w, None, eps)[0], BF16_TOL)
-    err = max(err, _check("rms_norm+res bf16",
-                          fn.rms_norm_residual(x, w, r, eps)[0],
-                          fn.rms_norm_residual_ref(x, w, r, eps)[0],
-                          BF16_TOL))
-    elem = rows * d
-    nores = [(s[0], s[2]) for s in sets]
-    norm = dict(
-        name="rms_norm_residual", route="cuda",
-        source="paddle_tpu_torch/kernels/csrc/fused_norm.cu",
-        replaces="paddle_tpu/kernels/fused_norm.py:185",
-        max_abs_err=err,
-        ms=_time_ms(lambda a, b: fn.rms_norm_residual(a, b, None, eps),
-                    nores),
-        plain_ms=_time_ms(lambda a, b: fn.rms_norm_residual_ref(a, b, None,
-                                                                eps), nores),
-        library_ms=_time_ms(
-            lambda a, b: torch.nn.functional.rms_norm(a, (d,), b, eps),
-            nores),
-        shape=f"x ({rows}, {d}) bf16, no residual",
-        residual_ms=_time_ms(lambda a, b, c: fn.rms_norm_residual(
-            a, c, b, eps), sets),
-        residual_plain_ms=_time_ms(lambda a, b, c: fn.rms_norm_residual_ref(
-            a, c, b, eps), sets))
-    norm["bound_ms"], norm["bound_by"] = _bound(
-        2 * elem * 2 + d * 2, 4 * elem, F32_FLOPS)
-    norm["residual_bound_ms"] = _bound(4 * elem * 2 + d * 2, 5 * elem,
-                                       F32_FLOPS)[0]
-    print(f"[kernel] rms_norm_residual bf16 (8, 4096): {norm['ms']:.4f} ms, "
-          f"plain {norm['plain_ms']:.4f} ms, torch rms_norm "
-          f"{norm['library_ms']:.4f} ms, bound {norm['bound_ms']:.5f} ms; "
-          f"with residual {norm['residual_ms']:.4f} ms, plain "
-          f"{norm['residual_plain_ms']:.4f} ms, bound "
-          f"{norm['residual_bound_ms']:.5f} ms; max |err| {err:.3g}")
 
     # RoPE: q (8, 1, 32, 128) and k (8, 1, 8, 128) at decode positions
     pos = torch.randint(0, 1280, (rows, 1), generator=g, device=dev,
@@ -388,7 +512,7 @@ def kernel_phases(dev, fn, pa):
           f"window (lens {mp * ps - 1} x {b}) {dec['full_window_ms']:.4f} "
           f"ms, sdpa {dec['full_window_library_ms']:.4f} ms, bound "
           f"{dec['full_window_bound_ms']:.5f} ms")
-    return {k["name"]: k for k in (dec, norm, rope)}
+    return {k["name"]: k for k in (dec, rope)}
 
 
 def _full_window(pa, psets, dense, bt, L, hq, hk, hd, kv_bytes):
@@ -802,83 +926,13 @@ def flash_phases(dev, fa):
     return out
 
 
-def norm_rope_bwd_phases(dev, fn):
-    """rms_norm_residual_bwd and rope_apply_bwd entries at the training
-    shapes, and the forward kernels' times at those shapes."""
+def rope_bwd_phases(dev, fn):
+    """The rope_apply_bwd entry at the training shape, and the forward
+    kernel's time at that shape."""
     g = torch.Generator(device=dev).manual_seed(11)
-    n, d, eps = 16384, 2048, 1e-5
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
-
-    err = 0.0
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        h, gy, gh = randn(n, d, dtype=dtype), randn(n, d, dtype=dtype), \
-            randn(n, d, dtype=dtype)
-        w = randn(d, dtype=dtype)
-        _, _, rstd = fn._norm_fwd(h, w, None, eps, want_rstd=True)
-        _check(f"rms_norm rstd {dtype}", rstd,
-               fn._rmsn_fwd_math(h, w, eps)[1].reshape(-1), F32_TOL)
-        for gh_ in (None, gh):
-            dh, dw = fn.rms_norm_residual_bwd(h, w, rstd, gy, gh_)
-            rdh, rdw = fn.rms_norm_residual_bwd_ref(h, w, rstd, gy, gh_)
-            torch.cuda.synchronize()
-            tag = f"{dtype} gh={gh_ is not None}"
-            e = _check(f"rms_norm_bwd dh {tag}", dh, rdh, tol)
-            # dw sums 16384 rows: held to its largest entry
-            e = max(e, _check_to_max(f"rms_norm_bwd dw {tag}", dw, rdw, tol))
-            if not torch.equal(fn.rms_norm_residual_bwd(h, w, rstd, gy,
-                                                         gh_)[1], dw):
-                raise AssertionError("rms_norm_bwd: dw not deterministic")
-            if dtype == torch.bfloat16:
-                err = max(err, e)
-    sets = [(h, w, rstd, gy)]
-    gsets = [(h, w, rstd, gy, gh)]
-    elem = n * d
-    norm = dict(
-        name="rms_norm_residual_bwd", route="cuda",
-        source="paddle_tpu_torch/kernels/csrc/fused_norm.cu",
-        replaces="paddle_tpu/kernels/fused_norm.py:225", max_abs_err=err,
-        ms=_time_ms(fn.rms_norm_residual_bwd, sets, iters=20),
-        plain_ms=_time_ms(fn.rms_norm_residual_bwd_ref, sets, iters=5),
-        library_ms=None,
-        library_note="no single PyTorch call computes the RMSNorm backward",
-        shape=f"h ({n}, {d}) bf16, no residual gradient",
-        gh_ms=_time_ms(fn.rms_norm_residual_bwd, gsets, iters=20),
-        gh_plain_ms=_time_ms(fn.rms_norm_residual_bwd_ref, gsets, iters=5))
-    norm["bound_ms"], norm["bound_by"] = _bound(
-        3 * elem * 2 + n * 4 + 2 * d * 2, 8 * elem, F32_FLOPS)
-    norm["gh_bound_ms"] = _bound(4 * elem * 2 + n * 4 + 2 * d * 2, 9 * elem,
-                                 F32_FLOPS)[0]
-    x, r = randn(n, d), randn(n, d)
-    fwd_train = dict(
-        train_ms=_time_ms(lambda a, b_, c: fn._norm_fwd(a, c, b_, eps, True),
-                          [(x, r, w)], iters=20),
-        train_plain_ms=_time_ms(
-            lambda a, b_, c: fn.rms_norm_residual_ref(a, c, b_, eps),
-            [(x, r, w)], iters=5),
-        train_bound_ms=_bound(4 * elem * 2 + n * 4 + d * 2, 5 * elem,
-                              F32_FLOPS)[0],
-        train_shape=f"x, residual ({n}, {d}) bf16, with rstd",
-        # the library yardstick at this shape: the residual add, then
-        # F.rms_norm of the sum (two calls; the kernel also writes rstd)
-        train_library_ms=_time_ms(
-            lambda a, b_, c: torch.nn.functional.rms_norm(a + b_, (d,), c,
-                                                          eps),
-            [(x, r, w)], iters=20),
-        train_library_note="x + residual, then F.rms_norm: two calls, no "
-                           "rstd out")
-    print(f"[kernel] rms_norm_residual_bwd bf16 ({n}, {d}): "
-          f"{norm['ms']:.4f} ms, plain {norm['plain_ms']:.4f} ms, bound "
-          f"{norm['bound_ms']:.4f} ms; with gh {norm['gh_ms']:.4f} ms, plain "
-          f"{norm['gh_plain_ms']:.4f} ms, bound {norm['gh_bound_ms']:.4f} "
-          f"ms; forward at this shape (residual, rstd) "
-          f"{fwd_train['train_ms']:.4f} ms, bound "
-          f"{fwd_train['train_bound_ms']:.4f} ms, x + residual and torch "
-          f"rms_norm {fwd_train['train_library_ms']:.4f} ms; max |err| "
-          f"{err:.3g}")
-    del h, gy, gh, x, r, dh, rdh, sets, gsets
-    torch.cuda.empty_cache()
 
     b, s, hd = 8, 2048, 64
     pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b)
@@ -918,8 +972,7 @@ def norm_rope_bwd_phases(dev, fn):
           f"{rope['ms']:.4f} ms, plain {rope['plain_ms']:.4f} ms, bound "
           f"{rope['bound_ms']:.4f} ms; forward at this shape "
           f"{rope_fwd_train['train_ms']:.4f} ms; max |err| {rerr:.3g}")
-    return {"rms_norm_residual_bwd": norm, "rope_apply_bwd": rope}, \
-        {"rms_norm_residual": fwd_train, "rope_apply": rope_fwd_train}
+    return {"rope_apply_bwd": rope}, {"rope_apply": rope_fwd_train}
 
 
 def ce_phases(dev, bce, fnl):
@@ -1192,6 +1245,12 @@ def _device_us(evt):
             or getattr(evt, "self_cuda_time_total", 0))
 
 
+def _norm_rows(kernels):
+    """The RMSNorm kernels' own profiler rows, in or out of the top."""
+    return [(e.key[:90], _device_us(e) / 1e3, e.count) for e in kernels
+            if "rms" in e.key]
+
+
 def profile_serving(model, prompts, max_new, geom, card, label=""):
     """Where the time goes (`--profile`): torch.profiler over the prefill
     of all prompts and over two decode ticks; device busy time is the sum
@@ -1221,12 +1280,15 @@ def profile_serving(model, prompts, max_new, geom, card, label=""):
         out[phase] = dict(
             wall_s=wall, device_busy_s=busy,
             idle_share=max(0.0, 1 - busy / wall) if wall else None,
-            top=[(e.key[:90], _device_us(e) / 1e3, e.count) for e in top])
+            top=[(e.key[:90], _device_us(e) / 1e3, e.count) for e in top],
+            norm=_norm_rows(kernels))
         print(f"[profile] {card} {label}{phase}: wall {wall * 1e3:.1f} ms, device "
               f"busy {busy * 1e3:.1f} ms, idle share "
               f"{out[phase]['idle_share']:.3f}")
         for name, ms, n in out[phase]["top"]:
             print(f"[profile]   {ms:9.3f} ms  x{n:<6} {name}")
+        for name, ms, n in out[phase]["norm"]:
+            print(f"[profile] norm {ms:9.3f} ms  x{n:<6} {name}")
     eng.run_until_idle()
     return out
 
@@ -1468,11 +1530,14 @@ def profile_training(trainer, data, card):
     top = sorted(kernels, key=_device_us, reverse=True)[:20]
     out = dict(wall_s=wall, device_busy_s=busy,
                idle_share=max(0.0, 1 - busy / wall) if wall else None,
-               top=[(e.key[:90], _device_us(e) / 1e3, e.count) for e in top])
+               top=[(e.key[:90], _device_us(e) / 1e3, e.count) for e in top],
+               norm=_norm_rows(kernels))
     print(f"[profile] {card} train step: wall {wall * 1e3:.1f} ms, device "
           f"busy {busy * 1e3:.1f} ms, idle share {out['idle_share']:.3f}")
     for name, ms, n in out["top"]:
         print(f"[profile]   {ms:9.3f} ms  x{n:<6} {name}")
+    for name, ms, n in out["norm"]:
+        print(f"[profile] norm {ms:9.3f} ms  x{n:<6} {name}")
     return out
 
 
@@ -1814,12 +1879,13 @@ def main(argv=None):
         print(f"[build] {ln}")
 
     t_start = time.perf_counter()
-    kernels = kernel_phases(dev, fn, pa)
+    kernels = norm_phases(dev, fn)
+    kernels.update(kernel_phases(dev, fn, pa))
     call_ms = _prefill_call_ms(_prompts(8, 128256, seed=0), 7,
                                PagedKVEngine._bucket)
     kernels.update(int8_kernel_phases(dev, pa, qm, call_ms[0], call_ms[-1]))
     kernels.update(flash_phases(dev, fa))
-    bwd_entries, fwd_train = norm_rope_bwd_phases(dev, fn)
+    bwd_entries, fwd_train = rope_bwd_phases(dev, fn)
     kernels.update(bwd_entries)
     for name, extra in fwd_train.items():
         kernels[name].update(extra)

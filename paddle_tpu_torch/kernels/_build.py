@@ -41,8 +41,8 @@ _FLASH_TAIL = [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P]
 # C signatures of the entry points in csrc/ (all return a cudaError_t)
 _SIGNATURES = {
     "ptt_paged_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
-    "ptt_rms_norm_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "ptt_rms_norm_bwd": [_P] * 7 + [_I, _I, _I, _I, _P],
+    "ptt_rmsn_fwd": [_P] * 6 + [_I, _I, _F] + [_I] * 6 + [_P],
+    "ptt_rmsn_bwd": [_P] * 7 + [_I] * 8 + [_P],
     "ptt_rope_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ptt_flash_fwd": [_P] * 5 + _FLASH_TAIL,
     "ptt_flash_bwd_dq": [_P] * 7 + _FLASH_TAIL,

@@ -13,16 +13,23 @@ the forward kernel launched with the sin table negated (the inverse
 rotation). Without a gradient (serving) the plain forward runs and keeps
 nothing.
 
+`plan(n, d, dtype)` chooses the RMSNorm kernels' layout (threads a row,
+rows a block, 16-byte or scalar accesses, chunks a thread, grid) from
+the shape alone, in Python, so the CPU tests can check it.
+
 `launches` counts kernel launches per op, so a run can show that its
 main path went through the kernels.
 """
 from __future__ import annotations
 
+import collections
+import functools
+
 import torch
 
 from paddle_tpu_torch.kernels import _build
 
-__all__ = ["rms_norm_residual", "rms_norm_residual_ref",
+__all__ = ["plan", "NormPlan", "rms_norm_residual", "rms_norm_residual_ref",
            "rms_norm_residual_bwd", "rms_norm_residual_bwd_ref",
            "rope_apply", "rope_apply_ref", "rope_apply_bwd",
            "rope_apply_bwd_ref", "rope_tables", "norm_shape_problems",
@@ -32,15 +39,78 @@ launches = {"rms_norm_residual": 0, "rms_norm_residual_bwd": 0,
             "rope_apply": 0, "rope_apply_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_NORM_D = 12032     # csrc/fused_norm.cu kMaxNormD (row in 48 KB smem)
-_BWD_BLOCKS = 264       # RMSNorm backward grid: two blocks per H100 SM
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
+_MAX_NORM_D = 12032     # csrc/fused_norm.cu kMaxNormD (dw row in 48 KB)
+_SMS = 132              # H100 SXM streaming multiprocessors
+_MAX_TEAM = 512         # csrc/fused_norm.cu kMaxBlock: threads a row at most
+_BLOCK = 256            # forward: threads a block when a row takes fewer
+_BWD_BLOCK = 512        # backward: threads a block, one block an SM
+# chunks a thread compiled in csrc/fused_norm.cu, vector and scalar
+_CHUNKS = {True: (1, 2, 4, 8), False: (1, 2, 4, 8, 16, 24)}
+
+NormPlan = collections.namedtuple(
+    "NormPlan", "vector vec threads_per_row rows_per_block chunks blocks")
+
+
+def plan(n, d, dtype, aligned=True, backward=False, sms=_SMS):
+    """The RMSNorm kernels' launch for n rows of width d (1 <= d <=
+    12032) in dtype, from the shape alone.
+
+    vector: 16-byte accesses of `vec` values (8 bf16, 4 f32), where
+    d * itemsize is a multiple of 16 and every base pointer is 16-byte
+    aligned (`aligned`); else the scalar instance of the same kernel
+    (vec 1). A team of threads_per_row threads (a power of two, at most
+    512) holds a row, `chunks` accesses a thread at most (vec *
+    threads_per_row * chunks >= d), rows_per_block teams share a block.
+    Block b takes the row groups b, b + blocks, ..., rows
+    rows_per_block * group + team.
+
+    Forward: one group a block, blocks of 256 threads (or one wider
+    team). With many rows (training, prefill) about four accesses a
+    thread; with few (decode, where the card is not filled and latency
+    is the time) about two, a wider team. Backward: about two accesses a
+    thread (the thread also holds its columns' dw sums), teams of a warp
+    or more, one 512-thread block on each of the `sms` SMs walking its
+    groups, so the (blocks, d) dw partials stay few. n = 0: no blocks.
+    """
+    size = _ITEMSIZE[dtype]
+    vector = bool(aligned) and d * size % 16 == 0
+    vec = 16 // size if vector else 1
+    units = -(-d // vec)
+    least = 32 if backward else 1
+
+    def team(per):
+        want = -(-units // per)
+        return min(_MAX_TEAM, max(least, 1 << (want - 1).bit_length()))
+
+    if backward:
+        tpr = team(2)
+    else:
+        tpr = team(4)
+        if n * tpr < sms * 1024:
+            tpr = team(2)
+    need = -(-units // tpr)
+    chunks = next(c for c in _CHUNKS[vector] if c >= need)
+    rows = max(1, (_BWD_BLOCK if backward else _BLOCK) // tpr)
+    groups = -(-n // rows)
+    blocks = min(groups, sms) if backward else groups
+    return NormPlan(vector, vec, tpr, rows, chunks, blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _aligned(*tensors):
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def norm_shape_problems(d):
     """Reasons the CUDA RMSNorm kernels cannot take a row width d."""
     if not 0 < d <= _MAX_NORM_D:
-        return [f"hidden must be in 1..{_MAX_NORM_D} (the row is kept "
-                f"in shared memory; got d={d})"]
+        return [f"hidden must be in 1..{_MAX_NORM_D} (the backward keeps "
+                f"a block's dw row in 48 KB of shared memory; got d={d})"]
     return []
 
 
@@ -112,16 +182,24 @@ def _norm_fwd(x, weight, residual, eps, want_rstd):
     h = x if residual is None else torch.empty_like(x)
     rstd = (torch.empty(n, dtype=torch.float32, device=x.device)
             if want_rstd else None)
-    lib = _build.load_library()
-    status = lib.ptt_rms_norm_residual(
-        x.data_ptr(), None if residual is None else residual.data_ptr(),
-        weight.data_ptr(), y.data_ptr(),
-        None if residual is None else h.data_ptr(),
-        None if rstd is None else rstd.data_ptr(), n, d, eps,
-        _DTYPE_CODE[x.dtype], _stream(x))
-    _build.check(status, "rms_norm_residual")
+    p = plan(n, d, x.dtype, _aligned(x, residual, weight, y, h),
+             sms=_sm_count(x.device))
+    _build.check(_launch_fwd(x, residual, weight, y, h, rstd, n, d, eps, p),
+                 "rms_norm_residual")
     launches["rms_norm_residual"] += 1
     return y, h, rstd
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(x, residual, weight, y, h, rstd, n, d, eps, p):
+    return _build.load_library().ptt_rmsn_fwd(
+        x.data_ptr(), _ptr(residual), weight.data_ptr(), y.data_ptr(),
+        None if residual is None else h.data_ptr(), _ptr(rstd), n, d, eps,
+        _DTYPE_CODE[x.dtype], int(p.vector), p.threads_per_row,
+        p.rows_per_block, p.chunks, p.blocks, _stream(x))
 
 
 def rms_norm_residual_bwd_ref(h, weight, rstd, gy, gh=None):
@@ -144,8 +222,9 @@ def rms_norm_residual_bwd(h, weight, rstd, gy, gh=None):
     h: (..., d) the normed input (x + residual); weight (d,); rstd (n,)
     f32, n = h.numel() / d; gy: the gradient of y; gh: the gradient
     reaching h directly (None = zero). Returns (dh, dw), dh in h's type,
-    dw in weight's type. dw is summed from per-block f32 partials in a
-    fixed order: deterministic.
+    dw in weight's type. dw is summed from the kernel's per-block f32
+    partials (`plan(..., backward=True).blocks` of them) in a fixed
+    order: deterministic.
     """
     if h.device.type == "cpu":
         return rms_norm_residual_bwd_ref(h, weight, rstd, gy, gh)
@@ -168,16 +247,22 @@ def rms_norm_residual_bwd(h, weight, rstd, gy, gh=None):
     dh = torch.empty_like(h)
     if n == 0:
         return dh, torch.zeros_like(weight)
-    blocks = min(n, _BWD_BLOCKS)
-    dw_part = torch.empty((blocks, d), dtype=torch.float32, device=h.device)
-    lib = _build.load_library()
-    status = lib.ptt_rms_norm_bwd(
-        h.data_ptr(), weight.data_ptr(), rstd.data_ptr(), gy.data_ptr(),
-        None if gh is None else gh.data_ptr(), dh.data_ptr(),
-        dw_part.data_ptr(), n, d, blocks, _DTYPE_CODE[h.dtype], _stream(h))
-    _build.check(status, "rms_norm_residual_bwd")
+    p = plan(n, d, h.dtype, _aligned(h, weight, gy, gh, dh), backward=True,
+             sms=_sm_count(h.device))
+    dw_part = torch.empty((p.blocks, d), dtype=torch.float32,
+                          device=h.device)
+    _build.check(_launch_bwd(h, weight, rstd, gy, gh, dh, dw_part, n, d, p),
+                 "rms_norm_residual_bwd")
     launches["rms_norm_residual_bwd"] += 1
     return dh, torch.sum(dw_part, dim=0).to(weight.dtype)
+
+
+def _launch_bwd(h, weight, rstd, gy, gh, dh, dw_part, n, d, p):
+    return _build.load_library().ptt_rmsn_bwd(
+        h.data_ptr(), weight.data_ptr(), rstd.data_ptr(), gy.data_ptr(),
+        _ptr(gh), dh.data_ptr(), dw_part.data_ptr(), n, d,
+        _DTYPE_CODE[h.dtype], int(p.vector), p.threads_per_row,
+        p.rows_per_block, p.chunks, p.blocks, _stream(h))
 
 
 class _RmsNormResidual(torch.autograd.Function):

@@ -8,7 +8,14 @@ and the CUDA toolkit alone:
 
 Tolerances: f32 outputs within 1e-4 (the kernel and the twin compute the
 same f32 expressions in another order); bf16 outputs within one bf16
-rounding step, 2^-7 relative; the decode kernel's f32 output from bf16
+rounding step, 2^-7 relative. The RMSNorm kernels run at decode,
+prefill and training rows, d up to 12032, rows that are not whole
+16-byte chunks and views that are not 16-byte aligned (both the scalar
+instance); h is bit-equal to x + residual, y and dh the same bits from
+call to call, dw held to its largest entry and the same bits twice;
+`test_rms_norm_bwd_rule_rejects_a_dropped_warp` shows the dh rule failing
+a backward whose row mean leaves out one warp's columns. The decode
+kernel's f32 output from bf16
 pools within 1e-4, since both sides upcast the same bf16 values. The
 flash kernels' outputs entry by entry within the tolerance times (|ref|
 + the RMS of its head_dim row + 2^-6 of the RMS of the whole output), so
@@ -105,14 +112,29 @@ def _close_rows(out, ref, dtype, what=""):
     assert ratio <= 1.0, f"{what}: |err| reaches {ratio:.3g} x its bound"
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows", [8, 2048])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rms_norm_kernel_matches_ref(cuda, dtype, rows):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(rows, 4096, generator=g, device=cuda).to(dtype)
-    r = torch.randn(rows, 4096, generator=g, device=cuda).to(dtype)
-    w = torch.randn(4096, generator=g, device=cuda).to(dtype)
+# (rows, d) of the RMSNorm kernels' tests: decode, prefill and training
+# rows at the model widths, the contract's widest row, and rows that are
+# not whole 16-byte chunks (4100 in bf16, 1002 in both types), which run
+# the scalar instance
+_NORM_SHAPES = [(1, 4096), (8, 4096), (6370, 4096), (16384, 2048),
+                (8, 8192), (1024, 8192), (1, 12032), (512, 12032),
+                (8, 4100), (6370, 4100), (8, 1002), (16384, 1002)]
+
+
+def _norm_inputs(device, dtype, rows, d, seed, count, offset=0):
+    """`count` (rows, d) tensors and a (d,) weight; with offset > 0 each
+    is a contiguous view `offset` elements into a larger buffer, so its
+    base pointer is not 16-byte aligned."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def one(*shape):
+        buf = torch.randn(offset + int(np.prod(shape)), generator=g,
+                          device=device).to(dtype)
+        return buf[offset:].view(*shape)
+    return [one(rows, d) for _ in range(count)], one(d)
+
+
+def _check_norm_fwd(dtype, x, r, w):
     for res in (None, r):
         y, h = tfn.rms_norm_residual(x, w, res, 1e-5)
         ry, rh = tfn.rms_norm_residual_ref(x, w, res, 1e-5)
@@ -120,6 +142,16 @@ def test_rms_norm_kernel_matches_ref(cuda, dtype, rows):
         assert torch.equal(h, rh)
         torch.testing.assert_close(y.float(), ry.float(), rtol=_tol(dtype),
                                    atol=_tol(dtype))
+        again = tfn.rms_norm_residual(x, w, res, 1e-5)[0]
+        assert torch.equal(again, y)            # the same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", _NORM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_kernel_matches_ref(cuda, dtype, rows, d):
+    (x, r), w = _norm_inputs(cuda, dtype, rows, d, 0, 2)
+    _check_norm_fwd(dtype, x, r, w)
 
 
 @pytest.mark.cuda
@@ -147,14 +179,7 @@ def test_rope_kernel_matches_ref(cuda, dtype, seq):
                                    rtol=_tol(dtype), atol=_tol(dtype))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rms_norm_backward_kernel_matches_ref(cuda, dtype):
-    g = torch.Generator(device=cuda).manual_seed(2)
-    n, d = 2048, 4096
-    x, gy, gh = (torch.randn(n, d, generator=g, device=cuda).to(dtype)
-                 for _ in range(3))
-    w = torch.randn(d, generator=g, device=cuda).to(dtype)
+def _check_norm_bwd(dtype, x, gy, gh, w):
     _, h, rstd = tfn._norm_fwd(x, w, None, 1e-5, want_rstd=True)
     _, ref_rstd = tfn._rmsn_fwd_math(x, w, 1e-5)
     torch.testing.assert_close(rstd, ref_rstd.reshape(-1), rtol=1e-5,
@@ -169,6 +194,69 @@ def test_rms_norm_backward_kernel_matches_ref(cuda, dtype):
         _close_to_max(dw, rdw, dtype, "dw")
         again = tfn.rms_norm_residual_bwd(h, w, rstd, gy, gh_)[1]
         assert torch.equal(again, dw)           # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", _NORM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_backward_kernel_matches_ref(cuda, dtype, rows, d):
+    (x, gy, gh), w = _norm_inputs(cuda, dtype, rows, d, 2, 3)
+    _check_norm_bwd(dtype, x, gy, gh, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 6370])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_kernels_take_unaligned_views(cuda, dtype, rows):
+    """Inputs one element into their buffers (`buf[1:].view(n, d)`):
+    contiguous, but not 16-byte aligned, so the plan takes the scalar
+    instance; both kernels still match their twins."""
+    (x, r, gy), w = _norm_inputs(cuda, dtype, rows, 4096, 4, 3, offset=1)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert not tfn.plan(rows, 4096, dtype, tfn._aligned(x, r, w)).vector
+    _check_norm_fwd(dtype, x, r, w)
+    _check_norm_bwd(dtype, x, gy, r, w)
+
+
+# the planted fault: the backward leaves the last warp of each row's team
+# out of the row mean mean(gy * w * xhat)
+_NORM_BWD_FAULT = (
+    "    const float mean = team_sum(acc, tpr, slots[parity]) * inv_d;\n",
+    "    if (t >= tpr - 32) acc = 0.f;\n"
+    "    const float mean = team_sum(acc, tpr, slots[parity]) * inv_d;\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_bwd_rule_rejects_a_dropped_warp(cuda, dtype, tmp_path):
+    """At the training shape (16384, 2048) the kernel passes the dh rule
+    (|err| <= tol * (1 + |ref|)) and a copy whose row mean leaves out one
+    warp's columns fails it (the factor by which it fails is printed). The
+    faulty library is built from a copy of csrc/ in tmp_path."""
+    (x, gy), w = _norm_inputs(cuda, dtype, 16384, 2048, 5, 2)
+    assert tfn.plan(16384, 2048, dtype, backward=True).threads_per_row > 32
+    _, h, rstd = tfn._norm_fwd(x, w, None, 1e-5, want_rstd=True)
+    ref = tfn.rms_norm_residual_bwd_ref(h, w, rstd, gy)[0].float()
+    tol = _tol(dtype)
+
+    def ratio(dh):
+        return float(((dh.float() - ref).abs() / (tol * (1 + ref.abs())))
+                     .max())
+    assert ratio(tfn.rms_norm_residual_bwd(h, w, rstd, gy)[0]) <= 1.0
+    src = Path(_build.__file__).resolve().parent / "csrc"
+    csrc = tmp_path / "csrc"
+    shutil.copytree(src, csrc)
+    cu = csrc / "fused_norm.cu"
+    line, faulty = _NORM_BWD_FAULT
+    text = cu.read_text()
+    assert text.count(line) == 1, "the line to spoil moved"
+    cu.write_text(text.replace(line, faulty))
+    with _build.sources(csrc, tmp_path / "_build"):
+        bad = tfn.rms_norm_residual_bwd(h, w, rstd, gy)[0]
+        torch.cuda.synchronize()
+    seen = ratio(bad)
+    print(f"|err| / dh rule bound of the dropped warp: {seen}")
+    assert seen > 1.0, seen
 
 
 @pytest.mark.cuda
