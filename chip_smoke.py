@@ -73,7 +73,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
 V 32000) in bf16 and at a small shape in f32, beside the dense path
-(torch.matmul logits and the port's dense cross_entropy) as yardstick.
+(torch.matmul logits and the port's dense cross_entropy) as yardstick,
+the backward the same bits on two calls, and once more in bf16 past the
+old int32 cap (N 18432 = 9 x 2048 rows, Llama-3-8B's head: D 4096,
+V 128256, so N x V > 2^31).
 
 `--profile` also traces one prefill and two decode ticks of phases 5 and
 10 and one step of each training configuration.
@@ -979,9 +982,11 @@ def ce_phases(dev, bce, fnl):
     """ce_fwd, ce_dlogits, ce_dx, ce_dw entries: f32 at a small shape with
     one and with eight backward super-blocks, bf16 at the training shape
     (N 16384 = 8 x 2048 rows, D 2048, V 32000, every 2048th row ignored as
-    the shifted labels leave it), each held against the twin (chunk 512);
-    timed beside the twin and the dense path (torch.matmul logits and the
-    port's dense cross_entropy, `fnl`), with the peak memory of both."""
+    the shifted labels leave it) and past the old int32 cap (N 18432, D
+    4096, V 128256), each held against the twin (chunk 512), the backward
+    the same bits twice; timed beside the twin and the dense path
+    (torch.matmul logits and the port's dense cross_entropy, `fnl`), with
+    the peak memory of both."""
     g = torch.Generator(device=dev).manual_seed(12)
     one = torch.ones((), device=dev)
 
@@ -1033,6 +1038,10 @@ def ce_phases(dev, bce, fnl):
     got = kernels(x, w, lab)
     torch.cuda.synchronize()
     err, ratio = held("train", got, twins(x, w, lab), CE_BF16_TOL)
+    again = kernels(x, w, lab)
+    if not (torch.equal(again[2], got[2]) and torch.equal(again[3], got[3])):
+        raise AssertionError("ce backward: two calls differ")
+    del again
     loss, lse, count = bce.ce_fwd(x, w, lab)
     # one super-block's dS against the twin's, on its first 512 rows:
     # entry by entry within one bf16 step
@@ -1147,7 +1156,34 @@ def ce_phases(dev, bce, fnl):
           f"bound {ratio}")
     del x, w, lab, got, ws, acc, dx, dw, xr, wr
     torch.cuda.empty_cache()
+    out["ce_dx"]["past_old_cap"] = out["ce_dw"]["past_old_cap"] = \
+        _ce_past_old_cap(inputs, kernels, twins, held)
+    torch.cuda.empty_cache()
     return out
+
+
+def _ce_past_old_cap(inputs, kernels, twins, held):
+    """The blockwise CE forward and backward at N 18432 = 9 x 2048 rows of
+    Llama-3-8B's head (D 4096, V 128256): N x V = 2.36e9 offsets past
+    the int32 cap that `ce_shape_problems` refused until the kernels'
+    offsets were 64-bit. Held against the twin by phase 4's rules."""
+    n, d, v = 18432, 4096, 128256
+    x, w, lab = inputs(n, d, v, torch.bfloat16)
+    lab[2047::2048] = -100
+    got = kernels(x, w, lab)
+    torch.cuda.synchronize()
+    err, ratio = held("past the old cap", got, twins(x, w, lab),
+                      CE_BF16_TOL)
+    del got
+    torch.cuda.empty_cache()
+    fwd_bwd_ms = _time_eager_ms(lambda: kernels(x, w, lab), [()], iters=2)
+    shape = f"x ({n}, {d}), W ({v}, {d}) bf16"
+    print(f"[kernel] blockwise CE past the old int32 cap, {shape} (N x V = "
+          f"{n * v}): forward + backward {fwd_bwd_ms:.2f} ms; max |err| "
+          f"{err}, dx / dW |err| / bound {ratio}")
+    del x, w, lab
+    return dict(shape=shape, n_times_v=n * v, max_abs_err=err,
+                err_over_bound=ratio, fwd_bwd_ms=fwd_bwd_ms)
 
 
 # -- phase 5: Llama-3-8B serving ----------------------------------------------

@@ -26,7 +26,8 @@ tied embedding both hold it so); the JAX package's is (D, V).
   ignore `chunk` and `vocab_block`: the result differs from the twin only
   in summation order. `ce_fwd` writes lse and picked; the backward runs
   per vocab super-block of `ce_super_block(N, V)` rows (the dS workspace
-  is (N, that), never (N, V)): `ce_dlogits`, `ce_dx`, `ce_dw`.
+  is (N, that), never (N, V)): `ce_dlogits`, `ce_dx`, `ce_dw`, in bf16
+  one persistent wgmma GEMM over TMA-loaded tiles each.
 - `_BlockwiseCE` is the `torch.autograd.Function` (JAX `_bce`
   custom_vjp): its forward keeps x, W, labels, the f32 row lse and the
   count, nothing logits-shaped.
@@ -60,7 +61,9 @@ _SUPER_ALIGN = 128              # Vs is a multiple of the widest vocab tile
 
 def ce_shape_problems(n, d, v, dtype):
     """Reasons the CUDA blockwise-CE kernels cannot take x (n, d), W
-    (v, d) of `dtype`; empty list = supported."""
+    (v, d) of `dtype`; empty list = supported. Each of n, d and v is a
+    C int; the kernels' offsets are 64-bit, so n * v and v * d may pass
+    2^31 (9 x 2048 rows at Llama-3's vocab of 128256)."""
     problems = []
     if n < 1 or v < 1 or d < 1:
         problems.append(f"rows, hidden and vocab must be positive (got "
@@ -71,9 +74,6 @@ def ce_shape_problems(n, d, v, dtype):
     elif dtype == torch.bfloat16 and d % 8:
         problems.append(f"hidden % 8 == 0 required in bf16 (16-byte row "
                         f"copies; got d={d})")
-    if n * max(d, v) >= 2 ** 31:
-        problems.append(f"n * max(d, v) must stay below 2^31 (got n={n}, "
-                        f"d={d}, v={v})")
     return problems
 
 

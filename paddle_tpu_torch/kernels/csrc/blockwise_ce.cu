@@ -23,41 +23,69 @@
 // at 989 TF/s) against 0.2 GB of traffic; the backward's least work is
 // three such products (6.5 ms).
 //
-// Design. Every product is one GEMM tile kernel: a block computes a tile
-// of C = A . B over the K loop with both operands streamed through shared
-// memory by cp.async (3 stages), then parks the f32 tile in shared memory,
-// where an epilogue that depends on the product reads it:
-// - ce_fwd: C = S (rows x vocab, K = D); per row and vocab tile the
-//   tile's max and sum of exp(S - max) go to a partial buffer and the
-//   label's S to picked; a second small kernel merges each row's partials
-//   into its lse in a fixed order.
-// - the backward runs per vocab super-block [v0, v0 + Vs), Vs chosen by
+// Design.
+// - ce_fwd (bf16 and f32) and the f32 backward: one GEMM tile kernel
+//   (ce_gemm) a product. A block computes a tile of C = A . B over the K
+//   loop, then parks the f32 tile in shared memory, where an epilogue
+//   that depends on the product reads it. ce_fwd: C = S (rows x vocab, K =
+//   D); per row and vocab tile the tile's max and sum of exp(S - max) go
+//   to a partial buffer and the label's S to picked; a second small
+//   kernel merges each row's partials into its lse in a fixed order. bf16:
+//   mma.sync m16n8k16, 128 x 128 tiles, 8 warps of 64 x 32, K in steps of
+//   64 streamed by cp.async (3 stages), fragments by ldmatrix. f32: FFMA
+//   on the CUDA cores, 64 x 64 tiles, no TF32 (the JAX package computes
+//   f32 products at HIGHEST precision); a checking path. Tiles run in
+//   groups of 16 row tiles so the operands of the blocks in flight stay
+//   in L2.
+// - The backward runs per vocab super-block [v0, v0 + Vs), Vs chosen by
 //   the caller so the (N, Vs) dS workspace stays within a budget (never
-//   [N, V]):
-//   ce_dlogits: C = S of the super-block; dS, rounded to T, into the
-//     workspace;
+//   [N, V]), as three products:
+//   ce_dlogits: C = S of the super-block (K = D); dS, rounded to T, into
+//     the workspace, 0 in every column at or past V up to the workspace's
+//     width;
 //   ce_dx: C = dS . W[v0:v0+Vs] (rows x D, K = Vs), added to an f32 dx
 //     accumulator; the first super-block writes it, the last casts the
 //     sum to T into dx;
 //   ce_dw: C = dS^T . x (Vs x D, K = N), cast to T into dW[v0:v0+Vs].
 //   S is recomputed once per super-block (the TPU recomputes it in both
-//   its dx and its dW kernel). Nothing uses atomics: every result is
-//   deterministic.
-// - bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate), 128 x 128 tiles, 8
-//   warps of 64 x 32, K in steps of 64 (110.6 KB of stages: two blocks
-//   fit an SM), 32 for dW. Every fragment comes through ldmatrix
-//   (common.cuh): plain for an operand whose K is contiguous in memory (x
-//   and W in the S products, dS in dx), .trans for one stored K-major (W
-//   in dx, dS and x in dW).
-// - f32: FFMA on the CUDA cores, 64 x 64 tiles, no TF32 (the JAX package
-//   computes f32 products at HIGHEST precision); a checking path.
-// Tiles run in groups of 16 row tiles so the operands of the blocks in
-// flight stay in L2. wgmma, TMA and one fused dx/dW pass are later work.
+//   its dx and its dW kernel). dx and dW cannot come from one pass over a
+//   dS tile without atomics: a 128-row tile's dx row block at D 2048 is
+//   1 MB of f32, as is a vocab tile's dW block, far past an SM's 227 KB.
+//   Nothing uses atomics: every result is deterministic.
+// - The bf16 backward (namespace wg): one persistent, warp-specialised
+//   wgmma GEMM for the three products, min(tiles, SMs) blocks walking
+//   128 x 256 tiles of C in groups of 16 row tiles (the operands of the
+//   blocks in flight stay in L2). 384 threads: one thread of warpgroup 0
+//   issues TMA loads of A's 128 x 64 and B's 64 x 256 k-tile, 128-byte
+//   swizzled, into a 4-stage ring of 48 KB stages signalled by mbarriers
+//   (full: bytes landed; empty: the 8 consumer warps done), running on
+//   across tiles, so the next tile's loads overlap this tile's epilogue.
+//   Warpgroups 1 and 2 each own 64 rows of the tile, m64n256k16 with both
+//   operands in shared memory, 128 f32 accumulators a thread; every
+//   product is issued on every step (a wgmma under a branch makes ptxas
+//   serialise all of them). Operand layouts: dS reads x and W rows
+//   K-major; dx reads dS K-major and W's rows MN-major (TransB); dW reads
+//   dS^T and x both MN-major (TransA and TransB), straight from the
+//   workspace, with no transposed copy. An MN-major operand's k-tile
+//   lands as 64-column boxes (one 1024-byte swizzle atom across, LBO
+//   between boxes). The epilogues run in the consumers' registers in the
+//   accumulator's layout (rows g and g + 8 of each warp's 16, column
+//   pairs 8 j + 2 t): dS as exp2(S log2e - lse log2e) - onehot, times
+//   scale, one exp a value; dx as a read-add-write of the f32 accumulator
+//   (the sum's order is fixed: accumulator + this super-block); dW as a
+//   cast. Ragged edges: TMA fills rows and columns past each map's extent
+//   with zeros (the W map starts at v0 and ends at v0 + vcur, the
+//   workspace's at vcur rounded up to 8), and the stores mask rows and
+//   columns past the output, so a 256-wide tile past a super-block's last
+//   vocab row computes zeros there and stores only what lies inside.
+//   Every global offset is 64-bit.
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -70,16 +98,15 @@ constexpr int kGroupM = 16;
 // epilogues
 constexpr int kFwdStats = 0, kDlogits = 1, kDx = 2, kDw = 3;
 
-// Tile geometry. bf16: a K-contiguous operand tile is (128, KD + 8), a
-// K-major one (KD, 128 + 8) (rows padded by 16 bytes against bank
-// conflicts), KD the k-tile depth of the product (MmaSmem); f32: (BK,
-// 64 + 4) tiles; LDC: the parked f32 C tile.
+// Tile geometry. bf16 (the forward): a K-contiguous operand tile is
+// (128, KD + 8) (rows padded by 16 bytes against bank conflicts); f32:
+// (BK, 64 + 4) tiles; LDC: the parked f32 C tile.
 template <typename T>
 struct Tile;
 template <>
 struct Tile<bf16> {
-  static constexpr int BM = 128, BN = 128;
-  static constexpr int LDN = BM + 8, LDC = BN + 4;
+  static constexpr int BM = 128, BN = 128, KD = 64;
+  static constexpr int LDK = KD + 8, LDC = BN + 4;
 };
 template <>
 struct Tile<float> {
@@ -135,65 +162,46 @@ __device__ __forceinline__ void tile_coords(int tm, int tn, int& mt, int& nt) {
 // One operand's (128 x KD) slice of k-tile k0 into shared memory, 16-byte
 // cp.async chunks; a chunk past ext or kv is zero-filled (both are
 // multiples of 8 along the chunked dim).
-template <bool KC, int KD>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
                                                int64_t ld, int i0, int ext,
                                                int k0, int kv) {
   using G = Tile<bf16>;
-  if constexpr (KC) {
-    constexpr int kChunks = KD / 8;
-    for (int c = threadIdx.x; c < G::BM * kChunks; c += kThreads) {
-      const int r = c / kChunks, kk = (c % kChunks) * 8;
-      const bool ok = i0 + r < ext && k0 + kk < kv;
-      const bf16* s = ok ? src + (i0 + r) * ld + k0 + kk : src;
-      ptt::cp_async16(dst + r * (KD + 8) + kk, s, ok);
-    }
-  } else {
-    constexpr int kChunks = G::BM / 8;
-    for (int c = threadIdx.x; c < KD * kChunks; c += kThreads) {
-      const int r = c / kChunks, ii = (c % kChunks) * 8;
-      const bool ok = k0 + r < kv && i0 + ii < ext;
-      const bf16* s = ok ? src + (k0 + r) * ld + i0 + ii : src;
-      ptt::cp_async16(dst + r * G::LDN + ii, s, ok);
-    }
+  constexpr int kChunks = G::KD / 8;
+  for (int c = threadIdx.x; c < G::BM * kChunks; c += kThreads) {
+    const int r = c / kChunks, kk = (c % kChunks) * 8;
+    const bool ok = i0 + r < ext && k0 + kk < kv;
+    const bf16* s = ok ? src + (i0 + r) * ld + k0 + kk : src;
+    ptt::cp_async16(dst + r * G::LDK + kk, s, ok);
   }
 }
 
-// The k-tile depth KD: 64 when an operand is K-contiguous; 32 for dW, whose
-// operands are both K-major (measured on the H100: 64 made it slower).
-template <bool AK, bool BK>
 struct MmaSmem {
   using G = Tile<bf16>;
-  static constexpr int KD = AK || BK ? 64 : 32;
-  static constexpr int LDK = KD + 8;
-  static constexpr int kA = AK ? G::BM * LDK : KD * G::LDN;
-  static constexpr int kB = BK ? G::BN * LDK : KD * G::LDN;
-  static constexpr int kStage = kA + kB;  // elements
+  static constexpr int kA = G::BM * G::LDK;
+  static constexpr int kStage = 2 * kA;  // elements
   static constexpr size_t pipe = size_t(kStages) * kStage * sizeof(bf16);
   static constexpr size_t park = size_t(G::BM) * G::LDC * sizeof(float);
   static constexpr size_t bytes = pipe > park ? pipe : park;
 };
 
-// C tile (m0, n0) into cs (f32, row stride LDC). Warp w owns rows
-// 64 * (w / 4) .. +63 and columns 32 * (w % 4) .. +31.
-template <bool AK, bool BK>
+// C tile (m0, n0) into cs (f32, row stride LDC), both operands
+// K-contiguous. Warp w owns rows 64 * (w / 4) .. +63 and columns 32 * (w %
+// 4) .. +31.
 __device__ __forceinline__ void mma_tile(const Args& a, int m0, int n0,
                                          unsigned char* smem) {
   using G = Tile<bf16>;
-  using S = MmaSmem<AK, BK>;
+  using S = MmaSmem;
   bf16* sm = reinterpret_cast<bf16*>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp >> 2, wn = warp & 3;
   const bf16* ag = static_cast<const bf16*>(a.a);
   const bf16* bg = static_cast<const bf16*>(a.b);
   float acc[4][4][4] = {};
-  const int nk = cdiv(a.k, S::KD);
+  const int nk = cdiv(a.k, G::KD);
   auto load = [&](int kt, int stage) {
     bf16* st = sm + stage * S::kStage;
-    load_tile_bf16<AK, S::KD>(st, ag, a.lda, m0, a.a_ext, kt * S::KD,
-                              a.a_kv);
-    load_tile_bf16<BK, S::KD>(st + S::kA, bg, a.ldb, n0, a.b_ext,
-                              kt * S::KD, a.b_kv);
+    load_tile_bf16(st, ag, a.lda, m0, a.a_ext, kt * G::KD, a.a_kv);
+    load_tile_bf16(st + S::kA, bg, a.ldb, n0, a.b_ext, kt * G::KD, a.b_kv);
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -208,23 +216,15 @@ __device__ __forceinline__ void mma_tile(const Args& a, int m0, int n0,
     const bf16* as = sm + (kt % kStages) * S::kStage;
     const bf16* bs = as + S::kA;
 #pragma unroll
-    for (int kk = 0; kk < S::KD; kk += 16) {
+    for (int kk = 0; kk < G::KD; kk += 16) {
       uint32_t af[4][4];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if constexpr (AK)
-          ptt::frag_a_ldm(af[mt], as, S::LDK, wm * 64 + 16 * mt, kk);
-        else
-          ptt::frag_a_trans(af[mt], as, G::LDN, kk, wm * 64 + 16 * mt);
-      }
+      for (int mt = 0; mt < 4; ++mt)
+        ptt::frag_a_ldm(af[mt], as, G::LDK, wm * 64 + 16 * mt, kk);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         uint32_t bf[4];
-        if constexpr (BK) {
-          ptt::frag_bt_ldm(bf, bs, S::LDK, wn * 32 + 16 * j, kk);
-        } else {
-          ptt::frag_b_trans(bf, bs, G::LDN, kk, wn * 32 + 16 * j);
-        }
+        ptt::frag_bt_ldm(bf, bs, G::LDK, wn * 32 + 16 * j, kk);
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt) {
           ptt::mma_bf16(acc[mt][2 * j], af[mt], bf[0], bf[1]);
@@ -393,7 +393,8 @@ __global__ void __launch_bounds__(kThreads) ce_gemm(const Args a) {
   const int m0 = mt * G::BM, n0 = nt * G::BN;
   const float* cs;
   if constexpr (std::is_same_v<T, bf16>) {
-    mma_tile<AK, BK>(a, m0, n0, smem);
+    static_assert(AK && BK, "the bf16 tile kernel reads K-contiguous operands");
+    mma_tile(a, m0, n0, smem);
     cs = reinterpret_cast<const float*>(smem);
   } else {
     fma_tile<AK, BK>(a, m0, n0, smem);
@@ -426,7 +427,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.m <= 0 || a.n <= 0) return cudaSuccess;
   size_t bytes;
   if constexpr (std::is_same_v<T, bf16>)
-    bytes = MmaSmem<AK, BK>::bytes;
+    bytes = MmaSmem::bytes;
   else
     bytes = FmaSmem::bytes;
   void (*kern)(const Args) = ce_gemm<T, AK, BK, Kind>;
@@ -444,6 +445,337 @@ template <typename T>
 const T* rows_from(const void* p, int64_t row, int d) {
   return static_cast<const T*>(p) + row * d;
 }
+
+// ---------------------------------------------------------------------
+// the bf16 backward: wgmma over TMA (see the design note at the top)
+// ---------------------------------------------------------------------
+
+namespace wg {
+
+namespace h = ptt::sm90;
+
+constexpr int BM = 128, BN = 256, BK = 64;
+constexpr int kStages = 4;
+constexpr int kThreads = 384;          // producer + 2 consumer warpgroups
+constexpr int kGroupM = 16;            // row tiles per raster group
+constexpr uint32_t kABytes = BM * BK * 2;
+constexpr uint32_t kBBytes = BN * BK * 2;
+constexpr uint32_t kBox = 64 * 64 * 2;  // a 64 x 64 box: 64 rows of 128 B
+constexpr size_t kSmem = kStages * size_t(kABytes + kBBytes) +
+                         2 * kStages * sizeof(uint64_t) +
+                         1024;  // room to align the base to 1024
+
+// C (m x n) over K = k, and what the epilogue of each product needs
+struct Epi {
+  int m, n, k;
+  // dS: rows' labels, lse and scale; vocab rows below vcur are real, v0
+  // is the first; the workspace (n rows, ldw apart)
+  const int* labels;
+  const float* lse;
+  const float* scale;
+  int vcur, v0;
+  bf16* ws;
+  int64_t ldw;
+  // dx: the f32 accumulator and dx (rows d apart), first / last
+  // super-block; dW: its rows from v0 (d apart)
+  float* acc;
+  bf16* out;
+  int64_t ldo;
+  int first, last;
+};
+
+using ptt::ex2;
+using ptt::kLog2e;
+
+// two bf16 at p (4-byte aligned), a at the lower address
+__device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = ptt::pack_bf16(a, b);
+}
+
+// tile `tile` of tm x tn: groups of kGroupM row tiles, row tiles fastest
+__device__ __forceinline__ void coords(int tile, int tm, int tn, int& m0,
+                                       int& n0) {
+  const int per_group = kGroupM * tn;
+  const int first = tile / per_group * kGroupM;
+  const int size = min(tm - first, kGroupM);
+  const int r = tile % per_group;
+  m0 = (first + r % size) * BM;
+  n0 = r / size * BN;
+}
+
+// Stage loads of k-tile k0 for tile (m0, n0). A K-major (dS, dx): one
+// 64 x 128 box at (k0, m0); A MN-major (dW: the workspace read as dS^T):
+// two 64 x 64 boxes at (m0 + 64 h, k0). B K-major (dS: W rows): one 64 x
+// 256 box at (k0, n0); B MN-major (dx: W rows, dW: x rows): four 64 x 64
+// boxes at (n0 + 64 q, k0).
+template <int Kind>
+__device__ __forceinline__ void load_stage(unsigned char* as,
+                                           unsigned char* bs,
+                                           const CUtensorMap* ta,
+                                           const CUtensorMap* tb,
+                                           uint64_t* bar, int m0, int n0,
+                                           int k0) {
+  if constexpr (Kind == kDw) {
+    h::tma_load_2d(as, ta, bar, m0, k0);
+    h::tma_load_2d(as + kBox, ta, bar, m0 + 64, k0);
+  } else {
+    h::tma_load_2d(as, ta, bar, k0, m0);
+  }
+  if constexpr (Kind == kDlogits) {
+    h::tma_load_2d(bs, tb, bar, k0, n0);
+  } else {
+#pragma unroll
+    for (int q = 0; q < BN / 64; ++q)
+      h::tma_load_2d(bs + q * kBox, tb, bar, n0 + 64 * q, k0);
+  }
+}
+
+// acc (64 x 256) += A (the warpgroup's 64 rows at a) . B (at b) over k16
+// step kk. K-major: +32 bytes a step in the 128-byte rows, atoms of 8
+// rows 1024 bytes apart; MN-major: 16 rows (2048 bytes) a step, the 64-wide
+// boxes kBox apart (LBO).
+template <int Kind>
+__device__ __forceinline__ void mma_step(float (&acc)[128], uint32_t a,
+                                         uint32_t b, int kk) {
+  constexpr int kTransA = Kind == kDw, kTransB = Kind != kDlogits;
+  const uint64_t da = kTransA ? h::desc_sw128(a + 2048 * kk, kBox, 1024)
+                              : h::desc_sw128(a + 32 * kk, 16, 1024);
+  const uint64_t db = kTransB ? h::desc_sw128(b + 2048 * kk, kBox, 1024)
+                              : h::desc_sw128(b + 32 * kk, 16, 1024);
+  h::wgmma_m64n256k16_ss<kTransB, kTransA>(acc, da, db, 1);
+}
+
+// The epilogue of a consumer thread: accumulator entry 4 j + 2 v + u is
+// C's row `row0 + 8 v`, column `col0 + 8 j + u` (col0 even).
+template <int Kind>
+__device__ __forceinline__ void epilogue(const Epi& e, const float (&acc)[128],
+                                         int row0, int col0) {
+  if constexpr (Kind == kDlogits) {
+    // dS = (exp(S - lse) - onehot) * scale, 0 at or past vcur; stored up
+    // to the workspace's width, so the dx and dW maps read zeros there
+    float nl[2], sc[2];
+    int lab[2];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int row = row0 + 8 * v;
+      const bool ok = row < e.m;
+      nl[v] = ok ? -e.lse[row] * kLog2e : 0.f;
+      sc[v] = ok ? e.scale[row] : 0.f;
+      lab[v] = ok ? e.labels[row] - e.v0 : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = col0 + 8 * j;
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int row = row0 + 8 * v;
+        float d0 = ex2(fmaf(acc[4 * j + 2 * v], kLog2e, nl[v]));
+        float d1 = ex2(fmaf(acc[4 * j + 2 * v + 1], kLog2e, nl[v]));
+        d0 = (d0 - (col == lab[v] ? 1.f : 0.f)) * sc[v];
+        d1 = (d1 - (col + 1 == lab[v] ? 1.f : 0.f)) * sc[v];
+        d0 = col < e.vcur ? d0 : 0.f;
+        d1 = col + 1 < e.vcur ? d1 : 0.f;
+        if (row < e.m && col < e.ldw)
+          store_bf16x2(e.ws + row * e.ldw + col, d0, d1);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = col0 + 8 * j;
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int row = row0 + 8 * v;
+        if (row >= e.m || col >= e.n) continue;  // n = D, a multiple of 8
+        const int64_t i = row * e.ldo + col;
+        float s0 = acc[4 * j + 2 * v], s1 = acc[4 * j + 2 * v + 1];
+        if constexpr (Kind == kDx) {
+          if (!e.first) {
+            const float2 p = *reinterpret_cast<const float2*>(e.acc + i);
+            s0 = p.x + s0;
+            s1 = p.y + s1;
+          }
+          if (!e.last) {
+            *reinterpret_cast<float2*>(e.acc + i) = make_float2(s0, s1);
+            continue;
+          }
+        }
+        store_bf16x2(e.out + i, s0, s1);
+      }
+    }
+  }
+}
+
+template <int Kind>
+__global__ void __launch_bounds__(kThreads, 1)
+    ce_wgmma(const __grid_constant__ CUtensorMap ta,
+             const __grid_constant__ CUtensorMap tb, const Epi e) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* as =
+      smem_raw + ((1024 - (h::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* bs = as + kStages * kABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + kStages * kBBytes);
+  uint64_t* empty = full + kStages;
+  const int tm = cdiv(e.m, BM), tn = cdiv(e.n, BN);
+  const int tiles = tm * tn, nk = cdiv(e.k, BK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      h::mbar_init(&full[s], 1);
+      h::mbar_init(&empty[s], 8);       // lane 0 of each consumer warp
+    }
+    h::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread keeps the ring full, across tiles
+    h::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int m0, n0;
+        coords(tile, tm, tn, m0, n0);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % kStages, use = it / kStages;
+          if (use > 0) h::mbar_wait(&empty[s], (use - 1) & 1);
+          h::mbar_arrive_expect_tx(&full[s], kABytes + kBBytes);
+          load_stage<Kind>(as + s * kABytes, bs + s * kBBytes, &ta, &tb,
+                           &full[s], m0, n0, kt * BK);
+        }
+      }
+    }
+  } else {
+    h::setmaxnreg_inc<232>();
+    const int ct = threadIdx.x - 128;   // 0..255
+    const int c = ct >> 7;              // consumer warpgroup: rows 64 c..
+    const int warp = (ct >> 5) & 3, lane = ct & 31;
+    float acc[128];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0;
+      coords(tile, tm, tn, m0, n0);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kStages;
+        h::mbar_wait(&full[s], (it / kStages) & 1);
+        const uint32_t a = h::smem_u32(as + s * kABytes) + c * kBox;
+        const uint32_t b = h::smem_u32(bs + s * kBBytes);
+        h::fence_operands(acc);
+        h::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) mma_step<Kind>(acc, a, b, kk);
+        h::wgmma_commit();
+        h::fence_operands(acc);
+        h::wgmma_wait<1>();             // k-tile kt - 1's products are done
+        h::fence_operands(acc);
+        if (kt > 0) {
+          __syncwarp();
+          if (lane == 0) h::mbar_arrive(&empty[(it - 1) % kStages]);
+        }
+      }
+      h::wgmma_wait<0>();
+      h::fence_operands(acc);
+      __syncwarp();
+      if (lane == 0) h::mbar_arrive(&empty[(it - 1) % kStages]);
+      epilogue<Kind>(e, acc, m0 + 64 * c + 16 * warp + (lane >> 2),
+                     n0 + 2 * (lane & 3));
+    }
+  }
+}
+
+template <int Kind>
+cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb,
+                   const Epi& e, cudaStream_t stream) {
+  if (e.m <= 0 || e.n <= 0) return cudaSuccess;
+  auto kern = ce_wgmma<Kind>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmem));
+  if (err != cudaSuccess) return err;
+  int dev, sms;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = int64_t(cdiv(e.m, BM)) * cdiv(e.n, BN);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(std::min<int64_t>(tiles, sms));
+  kern<<<grid, kThreads, kSmem, stream>>>(ta, tb, e);
+  return cudaGetLastError();
+}
+
+// a (rows, cols) bf16 tensor, rows `ld` elements apart, in boxes of
+// (box_rows, 64), 128-byte swizzled
+cudaError_t tmap(CUtensorMap* map, const void* base, int64_t rows,
+                 int64_t cols, int64_t ld, int box_rows) {
+  return ptt::encode_tmap_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base,
+                             rows, cols, uint64_t(ld) * 2, box_rows, 64);
+}
+
+// The workspace's columns the products read: vcur rounded up to 8 (TMA's
+// 16-byte rule; the dS kernel wrote zeros there).
+int ws_cols(int vcur) { return (vcur + 7) / 8 * 8; }
+
+cudaError_t dlogits(const void* x, const void* w, const void* labels,
+                    const void* lse, const void* scale, void* ws, int n,
+                    int d, int v0, int vcur, int ldw, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  cudaError_t err = tmap(&ta, x, n, d, d, BM);
+  if (err == cudaSuccess)
+    err = tmap(&tb, rows_from<bf16>(w, v0, d), vcur, d, d, BN);
+  if (err != cudaSuccess) return err;
+  Epi e{};
+  e.m = n;
+  e.n = vcur;
+  e.k = d;
+  e.labels = static_cast<const int*>(labels);
+  e.lse = static_cast<const float*>(lse);
+  e.scale = static_cast<const float*>(scale);
+  e.vcur = vcur;
+  e.v0 = v0;
+  e.ws = static_cast<bf16*>(ws);
+  e.ldw = ldw;
+  return launch<kDlogits>(ta, tb, e, s);
+}
+
+cudaError_t dx(const void* ws, const void* w, void* acc, void* out, int n,
+               int d, int v0, int vcur, int ldw, int first, int last,
+               cudaStream_t s) {
+  CUtensorMap ta, tb;
+  const int k_cols = ws_cols(vcur);
+  cudaError_t err = tmap(&ta, ws, n, k_cols, ldw, BM);
+  if (err == cudaSuccess)
+    err = tmap(&tb, rows_from<bf16>(w, v0, d), vcur, d, d, 64);
+  if (err != cudaSuccess) return err;
+  Epi e{};
+  e.m = n;
+  e.n = d;
+  e.k = vcur;
+  e.acc = static_cast<float*>(acc);
+  e.out = static_cast<bf16*>(out);
+  e.ldo = d;
+  e.first = first;
+  e.last = last;
+  return launch<kDx>(ta, tb, e, s);
+}
+
+cudaError_t dw(const void* ws, const void* x, void* out, int n, int d,
+               int v0, int vcur, int ldw, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  cudaError_t err = tmap(&ta, ws, n, ws_cols(vcur), ldw, 64);
+  if (err == cudaSuccess) err = tmap(&tb, x, n, d, d, 64);
+  if (err != cudaSuccess) return err;
+  Epi e{};
+  e.m = vcur;
+  e.n = d;
+  e.k = n;
+  e.out = static_cast<bf16*>(out) + static_cast<int64_t>(v0) * d;
+  e.ldo = d;
+  return launch<kDw>(ta, tb, e, s);
+}
+
+}  // namespace wg
 
 template <typename T>
 int run_fwd(const void* x, const void* w, const void* labels, void* part,
@@ -471,7 +803,7 @@ int run_fwd(const void* x, const void* w, const void* labels, void* part,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// The f32 backward's products (the bf16 route is wg::)
 int run_dlogits(const void* x, const void* w, const void* labels,
             const void* lse, const void* scale, void* ws, int n, int d,
             int v, int v0, int vcur, int ldw, cudaStream_t s) {
@@ -480,7 +812,7 @@ int run_dlogits(const void* x, const void* w, const void* labels,
   a.lda = d;
   a.a_ext = n;
   a.a_kv = d;
-  a.b = rows_from<T>(w, v0, d);
+  a.b = rows_from<float>(w, v0, d);
   a.ldb = d;
   a.b_ext = vcur;
   a.b_kv = d;
@@ -494,10 +826,9 @@ int run_dlogits(const void* x, const void* w, const void* labels,
   a.v0 = v0;
   a.out = ws;
   a.ldo = ldw;
-  return static_cast<int>(launch<T, true, true, kDlogits>(a, s));
+  return static_cast<int>(launch<float, true, true, kDlogits>(a, s));
 }
 
-template <typename T>
 int run_dx(const void* ws, const void* w, void* acc, void* out, int n, int d,
        int v0, int vcur, int ldw, int first, int last, cudaStream_t s) {
   Args a{};
@@ -505,7 +836,7 @@ int run_dx(const void* ws, const void* w, void* acc, void* out, int n, int d,
   a.lda = ldw;
   a.a_ext = n;
   a.a_kv = (vcur + 7) / 8 * 8;  // columns up to there are written (0 past V)
-  a.b = rows_from<T>(w, v0, d);  // W[v0 + k][j]: K-major
+  a.b = rows_from<float>(w, v0, d);  // W[v0 + k][j]: K-major
   a.ldb = d;
   a.b_ext = d;
   a.b_kv = vcur;
@@ -517,10 +848,9 @@ int run_dx(const void* ws, const void* w, void* acc, void* out, int n, int d,
   a.acc = static_cast<float*>(acc);
   a.first = first;
   a.last = last;
-  return static_cast<int>(launch<T, true, false, kDx>(a, s));
+  return static_cast<int>(launch<float, true, false, kDx>(a, s));
 }
 
-template <typename T>
 int run_dw(const void* ws, const void* x, void* out, int n, int d, int v0,
        int vcur, int ldw, cudaStream_t s) {
   Args a{};
@@ -535,9 +865,9 @@ int run_dw(const void* ws, const void* x, void* out, int n, int d, int v0,
   a.m = vcur;
   a.n = d;
   a.k = n;
-  a.out = static_cast<T*>(out) + static_cast<int64_t>(v0) * d;
+  a.out = static_cast<float*>(out) + static_cast<int64_t>(v0) * d;
   a.ldo = d;
-  return static_cast<int>(launch<T, false, false, kDw>(a, s));
+  return static_cast<int>(launch<float, false, false, kDw>(a, s));
 }
 
 bool bad_shape(int n, int d, int v, int dtype) {
@@ -576,7 +906,8 @@ extern "C" int ptt_ce_fwd(const void* x, const void* w, const void* labels,
 }
 
 // dS of vocab rows [v0, v0 + vcur) into ws (n, ldw) in the inputs' type,
-// columns from 0; lse and scale (n,) f32.
+// columns from 0; lse and scale (n,) f32. bf16: every pointer 16-byte
+// aligned (TMA).
 extern "C" int ptt_ce_dlogits(const void* x, const void* w,
                               const void* labels, const void* lse,
                               const void* scale, void* ws, int n, int d,
@@ -586,10 +917,10 @@ extern "C" int ptt_ce_dlogits(const void* x, const void* w,
     return kInvalid;
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == ptt::kDtypeBF16
-             ? run_dlogits<bf16>(x, w, labels, lse, scale, ws, n, d, v, v0, vcur,
-                             ldw, s)
-             : run_dlogits<float>(x, w, labels, lse, scale, ws, n, d, v, v0,
-                              vcur, ldw, s);
+             ? static_cast<int>(wg::dlogits(x, w, labels, lse, scale, ws, n,
+                                            d, v0, vcur, ldw, s))
+             : run_dlogits(x, w, labels, lse, scale, ws, n, d, v, v0, vcur,
+                           ldw, s);
 }
 
 // dx (n, d) in the inputs' type += ws . w[v0:v0+vcur], through the f32
@@ -601,9 +932,9 @@ extern "C" int ptt_ce_dx(const void* ws, const void* w, void* acc, void* dx,
     return kInvalid;
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == ptt::kDtypeBF16
-             ? run_dx<bf16>(ws, w, acc, dx, n, d, v0, vcur, ldw, first, last, s)
-             : run_dx<float>(ws, w, acc, dx, n, d, v0, vcur, ldw, first, last,
-                           s);
+             ? static_cast<int>(wg::dx(ws, w, acc, dx, n, d, v0, vcur, ldw,
+                                       first, last, s))
+             : run_dx(ws, w, acc, dx, n, d, v0, vcur, ldw, first, last, s);
 }
 
 // dW rows [v0, v0 + vcur) of dw (v, d) = ws^T . x.
@@ -614,6 +945,6 @@ extern "C" int ptt_ce_dw(const void* ws, const void* x, void* dw, int n,
     return kInvalid;
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == ptt::kDtypeBF16
-             ? run_dw<bf16>(ws, x, dw, n, d, v0, vcur, ldw, s)
-             : run_dw<float>(ws, x, dw, n, d, v0, vcur, ldw, s);
+             ? static_cast<int>(wg::dw(ws, x, dw, n, d, v0, vcur, ldw, s))
+             : run_dw(ws, x, dw, n, d, v0, vcur, ldw, s);
 }

@@ -169,6 +169,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x (ex2.approx.ftz: a result below 2^-126 is 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo: low half
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -218,22 +227,6 @@ __device__ __forceinline__ void frag_bt_ldm(uint32_t (&r)[4], const bf16* s,
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// A fragment of rows m0..m0+15, columns k0..k0+15 of A where A[m][k] =
-// s[k][m], i.e. A stored transposed (k-major rows): ldmatrix .trans of four
-// 8x8 matrices, lane i addressing row i % 8 of matrix i / 8; matrices
-// (k0, m0), (k0, m0 + 8), (k0 + 8, m0), (k0 + 8, m0 + 8) give a0..a3.
-__device__ __forceinline__ void frag_a_trans(uint32_t (&a)[4], const bf16* s,
-                                             int ld, int k0, int m0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p =
-      s + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 + ((lane >> 3) & 1) * 8;
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
       : "r"(addr));
 }
 

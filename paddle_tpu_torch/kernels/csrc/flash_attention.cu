@@ -674,14 +674,8 @@ __device__ __forceinline__ void fill_frag(uint32_t (&f)[K16][4], int j,
   f[j >> 1][2 * (j & 1) + v] = ptt::pack_bf16(lo, hi);
 }
 
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x (ex2.approx.ftz: a result below 2^-126 is 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using ptt::ex2;
+using ptt::kLog2e;
 
 // p = exp(s * scale - lse) in place over a warpgroup's 64 x 64 score
 // tile, as 2^(s * scale2 - lse2(i)) with scale2 = scale * log2(e) and

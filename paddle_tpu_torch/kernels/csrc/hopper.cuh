@@ -168,11 +168,11 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
-// D (64 x 256, f32, in registers) = A (64 x 16, bf16, K-major in shared
-// memory) * B (16 x 256, bf16, in shared memory; TransB 1 = MN-major)
-// + (accumulate ? D : 0). Asynchronous: fence before, commit and wait
-// after.
-template <int TransB>
+// D (64 x 256, f32, in registers) = A (64 x 16, bf16, in shared memory;
+// TransA 1 = MN-major) * B (16 x 256, bf16, in shared memory; TransB 1 =
+// MN-major) + (accumulate ? D : 0). Asynchronous: fence before, commit
+// and wait after.
+template <int TransB, int TransA = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
                                                uint64_t desc_a,
                                                uint64_t desc_b,
@@ -191,7 +191,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n}\n"
+      "%128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -214,7 +214,8 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TransB),
+        "n"(TransA));
 }
 
 // D (64 x N, f32, in registers) = A (64 x 16, bf16, in registers: the

@@ -208,6 +208,18 @@ def test_shape_contract_and_memory_helpers():
     assert tbce.ce_super_block(2 ** 22, 128256, 2) == 128
 
 
+def test_shape_contract_takes_rows_past_the_old_int32_cap():
+    """9 x 2048 rows at Llama-3-8B's head (D 4096, V 128256): N x V passes
+    2^31, and the kernels' 64-bit offsets take it; the backward's dS
+    workspace still stays within 256 MiB."""
+    n, d, v = 18432, 4096, 128256
+    assert n * v >= 2 ** 31
+    assert tbce.ce_shape_problems(n, d, v, torch.bfloat16) == []
+    tbce.check_ce_shapes(n, d, v, torch.bfloat16)
+    vs = tbce.ce_super_block(n, v, 2)
+    assert vs == 7168 and n * vs * 2 <= 256 * 2 ** 20
+
+
 def test_wrapper_rejects_bad_arguments():
     x, w, lab = (torch.from_numpy(a) for a in _inputs())
     with pytest.raises(ValueError, match="mismatch"):

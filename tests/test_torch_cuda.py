@@ -30,7 +30,10 @@ kernels' dx and dW are held by the same rule (2^-6 in bf16: both sides
 round dS to bf16 once, and a dS that rounds the other way moves a row by
 2^-8 of its size), their lse within 1e-5 relative;
 `test_ce_bf16_rule_rejects_planted_faults` shows it failing a dx that
-drops one vocab tile and a dW that drops its last 32 rows. The int8
+drops one vocab tile, a dW that drops its last 64 rows and a dS without
+its one-hot; `test_ce_bf16_kernels_match_ref_at_ragged_edges` runs
+super-blocks narrower than the 256-wide vocab tile and ragged rows, D
+and V, `test_ce_kernels_past_the_old_int32_cap` n * v past 2^31. The int8
 decode kernel's f32 output within 1e-4 of its twin (both dequantize the
 same codes and scales in f32). The decode kernel splits each slot's
 window over blocks and merges the splits in a fixed order: its cases put
@@ -831,11 +834,23 @@ def _ce_outputs(x, w, lab):
     return {"loss": loss, "lse": lse, "dx": dx, "dw": dw}
 
 
-def _ce_refs(x, w, lab):
-    loss, lse, count = tbce.ce_fwd_ref(x, w, lab, 64)
+def _ce_refs(x, w, lab, chunk=64):
+    loss, lse, count = tbce.ce_fwd_ref(x, w, lab, chunk)
     dx, dw = tbce.ce_bwd_ref(x, w, lab, lse, count,
-                             torch.ones((), device=x.device), 64)
+                             torch.ones((), device=x.device), chunk)
     return {"loss": loss, "lse": lse, "dx": dx, "dw": dw}
+
+
+def _ce_held(got, want, dtype):
+    """lse and loss within 1e-5, dx and dW by the CE rule, ignored rows
+    zero."""
+    torch.testing.assert_close(got["lse"], want["lse"], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(got["loss"], want["loss"], rtol=1e-5, atol=0)
+    assert got["dx"].dtype == dtype and got["dw"].dtype == dtype
+    _ce_close(got["dx"], want["dx"], dtype, "dx")
+    _ce_close(got["dw"], want["dw"], dtype, "dW")
+    assert not got["dx"][::10].float().any()      # ignored rows
 
 
 @pytest.mark.cuda
@@ -855,16 +870,52 @@ def test_ce_kernels_match_ref(cuda, dtype, super_blocks, monkeypatch):
     launched = {k: tbce.launches[k] - before[k] for k in before}
     assert launched == {"ce_fwd": 1, "ce_dlogits": super_blocks,
                         "ce_dx": super_blocks, "ce_dw": super_blocks}
-    torch.testing.assert_close(got["lse"], want["lse"], rtol=1e-5,
-                               atol=1e-5)
-    torch.testing.assert_close(got["loss"], want["loss"], rtol=1e-5, atol=0)
-    assert got["dx"].dtype == dtype and got["dw"].dtype == dtype
-    _ce_close(got["dx"], want["dx"], dtype, "dx")
-    _ce_close(got["dw"], want["dw"], dtype, "dW")
-    assert not got["dx"][::10].float().any()      # ignored rows
+    _ce_held(got, want, dtype)
     again = _ce_outputs(x, w, lab)
     assert torch.equal(again["dx"], got["dx"])     # deterministic
     assert torch.equal(again["dw"], got["dw"])
+
+
+# (n, d, v, vocab rows a super-block) of the bf16 backward's ragged edges
+# (its tiles: 128 rows x 256 columns, k-tiles of 64): super-blocks of 384
+# at V 1000 (the last 232 wide, narrower than a tile); ragged rows, D and
+# V in one super-block (V 777: the workspace's last 8-column group half
+# past V); three super-blocks of 128, each half a tile, with a 1-row tail
+_CE_RAGGED = [(300, 256, 1000, 384), (333, 200, 777, None),
+              (129, 64, 384, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,v,vs", _CE_RAGGED)
+def test_ce_bf16_kernels_match_ref_at_ragged_edges(cuda, n, d, v, vs,
+                                                   monkeypatch):
+    if vs is not None:
+        monkeypatch.setattr(tbce, "_WORKSPACE_BYTES", n * vs * 2)
+    supers = -(-v // tbce.ce_super_block(n, v, 2))
+    assert supers == (1 if vs is None else -(-v // vs))
+    x, w, lab = _ce_inputs(cuda, torch.bfloat16, n=n, d=d, v=v)
+    before = dict(tbce.launches)
+    got = _ce_outputs(x, w, lab)
+    launched = {k: tbce.launches[k] - before[k] for k in before}
+    assert launched == {"ce_fwd": 1, "ce_dlogits": supers,
+                        "ce_dx": supers, "ce_dw": supers}
+    _ce_held(got, _ce_refs(x, w, lab), torch.bfloat16)
+    again = _ce_outputs(x, w, lab)
+    assert torch.equal(again["dx"], got["dx"])
+    assert torch.equal(again["dw"], got["dw"])
+
+
+@pytest.mark.cuda
+def test_ce_kernels_past_the_old_int32_cap(cuda):
+    """N 18432 = 9 x 2048 rows at Llama-3's vocab of 128256: n * v passes
+    2^31, which `ce_shape_problems` used to refuse. Forward and backward
+    against the twin, at a small D."""
+    n, d, v = 18432, 64, 128256
+    assert n * v >= 2 ** 31
+    assert tbce.ce_shape_problems(n, d, v, torch.bfloat16) == []
+    x, w, lab = _ce_inputs(cuda, torch.bfloat16, n=n, d=d, v=v)
+    got = _ce_outputs(x, w, lab)
+    _ce_held(got, _ce_refs(x, w, lab, chunk=2048), torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -902,18 +953,24 @@ def test_ce_wrappers_raise_instead_of_falling_back(cuda):
         tbce.ce_fwd(x, w, lab.cpu())
 
 
-# Faults planted in csrc/blockwise_ce.cu, with a 128-row backward
-# super-block: (the outputs it spoils, the line, its faulty form)
+# Faults planted in csrc/blockwise_ce.cu's bf16 backward (wgmma), with a
+# 128-row backward super-block: (the outputs it spoils, the line, its
+# faulty form)
 _CE_FAULTS = {
-    # dx leaves out the vocab tile [256, 384) (the third super-block:
-    # its W rows read as zeros in the dx product only)
+    # dx leaves out the vocab tile [320, 384) (the third super-block's
+    # dS columns past 64 read as zeros in the dx product only)
     "dx_drop_one_vocab_tile": (
-        ("dx",), "  a.b_kv = vcur;\n",
-        "  a.b_kv = v0 == 256 ? 0 : vcur;\n"),
-    # dW leaves out the last 32 rows of its product
+        ("dx",), "  const int k_cols = ws_cols(vcur);\n",
+        "  const int k_cols = v0 == 256 ? 64 : ws_cols(vcur);\n"),
+    # dW leaves out the last 64 rows (its last k-tile)
     "dw_drop_one_row_tile": (
-        ("dw",), "  a.b_kv = n;\n  a.m = vcur;\n",
-        "  a.b_kv = n - 32;\n  a.m = vcur;\n"),
+        ("dw",), "  e.k = n;\n", "  e.k = n - 64;\n"),
+    # the dS epilogue forgets the one-hot
+    "ds_drop_onehot": (
+        ("dx", "dw"),
+        "        d0 = (d0 - (col == lab[v] ? 1.f : 0.f)) * sc[v];\n"
+        "        d1 = (d1 - (col + 1 == lab[v] ? 1.f : 0.f)) * sc[v];\n",
+        "        d0 = d0 * sc[v];\n        d1 = d1 * sc[v];\n"),
 }
 
 
@@ -921,9 +978,10 @@ _CE_FAULTS = {
 def test_ce_bf16_rule_rejects_planted_faults(cuda, tmp_path, monkeypatch):
     """The kernels pass the entry-by-entry rule and each planted fault
     fails it: the rows whose label lies in the dropped vocab tile lose
-    their dominant term in dx, and the vocab rows labelled by the
-    dropped rows lose theirs in dW. Each faulty library is built from a
-    copy of csrc/ in tmp_path."""
+    their dominant term in dx, the vocab rows labelled by the dropped
+    rows lose theirs in dW, and without the one-hot every labelled row
+    and vocab row does. Each faulty library is built from a copy of
+    csrc/ in tmp_path."""
     monkeypatch.setattr(tbce, "_WORKSPACE_BYTES", 320 * 128 * 2)
     x, w, lab = _ce_inputs(cuda, torch.bfloat16, n=320)
     good = _ce_outputs(x, w, lab)
