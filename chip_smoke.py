@@ -28,8 +28,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    without the residual's gradient, and its forward at the prefill
    call's (6370, 4096) and the training (16384, 2048) shapes with a
    residual (x + residual, then F.rms_norm, as yardstick; each norm entry
-   carries the launch plan it ran); the RoPE backward at
-   (8, 2048, 32|4, 64). SDPA (enable_gqa) is the flash yardstick;
+   carries the launch plan it ran); RoPE, forward and backward, bit-equal
+   to its twin in f32 and bf16 and timed at the decode (8, 1, 32|8, 128),
+   first prefill call's (1, M, 32|8, 128) and training (8, 2048, 32|4, 64)
+   shapes. SDPA (enable_gqa) is the flash yardstick;
 5. Llama-3-8B at full width (32 layers, bf16, weights from a seed) behind
    a PagedKVEngine serving 8 requests of 128..1024 prompt tokens and 64
    new tokens each, one of them joining mid-decode; the launch counters
@@ -73,8 +75,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
 V 32000) in bf16 and at a small shape in f32, beside the dense path
-(torch.matmul logits and the port's dense cross_entropy) as yardstick,
-the backward the same bits on two calls, and once more in bf16 past the
+(torch.matmul logits and the port's dense cross_entropy) and torch.matmul
+of each bare product as yardsticks, the forward and the backward the same
+bits on two calls, and once more in bf16 past the
 old int32 cap (N 18432 = 9 x 2048 rows, Llama-3-8B's head: D 4096,
 V 128256, so N x V > 2^31).
 
@@ -388,62 +391,12 @@ def norm_phases(dev, fn):
     return {"rms_norm_residual": norm, "rms_norm_residual_bwd": bwd}
 
 
-def kernel_phases(dev, fn, pa):
+def kernel_phases(dev, pa):
     """Returns {kernel name: JSON entry without launches}."""
     g = torch.Generator(device=dev).manual_seed(0)
-    rows, d, eps = 8, 4096, 1e-5          # decode: one row per slot
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
-
-    # RoPE: q (8, 1, 32, 128) and k (8, 1, 8, 128) at decode positions
-    pos = torch.randint(0, 1280, (rows, 1), generator=g, device=dev,
-                        dtype=torch.int32)
-    theta = 500000.0
-    err = 0.0
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for heads in (32, 8):
-            xq = randn(rows, 1, heads, 128, dtype=dtype)
-            e = _check(f"rope {dtype} h={heads}",
-                       fn.rope_apply(xq, pos, theta),
-                       fn.rope_apply_ref(xq, pos, theta), tol)
-            if dtype == torch.bfloat16:
-                err = max(err, e)
-    # ... and at the batched prefill's shapes, q/k (8, 1024, 32|8, 128)
-    # with positions arange per row and one table pair for both: 2^25
-    # elements want more than the launcher's 65535 blocks of 256 threads,
-    # so the kernel's grid-stride loop runs past its first pass
-    ppos = torch.arange(1024, dtype=torch.int32, device=dev).repeat(rows, 1)
-    ptables = fn.rope_tables(ppos.reshape(-1), 128, theta)
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for heads in (32, 8):
-            xp = randn(rows, 1024, heads, 128, dtype=dtype)
-            e = _check(f"rope prefill {dtype} h={heads}",
-                       fn.rope_apply(xp, ppos, theta, tables=ptables),
-                       fn.rope_apply_ref(xp, ppos, theta, tables=ptables),
-                       tol)
-            if dtype == torch.bfloat16:
-                err = max(err, e)
-            del xp
-    del ptables
-    tables = fn.rope_tables(pos.reshape(-1), 128, theta)
-    qs = [(randn(rows, 1, 32, 128),) for _ in range(4)]
-    rope = dict(
-        name="rope_apply", route="cuda",
-        source="paddle_tpu_torch/kernels/csrc/fused_norm.cu",
-        replaces="paddle_tpu/kernels/fused_norm.py:380",
-        max_abs_err=err,
-        ms=_time_ms(lambda a: fn.rope_apply(a, pos, theta, tables=tables),
-                    qs),
-        plain_ms=_time_ms(lambda a: fn.rope_apply_ref(a, pos, theta,
-                                                      tables=tables), qs),
-        library_ms=None, shape="q (8, 1, 32, 128) bf16, tables shared")
-    relem = rows * 32 * 128
-    rope["bound_ms"], rope["bound_by"] = _bound(
-        2 * relem * 2 + 2 * rows * 128 * 4, 3 * relem, F32_FLOPS)
-    print(f"[kernel] rope_apply bf16 q (8, 1, 32, 128): {rope['ms']:.4f} ms,"
-          f" plain {rope['plain_ms']:.4f} ms, bound "
-          f"{rope['bound_ms']:.5f} ms; max |err| {err:.3g}")
 
     # paged decode: b=8, hq=32, hk=8, d=128, page 16, 641 pages, 80 per slot
     b, hq, hk, hd, ps, npages, mp = 8, 32, 8, 128, 16, 641, 80
@@ -515,7 +468,7 @@ def kernel_phases(dev, fn, pa):
           f"window (lens {mp * ps - 1} x {b}) {dec['full_window_ms']:.4f} "
           f"ms, sdpa {dec['full_window_library_ms']:.4f} ms, bound "
           f"{dec['full_window_bound_ms']:.5f} ms")
-    return {k["name"]: k for k in (dec, rope)}
+    return {dec["name"]: dec}
 
 
 def _full_window(pa, psets, dense, bt, L, hq, hk, hd, kv_bytes):
@@ -929,53 +882,92 @@ def flash_phases(dev, fa):
     return out
 
 
-def rope_bwd_phases(dev, fn):
-    """The rope_apply_bwd entry at the training shape, and the forward
-    kernel's time at that shape."""
+def _check_equal(name, out, ref):
+    """out must have ref's bits; returns max |out - ref| (0.0)."""
+    if not torch.equal(out, ref):
+        err = float((out.float() - ref.float()).abs().max())
+        raise AssertionError(f"{name}: not bit-equal to the twin (max |err| "
+                             f"{err})")
+    return 0.0
+
+
+def rope_phases(dev, fn, prefill_m):
+    """The rope_apply and rope_apply_bwd entries. Both are held bit for bit
+    against their twins (the kernel rounds each product and the sum as the
+    twin does) in f32 and bf16 at the decode shapes (8, 1, 32|8, 128) at
+    scattered positions, the first batched prefill call's (1, prefill_m,
+    32|8, 128) and the training shapes (8, 2048, 32|4, 64), forward and
+    backward, then timed in bf16 at each shape, q and k, beside the twin
+    and the bound (x read and written once, the two f32 tables read
+    once). The forward entry's own time is decode's q, the backward's
+    training's q."""
     g = torch.Generator(device=dev).manual_seed(11)
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
-    b, s, hd = 8, 2048, 64
-    pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b)
-    tables = fn.rope_tables(pos, hd, 10000.0)
-    rerr = 0.0
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for heads in (32, 4):
-            gq = randn(b, s, heads, hd, dtype=dtype)
-            e = _check(f"rope_bwd {dtype} h={heads}",
-                       fn.rope_apply_bwd(gq, *tables),
-                       fn.rope_apply_bwd_ref(gq, *tables), tol)
-            if dtype == torch.bfloat16:
-                rerr = max(rerr, e)
-    qs = [(randn(b, s, 32, hd),)]
-    relem = b * s * 32 * hd
-    rope = dict(
-        name="rope_apply_bwd", route="cuda",
-        source="paddle_tpu_torch/kernels/csrc/fused_norm.cu",
-        replaces="paddle_tpu/kernels/fused_norm.py:380", max_abs_err=rerr,
-        ms=_time_ms(lambda a: fn.rope_apply_bwd(a, *tables), qs, iters=20),
-        plain_ms=_time_ms(lambda a: fn.rope_apply_bwd_ref(a, *tables), qs,
-                          iters=5),
-        library_ms=None,
-        library_note="no single PyTorch call computes the RoPE rotation",
-        shape=f"dq ({b}, {s}, 32, {hd}) bf16, the RoPE kernel with the "
-              "sin table negated (fused_norm.py:415)")
-    rope["bound_ms"], rope["bound_by"] = _bound(
-        2 * relem * 2 + 2 * b * s * hd * 4, 3 * relem, F32_FLOPS)
-    rope_fwd_train = dict(
-        train_ms=_time_ms(lambda a: fn.rope_apply(a, tables=tables), qs,
-                          iters=20),
-        train_plain_ms=_time_ms(lambda a: fn.rope_apply_ref(a, tables=tables),
-                                qs, iters=5),
-        train_bound_ms=rope["bound_ms"],
-        train_shape=f"q ({b}, {s}, 32, {hd}) bf16")
-    print(f"[kernel] rope_apply_bwd bf16 ({b}, {s}, 32, {hd}): "
-          f"{rope['ms']:.4f} ms, plain {rope['plain_ms']:.4f} ms, bound "
-          f"{rope['bound_ms']:.4f} ms; forward at this shape "
-          f"{rope_fwd_train['train_ms']:.4f} ms; max |err| {rerr:.3g}")
-    return {"rope_apply_bwd": rope}, {"rope_apply": rope_fwd_train}
+    def seq_pos(b, s):
+        return torch.arange(s, dtype=torch.int32, device=dev).repeat(b)
+
+    decode_pos = torch.randint(0, 1280, (8,), generator=g, device=dev,
+                               dtype=torch.int32)
+    # tag: (b, s, q heads, k heads, d, theta, flat positions)
+    shapes = {"decode": (8, 1, 32, 8, 128, 500000.0, decode_pos),
+              "prefill": (1, prefill_m, 32, 8, 128, 500000.0,
+                          seq_pos(1, prefill_m)),
+              "train": (8, 2048, 32, 4, 64, 10000.0, seq_pos(8, 2048))}
+    fwd = dict(name="rope_apply", route="cuda",
+               source="paddle_tpu_torch/kernels/csrc/fused_norm.cu",
+               replaces="paddle_tpu/kernels/fused_norm.py:380",
+               library_ms=None,
+               library_note="no single PyTorch call computes the RoPE "
+                            "rotation")
+    bwd = dict(fwd, name="rope_apply_bwd",
+               also_replaces="paddle_tpu/kernels/fused_norm.py:415 (the "
+                             "same kernel launched on -sin_f)")
+    for tag, (b, s, hq, hk, d, theta, pos) in shapes.items():
+        tables = fn.rope_tables(pos, d, theta)
+        for dtype in (torch.float32, torch.bfloat16):
+            for heads in (hq, hk):
+                x = randn(b, s, heads, d, dtype=dtype)
+                _check_equal(f"rope {tag} {dtype} h={heads}",
+                             fn.rope_apply(x, tables=tables),
+                             fn.rope_apply_ref(x, tables=tables))
+                _check_equal(f"rope_bwd {tag} {dtype} h={heads}",
+                             fn.rope_apply_bwd(x, *tables),
+                             fn.rope_apply_bwd_ref(x, *tables))
+                del x
+        for heads, kv in ((hq, ""), (hk, "k_")):
+            xs = [(randn(b, s, heads, d),) for _ in range(4 if s == 1
+                                                          else 1)]
+            elem = b * s * heads * d
+            bound = _bound(2 * elem * 2 + 2 * b * s * d * 4, 3 * elem,
+                           F32_FLOPS)
+            iters, plain_iters = (50, 50) if s == 1 else (20, 5)
+            for e, kern, plain in (
+                    (fwd, lambda a: fn.rope_apply(a, tables=tables),
+                     lambda a: fn.rope_apply_ref(a, tables=tables)),
+                    (bwd, lambda a: fn.rope_apply_bwd(a, *tables),
+                     lambda a: fn.rope_apply_bwd_ref(a, *tables))):
+                pre = f"{tag}_{kv}"
+                e[pre + "ms"] = _time_ms(kern, xs, iters=iters)
+                e[pre + "plain_ms"] = _time_ms(plain, xs, iters=plain_iters)
+                e[pre + "bound_ms"], e[pre + "bound_by"] = bound
+                e[pre + "shape"] = f"({b}, {s}, {heads}, {d}) bf16"
+            del xs
+        del tables
+    for e, main in ((fwd, "decode_"), (bwd, "train_")):
+        e.update(max_abs_err=0.0, ms=e[main + "ms"],
+                 plain_ms=e[main + "plain_ms"], bound_ms=e[main + "bound_ms"],
+                 bound_by=e[main + "bound_by"], shape=e[main + "shape"])
+        print(f"[kernel] {e['name']} bf16, bit-equal to the twin in f32 and "
+              f"bf16 at every shape: " + "; ".join(
+                  f"{tag} {kv[:-1] or 'q'} {e[f'{tag}_{kv}shape']} "
+                  f"{e[f'{tag}_{kv}ms']:.4f} ms (plain "
+                  f"{e[f'{tag}_{kv}plain_ms']:.4f}, bound "
+                  f"{e[f'{tag}_{kv}bound_ms']:.5f})"
+                  for tag in shapes for kv in ("", "k_")))
+    return {"rope_apply": fwd, "rope_apply_bwd": bwd}
 
 
 def ce_phases(dev, bce, fnl):
@@ -1039,6 +1031,8 @@ def ce_phases(dev, bce, fnl):
     torch.cuda.synchronize()
     err, ratio = held("train", got, twins(x, w, lab), CE_BF16_TOL)
     again = kernels(x, w, lab)
+    if not torch.equal(again[1], got[1]):
+        raise AssertionError("ce forward: two calls differ")
     if not (torch.equal(again[2], got[2]) and torch.equal(again[3], got[3])):
         raise AssertionError("ce backward: two calls differ")
     del again
@@ -1075,6 +1069,24 @@ def ce_phases(dev, bce, fnl):
                                      for v0, vc in blocks], [()], iters=4)}
     bwd_ms = _time_ms(lambda: bce.ce_bwd(x, w, lab, lse, count, one), [()],
                       iters=4)
+    # torch.matmul of each bare product at the same shapes (bf16 out): a
+    # yardstick of GEMM efficiency without the epilogues, never called by
+    # the port
+    s_out = {vc: torch.empty((n, vc), dtype=x.dtype, device=dev)
+             for _, vc in blocks + [(0, v)]}
+    matmul_ms = {
+        "ce_fwd": _time_ms(lambda: torch.matmul(x, w.t(), out=s_out[v]),
+                           [()], iters=10),
+        "ce_dlogits": _time_ms(lambda: [torch.matmul(
+            x, w[v0:v0 + vc].t(), out=s_out[vc]) for v0, vc in blocks],
+            [()], iters=4),
+        "ce_dx": _time_ms(lambda: [torch.matmul(ws[:, :vc], w[v0:v0 + vc],
+                                                out=dx) for v0, vc in blocks],
+                          [()], iters=4),
+        "ce_dw": _time_ms(lambda: [torch.matmul(
+            ws[:, :vc].t(), x, out=dw[v0:v0 + vc]) for v0, vc in blocks],
+            [()], iters=4)}
+    del s_out
     fwd_plain = _time_eager_ms(lambda: bce.ce_fwd_ref(x, w, lab, 512), [()],
                                iters=2)
     bwd_plain = _time_eager_ms(lambda: bce.ce_bwd_ref(
@@ -1136,7 +1148,7 @@ def ce_phases(dev, bce, fnl):
             dense_fwd_bwd_ms=dense_fwd_bwd_ms, backward_ms=bwd_ms,
             backward_bound_ms=3 * flops / BF16_TENSOR_FLOPS * 1e3,
             dense_peak_gb=peak["dense"], blockwise_peak_gb=peak["blockwise"],
-            f32_err_over_bound=f32_ratio)
+            f32_err_over_bound=f32_ratio, matmul_ms=matmul_ms[name])
         if name != "ce_fwd":
             out[name]["plain_note"] = "the twin's backward computes dx and dW"
     out["ce_dlogits"]["also_replaces"] = [
@@ -1146,7 +1158,10 @@ def ce_phases(dev, bce, fnl):
     print(f"[kernel] blockwise CE {shape}: fwd {ms['ce_fwd']:.4f} ms (bound "
           f"{bounds['ce_fwd'][0]:.4f}), dS {ms['ce_dlogits']:.4f}, dx "
           f"{ms['ce_dx']:.4f}, dW {ms['ce_dw']:.4f} ms (bound "
-          f"{bounds['ce_dx'][0]:.4f} each), whole backward {bwd_ms:.4f} ms "
+          f"{bounds['ce_dx'][0]:.4f} each); torch.matmul of the bare "
+          f"products: fwd {matmul_ms['ce_fwd']:.4f}, dS "
+          f"{matmul_ms['ce_dlogits']:.4f}, dx {matmul_ms['ce_dx']:.4f}, dW "
+          f"{matmul_ms['ce_dw']:.4f} ms; whole backward {bwd_ms:.4f} ms "
           f"(least work {3 * flops / BF16_TENSOR_FLOPS * 1e3:.4f}); plain "
           f"fwd {fwd_plain:.2f} ms, plain bwd {bwd_plain:.2f} ms; dense "
           f"logits + CE fwd {dense_fwd_ms:.2f} ms, fwd + bwd "
@@ -1282,9 +1297,10 @@ def _device_us(evt):
 
 
 def _norm_rows(kernels):
-    """The RMSNorm kernels' own profiler rows, in or out of the top."""
+    """The RMSNorm and RoPE kernels' own profiler rows, in or out of the
+    top."""
     return [(e.key[:90], _device_us(e) / 1e3, e.count) for e in kernels
-            if "rms" in e.key]
+            if "rms" in e.key or "rope" in e.key]
 
 
 def profile_serving(model, prompts, max_new, geom, card, label=""):
@@ -1916,15 +1932,12 @@ def main(argv=None):
 
     t_start = time.perf_counter()
     kernels = norm_phases(dev, fn)
-    kernels.update(kernel_phases(dev, fn, pa))
+    kernels.update(kernel_phases(dev, pa))
     call_ms = _prefill_call_ms(_prompts(8, 128256, seed=0), 7,
                                PagedKVEngine._bucket)
+    kernels.update(rope_phases(dev, fn, call_ms[0]))
     kernels.update(int8_kernel_phases(dev, pa, qm, call_ms[0], call_ms[-1]))
     kernels.update(flash_phases(dev, fa))
-    bwd_entries, fwd_train = rope_bwd_phases(dev, fn)
-    kernels.update(bwd_entries)
-    for name, extra in fwd_train.items():
-        kernels[name].update(extra)
     kernels.update(ce_phases(dev, bce, fnl))
 
     def reset():

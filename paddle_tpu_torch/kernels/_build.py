@@ -43,7 +43,7 @@ _SIGNATURES = {
     "ptt_paged_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
     "ptt_rmsn_fwd": [_P] * 6 + [_I, _I, _F] + [_I] * 6 + [_P],
     "ptt_rmsn_bwd": [_P] * 7 + [_I] * 8 + [_P],
-    "ptt_rope_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ptt_rope": [_P] * 4 + [_I] * 3 + [_F, _I, _P],
     "ptt_flash_fwd": [_P] * 5 + _FLASH_TAIL,
     "ptt_flash_bwd_dq": [_P] * 7 + _FLASH_TAIL,
     "ptt_flash_bwd_dkv": [_P] * 8 + _FLASH_TAIL,

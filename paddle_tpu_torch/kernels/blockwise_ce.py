@@ -26,8 +26,9 @@ tied embedding both hold it so); the JAX package's is (D, V).
   ignore `chunk` and `vocab_block`: the result differs from the twin only
   in summation order. `ce_fwd` writes lse and picked; the backward runs
   per vocab super-block of `ce_super_block(N, V)` rows (the dS workspace
-  is (N, that), never (N, V)): `ce_dlogits`, `ce_dx`, `ce_dw`, in bf16
-  one persistent wgmma GEMM over TMA-loaded tiles each.
+  is (N, that), never (N, V)): `ce_dlogits`, `ce_dx`, `ce_dw`. In bf16
+  all four are one persistent wgmma GEMM over TMA-loaded tiles, each with
+  its own epilogue.
 - `_BlockwiseCE` is the `torch.autograd.Function` (JAX `_bce`
   custom_vjp): its forward keeps x, W, labels, the f32 row lse and the
   count, nothing logits-shaped.
@@ -52,7 +53,7 @@ _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the dS workspace of one backward super-block, (N, Vs) in x's type
 _WORKSPACE_BYTES = 256 * 2 ** 20
-_SUPER_ALIGN = 128              # Vs is a multiple of the widest vocab tile
+_SUPER_ALIGN = 128              # Vs: whole 64-wide f32 dS tiles, 16-byte rows
 
 
 # ---------------------------------------------------------------------------
@@ -268,20 +269,8 @@ def ce_fwd(x, w, labels, chunk=512, vocab_block=0, ignore_index=-100):
     if x.device.type != "cuda":
         raise ValueError(f"ce_fwd: unsupported device {x.device}")
     _check_cuda("ce_fwd", x, w, labels)
-    n, d = x.shape
-    v = w.shape[0]
     lab = labels.to(torch.int32).contiguous()
-    lib = _build.load_library()
-    nvt = -(-v // lib.ptt_ce_vocab_tile(_DTYPE_CODE[x.dtype]))
-    part = torch.empty((2, n, nvt), dtype=torch.float32, device=x.device)
-    picked = torch.zeros(n, dtype=torch.float32, device=x.device)
-    lse = torch.empty(n, dtype=torch.float32, device=x.device)
-    status = lib.ptt_ce_fwd(x.data_ptr(), w.data_ptr(), lab.data_ptr(),
-                            part.data_ptr(), picked.data_ptr(),
-                            lse.data_ptr(), n, d, v, _DTYPE_CODE[x.dtype],
-                            _stream(x))
-    _build.check(status, "ce_fwd")
-    launches["ce_fwd"] += 1
+    lse, picked = _launch_fwd(x, w, lab)
     valid = lab != ignore_index
     count = torch.clamp(valid.float().sum(), min=1.0)
     loss = torch.where(valid, lse - picked, 0.0).sum() / count
@@ -324,9 +313,28 @@ def ce_bwd(x, w, labels, lse, count, g, chunk=512, vocab_block=0,
     return dx, dw
 
 
-# The backward's kernels one by one (checked inputs: x (n, d), w (v, d)
-# dense in one type, int32 labels, f32 lse and scale (n,), the workspace
-# ws (n, Vs)), for ce_bwd and for timing each alone.
+# The kernels one by one (checked inputs: x (n, d), w (v, d) dense in one
+# type, int32 labels, f32 lse and scale (n,), the workspace ws (n, Vs)),
+# for ce_fwd, ce_bwd and for timing or checking each alone.
+
+def _launch_fwd(x, w, lab):
+    """(lse, picked) (N,) f32: each row's lse over the vocab and its
+    label's score (0 for a label outside [0, V))."""
+    n, d = x.shape
+    v = w.shape[0]
+    lib = _build.load_library()
+    nvt = -(-v // lib.ptt_ce_vocab_tile(_DTYPE_CODE[x.dtype]))
+    part = torch.empty((2, n, nvt), dtype=torch.float32, device=x.device)
+    picked = torch.zeros(n, dtype=torch.float32, device=x.device)
+    lse = torch.empty(n, dtype=torch.float32, device=x.device)
+    status = lib.ptt_ce_fwd(x.data_ptr(), w.data_ptr(), lab.data_ptr(),
+                            part.data_ptr(), picked.data_ptr(),
+                            lse.data_ptr(), n, d, v, _DTYPE_CODE[x.dtype],
+                            _stream(x))
+    _build.check(status, "ce_fwd")
+    launches["ce_fwd"] += 1
+    return lse, picked
+
 
 def _launch_dlogits(x, w, lab, lse, scale, ws, v0, vcur):
     status = _build.load_library().ptt_ce_dlogits(

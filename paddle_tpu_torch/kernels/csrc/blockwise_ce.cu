@@ -24,19 +24,19 @@
 // three such products (6.5 ms).
 //
 // Design.
-// - ce_fwd (bf16 and f32) and the f32 backward: one GEMM tile kernel
-//   (ce_gemm) a product. A block computes a tile of C = A . B over the K
-//   loop, then parks the f32 tile in shared memory, where an epilogue
-//   that depends on the product reads it. ce_fwd: C = S (rows x vocab, K =
-//   D); per row and vocab tile the tile's max and sum of exp(S - max) go
-//   to a partial buffer and the label's S to picked; a second small
-//   kernel merges each row's partials into its lse in a fixed order. bf16:
-//   mma.sync m16n8k16, 128 x 128 tiles, 8 warps of 64 x 32, K in steps of
-//   64 streamed by cp.async (3 stages), fragments by ldmatrix. f32: FFMA
-//   on the CUDA cores, 64 x 64 tiles, no TF32 (the JAX package computes
-//   f32 products at HIGHEST precision); a checking path. Tiles run in
-//   groups of 16 row tiles so the operands of the blocks in flight stay
-//   in L2.
+// - The f32 route (the checking path: the forward and the backward): one
+//   GEMM tile kernel (ce_gemm) a product, FFMA on the CUDA cores, 64 x 64
+//   tiles, no TF32 (the JAX package computes f32 products at HIGHEST
+//   precision). A block computes a tile of C = A . B over the K loop,
+//   then parks the f32 tile in shared memory, where an epilogue that
+//   depends on the product reads it. Tiles run in groups of 16 row tiles
+//   so the operands of the blocks in flight stay in L2.
+// - The forward: C = S (rows x vocab, K = D); per row and vocab tile the
+//   tile's max and sum of exp(S - max) go to a partial buffer (2, N,
+//   ceil(V / tile)) and the label's S to picked; a second small kernel
+//   (ce_fwd_combine) merges each row's partials into its lse in a fixed
+//   order, so the lse has the same bits from call to call. Each partial
+//   is written by exactly one thread: no atomics.
 // - The backward runs per vocab super-block [v0, v0 + Vs), Vs chosen by
 //   the caller so the (N, Vs) dS workspace stays within a budget (never
 //   [N, V]), as three products:
@@ -52,37 +52,43 @@
 //   dS tile without atomics: a 128-row tile's dx row block at D 2048 is
 //   1 MB of f32, as is a vocab tile's dW block, far past an SM's 227 KB.
 //   Nothing uses atomics: every result is deterministic.
-// - The bf16 backward (namespace wg): one persistent, warp-specialised
-//   wgmma GEMM for the three products, min(tiles, SMs) blocks walking
-//   128 x 256 tiles of C in groups of 16 row tiles (the operands of the
-//   blocks in flight stay in L2). 384 threads: one thread of warpgroup 0
-//   issues TMA loads of A's 128 x 64 and B's 64 x 256 k-tile, 128-byte
-//   swizzled, into a 4-stage ring of 48 KB stages signalled by mbarriers
-//   (full: bytes landed; empty: the 8 consumer warps done), running on
-//   across tiles, so the next tile's loads overlap this tile's epilogue.
-//   Warpgroups 1 and 2 each own 64 rows of the tile, m64n256k16 with both
-//   operands in shared memory, 128 f32 accumulators a thread; every
-//   product is issued on every step (a wgmma under a branch makes ptxas
-//   serialise all of them). Operand layouts: dS reads x and W rows
-//   K-major; dx reads dS K-major and W's rows MN-major (TransB); dW reads
-//   dS^T and x both MN-major (TransA and TransB), straight from the
-//   workspace, with no transposed copy. An MN-major operand's k-tile
-//   lands as 64-column boxes (one 1024-byte swizzle atom across, LBO
-//   between boxes). The epilogues run in the consumers' registers in the
-//   accumulator's layout (rows g and g + 8 of each warp's 16, column
-//   pairs 8 j + 2 t): dS as exp2(S log2e - lse log2e) - onehot, times
-//   scale, one exp a value; dx as a read-add-write of the f32 accumulator
-//   (the sum's order is fixed: accumulator + this super-block); dW as a
-//   cast. Ragged edges: TMA fills rows and columns past each map's extent
-//   with zeros (the W map starts at v0 and ends at v0 + vcur, the
-//   workspace's at vcur rounded up to 8), and the stores mask rows and
-//   columns past the output, so a 256-wide tile past a super-block's last
-//   vocab row computes zeros there and stores only what lies inside.
-//   Every global offset is 64-bit.
+// - The bf16 route (namespace wg): one persistent, warp-specialised
+//   wgmma GEMM for the four products (the forward's S, dS, dx, dW),
+//   min(tiles, SMs) blocks walking 128 x 256 tiles of C in groups of 16
+//   row tiles (the operands of the blocks in flight stay in L2). 384
+//   threads: one thread of warpgroup 0 issues TMA loads of A's 128 x 64
+//   and B's 64 x 256 k-tile, 128-byte swizzled, into a 4-stage ring of
+//   48 KB stages signalled by mbarriers (full: bytes landed; empty: the 8
+//   consumer warps done), running on across tiles, so the next tile's
+//   loads overlap this tile's epilogue. Warpgroups 1 and 2 each own 64
+//   rows of the tile, m64n256k16 with both operands in shared memory, 128
+//   f32 accumulators a thread; every product is issued on every step (a
+//   wgmma under a branch makes ptxas serialise all of them). Operand
+//   layouts: the forward and dS read x and W rows K-major (the forward's
+//   W map spans all V rows, dS's its super-block); dx reads dS K-major
+//   and W's rows MN-major (TransB); dW reads dS^T and x both MN-major
+//   (TransA and TransB), straight from the workspace, with no transposed
+//   copy. An MN-major operand's k-tile lands as 64-column boxes (one
+//   1024-byte swizzle atom across, LBO between boxes). The epilogues run
+//   in the consumers' registers in the accumulator's layout (rows g and
+//   g + 8 of each warp's 16, column pairs 8 j + 2 t, so a row's 256
+//   columns lie in the 4 threads of a quad): the forward as each row's
+//   max over the tile's columns below V, combined over the quad by
+//   shuffles, then the sum of exp2(S log2e - max log2e), combined the
+//   same way, written by the quad's first thread, and the label's raw S
+//   by the one thread that holds its column; dS as exp2(S log2e - lse
+//   log2e) - onehot, times scale, one exp a value; dx as a read-add-write
+//   of the f32 accumulator (the sum's order is fixed: accumulator + this
+//   super-block); dW as a cast. Ragged edges: TMA fills rows and columns
+//   past each map's extent with zeros (the W map starts at v0 and ends at
+//   v0 + vcur, the workspace's at vcur rounded up to 8), the forward masks
+//   columns at or past V to -inf, and the stores mask rows and columns
+//   past the output, so a 256-wide tile past the last vocab row computes
+//   zeros there and stores only what lies inside. Every global offset is
+//   64-bit.
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -92,36 +98,29 @@ namespace {
 using ptt::bf16;
 
 constexpr int kThreads = 256;
-constexpr int kStages = 3;
 constexpr int kGroupM = 16;
 
 // epilogues
 constexpr int kFwdStats = 0, kDlogits = 1, kDx = 2, kDw = 3;
 
-// Tile geometry. bf16 (the forward): a K-contiguous operand tile is
-// (128, KD + 8) (rows padded by 16 bytes against bank conflicts); f32:
-// (BK, 64 + 4) tiles; LDC: the parked f32 C tile.
-template <typename T>
-struct Tile;
-template <>
-struct Tile<bf16> {
-  static constexpr int BM = 128, BN = 128, KD = 64;
-  static constexpr int LDK = KD + 8, LDC = BN + 4;
-};
-template <>
-struct Tile<float> {
+// The f32 tile kernel's geometry: (BK, 64 + 4) operand tiles stored
+// k-major; LDC: the parked f32 C tile.
+struct Fma {
   static constexpr int BM = 64, BN = 64, BK = 16;
   static constexpr int LDF = BM + 4, LDC = BN + 4;
+  static constexpr int kTile = BK * LDF;  // floats
+  static constexpr size_t bytes =
+      (2 * size_t(kTile) + size_t(BM) * LDC) * sizeof(float);
 };
 
 struct Args {
   // C (m x n) = A (m x k) . B (k x n). An operand is K-contiguous (element
   // (i, k) at p[i * ld + k]) or K-major (at p[k * ld + i]); ext is its
   // extent along i, kv along k: elements past either read as 0.
-  const void* a;
+  const float* a;
   int64_t lda;
   int a_ext, a_kv;
-  const void* b;
+  const float* b;
   int64_t ldb;
   int b_ext, b_kv;
   int m, n, k;
@@ -134,7 +133,7 @@ struct Args {
   int n_vtiles;
   int vocab;           // V
   int v0;              // first vocab row of the super-block
-  void* out;           // dS workspace, dx, or dW's rows from v0
+  float* out;          // dS workspace, dx, or dW's rows from v0
   int64_t ldo;
   float* acc;          // dx: f32 accumulator (rows, D)
   int first, last;     // dx: first / last super-block
@@ -156,111 +155,8 @@ __device__ __forceinline__ void tile_coords(int tm, int tn, int& mt, int& nt) {
 }
 
 // ---------------------------------------------------------------------
-// bf16 main loop: tensor cores
-// ---------------------------------------------------------------------
-
-// One operand's (128 x KD) slice of k-tile k0 into shared memory, 16-byte
-// cp.async chunks; a chunk past ext or kv is zero-filled (both are
-// multiples of 8 along the chunked dim).
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               int64_t ld, int i0, int ext,
-                                               int k0, int kv) {
-  using G = Tile<bf16>;
-  constexpr int kChunks = G::KD / 8;
-  for (int c = threadIdx.x; c < G::BM * kChunks; c += kThreads) {
-    const int r = c / kChunks, kk = (c % kChunks) * 8;
-    const bool ok = i0 + r < ext && k0 + kk < kv;
-    const bf16* s = ok ? src + (i0 + r) * ld + k0 + kk : src;
-    ptt::cp_async16(dst + r * G::LDK + kk, s, ok);
-  }
-}
-
-struct MmaSmem {
-  using G = Tile<bf16>;
-  static constexpr int kA = G::BM * G::LDK;
-  static constexpr int kStage = 2 * kA;  // elements
-  static constexpr size_t pipe = size_t(kStages) * kStage * sizeof(bf16);
-  static constexpr size_t park = size_t(G::BM) * G::LDC * sizeof(float);
-  static constexpr size_t bytes = pipe > park ? pipe : park;
-};
-
-// C tile (m0, n0) into cs (f32, row stride LDC), both operands
-// K-contiguous. Warp w owns rows 64 * (w / 4) .. +63 and columns 32 * (w %
-// 4) .. +31.
-__device__ __forceinline__ void mma_tile(const Args& a, int m0, int n0,
-                                         unsigned char* smem) {
-  using G = Tile<bf16>;
-  using S = MmaSmem;
-  bf16* sm = reinterpret_cast<bf16*>(smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const bf16* ag = static_cast<const bf16*>(a.a);
-  const bf16* bg = static_cast<const bf16*>(a.b);
-  float acc[4][4][4] = {};
-  const int nk = cdiv(a.k, G::KD);
-  auto load = [&](int kt, int stage) {
-    bf16* st = sm + stage * S::kStage;
-    load_tile_bf16(st, ag, a.lda, m0, a.a_ext, kt * G::KD, a.a_kv);
-    load_tile_bf16(st + S::kA, bg, a.ldb, n0, a.b_ext, kt * G::KD, a.b_kv);
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s, s);
-    ptt::cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    ptt::cp_async_wait<kStages - 2>();
-    __syncthreads();  // k-tile kt landed; the stage of kt - 1 is released
-    if (kt + kStages - 1 < nk) load(kt + kStages - 1, (kt + kStages - 1) % kStages);
-    ptt::cp_async_commit();
-    const bf16* as = sm + (kt % kStages) * S::kStage;
-    const bf16* bs = as + S::kA;
-#pragma unroll
-    for (int kk = 0; kk < G::KD; kk += 16) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ptt::frag_a_ldm(af[mt], as, G::LDK, wm * 64 + 16 * mt, kk);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t bf[4];
-        ptt::frag_bt_ldm(bf, bs, G::LDK, wn * 32 + 16 * j, kk);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          ptt::mma_bf16(acc[mt][2 * j], af[mt], bf[0], bf[1]);
-          ptt::mma_bf16(acc[mt][2 * j + 1], af[mt], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-  ptt::cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the stages: cs reuses them
-  float* cs = reinterpret_cast<float*>(smem);
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = wm * 64 + 16 * mt + g + 8 * half;
-        const int col = wn * 32 + 8 * nt + 2 * t;
-        *reinterpret_cast<float2*>(cs + row * G::LDC + col) =
-            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-      }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------
 // f32 main loop: FFMA, each thread a 4 x 4 block of C
 // ---------------------------------------------------------------------
-
-struct FmaSmem {
-  using G = Tile<float>;
-  static constexpr int kTile = G::BK * G::LDF;  // floats
-  static constexpr size_t bytes =
-      (2 * size_t(kTile) + size_t(G::BM) * G::LDC) * sizeof(float);
-};
 
 // element (i, k) of an operand, 0 past ext or kv
 template <bool KC>
@@ -273,12 +169,10 @@ __device__ __forceinline__ float elem(const float* p, int64_t ld, int i,
 template <bool AK, bool BK>
 __device__ __forceinline__ void fma_tile(const Args& a, int m0, int n0,
                                          unsigned char* smem) {
-  using G = Tile<float>;
+  using G = Fma;
   float* as = reinterpret_cast<float*>(smem);
-  float* bs = as + FmaSmem::kTile;
-  float* cs = bs + FmaSmem::kTile;
-  const float* ag = static_cast<const float*>(a.a);
-  const float* bg = static_cast<const float*>(a.b);
+  float* bs = as + G::kTile;
+  float* cs = bs + G::kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < a.k; k0 += G::BK) {
@@ -288,13 +182,13 @@ __device__ __forceinline__ void fma_tile(const Args& a, int m0, int n0,
       const int i = AK ? e / G::BK : e % G::BM;
       const int kk = AK ? e % G::BK : e / G::BM;
       as[kk * G::LDF + i] =
-          elem<AK>(ag, a.lda, m0 + i, k0 + kk, a.a_ext, a.a_kv);
+          elem<AK>(a.a, a.lda, m0 + i, k0 + kk, a.a_ext, a.a_kv);
     }
     for (int e = threadIdx.x; e < G::BN * G::BK; e += kThreads) {
       const int j = BK ? e / G::BK : e % G::BN;
       const int kk = BK ? e % G::BK : e / G::BN;
       bs[kk * G::LDF + j] =
-          elem<BK>(bg, a.ldb, n0 + j, k0 + kk, a.b_ext, a.b_kv);
+          elem<BK>(a.b, a.ldb, n0 + j, k0 + kk, a.b_ext, a.b_kv);
     }
     __syncthreads();
 #pragma unroll
@@ -323,26 +217,27 @@ __device__ __forceinline__ void fma_tile(const Args& a, int m0, int n0,
 // epilogues on the parked f32 tile cs (BM x BN at (m0, n0), tile nt)
 // ---------------------------------------------------------------------
 
-template <int Kind, typename T, int BM, int BN, int LDC>
+template <int Kind>
 __device__ __forceinline__ void epilogue(const Args& a, const float* cs,
                                          int m0, int n0, int nt) {
+  using G = Fma;
   if constexpr (Kind == kFwdStats) {
     // one warp per row: the tile's max and sum of exp(S - max) over its
     // vocab columns below V, and the label's S
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int r = warp; r < BM && m0 + r < a.m; r += kThreads / 32) {
+    for (int r = warp; r < G::BM && m0 + r < a.m; r += kThreads / 32) {
       const int row = m0 + r;
-      const float* cr = cs + r * LDC;
+      const float* cr = cs + r * G::LDC;
       const int lab = a.labels[row];
       float mx = -INFINITY;
-      for (int c = lane; c < BN; c += 32) {
+      for (int c = lane; c < G::BN; c += 32) {
         const int v = n0 + c;
         if (v < a.n) mx = fmaxf(mx, cr[c]);
         if (v == lab && v < a.n) a.picked[row] = cr[c];
       }
       mx = ptt::warp_max(mx);
       float s = 0.f;
-      for (int c = lane; c < BN; c += 32)
+      for (int c = lane; c < G::BN; c += 32)
         if (n0 + c < a.n) s += expf(cr[c] - mx);
       s = ptt::warp_sum(s);
       if (lane == 0) {
@@ -352,11 +247,11 @@ __device__ __forceinline__ void epilogue(const Args& a, const float* cs,
       }
     }
   } else {
-    for (int e = threadIdx.x; e < BM * BN; e += kThreads) {
-      const int r = e / BN, c = e - (e / BN) * BN;
+    for (int e = threadIdx.x; e < G::BM * G::BN; e += kThreads) {
+      const int r = e / G::BN, c = e - (e / G::BN) * G::BN;
       const int row = m0 + r, col = n0 + c;
       if (row >= a.m) continue;
-      const float val = cs[r * LDC + c];
+      const float val = cs[r * G::LDC + c];
       if constexpr (Kind == kDlogits) {
         // every column of the tile is written (0 at or past V), so the
         // workspace holds whole tiles for the dx and dW products
@@ -367,40 +262,32 @@ __device__ __forceinline__ void epilogue(const Args& a, const float* cs,
           if (v == a.labels[row]) d -= 1.f;
           d *= a.scale[row];
         }
-        static_cast<T*>(a.out)[row * a.ldo + col] = ptt::from_f32<T>(d);
+        a.out[row * a.ldo + col] = d;
       } else if constexpr (Kind == kDx) {
         if (col >= a.n) continue;
         const int64_t i = row * a.ldo + col;
         const float sum = a.first ? val : a.acc[i] + val;
         if (a.last)
-          static_cast<T*>(a.out)[i] = ptt::from_f32<T>(sum);
+          a.out[i] = sum;
         else
           a.acc[i] = sum;
       } else {  // kDw
         if (col >= a.n) continue;
-        static_cast<T*>(a.out)[row * a.ldo + col] = ptt::from_f32<T>(val);
+        a.out[row * a.ldo + col] = val;
       }
     }
   }
 }
 
-template <typename T, bool AK, bool BK, int Kind>
+template <bool AK, bool BK, int Kind>
 __global__ void __launch_bounds__(kThreads) ce_gemm(const Args a) {
-  using G = Tile<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   int mt, nt;
-  tile_coords(cdiv(a.m, G::BM), cdiv(a.n, G::BN), mt, nt);
-  const int m0 = mt * G::BM, n0 = nt * G::BN;
-  const float* cs;
-  if constexpr (std::is_same_v<T, bf16>) {
-    static_assert(AK && BK, "the bf16 tile kernel reads K-contiguous operands");
-    mma_tile(a, m0, n0, smem);
-    cs = reinterpret_cast<const float*>(smem);
-  } else {
-    fma_tile<AK, BK>(a, m0, n0, smem);
-    cs = reinterpret_cast<const float*>(smem) + 2 * FmaSmem::kTile;
-  }
-  epilogue<Kind, T, G::BM, G::BN, G::LDC>(a, cs, m0, n0, nt);
+  tile_coords(cdiv(a.m, Fma::BM), cdiv(a.n, Fma::BN), mt, nt);
+  const int m0 = mt * Fma::BM, n0 = nt * Fma::BN;
+  fma_tile<AK, BK>(a, m0, n0, smem);
+  epilogue<Kind>(a, reinterpret_cast<const float*>(smem) + 2 * Fma::kTile,
+                 m0, n0, nt);
 }
 
 // lse of each row from its (max, sum) partials: one warp per row, merged
@@ -421,23 +308,24 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) lse[row] = mx + logf(s);
 }
 
-template <typename T, bool AK, bool BK, int Kind>
+cudaError_t combine(const float* part, int n, int nvt, void* lse,
+                    cudaStream_t s) {
+  ce_fwd_combine<<<cdiv(n, kThreads / 32), kThreads, 0, s>>>(
+      part, n, nvt, static_cast<float*>(lse));
+  return cudaGetLastError();
+}
+
+template <bool AK, bool BK, int Kind>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using G = Tile<T>;
   if (a.m <= 0 || a.n <= 0) return cudaSuccess;
-  size_t bytes;
-  if constexpr (std::is_same_v<T, bf16>)
-    bytes = MmaSmem::bytes;
-  else
-    bytes = FmaSmem::bytes;
-  void (*kern)(const Args) = ce_gemm<T, AK, BK, Kind>;
+  void (*kern)(const Args) = ce_gemm<AK, BK, Kind>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      static_cast<int>(Fma::bytes));
   if (err != cudaSuccess) return err;
   const long long tiles =
-      static_cast<long long>(cdiv(a.m, G::BM)) * cdiv(a.n, G::BN);
-  kern<<<static_cast<unsigned>(tiles), kThreads, bytes, stream>>>(a);
+      static_cast<long long>(cdiv(a.m, Fma::BM)) * cdiv(a.n, Fma::BN);
+  kern<<<static_cast<unsigned>(tiles), kThreads, Fma::bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -447,7 +335,7 @@ const T* rows_from(const void* p, int64_t row, int d) {
 }
 
 // ---------------------------------------------------------------------
-// the bf16 backward: wgmma over TMA (see the design note at the top)
+// the bf16 route: wgmma over TMA (see the design note at the top)
 // ---------------------------------------------------------------------
 
 namespace wg {
@@ -468,8 +356,12 @@ constexpr size_t kSmem = kStages * size_t(kABytes + kBBytes) +
 // C (m x n) over K = k, and what the epilogue of each product needs
 struct Epi {
   int m, n, k;
-  // dS: rows' labels, lse and scale; vocab rows below vcur are real, v0
-  // is the first; the workspace (n rows, ldw apart)
+  // forward: the (max, sum) partials (2, m, nvt) and the label's S (m,)
+  float* part;
+  float* picked;
+  int nvt;
+  // dS: rows' labels (and the forward's), lse and scale; vocab rows below
+  // vcur are real, v0 is the first; the workspace (n rows, ldw apart)
   const int* labels;
   const float* lse;
   const float* scale;
@@ -503,11 +395,17 @@ __device__ __forceinline__ void coords(int tile, int tm, int tn, int& m0,
   n0 = r / size * BN;
 }
 
-// Stage loads of k-tile k0 for tile (m0, n0). A K-major (dS, dx): one
-// 64 x 128 box at (k0, m0); A MN-major (dW: the workspace read as dS^T):
-// two 64 x 64 boxes at (m0 + 64 h, k0). B K-major (dS: W rows): one 64 x
-// 256 box at (k0, n0); B MN-major (dx: W rows, dW: x rows): four 64 x 64
-// boxes at (n0 + 64 q, k0).
+// B is read K-major (W's rows, one 64 x 256 box a k-tile) by the forward
+// and dS, MN-major by dx and dW.
+__host__ __device__ constexpr bool b_kmajor(int kind) {
+  return kind == kFwdStats || kind == kDlogits;
+}
+
+// Stage loads of k-tile k0 for tile (m0, n0). A K-major (the forward, dS,
+// dx): one 64 x 128 box at (k0, m0); A MN-major (dW: the workspace read as
+// dS^T): two 64 x 64 boxes at (m0 + 64 h, k0). B K-major (W rows): one
+// 64 x 256 box at (k0, n0); B MN-major (dx: W rows, dW: x rows): four
+// 64 x 64 boxes at (n0 + 64 q, k0).
 template <int Kind>
 __device__ __forceinline__ void load_stage(unsigned char* as,
                                            unsigned char* bs,
@@ -521,7 +419,7 @@ __device__ __forceinline__ void load_stage(unsigned char* as,
   } else {
     h::tma_load_2d(as, ta, bar, k0, m0);
   }
-  if constexpr (Kind == kDlogits) {
+  if constexpr (b_kmajor(Kind)) {
     h::tma_load_2d(bs, tb, bar, k0, n0);
   } else {
 #pragma unroll
@@ -537,7 +435,7 @@ __device__ __forceinline__ void load_stage(unsigned char* as,
 template <int Kind>
 __device__ __forceinline__ void mma_step(float (&acc)[128], uint32_t a,
                                          uint32_t b, int kk) {
-  constexpr int kTransA = Kind == kDw, kTransB = Kind != kDlogits;
+  constexpr int kTransA = Kind == kDw, kTransB = !b_kmajor(Kind);
   const uint64_t da = kTransA ? h::desc_sw128(a + 2048 * kk, kBox, 1024)
                               : h::desc_sw128(a + 32 * kk, 16, 1024);
   const uint64_t db = kTransB ? h::desc_sw128(b + 2048 * kk, kBox, 1024)
@@ -548,9 +446,62 @@ __device__ __forceinline__ void mma_step(float (&acc)[128], uint32_t a,
 // The epilogue of a consumer thread: accumulator entry 4 j + 2 v + u is
 // C's row `row0 + 8 v`, column `col0 + 8 j + u` (col0 even).
 template <int Kind>
-__device__ __forceinline__ void epilogue(const Epi& e, const float (&acc)[128],
+__device__ __forceinline__ void epilogue(const Epi& e, float (&acc)[128],
                                          int row0, int col0) {
-  if constexpr (Kind == kDlogits) {
+  if constexpr (Kind == kFwdStats) {
+    // per row: the max and sum of exp(S - max) over the tile's columns
+    // below V (n), each combined over the quad that holds the row's 256
+    // columns (lanes 4 g .. 4 g + 3); the raw S at the label's column,
+    // written by the one thread that holds it. In the last vocab tile the
+    // columns at or past V read S = 0 (TMA's zero rows of W) and are
+    // masked to -inf, so they add ex2(-inf) = 0.
+    const int lane = threadIdx.x & 31;
+    const int tile = col0 / BN;
+    const int lim = e.n - col0;         // this thread's columns 8 j + u < lim
+    if (lim < BN) {                     // the same for the whole warp
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[4 * j + i] = 8 * j + (i & 1) < lim ? acc[4 * j + i] : -INFINITY;
+    }
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int row = row0 + 8 * v;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * v], acc[4 * j + 2 * v + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float nm = -mx * kLog2e;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          sum += ex2(fmaf(acc[4 * j + 2 * v + u], kLog2e, nm));
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (row >= e.m) continue;
+      const int64_t at = static_cast<int64_t>(row) * e.nvt + tile;
+      if ((lane & 3) == 0) {
+        e.part[at] = mx;
+        e.part[static_cast<int64_t>(e.m) * e.nvt + at] = sum;
+      }
+      const int lab = e.labels[row];
+      const int rel = lab - col0;       // the label's column, if this thread's
+      if (lab < e.n && rel >= 0 && rel < BN && (rel & 7) < 2) {
+        float pick = 0.f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            pick = rel == 8 * j + u ? acc[4 * j + 2 * v + u] : pick;
+        e.picked[row] = pick;
+      }
+    }
+  } else if constexpr (Kind == kDlogits) {
     // dS = (exp(S - lse) - onehot) * scale, 0 at or past vcur; stored up
     // to the workspace's width, so the dx and dW maps read zeros there
     float nl[2], sc[2];
@@ -717,6 +668,28 @@ cudaError_t tmap(CUtensorMap* map, const void* base, int64_t rows,
 // 16-byte rule; the dS kernel wrote zeros there).
 int ws_cols(int vcur) { return (vcur + 7) / 8 * 8; }
 
+// The forward's stats over all V rows of W: (max, sum) partials a row
+// and 256-wide vocab tile, the label's S; then each row's lse.
+cudaError_t fwd(const void* x, const void* w, const void* labels,
+                void* part, void* picked, void* lse, int n, int d, int v,
+                cudaStream_t s) {
+  CUtensorMap ta, tb;
+  cudaError_t err = tmap(&ta, x, n, d, d, BM);
+  if (err == cudaSuccess) err = tmap(&tb, w, v, d, d, BN);
+  if (err != cudaSuccess) return err;
+  Epi e{};
+  e.m = n;
+  e.n = v;
+  e.k = d;
+  e.part = static_cast<float*>(part);
+  e.picked = static_cast<float*>(picked);
+  e.nvt = cdiv(v, BN);
+  e.labels = static_cast<const int*>(labels);
+  err = launch<kFwdStats>(ta, tb, e, s);
+  if (err != cudaSuccess) return err;
+  return combine(e.part, n, e.nvt, lse, s);
+}
+
 cudaError_t dlogits(const void* x, const void* w, const void* labels,
                     const void* lse, const void* scale, void* ws, int n,
                     int d, int v0, int vcur, int ldw, cudaStream_t s) {
@@ -777,15 +750,15 @@ cudaError_t dw(const void* ws, const void* x, void* out, int n, int d,
 
 }  // namespace wg
 
-template <typename T>
+// The f32 forward (the bf16 route is wg::fwd)
 int run_fwd(const void* x, const void* w, const void* labels, void* part,
-        void* picked, void* lse, int n, int d, int v, cudaStream_t s) {
+            void* picked, void* lse, int n, int d, int v, cudaStream_t s) {
   Args a{};
-  a.a = x;
+  a.a = static_cast<const float*>(x);
   a.lda = d;
   a.a_ext = n;
   a.a_kv = d;
-  a.b = w;
+  a.b = static_cast<const float*>(w);
   a.ldb = d;
   a.b_ext = v;
   a.b_kv = d;
@@ -795,12 +768,10 @@ int run_fwd(const void* x, const void* w, const void* labels, void* part,
   a.labels = static_cast<const int*>(labels);
   a.part = static_cast<float*>(part);
   a.picked = static_cast<float*>(picked);
-  a.n_vtiles = cdiv(v, Tile<T>::BN);
-  cudaError_t err = launch<T, true, true, kFwdStats>(a, s);
+  a.n_vtiles = cdiv(v, Fma::BN);
+  cudaError_t err = launch<true, true, kFwdStats>(a, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ce_fwd_combine<<<cdiv(n, kThreads / 32), kThreads, 0, s>>>(
-      a.part, n, a.n_vtiles, static_cast<float*>(lse));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(combine(a.part, n, a.n_vtiles, lse, s));
 }
 
 // The f32 backward's products (the bf16 route is wg::)
@@ -808,7 +779,7 @@ int run_dlogits(const void* x, const void* w, const void* labels,
             const void* lse, const void* scale, void* ws, int n, int d,
             int v, int v0, int vcur, int ldw, cudaStream_t s) {
   Args a{};
-  a.a = x;
+  a.a = static_cast<const float*>(x);
   a.lda = d;
   a.a_ext = n;
   a.a_kv = d;
@@ -824,15 +795,15 @@ int run_dlogits(const void* x, const void* w, const void* labels,
   a.scale = static_cast<const float*>(scale);
   a.vocab = v;
   a.v0 = v0;
-  a.out = ws;
+  a.out = static_cast<float*>(ws);
   a.ldo = ldw;
-  return static_cast<int>(launch<float, true, true, kDlogits>(a, s));
+  return static_cast<int>(launch<true, true, kDlogits>(a, s));
 }
 
 int run_dx(const void* ws, const void* w, void* acc, void* out, int n, int d,
        int v0, int vcur, int ldw, int first, int last, cudaStream_t s) {
   Args a{};
-  a.a = ws;  // (n, vcur) of the workspace, K-contiguous
+  a.a = static_cast<const float*>(ws);  // (n, vcur), K-contiguous
   a.lda = ldw;
   a.a_ext = n;
   a.a_kv = (vcur + 7) / 8 * 8;  // columns up to there are written (0 past V)
@@ -843,22 +814,22 @@ int run_dx(const void* ws, const void* w, void* acc, void* out, int n, int d,
   a.m = n;
   a.n = d;
   a.k = vcur;
-  a.out = out;
+  a.out = static_cast<float*>(out);
   a.ldo = d;
   a.acc = static_cast<float*>(acc);
   a.first = first;
   a.last = last;
-  return static_cast<int>(launch<float, true, false, kDx>(a, s));
+  return static_cast<int>(launch<true, false, kDx>(a, s));
 }
 
 int run_dw(const void* ws, const void* x, void* out, int n, int d, int v0,
        int vcur, int ldw, cudaStream_t s) {
   Args a{};
-  a.a = ws;  // A[i][k] = ws[k][i]: K-major
+  a.a = static_cast<const float*>(ws);  // A[i][k] = ws[k][i]: K-major
   a.lda = ldw;
   a.a_ext = (vcur + 7) / 8 * 8;
   a.a_kv = n;
-  a.b = x;  // B[k][j] = x[k][j]: K-major
+  a.b = static_cast<const float*>(x);  // B[k][j] = x[k][j]: K-major
   a.ldb = d;
   a.b_ext = d;
   a.b_kv = n;
@@ -867,7 +838,7 @@ int run_dw(const void* ws, const void* x, void* out, int n, int d, int v0,
   a.k = n;
   a.out = static_cast<float*>(out) + static_cast<int64_t>(v0) * d;
   a.ldo = d;
-  return static_cast<int>(launch<float, false, false, kDw>(a, s));
+  return static_cast<int>(launch<false, false, kDw>(a, s));
 }
 
 bool bad_shape(int n, int d, int v, int dtype) {
@@ -876,10 +847,12 @@ bool bad_shape(int n, int d, int v, int dtype) {
          (dtype != ptt::kDtypeBF16 && dtype != ptt::kDtypeF32);
 }
 
+// The workspace's width: the bf16 dS stores up to ldw and its readers read
+// vcur rounded up to 8 columns; the f32 dS writes whole 64-wide tiles.
 bool bad_block(int v, int v0, int vcur, int ldw, int dtype) {
-  const int bn = dtype == ptt::kDtypeBF16 ? Tile<bf16>::BN : Tile<float>::BN;
-  return v0 < 0 || vcur <= 0 || v0 + vcur > v ||
-         ldw < cdiv(vcur, bn) * bn || ldw % 8 != 0;
+  const int need = dtype == ptt::kDtypeBF16 ? wg::ws_cols(vcur)
+                                            : cdiv(vcur, Fma::BN) * Fma::BN;
+  return v0 < 0 || vcur <= 0 || v0 + vcur > v || ldw < need || ldw % 8 != 0;
 }
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
@@ -889,20 +862,22 @@ constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 // The vocab width of one forward tile: the partial buffer of ptt_ce_fwd
 // holds ceil(V / it) entries per row.
 extern "C" int ptt_ce_vocab_tile(int dtype) {
-  return dtype == ptt::kDtypeBF16 ? Tile<bf16>::BN : Tile<float>::BN;
+  return dtype == ptt::kDtypeBF16 ? wg::BN : Fma::BN;
 }
 
 // x (n, d) and w (v, d) dense in one type; labels (n,) int32; part
 // (2, n, ceil(v / ptt_ce_vocab_tile)) f32 scratch; picked (n,) f32,
-// zeroed by the caller; lse (n,) f32 out.
+// zeroed by the caller; lse (n,) f32 out. bf16: every pointer 16-byte
+// aligned (TMA).
 extern "C" int ptt_ce_fwd(const void* x, const void* w, const void* labels,
                           void* part, void* picked, void* lse, int n, int d,
                           int v, int dtype, void* stream) {
   if (bad_shape(n, d, v, dtype)) return kInvalid;
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == ptt::kDtypeBF16
-             ? run_fwd<bf16>(x, w, labels, part, picked, lse, n, d, v, s)
-             : run_fwd<float>(x, w, labels, part, picked, lse, n, d, v, s);
+             ? static_cast<int>(wg::fwd(x, w, labels, part, picked, lse, n,
+                                        d, v, s))
+             : run_fwd(x, w, labels, part, picked, lse, n, d, v, s);
 }
 
 // dS of vocab rows [v0, v0 + vcur) into ws (n, ldw) in the inputs' type,

@@ -2,7 +2,7 @@
 // and casts, warp and block reductions, and the building blocks of the
 // bf16 tensor-core products (mma.sync m16n8k16 fragments read from shared
 // memory, cp.async copies into it, the store of a warp's accumulator
-// rows), which blockwise_ce.cu, quant_matmul.cu and flash_attention.cu
+// rows), which quant_matmul.cu, paged_attention.cu and flash_attention.cu
 // use.
 //
 // Element types are passed across the C interface as a code:
@@ -212,21 +212,6 @@ __device__ __forceinline__ void frag_a_ldm(uint32_t (&a)[4], const bf16* s,
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr));
-}
-
-// B fragments of the n-tiles n0 and n0 + 8 with B[k][n] = s[n0 + n][k0 +
-// k] (B^T stored row-major, rows 16-byte aligned) by one ldmatrix.x4: r0,
-// r1 = (b0, b1) of n-tile n0, r2, r3 = (b0, b1) of n-tile n0 + 8.
-__device__ __forceinline__ void frag_bt_ldm(uint32_t (&r)[4], const bf16* s,
-                                            int ld, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p =
-      s + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8;
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
 

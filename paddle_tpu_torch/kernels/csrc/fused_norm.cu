@@ -69,21 +69,41 @@
 //
 // ---------------------------------------------------------------------
 // RoPE (NeoX / Llama half-split rotation)
-// Replaces: paddle_tpu/kernels/fused_norm.py:_rope_kernel (reached
-// through _rope_pallas).
+// Replaces: paddle_tpu/kernels/fused_norm.py:_rope_kernel (launched by
+// _rope_pallas at :380; the backward, with the sin table negated, at
+// :415).
 //
-// Bound on this card: bytes of x read and written, plus the two
-// (rows, d) f32 tables; two multiplies and one add per element. The
-// backward is the inverse rotation: this kernel launched with the sin
-// table negated (paddle_tpu/kernels/fused_norm.py:406-418).
+// out = x * cos_f + roll(x, d/2) * (sign * sin_f), f32 math rounded once
+// to x's type, for x (rows, heads, d) and the f32 tables cos_f, sin_f
+// (rows, d) = (cat(cos, cos), cat(-sin, sin)). sign is 1 for the forward
+// and -1 for the backward (the inverse rotation): negation is exact, so
+// the backward needs no negated copy of the table and its result has the
+// bits of a launch on -sin_f.
 //
-// Design: one thread per output element of x (rows, heads, d):
-// out[c] = x[c] * cos_f[c] + x[(c + d/2) % d] * sin_f[c] with the
-// sign-folded sin table, f32 math rounded once to x's type. The partner
-// element sits in the same head row, so the second read hits the cache
-// line the neighbouring thread loaded. The products and the sum are
-// rounded separately (no fused multiply-add), as the plain version
-// computes them.
+// Bound on this card: bytes: x read once and written once, plus the two
+// (rows, d) f32 tables once; two multiplies and one add per element.
+//
+// Design: a team of threads owns one token row of the tables and walks
+// all of that token's heads (at decode, with fewer tokens than the card
+// has SMs to spare, a group of them, so the launch still spreads over
+// the SMs). Thread p of a head slot owns the column pair (c, c + d/2) of
+// kV columns, c = kV p (kV = 8 bf16 or 4 f32 values: 16 bytes), so it
+// reads each x once, both halves of a head row as 16-byte loads, and
+// writes both outputs as 16-byte stores; neighbouring threads touch
+// neighbouring chunks. It loads its share of the token's cos_f / sin_f
+// rows (both halves) into registers once, issued after its first heads'
+// x so that both are in flight together, and reuses it for every head of
+// its slot, two heads in flight a thread (four took 139 registers a
+// thread, and ran slower), one where the launch has too few threads
+// for two. A block is never narrower than a warp. The scalar
+// instance (kV 1) runs the same design where d/2 is not a multiple of kV
+// or a pointer is not 16-byte aligned. Index math within a row is 32-bit;
+// only the row base is 64-bit. The products and the sum are rounded
+// separately (__fmul_rn, __fadd_rn: no fused multiply-add), as the plain
+// version computes them, so the result is bit-equal to it; the sign
+// multiplies the product, not the table, so nothing waits on the table
+// before the x loads are issued.
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 
@@ -94,6 +114,13 @@ namespace {
 constexpr int kMaxNormD = 12032;  // the backward's dw row within 48 KB
 constexpr int kMaxBlock = 512;    // threads a block (and a team) at most
 constexpr int kRopeThreads = 256;
+constexpr int kRopeHeads = 2;         // heads in flight a thread at most
+// threads an H100 SXM holds at once (132 SMs x 2048): fewer heads a
+// thread until a launch has that many, where the shape allows
+constexpr int64_t kRopeFill = 132 * 2048;
+// blocks a small launch (decode) is spread over at least, its tokens'
+// heads split into groups of their own blocks
+constexpr int kRopeBlocks = 2 * 132;
 
 // kV consecutive values of T moved by one access: 16 bytes in the vector
 // instance, one element in the scalar one.
@@ -415,25 +442,115 @@ int run(const NormArgs& a, int dtype, int vector, int chunks) {
   return static_cast<int>(err);
 }
 
-template <typename T>
+// One team of `pairs_t` x `slots` threads a (token, head group): thread
+// (slot, p) takes the column pairs p, p + pairs_t, ... (of `pairs`) of the
+// group's heads slot, slot + slots, ... (`hpg` heads a group, `groups`
+// groups a token).
+template <typename T, int kV, int kHeads>
 __global__ void __launch_bounds__(kRopeThreads) rope_kernel(
     const T* __restrict__ x, const float* __restrict__ cos_f,
-    const float* __restrict__ sin_f, T* __restrict__ out, int64_t total,
-    int heads, int d) {
+    const float* __restrict__ sin_f, T* __restrict__ out, int n, int heads,
+    int d, int pairs, int pairs_t, int slots, int groups, int hpg,
+    float sign) {
+  const int team = pairs_t * slots;
+  const int tk = threadIdx.x / team, r = threadIdx.x - tk * team;
+  // (token, group) index: n * groups < 2^31 (groups > 1 only for n <
+  // kRopeBlocks)
+  const int vt = blockIdx.x * (blockDim.x / team) + tk;
+  const int tok = vt / groups;
+  if (tok >= n) return;
+  const int h_begin = (vt - tok * groups) * hpg;
+  const int h_end = min(heads, h_begin + hpg);
+  const int slot = r / pairs_t, p0 = r - slot * pairs_t;
   const int half = d / 2;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < total; i += stride) {
-    const int c = static_cast<int>(i % d);
-    const int64_t n = i / d / heads;  // token row of the tables
-    const int partner = c < half ? c + half : c - half;
-    const float xv = ptt::to_f32(x[i]);
-    const float xr = ptt::to_f32(x[i - c + partner]);
-    const int64_t t = n * d + c;
-    out[i] = ptt::from_f32<T>(
-        __fadd_rn(__fmul_rn(xv, cos_f[t]), __fmul_rn(xr, sin_f[t])));
+  const int64_t t = tok;
+  const int64_t row = t * heads * d;     // the only 64-bit offsets
+  const T* xr = x + row;
+  T* orow = out + row;
+  const float* cr = cos_f + t * d;
+  const float* sr = sin_f + t * d;
+  for (int p = p0; p < pairs; p += pairs_t) {
+    const int c = p * kV;
+    float cl[kV], ch[kV], sl[kV], sh[kV];
+    bool first = true;
+    for (int h0 = h_begin + slot; h0 < h_end; h0 += kHeads * slots) {
+      Chunk<T, kV> lo[kHeads], hi[kHeads];
+#pragma unroll
+      for (int k = 0; k < kHeads; ++k) {
+        const int h = h0 + k * slots;
+        if (h < h_end) {
+          lo[k] = load_chunk<T, kV>(xr + h * d + c);
+          hi[k] = load_chunk<T, kV>(xr + h * d + c + half);
+        }
+      }
+      // the table share after the first heads' loads, so both are in
+      // flight at once
+      if (first) {
+        ptt::load_f32<kV>(cr + c, cl);
+        ptt::load_f32<kV>(cr + c + half, ch);
+        ptt::load_f32<kV>(sr + c, sl);
+        ptt::load_f32<kV>(sr + c + half, sh);
+        first = false;
+      }
+#pragma unroll
+      for (int k = 0; k < kHeads; ++k) {
+        const int h = h0 + k * slots;
+        if (h >= h_end) continue;
+        Chunk<T, kV> ol, oh;
+#pragma unroll
+        for (int i = 0; i < kV; ++i) {
+          const float a = ptt::to_f32(lo[k].v[i]);
+          const float b = ptt::to_f32(hi[k].v[i]);
+          // sign * (b * s) has the bits of b * (sign * s): negation is
+          // exact and rounding is symmetric
+          ol.v[i] = ptt::from_f32<T>(__fadd_rn(
+              __fmul_rn(a, cl[i]), __fmul_rn(sign, __fmul_rn(b, sl[i]))));
+          oh.v[i] = ptt::from_f32<T>(__fadd_rn(
+              __fmul_rn(b, ch[i]), __fmul_rn(sign, __fmul_rn(a, sh[i]))));
+        }
+        store_chunk<T, kV>(orow + h * d + c, ol);
+        store_chunk<T, kV>(orow + h * d + c + half, oh);
+      }
+    }
   }
+}
+
+// The RoPE launch: up to kRopeHeads heads a thread while the launch still
+// has kRopeFill threads; a token's heads in groups of their own teams
+// while there are fewer than kRopeBlocks tokens; as many teams a block as
+// fit kRopeThreads while there are still kRopeBlocks blocks, and at least
+// a warp's worth.
+template <typename T, int kV>
+cudaError_t rope_launch(const void* x, const float* cos_f,
+                        const float* sin_f, void* out, int n, int heads,
+                        int d, float sign, cudaStream_t s) {
+  const int pairs = d / 2 / kV;
+  const int pairs_t = pairs < kRopeThreads ? pairs : kRopeThreads;
+  int per = kRopeHeads;
+  while (per > 1 && static_cast<int64_t>(n) * ((heads + per - 1) / per) *
+                            pairs_t < kRopeFill)
+    per /= 2;
+  const int all_slots = (heads + per - 1) / per;
+  const int groups =
+      n >= kRopeBlocks ? 1 : std::min(all_slots, (kRopeBlocks + n - 1) / n);
+  const int hpg = (heads + groups - 1) / groups;
+  const int slots = std::min((hpg + per - 1) / per, kRopeThreads / pairs_t);
+  const int team = pairs_t * slots;
+  const int64_t teams = static_cast<int64_t>(n) * groups;
+  const int warp_teams = std::max(1, 32 / team);   // no block below a warp
+  const int per_block = static_cast<int>(
+      std::min<int64_t>(kRopeThreads / team,
+                        std::max<int64_t>(warp_teams, teams / kRopeBlocks)));
+  if (teams > 0x7fffff00) return cudaErrorInvalidValue;  // int indices
+  const int64_t blocks = (teams + per_block - 1) / per_block;
+  // one head a thread: the instance without the second head's registers
+  // (80 against 106 in bf16), so more threads are resident
+  auto kern =
+      per > 1 ? rope_kernel<T, kV, kRopeHeads> : rope_kernel<T, kV, 1>;
+  kern<<<static_cast<unsigned>(blocks), per_block * team, 0, s>>>(
+      static_cast<const T*>(x), cos_f, sin_f, static_cast<T*>(out), n, heads,
+      d, pairs, pairs_t, slots, groups, hpg, sign);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -473,27 +590,36 @@ extern "C" int ptt_rmsn_bwd(const void* h, const void* weight,
   return run<true>(a, dtype, vector, chunks);
 }
 
-// out = rope(x) for x (n, heads, d) with f32 tables cos_f, sin_f (n, d).
-extern "C" int ptt_rope_apply(const void* x, const void* cos_f,
-                              const void* sin_f, void* out, int n, int heads,
-                              int d, int x_dtype, void* stream) {
-  if (d <= 0 || d % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = static_cast<int64_t>(n) * heads * d;
-  if (total == 0) return 0;
-  const int64_t want = (total + kRopeThreads - 1) / kRopeThreads;
-  const int blocks = static_cast<int>(want < 65535 ? want : 65535);
+// out = rope(x) for x (n, heads, d) with f32 tables cos_f, sin_f (n, d),
+// the sin table taken times sign (1: the rotation; -1: its inverse, the
+// backward). Any even d; the 16-byte instance where d/2 is a multiple of
+// 16 bytes of x and every pointer is 16-byte aligned, else the scalar one.
+extern "C" int ptt_rope(const void* x, const void* cos_f, const void* sin_f,
+                        void* out, int n, int heads, int d, float sign,
+                        int x_dtype, void* stream) {
+  if (d <= 0 || d % 2 != 0 || n < 0 || heads < 0 ||
+      (sign != 1.f && sign != -1.f) ||
+      static_cast<int64_t>(heads) * d > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || heads == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   auto c = static_cast<const float*>(cos_f);
   auto sn = static_cast<const float*>(sin_f);
+  const bool aligned =
+      aligned16(x) && aligned16(out) && aligned16(c) && aligned16(sn);
+  const int half = d / 2;
+  cudaError_t err;
   if (x_dtype == ptt::kDtypeF32)
-    rope_kernel<float><<<blocks, kRopeThreads, 0, s>>>(
-        static_cast<const float*>(x), c, sn, static_cast<float*>(out), total,
-        heads, d);
+    err = aligned && half % 4 == 0
+              ? rope_launch<float, 4>(x, c, sn, out, n, heads, d, sign, s)
+              : rope_launch<float, 1>(x, c, sn, out, n, heads, d, sign, s);
   else if (x_dtype == ptt::kDtypeBF16)
-    rope_kernel<__nv_bfloat16><<<blocks, kRopeThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), c, sn,
-        static_cast<__nv_bfloat16*>(out), total, heads, d);
+    err = aligned && half % 8 == 0
+              ? rope_launch<__nv_bfloat16, 8>(x, c, sn, out, n, heads, d,
+                                              sign, s)
+              : rope_launch<__nv_bfloat16, 1>(x, c, sn, out, n, heads, d,
+                                              sign, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -9,9 +9,9 @@ tensor goes to the kernel or raises.
 Both ops are `torch.autograd.Function`s when a gradient is wanted, as the
 JAX ops are `custom_vjp`s: the RMSNorm forward then also keeps the f32
 rstd of each row and the backward is its own kernel; the RoPE backward is
-the forward kernel launched with the sin table negated (the inverse
-rotation). Without a gradient (serving) the plain forward runs and keeps
-nothing.
+the forward kernel launched with sign -1 on the sin table (the inverse
+rotation; the kernel negates as it reads, so no negated table is made).
+Without a gradient (serving) the plain forward runs and keeps nothing.
 
 `plan(n, d, dtype)` chooses the RMSNorm kernels' layout (threads a row,
 rows a block, 16-byte or scalar accesses, chunks a thread, grid) from
@@ -360,7 +360,7 @@ def rope_apply_bwd_ref(g, cos_f, sin_f):
                           -sin_f).reshape(g.shape)
 
 
-def _rope_launch(x, cos_f, sin_f, counter):
+def _rope_launch(x, cos_f, sin_f, sign, counter):
     b, s, h, d = x.shape
     if cos_f.shape != (b * s, d) or cos_f.dtype != torch.float32 \
             or sin_f.shape != cos_f.shape or sin_f.dtype != torch.float32:
@@ -368,13 +368,16 @@ def _rope_launch(x, cos_f, sin_f, counter):
                          f"got {tuple(cos_f.shape)} {cos_f.dtype}")
     _check_cuda_inputs("rope_apply", [x, cos_f, sin_f], x.dtype)
     out = torch.empty_like(x)
-    lib = _build.load_library()
-    status = lib.ptt_rope_apply(
-        x.data_ptr(), cos_f.data_ptr(), sin_f.data_ptr(), out.data_ptr(),
-        b * s, h, d, _DTYPE_CODE[x.dtype], _stream(x))
-    _build.check(status, counter)
+    _build.check(_launch_rope(x, cos_f, sin_f, out, sign), counter)
     launches[counter] += 1
     return out
+
+
+def _launch_rope(x, cos_f, sin_f, out, sign):
+    b, s, h, d = x.shape
+    return _build.load_library().ptt_rope(
+        x.data_ptr(), cos_f.data_ptr(), sin_f.data_ptr(), out.data_ptr(),
+        b * s, h, d, float(sign), _DTYPE_CODE[x.dtype], _stream(x))
 
 
 def _rope_fwd(x, cos_f, sin_f):
@@ -382,17 +385,18 @@ def _rope_fwd(x, cos_f, sin_f):
         return rope_apply_ref(x, tables=(cos_f, sin_f))
     if x.device.type != "cuda":
         raise ValueError(f"rope_apply: unsupported device {x.device}")
-    return _rope_launch(x, cos_f, sin_f, "rope_apply")
+    return _rope_launch(x, cos_f, sin_f, 1.0, "rope_apply")
 
 
 def rope_apply_bwd(g, cos_f, sin_f):
     """Gradient of `rope_apply` with respect to x: the RoPE kernel on g
-    with the sin table negated (JAX `_rope_bwd`)."""
+    with sign -1 on the sin table (JAX `_rope_bwd`, which negates the
+    table)."""
     if g.device.type == "cpu":
         return rope_apply_bwd_ref(g, cos_f, sin_f)
     if g.device.type != "cuda":
         raise ValueError(f"rope_apply_bwd: unsupported device {g.device}")
-    return _rope_launch(g, cos_f, torch.neg(sin_f), "rope_apply_bwd")
+    return _rope_launch(g, cos_f, sin_f, -1.0, "rope_apply_bwd")
 
 
 class _Rope(torch.autograd.Function):

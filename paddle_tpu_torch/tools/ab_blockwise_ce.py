@@ -10,14 +10,16 @@ training phases). Each TREE is a directory of CUDA sources laid out as
 `paddle_tpu_torch/kernels/csrc` (a `git archive` of the parent's, an edited
 variant); pass trees more than once, in the order parent, change, change,
 parent, to see the spread. For each tree in turn, its kernels are built,
-held against the twin with chip_smoke's rules (lse within 1e-4, dx and dW
+held against the twin with chip_smoke's rules (lse within 1e-4, the
+forward's lse and the backward the same bits twice, dx and dW
 entry by entry within 2^-6 of |ref| + row RMS + 2^-6 RMS), and timed by
 CUDA-graph replay: the forward, dS, dx and dW over the 4 super-blocks, and
 the whole backward (`ce_bwd`). Beside each product it prints the time of
-`torch.matmul` of the same bare product at the same shapes (x . W_sᵀ,
-dS . W_s, dSᵀ . x per super-block, in the same tree's run), a yardstick of
-GEMM efficiency only: it leaves out the epilogues (the exp pass, the f32
-accumulator), and the port never calls it. Each tree's registers and spills
+`torch.matmul` of the same bare product at the same shapes (x . Wᵀ over
+all of V for the forward; x . W_sᵀ, dS . W_s, dSᵀ . x per super-block, in
+the same tree's run), a yardstick of GEMM efficiency only: it leaves out
+the epilogues (the forward's stats, the exp pass, the f32 accumulator),
+and the port never calls it. Each tree's registers and spills
 of the CE kernels are printed from the build log when it compiles. With
 `--step` it also trains phase 7 (dense loss, no CE launch: the control)
 and phase 9 (bench.py's configuration: the blockwise loss) on that tree's
@@ -92,7 +94,7 @@ def main(argv=None):
     acc = torch.empty((n, d), dtype=torch.float32, device=dev)
     dx, dw = torch.empty_like(x), torch.empty_like(w)
     s_out = {vc: torch.empty((n, vc), dtype=x.dtype, device=dev)
-             for _, vc in blocks}
+             for _, vc in blocks + [(0, v)]}
     bound = 2 * n * d * v / cs.BF16_TENSOR_FLOPS * 1e3
     runs = []
     for tree in args.trees:
@@ -107,7 +109,8 @@ def main(argv=None):
                 again = bce.ce_bwd(x, w, lab, lse, count, one)
                 torch.cuda.synchronize()
                 same = bool(torch.equal(again[0], gx)
-                            and torch.equal(again[1], gw))
+                            and torch.equal(again[1], gw)
+                            and torch.equal(bce.ce_fwd(x, w, lab)[1], lse))
                 cs._check(f"{tree} lse", lse, lse_r, cs.F32_TOL)
                 ratio = {k: cs._check_rows(f"{tree} {k}", a, b,
                                            cs.CE_BF16_TOL)[1]
@@ -128,6 +131,9 @@ def main(argv=None):
                   "bwd": cs._time_ms(lambda: bce.ce_bwd(x, w, lab, lse, count,
                                                         one), [()], iters=4)}
             matmul = {
+                "fwd": cs._time_ms(lambda: torch.matmul(x, w.t(),
+                                                        out=s_out[v]),
+                                   [()], iters=10),
                 "dS": cs._time_ms(lambda: [torch.matmul(
                     x, w[v0:v0 + vc].t(), out=s_out[vc])
                     for v0, vc in blocks], [()], iters=4),

@@ -17,11 +17,16 @@ dk/dv and pair ms per shape. With `--step` it also trains phase 7
 (TinyLlama-1.1B, dense loss, fused norm and RoPE, 5 timed steps) and phase 9
 (bench.py's configuration, 10 timed steps) on that tree's kernels and
 prints their step ms and tokens/s; with `--profile` also their
-torch.profiler rows (device busy ms, idle share, the top kernels).
+torch.profiler rows (device busy ms, idle share, the top kernels). The
+steps run this checkout's Python on each tree's kernels; a tree from
+before `ptt_rope` gets its RoPE launched as that revision launched it
+(`legacy_rope`).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
 import sys
 
@@ -73,17 +78,45 @@ def _kernels(tree, dev):
     return out
 
 
+@contextlib.contextmanager
+def legacy_rope(lib):
+    """Route the RoPE wrapper to a library from before `ptt_rope`: its
+    `ptt_rope_apply`, which takes no sign, on the sin table negated by
+    torch.neg for the backward, as that revision launched it."""
+    lib.ptt_rope_apply.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    lib.ptt_rope_apply.restype = ctypes.c_int
+
+    def launch(x, cos_f, sin_f, out, sign):
+        b, s, h, d = x.shape
+        sin = sin_f if sign > 0 else torch.neg(sin_f)
+        return lib.ptt_rope_apply(
+            x.data_ptr(), cos_f.data_ptr(), sin.data_ptr(), out.data_ptr(),
+            b * s, h, d, fn._DTYPE_CODE[x.dtype], fn._stream(x))
+
+    saved, fn._launch_rope = fn._launch_rope, launch
+    try:
+        yield
+    finally:
+        fn._launch_rope = saved
+
+
 def _steps(tree, dev, card, profile):
+    """Phase 7's and phase 9's steps on the kernels of the library in use
+    (`tree`'s, inside `_build.sources`)."""
+    lib = _build.load_library()
     out = {}
-    for tag, phase in (("phase7", cs.training_phase),
-                       ("phase9", cs.bench_training_phase)):
-        m = phase(dev, _counters, _reset, card, profile)
-        out[tag] = {k: m[k] for k in ("step_ms", "tokens_per_s", "mfu",
-                                      "losses", "launches_per_step")}
-        if profile:
-            out[tag]["profile"] = m["profile"]
-        print(f"[ab-step] {tree} {tag}: step {m['step_ms']:.1f} ms, "
-              f"{m['tokens_per_s']:.1f} tokens/s", flush=True)
+    with (contextlib.nullcontext() if hasattr(lib, "ptt_rope")
+          else legacy_rope(lib)):
+        for tag, phase in (("phase7", cs.training_phase),
+                           ("phase9", cs.bench_training_phase)):
+            m = phase(dev, _counters, _reset, card, profile)
+            out[tag] = {k: m[k] for k in ("step_ms", "tokens_per_s", "mfu",
+                                          "losses", "launches_per_step")}
+            if profile:
+                out[tag]["profile"] = m["profile"]
+            print(f"[ab-step] {tree} {tag}: step {m['step_ms']:.1f} ms, "
+                  f"{m['tokens_per_s']:.1f} tokens/s", flush=True)
     return out
 
 

@@ -1,5 +1,5 @@
-"""A/B the RMSNorm kernels of several `csrc/` trees on one card, in one
-process:
+"""A/B the RMSNorm and RoPE kernels of several `csrc/` trees on one card,
+in one process:
 
     python -m paddle_tpu_torch.tools.ab_fused_norm [--step] [--profile] \
         [--plans] [--out results.json] TREE [TREE ...]
@@ -16,20 +16,27 @@ forward at (8, 4096) with and without a residual, (6370, 4096) with a
 residual and (16384, 2048) with a residual and rstd; the backward at
 (16384, 2048) with and without gh. Each prints beside its bound and the
 library yardsticks (F.rms_norm at decode; x + residual then F.rms_norm
-with a residual; none for the backward). With `--step` it also trains
-phase 7 (TinyLlama-1.1B, dense loss, fused norm and RoPE) and phase 9
+with a residual; none for the backward). Then chip_smoke's RoPE phase
+runs on the tree's kernels: forward and backward held bit for bit
+against the twin in f32 and bf16, then timed in bf16 at the decode
+(8, 1, 32|8, 128), first batched prefill call's (1, 5460, 32|8, 128) and
+training (8, 2048, 32|4, 64) shapes, q and k, each beside its bound and
+the twin (no single PyTorch call computes RoPE). With `--step` it also
+trains phase 7 (TinyLlama-1.1B, dense loss, fused norm and RoPE) and phase 9
 (bench.py's configuration, plain norm) on that tree's kernels, as
 `tools.ab_flash` does; with `--profile` also their torch.profiler rows,
 the RMSNorm kernels' own among them. With `--plans` it also times each
 tree's kernels over launch plans other than `fused_norm.plan`'s (threads
 a row, rows a block and, for the backward, blocks an SM) at the training
 shape, each held to the twin first. Each tree's registers and spills of
-the RMSNorm instances are printed from the build log when it compiles.
+the RMSNorm and RoPE instances are printed from the build log when it
+compiles.
 
-A tree from before `ptt_rmsn_fwd` (the parent's) has the entry points
+A tree from before `ptt_rmsn_fwd` has the entry points
 `ptt_rms_norm_residual` and `ptt_rms_norm_bwd`, with a backward grid of
 at most 264 blocks: its kernels are launched through those, as that
-revision did.
+revision did. A tree from before `ptt_rope` runs its RoPE as that
+revision did (`tools.ab_flash.legacy_rope`).
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import sys
 import torch
 
 import chip_smoke as cs
+from paddle_tpu_torch.inference.paged import PagedKVEngine
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import fused_norm as fn
 from paddle_tpu_torch.tools import ab_flash
@@ -90,16 +98,24 @@ def _legacy(lib):
 
 
 def _registers(log):
-    """{instance: (registers, stack bytes)} of the RMSNorm kernels in a
-    build log (nvcc -Xptxas -v)."""
+    """{instance: (registers, stack bytes)} of the RMSNorm and RoPE kernels
+    in a build log (nvcc -Xptxas -v); each entry function's lines up to
+    the next one's."""
     out, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"(rmsn_(?:fwd|bwd)_kernel)I(\w+?)Li(\d+)ELi(\d+)"
-                      r"ELb(\d)", ln)
-        if m:
-            kind, t, v, k, flag = m.groups()
-            t = "bf16" if "bfloat" in t else "f32"
-            name = f"{kind}<{t},{v},{k},{flag}>"
+        if "Compiling entry function" in ln:
+            name = None
+            m = re.search(r"(rmsn_(?:fwd|bwd)_kernel)I(\w+?)Li(\d+)ELi(\d+)"
+                          r"ELb(\d)", ln)
+            r = re.search(r"(rope_kernel)I(\w+?)Li(\d+)ELi(\d+)E", ln)
+            if m:
+                kind, t, v, k, flag = m.groups()
+                name = (f"{kind}<{'bf16' if 'bfloat' in t else 'f32'},{v},"
+                        f"{k},{flag}>")
+            elif r:
+                kind, t, v, h = r.groups()
+                name = (f"{kind}<{'bf16' if 'bfloat' in t else 'f32'},{v},"
+                        f"{h}>")
         elif name and "Used" in ln and "registers" in ln:
             regs = int(re.search(r"Used (\d+) registers", ln).group(1))
             out[name] = (regs, out.get(name, (0, 0))[1])
@@ -191,6 +207,26 @@ def _kernels(tree, dev):
     return out
 
 
+def _rope(tree, dev, prefill_m):
+    """chip_smoke's RoPE entries on `tree`'s kernels, and one line per
+    case."""
+    out = {}
+    for name, e in cs.rope_phases(dev, fn, prefill_m).items():
+        for tag in ("decode", "prefill", "train"):
+            for kv in ("", "k_"):
+                pre = f"{tag}_{kv}"
+                ms, bound = e[pre + "ms"], e[pre + "bound_ms"]
+                out[f"{name} {tag} {kv[:-1] or 'q'}"] = {
+                    "shape": e[pre + "shape"], "ms": ms, "bound_ms": bound,
+                    "plain_ms": e[pre + "plain_ms"],
+                    "share_of_bound": bound / ms}
+                print(f"[ab] {tree} {name} {tag} {kv[:-1] or 'q'} "
+                      f"{e[pre + 'shape']}: {ms:.4f} ms (bound {bound:.4f}, "
+                      f"{bound / ms:.0%}; plain {e[pre + 'plain_ms']:.4f})",
+                      flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trees", nargs="+", help="csrc/ trees, in ABBA order")
@@ -208,21 +244,28 @@ def main(argv=None):
     dev = torch.device("cuda")
     card = cs._card()
     print(card)
+    prefill_m = cs._prefill_call_ms(cs._prompts(8, 128256, seed=0), 7,
+                                    PagedKVEngine._bucket)[0]
     runs = []
     for tree in args.trees:
-        with _build.sources(tree) as lib:
+        with _build.sources(tree) as lib, contextlib.ExitStack() as legacy:
             old = not hasattr(lib, "ptt_rmsn_fwd")
+            old_rope = not hasattr(lib, "ptt_rope")
             regs = _registers(_build.build_info()["log"])
             if regs:
                 print(f"[ab-regs] {tree} {regs}", flush=True)
-            with _legacy(lib) if old else contextlib.nullcontext():
-                run = {"tree": tree, "legacy_entry_points": old,
-                       "registers": regs, "kernels": _kernels(tree, dev)}
-                if args.plans and not old:
-                    run["plans"] = _plans(tree, dev)
-                if args.step:
-                    run["steps"] = ab_flash._steps(tree, dev, card,
-                                                   args.profile)
+            if old:
+                legacy.enter_context(_legacy(lib))
+            if old_rope:
+                legacy.enter_context(ab_flash.legacy_rope(lib))
+            run = {"tree": tree, "legacy_entry_points": old,
+                   "legacy_rope": old_rope, "registers": regs,
+                   "kernels": _kernels(tree, dev),
+                   "rope": _rope(tree, dev, prefill_m)}
+            if args.plans and not old:
+                run["plans"] = _plans(tree, dev)
+            if args.step:
+                run["steps"] = ab_flash._steps(tree, dev, card, args.profile)
         runs.append(run)
     if args.out:
         with open(args.out, "w") as f:

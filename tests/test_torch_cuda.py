@@ -12,7 +12,10 @@ rounding step, 2^-7 relative. The RMSNorm kernels run at decode,
 prefill and training rows, d up to 12032, rows that are not whole
 16-byte chunks and views that are not 16-byte aligned (both the scalar
 instance); h is bit-equal to x + residual, y and dh the same bits from
-call to call, dw held to its largest entry and the same bits twice;
+call to call, dw held to its largest entry and the same bits twice.
+RoPE, forward and backward, is bit-equal to its twin (both round the two
+products and their sum apart) in f32 and bf16, in its 16-byte and its
+scalar instance, and its backward runs no aten.neg;
 `test_rms_norm_bwd_rule_rejects_a_dropped_warp` shows the dh rule failing
 a backward whose row mean leaves out one warp's columns. The decode
 kernel's f32 output from bf16
@@ -28,10 +31,13 @@ steps of a row's RMS over millions of entries).
 kernels that are wrong on some rows only. The blockwise cross-entropy
 kernels' dx and dW are held by the same rule (2^-6 in bf16: both sides
 round dS to bf16 once, and a dS that rounds the other way moves a row by
-2^-8 of its size), their lse within 1e-5 relative;
-`test_ce_bf16_rule_rejects_planted_faults` shows it failing a dx that
-drops one vocab tile, a dW that drops its last 64 rows and a dS without
-its one-hot; `test_ce_bf16_kernels_match_ref_at_ragged_edges` runs
+2^-8 of its size), their lse and picked within 1e-5 relative, and the
+same bits from call to call; `test_ce_bf16_rule_rejects_planted_faults`
+shows the rules failing a dx that drops one vocab tile, a dW that drops
+its last 64 rows, a dS without its one-hot and a forward whose sum leaves
+out three quarters of each tile (the lse rule, 1e-4 (1 + |ref|));
+`test_ce_bf16_kernels_match_ref_at_ragged_edges` and
+`test_ce_bf16_forward_matches_ref` run
 super-blocks narrower than the 256-wide vocab tile and ragged rows, D
 and V, `test_ce_kernels_past_the_old_int32_cap` n * v past 2^31. The int8
 decode kernel's f32 output within 1e-4 of its twin (both dequantize the
@@ -161,10 +167,10 @@ def test_rms_norm_kernel_matches_ref(cuda, dtype, rows, d):
 @pytest.mark.parametrize("seq", [1, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rope_kernel_matches_ref(cuda, dtype, seq):
-    # seq 1: decode rows at scattered positions; seq 1024: the batched
-    # prefill's q/k with positions arange per row and one shared table
-    # pair, 2^25 elements, past the launcher's 65535-block cap, so the
-    # grid-stride loop runs more than one pass
+    # bit for bit: the kernel rounds both products and their sum as the
+    # twin does. seq 1: decode rows at scattered positions (one head a
+    # thread); seq 1024: the batched prefill's q/k with positions arange
+    # per row and one shared table pair (four heads a thread)
     g = torch.Generator(device=cuda).manual_seed(1)
     if seq == 1:
         pos = torch.randint(0, 8000, (8, 1), generator=g, device=cuda,
@@ -178,8 +184,7 @@ def test_rope_kernel_matches_ref(cuda, dtype, seq):
         out = tfn.rope_apply(x, pos, 500000.0, tables=tables)
         ref = tfn.rope_apply_ref(x, pos, 500000.0, tables=tables)
         torch.cuda.synchronize()
-        torch.testing.assert_close(out.float(), ref.float(),
-                                   rtol=_tol(dtype), atol=_tol(dtype))
+        assert torch.equal(out, ref)
 
 
 def _check_norm_bwd(dtype, x, gy, gh, w):
@@ -272,14 +277,71 @@ def test_rope_backward_kernel_matches_ref(cuda, dtype):
     out = tfn.rope_apply_bwd(x, *tables)
     ref = tfn.rope_apply_bwd_ref(x, *tables)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype),
-                               atol=_tol(dtype))
+    assert torch.equal(out, ref)
     before = tfn.launches["rope_apply_bwd"]
     xr = x.clone().requires_grad_(True)
     tfn.rope_apply(xr, pos, 10000.0, tables=tables).backward(x)
     assert tfn.launches["rope_apply_bwd"] == before + 1
-    torch.testing.assert_close(xr.grad.float(), ref.float(),
-                               rtol=_tol(dtype), atol=_tol(dtype))
+    assert torch.equal(xr.grad, ref)
+
+
+# (d, element offset of x's view, heads) of the RoPE kernel's other
+# instances: d 72 (bf16: half 36 is not a multiple of 8 values, the scalar
+# instance; f32: the 16-byte one), a view one element into its buffer (not
+# 16-byte aligned: the scalar instance), and d 2050 (1025 column pairs, so
+# a thread walks more than one pair)
+_ROPE_SCALAR = [(72, 0, 32), (128, 1, 8), (2050, 0, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,offset,heads", _ROPE_SCALAR)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_other_instances_match_ref_bit_for_bit(cuda, dtype, d, offset,
+                                                    heads):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    pos = torch.randint(0, 4096, (3, 37), generator=g, device=cuda,
+                        dtype=torch.int32)
+    tables = tfn.rope_tables(pos.reshape(-1), d, 500000.0)
+    buf = torch.randn(offset + 3 * 37 * heads * d, generator=g,
+                      device=cuda).to(dtype)
+    x = buf[offset:].view(3, 37, heads, d)
+    assert (x.data_ptr() % 16 != 0) == (offset > 0)
+    for got, ref in ((tfn.rope_apply(x, pos, 500000.0, tables=tables),
+                      tfn.rope_apply_ref(x, pos, 500000.0, tables=tables)),
+                     (tfn.rope_apply_bwd(x, *tables),
+                      tfn.rope_apply_bwd_ref(x, *tables))):
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_rope_backward_launches_no_neg(cuda):
+    """The backward takes the sin table with sign -1 inside the kernel: no
+    aten.neg (or any other op but the kernel's output allocation) runs in
+    rope_apply_bwd or in the autograd backward of rope_apply."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    pos = torch.arange(64, dtype=torch.int32, device=cuda).repeat(2, 1)
+    tables = tfn.rope_tables(pos.reshape(-1), 64, 10000.0)
+    x = torch.randn(2, 64, 4, 64, device=cuda).to(torch.bfloat16)
+    with Ops() as ops:
+        tfn.rope_apply_bwd(x, *tables)
+    assert not [n for n in ops.names if n.startswith("neg")], ops.names
+    xr = x.clone().requires_grad_(True)
+    out = tfn.rope_apply(xr, pos, 10000.0, tables=tables)
+    with Ops() as ops:
+        out.backward(x)
+    assert not [n for n in ops.names if n.startswith("neg")], ops.names
+    assert torch.equal(xr.grad, tfn.rope_apply_bwd_ref(x, *tables))
 
 
 def _flash_inputs(device, dtype, b, s, hq, hk, d, seed=0):
@@ -905,6 +967,46 @@ def test_ce_bf16_kernels_match_ref_at_ragged_edges(cuda, n, d, v, vs,
     assert torch.equal(again["dw"], got["dw"])
 
 
+def _picked_ref(x, w, lab):
+    """x_i . W_{label_i} in f32 (0 for a label outside [0, V))."""
+    ok = (lab >= 0) & (lab < w.shape[0])
+    rows = w[lab.clamp(0, w.shape[0] - 1).long()].float()
+    return torch.where(ok, (x.float() * rows).sum(-1), 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labels", ["random", "last_tile", "ignored"])
+@pytest.mark.parametrize("n,d,v", [c[:3] for c in _CE_RAGGED])
+def test_ce_bf16_forward_matches_ref(cuda, n, d, v, labels):
+    """The forward's stats epilogue on the wgmma GEMM against the twin at
+    ragged rows, D and V (V 1000 and 777: the last 256-wide vocab tile is
+    232 and 9 columns wide, so the -inf mask of the columns past V
+    counts), with random labels, every label in the last vocab tile, and
+    every label ignore_index (nothing picked, loss 0): lse and picked
+    within 1e-5, the same bits from call to call."""
+    x, w, lab = _ce_inputs(cuda, torch.bfloat16, n=n, d=d, v=v)
+    tile = _build.load_library().ptt_ce_vocab_tile(1)
+    assert tile == 256
+    if labels == "last_tile":
+        first = (v - 1) // tile * tile
+        lab = torch.arange(n, device=cuda, dtype=torch.int32) % (v - first) \
+            + first
+    elif labels == "ignored":
+        lab = torch.full_like(lab, -100)
+    lse, picked = tbce._launch_fwd(x, w, lab)
+    loss = tbce.ce_fwd(x, w, lab)[0]
+    torch.cuda.synchronize()
+    ref_loss, ref_lse, _ = tbce.ce_fwd_ref(x, w, lab, 64)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(picked, _picked_ref(x, w, lab), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=0)
+    if labels == "ignored":
+        assert not picked.any() and float(loss) == 0.0
+    again = tbce._launch_fwd(x, w, lab)
+    assert torch.equal(again[0], lse) and torch.equal(again[1], picked)
+
+
 @pytest.mark.cuda
 def test_ce_kernels_past_the_old_int32_cap(cuda):
     """N 18432 = 9 x 2048 rows at Llama-3's vocab of 128256: n * v passes
@@ -971,23 +1073,39 @@ _CE_FAULTS = {
         "        d0 = (d0 - (col == lab[v] ? 1.f : 0.f)) * sc[v];\n"
         "        d1 = (d1 - (col + 1 == lab[v] ? 1.f : 0.f)) * sc[v];\n",
         "        d0 = d0 * sc[v];\n        d1 = d1 * sc[v];\n"),
+    # the forward's epilogue sums exp over each thread's own 64 columns
+    # and leaves out the quad's other three (no shuffle of the sum)
+    "fwd_sum_without_quad_shuffle": (
+        ("lse",),
+        "      sum += __shfl_xor_sync(0xffffffffu, sum, 1);\n"
+        "      sum += __shfl_xor_sync(0xffffffffu, sum, 2);\n",
+        ""),
 }
+
+
+def _lse_ratio(out, ref):
+    """The largest |out - ref| / (1e-4 (1 + |ref|)): the lse rule holds when
+    it is at most 1."""
+    return float(((out - ref).abs() / (1e-4 * (1 + ref.abs()))).max())
 
 
 @pytest.mark.cuda
 def test_ce_bf16_rule_rejects_planted_faults(cuda, tmp_path, monkeypatch):
-    """The kernels pass the entry-by-entry rule and each planted fault
-    fails it: the rows whose label lies in the dropped vocab tile lose
-    their dominant term in dx, the vocab rows labelled by the dropped
-    rows lose theirs in dW, and without the one-hot every labelled row
-    and vocab row does. Each faulty library is built from a copy of
-    csrc/ in tmp_path."""
+    """The kernels pass the entry-by-entry rule (dx, dW) and the lse rule
+    and each planted fault fails its rule: the rows whose label lies in
+    the dropped vocab tile lose their dominant term in dx, the vocab rows
+    labelled by the dropped rows lose theirs in dW, without the one-hot
+    every labelled row and vocab row does, and a forward that sums a
+    quarter of each tile's columns gives every row an lse about log 4
+    short. Each faulty library is built from a copy of csrc/ in
+    tmp_path."""
     monkeypatch.setattr(tbce, "_WORKSPACE_BYTES", 320 * 128 * 2)
     x, w, lab = _ce_inputs(cuda, torch.bfloat16, n=320)
     good = _ce_outputs(x, w, lab)
     refs = _ce_refs(x, w, lab)
     for name in ("dx", "dw"):
         _ce_close(good[name], refs[name], torch.bfloat16, name)
+    assert _lse_ratio(good["lse"], refs["lse"]) <= 1.0
     src = Path(_build.__file__).resolve().parent / "csrc"
     seen = {}
     for fault, (spoiled, line, faulty) in _CE_FAULTS.items():
@@ -1000,8 +1118,9 @@ def test_ce_bf16_rule_rejects_planted_faults(cuda, tmp_path, monkeypatch):
         with _build.sources(csrc, tmp_path / fault / "_build"):
             bad = _ce_outputs(x, w, lab)
         for name in spoiled:
-            seen[f"{fault} {name}"] = _rows_ratio(bad[name], refs[name],
-                                                  2 ** -6)
+            seen[f"{fault} {name}"] = (
+                _lse_ratio(bad[name], refs[name]) if name == "lse" else
+                _rows_ratio(bad[name], refs[name], 2 ** -6))
     print(f"|err| / row-rule bound of the planted faults: {seen}")
     assert all(r > 1.0 for r in seen.values()), seen
 
