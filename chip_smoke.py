@@ -34,9 +34,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    shapes. SDPA (enable_gqa) is the flash yardstick;
 5. Llama-3-8B at full width (32 layers, bf16, weights from a seed) behind
    a PagedKVEngine serving 8 requests of 128..1024 prompt tokens and 64
-   new tokens each, one of them joining mid-decode; the launch counters
-   of the three kernels show that path went through them; a second run
-   gives the same greedy tokens;
+   new tokens each, one of them joining mid-decode. Each decode tick is
+   one replay of the engine's captured CUDA graph (the warm-up tick and
+   the capture come first, at the first tick); the launch counters of
+   the three kernels show that path went through them, as exact counts
+   over every decode step, the warm-up's included. A replay adds the
+   counts its capture took, so two more replays of the captured tick run
+   under torch.profiler, and each decode-path kernel's rows in that trace
+   must equal what the counters gained (the replays' kernel time is
+   printed beside the untraced tick's host wall). A second run gives
+   the same greedy tokens, and so does a run through the engine's
+   private eager tick (`_eager_program`), whose decode tokens/s and tick
+   ms are printed beside the captured path's. Then the serving loop:
+   `stream()` over two requests with the background ticker running
+   (which captures the tick on its own thread) gives each the tokens
+   `generate()` gave it, a request cancelled mid-decode returns every
+   page and its reservation, and `stop()` joins the ticker;
 6. continuous-batching parity on a 2-layer full-width f32 model: a
    request's greedy tokens alone equal its tokens when it joins
    mid-decode of 7 others (or, at a near-tie, the two tokens' logits
@@ -68,9 +81,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    float layer on a prefill activation; tokens in vocabulary, pages
    back with their scale rows zeroed, int8 decode launches = 32 x decode
    steps, W8A16 launches = 225 x model calls, of which the wgmma route's
-   = 224 x prefill calls above its threshold, a second run the same
-   tokens, KV bytes per slot at most 0.51 x phase 5's. It reports the
-   top-1 agreement of the first tokens with phase 5's bf16 model.
+   = 224 x prefill calls above its threshold (decode steps counted with
+   the warm-up tick's), the kernel rows of two traced replays equal to
+   what the counters gained (W8A16's split-K kernel among them), a
+   second run the same tokens, the private eager
+   tick the same tokens (its decode tokens/s and tick ms printed beside
+   the captured path's), KV bytes per slot at most 0.51 x phase 5's. It
+   reports the top-1 agreement of the first tokens with phase 5's bf16
+   model.
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -82,7 +100,8 @@ old int32 cap (N 18432 = 9 x 2048 rows, Llama-3-8B's head: D 4096,
 V 128256, so N x V > 2^31).
 
 `--profile` also traces one prefill and two decode ticks of phases 5 and
-10 and one step of each training configuration.
+10 (two replays of the captured tick, after one untraced tick that
+captures it) and one step of each training configuration.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero
@@ -91,6 +110,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import subprocess
@@ -119,6 +139,10 @@ FLASH_BF16_TOL = 2 ** -5
 CE_BF16_TOL = 2 ** -6
 SERVING_KERNELS = ("paged_decode_attention", "rms_norm_residual",
                    "rope_apply")
+# the decode-path kernels as a profiler trace names them (`traced_replays`)
+TRACED_DECODE = ("paged_decode_split<", "paged_decode_combine<",
+                 "rmsn_fwd_kernel<", "rope_kernel<")
+TRACED_INT8 = TRACED_DECODE + ("w8a16_kernel<",)
 
 
 def _card():
@@ -1209,11 +1233,15 @@ def _prompts(n, vocab, seed, lo=128, hi=1024):
             .astype(np.int32) for _ in range(n)]
 
 
-def _serve(model, prompts, max_new, late, **geom):
+def _serve(model, prompts, max_new, late, eager=False, **geom):
     """Submit all but `late` prompts, run one tick, submit the late one
-    (it joins mid-decode), drain. Returns (engine, token lists)."""
+    (it joins mid-decode), drain. `eager` runs every tick through the
+    engine's private eager tick instead of its captured graph. Returns
+    (engine, token lists)."""
     from paddle_tpu_torch.inference.paged import PagedKVEngine
     eng = PagedKVEngine(model, device=model.device, **geom)
+    if eager:
+        eng._tick_program = eng._eager_program
     reqs = {i: eng.submit(p, max_new) for i, p in enumerate(prompts)
             if i != late}
     eng.step()
@@ -1252,11 +1280,14 @@ def serving_phase(dev, counters, reset, card, profile=False):
                              f"reserved {eng._reserved_unalloc}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
-    steps = eng.stats["ticks"] * eng.steps_per_tick
+    steps = _decode_steps(eng)
     if launches["paged_decode_attention"] != cfg.num_hidden_layers * steps:
         raise AssertionError(f"decode launches {launches} != 32 x {steps}")
     st = dict(eng.stats)
+    traced = traced_replays(eng, counters, reset, card, "serve",
+                            TRACED_DECODE)
     kv_slot = eng.kv_bytes_per_slot()
+    peak = torch.cuda.max_memory_allocated() / 1e9
     del eng
     eng2, toks2 = _serve(model, prompts, max_new, late=7, **geom)
     if toks2 != toks:
@@ -1265,30 +1296,200 @@ def serving_phase(dev, counters, reset, card, profile=False):
     del eng2
     metrics = dict(
         card=card, prompt_lens=[int(p.size) for p in prompts],
-        decode_tokens_per_s=st["decode_tokens"] / st["tick_s"],
+        **_tick_metrics(st),
         prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_s"],
-        tick_ms=st["tick_s"] / st["ticks"] * 1e3,
         # the same work again: host-clock rates vary from run to run
         repeat_decode_tokens_per_s=st2["decode_tokens"] / st2["tick_s"],
         repeat_prefill_tokens_per_s=(st2["prefill_tokens"]
                                      / st2["prefill_s"]),
-        ticks=st["ticks"], decode_steps=steps,
-        kv_bytes_per_slot=kv_slot, wall_s=wall,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        launches=launches, tokens=toks)
-    print(f"[serve] {card}: decode {metrics['decode_tokens_per_s']:.1f} "
-          f"tok/s, prefill {metrics['prefill_tokens_per_s']:.1f} tok/s, "
-          f"tick {metrics['tick_ms']:.2f} ms ({geom['steps_per_tick']} steps "
-          f"of 8 slots), KV {kv_slot} B/slot, wall {wall:.2f} s, launches "
-          f"{launches}; second run identical, decode "
+        decode_steps=steps, kv_bytes_per_slot=kv_slot, wall_s=wall,
+        peak_mem_gb=peak, launches=launches, tokens=toks,
+        traced_replays=traced)
+    metrics["eager"] = _eager_run(model, prompts, max_new, geom, toks,
+                                  "serve")
+    print(f"[serve] {card}: captured tick: decode "
+          f"{metrics['decode_tokens_per_s']:.1f} tok/s, prefill "
+          f"{metrics['prefill_tokens_per_s']:.1f} tok/s, tick "
+          f"{metrics['tick_ms']:.2f} ms ({geom['steps_per_tick']} steps "
+          f"of 8 slots; warm-up ticks {st['warmup_ticks']}, warm-up and "
+          f"capture {st['warmup_s']:.2f} s), KV {kv_slot} B/slot, wall "
+          f"{wall:.2f} s, peak {peak:.2f} GB, launches {launches}; second "
+          f"run identical, decode "
           f"{metrics['repeat_decode_tokens_per_s']:.1f} tok/s, prefill "
-          f"{metrics['repeat_prefill_tokens_per_s']:.1f} tok/s")
+          f"{metrics['repeat_prefill_tokens_per_s']:.1f} tok/s; eager tick "
+          f"identical, decode "
+          f"{metrics['eager']['decode_tokens_per_s']:.1f} tok/s, tick "
+          f"{metrics['eager']['tick_ms']:.2f} ms")
+    metrics["serving_loop"] = serving_loop(model, prompts, geom, card)
     if profile:
         metrics["profile"] = profile_serving(model, prompts, max_new, geom,
                                              card)
     del model
     torch.cuda.empty_cache()
     return metrics
+
+
+def _decode_steps(eng):
+    """Decode steps the engine launched: its ticks' and the warm-up
+    ticks' that preceded each capture."""
+    return (eng.stats["ticks"] + eng.stats["warmup_ticks"]) \
+        * eng.steps_per_tick
+
+
+def _tick_metrics(st):
+    return dict(decode_tokens_per_s=st["decode_tokens"] / st["tick_s"],
+                tick_ms=st["tick_s"] / st["ticks"] * 1e3,
+                ticks=st["ticks"], warmup_ticks=st["warmup_ticks"],
+                warmup_s=st["warmup_s"])
+
+
+def _eager_run(model, prompts, max_new, geom, toks, tag):
+    """The same requests through the engine's private eager tick: the
+    greedy tokens must equal the captured path's."""
+    eng, got = _serve(model, prompts, max_new, late=7, eager=True, **geom)
+    if got != toks:
+        bad = [i for i, (a, b) in enumerate(zip(got, toks)) if a != b]
+        raise AssertionError(f"{tag}: the eager tick gave other tokens "
+                             f"than the captured tick (requests {bad})")
+    if eng.stats["warmup_ticks"] or eng._programs:
+        raise AssertionError(f"{tag}: the eager engine captured a graph")
+    out = _tick_metrics(eng.stats)
+    del eng
+    gc.collect()            # the engine holds its own bound method
+    return out
+
+
+def _trace_want(c):
+    """The kernel rows a trace must hold for launch counts `c`: a wrapper
+    call launches each of its kernels once (the decode kernel's split and
+    combine), and the W8A16 counter counts both routes. The split-K
+    reduce runs only where K is split, so no count holds it."""
+    decode = c["paged_decode_attention"] + c["paged_decode_attention_int8"]
+    wgmma = c["weight_only_int8_matmul_wgmma"]
+    return {"paged_decode_split<": decode, "paged_decode_combine<": decode,
+            "rmsn_fwd_kernel<": c["rms_norm_residual"],
+            "rope_kernel<": c["rope_apply"],
+            "w8a16_kernel<": c["weight_only_int8_matmul"] - wgmma,
+            "w8a16_wgmma_kernel<": wgmma}
+
+
+def traced_replays(eng, counters, reset, card, tag, path, n=2):
+    """The launch gates read from the card. A captured tick's counts come
+    from its capture (each replay adds them), so here `n` replays of the
+    engine's greedy tick run under torch.profiler, and each kernel's rows
+    in the trace must equal what the counters gained; every kernel of
+    `path` must have run. Every slot is idle (KV writes land in the sink
+    page, and the decode kernel reads no page), so the replays do less
+    work than a served tick. Also the replays' kernel time beside the
+    host wall of `n` untraced replays of the same inputs: an idle
+    estimate (busy traced, wall untraced)."""
+    from torch.profiler import ProfilerActivity, profile
+    program = eng._programs[("tick", False)]
+    eng._idle_inputs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        program.graph.replay()
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) / n * 1e3
+    reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            program()
+        torch.cuda.synchronize()
+    counted = counters()
+    want = _trace_want(counted)
+    rows = dict.fromkeys(want, 0)
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA") or _device_us(e) <= 0:
+            continue
+        busy_us += _device_us(e)
+        for sym in rows:
+            if sym in e.key:
+                rows[sym] += e.count
+    others = {k: v for k, v in counted.items() if v and k not in (
+        "paged_decode_attention", "paged_decode_attention_int8",
+        "rms_norm_residual", "rope_apply", "weight_only_int8_matmul",
+        "weight_only_int8_matmul_wgmma")}
+    if rows != want or others:
+        raise AssertionError(f"{tag}: {n} traced replays ran kernels "
+                             f"{rows}, the counters say {want} "
+                             f"(other counters {others})")
+    if min(want[k] for k in path) <= 0:
+        raise AssertionError(f"{tag}: a replay launched no {path}: {want}")
+    busy_ms = busy_us / 1e3 / n
+    out = dict(replays=n, kernel_rows=rows, busy_ms=busy_ms,
+               replay_ms=replay_ms,
+               replay_idle_estimate=1 - busy_ms / replay_ms)
+    print(f"[{tag}] {card}: {n} traced replays of the captured tick (every "
+          f"slot idle) ran {rows}, as the counters say; kernels "
+          f"{busy_ms:.3f} ms a replay; untraced a replay takes "
+          f"{replay_ms:.3f} ms (idle estimate "
+          f"{out['replay_idle_estimate']:.3f})")
+    return out
+
+
+def serving_loop(model, prompts, geom, card):
+    """stream() over two requests with the background ticker running
+    gives each the tokens generate() gave it; a request cancelled
+    mid-decode returns every page and its reservation; stop() joins the
+    ticker within its timeout. The two prompts lie in different prefill
+    buckets, so each prefills alone whenever the ticker admits it."""
+    from paddle_tpu_torch.inference.paged import PagedKVEngine
+    by_bucket = {}
+    for p in prompts:
+        by_bucket.setdefault(PagedKVEngine._bucket(p.size), p)
+    pair = list(by_bucket.values())[:2]
+    max_new = 16
+    want = PagedKVEngine(model, device=model.device, **geom).generate(
+        pair, max_new)
+    eng = PagedKVEngine(model, device=model.device, **geom)
+    ids = np.zeros((2, max(p.size for p in pair)), np.int32)
+    mask = np.zeros(ids.shape, bool)
+    for i, p in enumerate(pair):
+        ids[i, :p.size], mask[i, :p.size] = p, True
+    try:
+        t0 = time.perf_counter()
+        rows = list(eng.stream(ids, max_new_tokens=max_new,
+                               attention_mask=mask))
+        stream_s = time.perf_counter() - t0
+        got = [[int(r[j]) for r in rows] for j in range(2)]
+        if got != want:
+            raise AssertionError("stream(): rows differ from generate()'s "
+                                 f"tokens: {got} vs {want}")
+        if ("tick", False) not in eng._programs:
+            raise AssertionError("stream(): the ticker captured no tick")
+        req = eng.submit(pair[0], 64)
+        it = req.stream_tokens()
+        next(it), next(it)
+        req.cancel()
+        if not req.done.wait(timeout=60):
+            raise AssertionError("cancel: the request did not end")
+        deadline = time.monotonic() + 60
+        while eng.has_work() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if sorted(eng._free) != list(range(1, eng.num_pages)) \
+                or eng._reserved_unalloc != 0 \
+                or eng.stats["cancelled"] != 1:
+            raise AssertionError(
+                f"cancel: free {len(eng._free)}, reserved "
+                f"{eng._reserved_unalloc}, cancelled "
+                f"{eng.stats['cancelled']}")
+    finally:
+        t1 = time.perf_counter()
+        eng.stop()
+        stop_s = time.perf_counter() - t1
+    if eng._ticker.is_alive():
+        raise AssertionError("stop(): the ticker did not join in 30 s")
+    print(f"[serve-loop] {card}: stream() of 2 requests x {max_new} tokens "
+          f"(prompts {[int(p.size) for p in pair]}) equal to generate() in "
+          f"{stream_s:.2f} s; a request cancelled after "
+          f"{len(req.tokens)} tokens returned its pages and reservation; "
+          f"stop() joined in {stop_s * 1e3:.1f} ms")
+    return dict(stream_s=stream_s, stop_s=stop_s,
+                cancelled_after=len(req.tokens))
 
 
 def _device_us(evt):
@@ -1305,17 +1506,18 @@ def _norm_rows(kernels):
 
 def profile_serving(model, prompts, max_new, geom, card, label=""):
     """Where the time goes (`--profile`): torch.profiler over the prefill
-    of all prompts and over two decode ticks; device busy time is the sum
-    of the kernels' device times (one stream, so they do not overlap),
-    idle share = 1 - busy / host wall time."""
+    of all prompts and over two decode ticks, replays of the captured
+    tick (one untraced tick first warms it up and captures it); device
+    busy time is the sum of the kernels' device times (one stream, so
+    they do not overlap), idle share = 1 - busy / host wall time."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference.paged import PagedKVEngine
     eng = PagedKVEngine(model, device=model.device, **geom)
     for p in prompts:
         eng.submit(p, max_new)
     out = {}
-    for phase, run in (("prefill", eng._admit),
-                       ("decode_2_ticks", lambda: (eng.step(), eng.step()))):
+
+    def trace(phase, run):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1341,6 +1543,10 @@ def profile_serving(model, prompts, max_new, geom, card, label=""):
             print(f"[profile]   {ms:9.3f} ms  x{n:<6} {name}")
         for name, ms, n in out[phase]["norm"]:
             print(f"[profile] norm {ms:9.3f} ms  x{n:<6} {name}")
+
+    trace("prefill", eng._admit)
+    eng.step()          # untraced: the warm-up tick and the capture
+    trace("decode_2_ticks", lambda: (eng.step(), eng.step()))
     eng.run_until_idle()
     return out
 
@@ -1823,7 +2029,7 @@ def int8_serving_phase(dev, counters, reset, card, bf16_serving,
     left = float(eng._scales[:, :, :-1].abs().sum())
     if left != 0.0:
         raise AssertionError(f"int8: freed pages kept scales (sum {left})")
-    steps = eng.stats["ticks"] * eng.steps_per_tick
+    steps = _decode_steps(eng)
     calls = eng.stats["prefill_calls"] + steps
     per_call = 7 * cfg.num_hidden_layers + 1
     if launches["paged_decode_attention_int8"] != cfg.num_hidden_layers * steps:
@@ -1854,6 +2060,7 @@ def int8_serving_phase(dev, counters, reset, card, bf16_serving,
         raise AssertionError(f"int8 KV bytes per slot {kv_slot} = "
                              f"{kv_ratio:.4f} x bf16's, want <= 0.51")
     st = dict(eng.stats)
+    traced = traced_replays(eng, counters, reset, card, "int8", TRACED_INT8)
     peak = torch.cuda.max_memory_allocated() / 1e9
     del eng
     eng2, toks2 = _serve(model, prompts, max_new, late=7, **geom)
@@ -1867,28 +2074,33 @@ def int8_serving_phase(dev, counters, reset, card, bf16_serving,
     agree = {f"token_{j}": sum(a[j] == b[j] for a, b in zip(toks, ref))
              / len(ref) for j in (0, 1)}
     metrics = dict(
-        card=card, decode_tokens_per_s=st["decode_tokens"] / st["tick_s"],
+        card=card, **_tick_metrics(st),
         prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_s"],
-        tick_ms=st["tick_s"] / st["ticks"] * 1e3,
         repeat_decode_tokens_per_s=st2["decode_tokens"] / st2["tick_s"],
         repeat_prefill_tokens_per_s=(st2["prefill_tokens"]
                                      / st2["prefill_s"]),
-        ticks=st["ticks"], decode_steps=steps,
+        decode_steps=steps,
         prefill_calls=st["prefill_calls"], kv_bytes_per_slot=kv_slot,
         kv_ratio_to_bf16=kv_ratio, weight_gb=weight_gb, wall_s=wall,
         peak_mem_gb=peak, convert_s=convert_s, convert_peak_gb=convert_peak,
         projection_rel_err=rel, top1_agreement_with_bf16=agree,
-        launches=launches, tokens=toks)
-    print(f"[int8] {card}: decode {metrics['decode_tokens_per_s']:.1f} tok/s,"
-          f" prefill {metrics['prefill_tokens_per_s']:.1f} tok/s, tick "
+        launches=launches, tokens=toks, traced_replays=traced)
+    metrics["eager"] = _eager_run(model, prompts, max_new, geom, toks, "int8")
+    print(f"[int8] {card}: captured tick: decode "
+          f"{metrics['decode_tokens_per_s']:.1f} tok/s, prefill "
+          f"{metrics['prefill_tokens_per_s']:.1f} tok/s, tick "
           f"{metrics['tick_ms']:.2f} ms ({geom['steps_per_tick']} steps of 8 "
-          f"slots), KV {kv_slot} B/slot ({kv_ratio:.4f} x bf16), weights "
-          f"{weight_gb:.2f} GB, peak {peak:.2f} GB, wall {wall:.2f} s, "
-          f"launches {launches} ({per_call} W8A16 x {calls} model calls); "
-          f"second run identical, decode "
+          f"slots; warm-up ticks {st['warmup_ticks']}, warm-up and capture "
+          f"{st['warmup_s']:.2f} s), KV {kv_slot} B/slot ({kv_ratio:.4f} x "
+          f"bf16), weights {weight_gb:.2f} GB, peak {peak:.2f} GB, wall "
+          f"{wall:.2f} s, launches {launches} ({per_call} W8A16 x {calls} "
+          f"model calls); second run identical, decode "
           f"{metrics['repeat_decode_tokens_per_s']:.1f} tok/s, prefill "
-          f"{metrics['repeat_prefill_tokens_per_s']:.1f} tok/s; top-1 "
-          f"agreement with phase 5's bf16 tokens {agree}")
+          f"{metrics['repeat_prefill_tokens_per_s']:.1f} tok/s; eager tick "
+          f"identical, decode "
+          f"{metrics['eager']['decode_tokens_per_s']:.1f} tok/s, tick "
+          f"{metrics['eager']['tick_ms']:.2f} ms; top-1 agreement with "
+          f"phase 5's bf16 tokens {agree}")
     if profile:
         metrics["profile"] = profile_serving(model, prompts, max_new, geom,
                                              card, label="int8 ")
@@ -1907,7 +2119,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import _build, launch_counters
     from paddle_tpu_torch.kernels import blockwise_ce as bce
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_norm as fn
@@ -1941,14 +2153,12 @@ def main(argv=None):
     kernels.update(ce_phases(dev, bce, fnl))
 
     def reset():
-        for d in (fn.launches, pa.launches, fa.launches, bce.launches,
-                  qm.launches):
+        for d in launch_counters():
             for k in d:
                 d[k] = 0
 
     def counters():
-        return {**pa.launches, **fn.launches, **fa.launches, **bce.launches,
-                **qm.launches}
+        return {k: v for d in launch_counters() for k, v in d.items()}
 
     serving = serving_phase(dev, counters, reset, card, args.profile)
     parity = parity_phase(dev)

@@ -13,10 +13,20 @@ Counterpart of the core of paddle_tpu/inference/paged.py:
 - Admission is reservation-based: a request is admitted only when its
   worst-case page need fits the unreserved pool, so decode never runs
   out of pages; pages are still allocated lazily, tick by tick.
-- A decode tick runs `steps_per_tick` steps over every slot. The JAX
-  engine fuses them into one `lax.scan` program; here a Python loop
-  launches them over tensors that stay on the device (finish mask
-  included), and the tick syncs with the host once, at its end.
+- A decode tick runs `steps_per_tick` steps over every slot as one
+  program, as the JAX engine's `_tick_fn` does: one body
+  (`_tick_body`) reads the slots' state from static device buffers the
+  engine allocates once, and writes the (b, n) tokens and final lengths
+  to a static output buffer. On the card the body is warmed up once and
+  captured into a CUDA graph per sampling variant (`_programs[("tick",
+  any_sample)]`), and each tick is one copy of pinned host staging into
+  the input buffers, one replay and one copy of the outputs back. A
+  capture or replay that fails raises; there is no retreat to an eager
+  tick. On the CPU the same body runs eagerly over the same buffers.
+- The kernel wrappers count their launches on the host, which a replay
+  does not run: the engine takes a capture's counts back out and adds
+  them once per replay, and counts the warm-up tick's real launches
+  (`stats["warmup_ticks"]`).
 - Prefill attention is the plain `_attend_pages`; decode attention
   (s == 1) goes through `kernels.paged_attention.paged_decode_attention`
   (the CUDA kernel on the card, its plain twin on the CPU).
@@ -27,22 +37,32 @@ Counterpart of the core of paddle_tpu/inference/paged.py:
   a touched page's earlier codes are rescaled to the new scale) and
   dequantized inside the attend; a page's scales are zeroed when it
   returns to the free list.
+- Serving: `start()` runs the scheduler on a background thread until
+  `stop()`; `stream()` yields generated tokens row by row and cancels
+  its requests when the iterator closes; a request handle can be
+  cancelled, streamed (`stream_tokens`) and waited on (`result`, with
+  a stall guard that raises when nothing drives the engine).
 
 Not in this slice (ROADMAP.md lists them): prefix cache, host tier,
 disaggregated roles, tenancy, deadlines and overload shedding,
-speculative decode, chunked prefill, observability and the background
-ticker (`start` / `stream`).
+sessions, speculative decode, chunked prefill and observability.
 """
 from __future__ import annotations
 
+import functools
 import math
+import queue
+import threading
 import time
+import warnings
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.kernels import launch_counters
 from paddle_tpu_torch.kernels.paged_attention import (check_decode_shapes,
                                                       gather_window,
                                                       paged_decode_attention)
@@ -255,10 +275,11 @@ def _process_logits_rowwise(x, temp, topk, topp):
 
 class _Request:
     """One generation request: the engine's record and the caller's
-    handle."""
+    handle (thread-safe: tokens stream through a queue)."""
 
     def __init__(self, ids, max_new_tokens, eos_token_id, do_sample,
-                 temperature, top_k, top_p, pages_needed, sample_index):
+                 temperature, top_k, top_p, pages_needed, sample_index,
+                 engine=None):
         self.prompt = np.asarray(ids, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = -1 if eos_token_id is None else int(eos_token_id)
@@ -270,15 +291,73 @@ class _Request:
         # engine-local submission index: the first sampled token derives
         # from (engine seed, this index)
         self.sample_index = sample_index
+        # weak, so an abandoned handle does not keep the engine (and its
+        # KV pools) alive; result() reads it for its stall guard
+        self._engine = weakref.ref(engine) if engine is not None else None
         self.tokens: list[int] = []
-        self.done = False
+        self.queue: queue.Queue = queue.Queue()   # token lists, then None
+        self.done = threading.Event()
+        self.cancelled = threading.Event()
+        self.error = None
 
-    def result(self):
-        """The generated tokens; the engine must have finished the
-        request (run_until_idle() or step() until done)."""
-        if not self.done:
-            raise RuntimeError("request unfinished: drive the engine with "
-                               "run_until_idle() (or step()) first")
+    def cancel(self):
+        """Abandon the request: the engine retires its slot (returning
+        its pages and reservation) at the next tick boundary."""
+        self.cancelled.set()
+
+    def stream_tokens(self):
+        """Yield accepted token ids one at a time as they are produced;
+        raises the engine's error if the request failed."""
+        while True:
+            item = self.queue.get()
+            if item is None:
+                if self.error is not None:
+                    raise self.error
+                return
+            yield from item
+
+    def result(self, stall_timeout=60.0):
+        """Block until finished; return the generated tokens.
+
+        Stall guard: submit() does not start the background ticker (only
+        stream() does). If the request is unfinished and nothing drives
+        the engine (no live ticker, no step() in flight, no new step()
+        call) for `stall_timeout` seconds, raise, naming the fix,
+        instead of blocking forever."""
+        eng_ref = self._engine
+        last_seq = None
+        last_t = time.monotonic()
+        while not self.done.wait(min(0.5, stall_timeout / 4)):
+            if eng_ref is None:
+                continue
+            eng = eng_ref()
+            if eng is None:
+                if self.done.is_set():
+                    break
+                raise RuntimeError(
+                    "result(): the engine owning this request was garbage-"
+                    "collected before the request finished; keep the "
+                    "PagedKVEngine alive and drive it (start() or "
+                    "run_until_idle()) until result() returns")
+            ticker, seq = eng._ticker, eng._step_seq
+            progressing = ((ticker is not None and ticker.is_alive())
+                           or eng._in_step or seq != last_seq)
+            del eng, ticker     # do not pin the engine across the wait
+            if progressing:
+                last_seq, last_t = seq, time.monotonic()
+                continue
+            if time.monotonic() - last_t > stall_timeout:
+                if self.done.is_set():
+                    break
+                raise RuntimeError(
+                    "result(): request unfinished and no scheduler is "
+                    "driving the engine (no ticker thread, no step() "
+                    f"progress for {stall_timeout:.1f}s); call "
+                    "engine.start() for background serving or "
+                    "engine.run_until_idle() after submit(); submit() "
+                    "does not start the ticker (stream() does)")
+        if self.error is not None:
+            raise self.error
         return list(self.tokens)
 
 
@@ -291,6 +370,29 @@ class _Slot:
         self.tok = int(tok)         # next decode input (last emitted)
         self.pages: list[int] = []  # physical pages in block-table order
         self.emitted = 0            # generated tokens accepted so far
+
+
+# the tick program's per-slot inputs: name -> (type, an idle slot's value)
+_TICK_INPUTS = {"tok": (torch.int32, 0), "lens": (torch.int32, 0),
+                "active": (torch.bool, False), "limit": (torch.int32, 0),
+                "eos": (torch.int32, -1), "temp": (torch.float32, 1.0),
+                "topk": (torch.int32, 0), "topp": (torch.float32, 1.0),
+                "wants": (torch.bool, False)}
+
+
+class _CapturedTick:
+    """One sampling variant of the tick program as a CUDA graph. A replay
+    runs none of the wrappers that count launches, so it adds the counts
+    its capture took (`delta`: (counter, name, launches) triples)."""
+
+    def __init__(self, graph, delta):
+        self.graph = graph
+        self.delta = delta
+
+    def __call__(self):
+        self.graph.replay()
+        for counter, name, n in self.delta:
+            counter[name] += n
 
 
 class PagedKVEngine:
@@ -367,15 +469,40 @@ class PagedKVEngine:
         self._slots: list[_Slot | None] = [None] * self.max_slots
         self._bt = np.zeros((self.max_slots, self.max_pages_per_slot),
                             np.int32)
+        # the tick program's static buffers: inputs filled before each
+        # tick from pinned host staging, the (b, n) tokens and final lens
+        # written back (`_tick_body`)
+        b = self.max_slots
+        shapes = {k: ((b,), dt) for k, (dt, _) in _TICK_INPUTS.items()}
+        shapes["bt"] = (self._bt.shape, torch.int32)
+        pin = mdev.type == "cuda"
+        self._staging = {k: torch.zeros(sh, dtype=dt, pin_memory=pin)
+                         for k, (sh, dt) in shapes.items()}
+        self._inputs = {k: torch.zeros(sh, dtype=dt, device=mdev)
+                        for k, (sh, dt) in shapes.items()}
+        self._outputs = torch.zeros((b, self.steps_per_tick + 1),
+                                    dtype=torch.int32, device=mdev)
+        self._programs = {}        # ("tick", any_sample) -> _CapturedTick
+        self._graph_pool = None    # one memory pool for every variant
         self._pending: list[_Request] = []
         self._seed = int(seed)
         self._submitted = 0
         self._gen = torch.Generator(device=mdev).manual_seed(self._seed)
+        # guards _pending, _submitted and _inflight
+        self._lock = threading.Lock()
+        # requests submitted and not yet retired or dropped: has_work()
+        # cannot read idle while _admit holds a popped queue
+        self._inflight = 0
+        self._step_seq = 0      # step() calls ever made, and whether one
+        self._in_step = False   # is in flight: result()'s stall guard
+        self._ticker = None
+        self._stop_flag = False
         self.stats = {"ticks": 0, "prefills": 0, "prefill_calls": 0,
                       "tokens_out": 0,
-                      "admitted": 0, "finished": 0, "prefill_s": 0.0,
-                      "tick_s": 0.0, "prefill_tokens": 0,
-                      "decode_tokens": 0}
+                      "admitted": 0, "finished": 0, "cancelled": 0,
+                      "prefill_s": 0.0, "tick_s": 0.0, "prefill_tokens": 0,
+                      "decode_tokens": 0, "warmup_ticks": 0,
+                      "warmup_s": 0.0}
 
     def kv_bytes_per_slot(self):
         """Device bytes one fully grown slot pins across every layer's KV
@@ -406,14 +533,18 @@ class PagedKVEngine:
         if pages > self.num_pages - 1:
             raise ValueError(f"request needs {pages} pages > pool size "
                              f"{self.num_pages - 1}")
-        req = _Request(ids, max_new_tokens, eos_token_id, do_sample,
-                       temperature, top_k, top_p, pages, self._submitted)
-        self._submitted += 1
-        self._pending.append(req)
+        with self._lock:
+            req = _Request(ids, max_new_tokens, eos_token_id, do_sample,
+                           temperature, top_k, top_p, pages,
+                           self._submitted, engine=self)
+            self._submitted += 1
+            self._inflight += 1
+            self._pending.append(req)
         return req
 
     def has_work(self):
-        return bool(self._pending) or any(s is not None for s in self._slots)
+        with self._lock:
+            return self._inflight > 0
 
     # -- scheduling core -------------------------------------------------
     @staticmethod
@@ -436,10 +567,18 @@ class PagedKVEngine:
             slot.pages.append(page)
 
     def _admit(self):
-        pending, self._pending = self._pending, []
+        with self._lock:
+            pending, self._pending = self._pending, []
         requeue = []
         admitted = []
         for req in pending:
+            if req.cancelled.is_set():        # cancelled while queued
+                self.stats["cancelled"] += 1
+                with self._lock:
+                    self._inflight -= 1
+                req.queue.put(None)
+                req.done.set()
+                continue
             idx = next((i for i, s in enumerate(self._slots) if s is None),
                        None)
             if idx is None or req.pages_needed > self.admission_headroom():
@@ -450,6 +589,11 @@ class PagedKVEngine:
             self._alloc_pages(idx, -(-req.prompt.size // self.page_size))
             self.stats["admitted"] += 1
             admitted.append((idx, req))
+        # back in the queue before any prefill runs: a prefill that
+        # raises leaves every waiter where the ticker's failure path
+        # finds it
+        with self._lock:
+            self._pending = requeue + self._pending
         # same-bucket prompts prefill together in one batched call
         groups = {}
         for idx, req in admitted:
@@ -457,7 +601,6 @@ class PagedKVEngine:
                               []).append((idx, req))
         for grp in groups.values():
             self._prefill_group(grp)
-        self._pending = requeue + self._pending
         return len(admitted)
 
     def _first_token(self, logits, req):
@@ -527,38 +670,60 @@ class PagedKVEngine:
                 break
         req.tokens.extend(out)
         self.stats["tokens_out"] += len(out)
+        if out:
+            req.queue.put(out)
         if finished:
             self._retire(slot_idx)
         return not finished
 
-    def _retire(self, slot_idx):
+    def _retire(self, slot_idx, reason=None):
+        """Return the slot's pages and the rest of its reservation, and
+        wake its waiter. `reason` names an abnormal end ("error"); a
+        request that finished (no reason, not cancelled) counts in
+        stats["finished"]."""
         slot = self._slots[slot_idx]
-        if self._scales is not None and slot.pages:
-            # scales only grow at scatter time: a recycled page keeping
-            # its old scale would quantize its next request's k/v on the
-            # largest magnitude any earlier request wrote (JAX
-            # `_recycle_pages`)
-            idx = torch.tensor(slot.pages, device=self.device)
-            self._scales[:, :, idx] = 0.0
+        req = slot.req
         self._free.extend(reversed(slot.pages))
         # release the unallocated remainder of this slot's reservation
-        self._reserved_unalloc -= slot.req.pages_needed - len(slot.pages)
+        self._reserved_unalloc -= req.pages_needed - len(slot.pages)
         self._bt[slot_idx, :] = 0
         self._slots[slot_idx] = None
-        self.stats["finished"] += 1
-        slot.req.done = True
+        with self._lock:
+            self._inflight -= 1
+        if reason is None and not req.cancelled.is_set():
+            self.stats["finished"] += 1
+        try:
+            if self._scales is not None and slot.pages:
+                # scales only grow at scatter time: a recycled page
+                # keeping its old scale would quantize its next request's
+                # k/v on the largest magnitude any earlier request wrote
+                # (JAX `_recycle_pages`). Between ticks, outside the graph
+                idx = torch.tensor(slot.pages, device=self.device)
+                self._scales[:, :, idx] = 0.0
+        finally:
+            req.queue.put(None)
+            req.done.set()
+
+    def _retire_each(self, idxs, reason=None):
+        """Retire every slot of `idxs`, all of them even when one
+        raises (int8's scale reset touches the device, which a sticky
+        CUDA error fails), then re-raise the first error."""
+        first = None
+        for i in idxs:
+            try:
+                self._retire(i, reason)
+            except Exception as e:      # noqa: BLE001 — retire the rest
+                first = e if first is None else first
+        if first is not None:
+            raise first
 
     def _slot_arrays(self, live):
-        b = self.max_slots
-        arrs = dict(tok=np.zeros(b, np.int32),
-                    lens=np.zeros(b, np.int32),
-                    active=np.zeros(b, bool),
-                    limit=np.zeros(b, np.int32),
-                    eos=np.full(b, -1, np.int32),
-                    temp=np.ones(b, np.float32),
-                    topk=np.zeros(b, np.int32),
-                    topp=np.ones(b, np.float32),
-                    wants=np.zeros(b, bool))
+        """The live slots' state written into the tick's pinned host
+        staging; returns numpy views of it."""
+        arrs = {k: t.numpy() for k, t in self._staging.items()}
+        for k, (_, idle) in _TICK_INPUTS.items():
+            arrs[k].fill(idle)
+        arrs["bt"][:] = self._bt
         for i in live:
             slot = self._slots[i]
             arrs["tok"][i] = slot.tok
@@ -572,17 +737,17 @@ class PagedKVEngine:
             arrs["wants"][i] = slot.req.do_sample
         return arrs
 
-    def _decode_tick(self, a):
-        """`steps_per_tick` decode steps over every slot. Everything in
-        the loop stays on the device — the finish mask too — and the
-        tick reads back tokens and lengths with one sync at its end.
-        Returns (tokens (b, n), lens (b,)) as numpy."""
-        dev = self.device
-        dt = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
-        tok, lens, active = dt["tok"], dt["lens"], dt["active"]
-        limit, eos = dt["limit"], dt["eos"]
-        any_sample = bool(a["wants"].any())
-        bt = torch.from_numpy(self._bt).to(dev)
+    # -- the tick program ------------------------------------------------
+    @torch.no_grad()
+    def _tick_body(self, any_sample):
+        """The tick program (JAX `_tick_fn`): `steps_per_tick` decode
+        steps over every slot, from the static input buffers to the
+        static output buffer ((b, n) tokens, then the final lens). It
+        reads nothing back to the host — the finish mask stays on the
+        device — so a CUDA graph can capture it."""
+        x = self._inputs
+        tok, lens, active = x["tok"], x["lens"], x["active"]
+        limit, eos, bt = x["limit"], x["eos"], x["bt"]
         fin = ~active
         cnt = torch.zeros_like(lens)
         outs = []
@@ -594,12 +759,13 @@ class PagedKVEngine:
             last = self.model.logits(h[:, -1])
             nxt = last.argmax(dim=-1).to(torch.int32)
             if any_sample:
-                u = torch.rand(last.shape, generator=self._gen, device=dev)
+                u = torch.rand(last.shape, generator=self._gen,
+                               device=last.device)
                 gumbel = -torch.log(-torch.log(u.clamp_(min=1e-20)))
-                proc = _process_logits_rowwise(last, dt["temp"], dt["topk"],
-                                               dt["topp"])
+                proc = _process_logits_rowwise(last, x["temp"], x["topk"],
+                                               x["topp"])
                 sampled = (proc + gumbel).argmax(dim=-1).to(torch.int32)
-                nxt = torch.where(dt["wants"], sampled, nxt)
+                nxt = torch.where(x["wants"], sampled, nxt)
             nxt = torch.where(live, nxt, 0)
             lens = lens + live_i
             cnt = cnt + live_i
@@ -607,9 +773,73 @@ class PagedKVEngine:
             fin = fin | hit_eos | (cnt >= limit)
             tok = nxt
             outs.append(nxt)
-        back = torch.cat([torch.stack(outs, dim=1), lens[:, None]],
-                         dim=1).cpu().numpy()
-        return back[:, :-1], back[:, -1]
+        torch.stack(outs + [lens], dim=1, out=self._outputs)
+
+    def _eager_program(self, any_sample):
+        """The tick body run eagerly: the CPU's program, and on the card
+        the yardstick the captured tick is held against."""
+        return functools.partial(self._tick_body, any_sample)
+
+    def _tick_program(self, any_sample):
+        """The tick program for this sampling variant: on the card a CUDA
+        graph captured at first use and cached under ("tick",
+        any_sample), as the JAX engine keys its programs; on the CPU the
+        body itself."""
+        if self.device.type != "cuda":
+            return self._eager_program(any_sample)
+        key = ("tick", any_sample)
+        if key not in self._programs:
+            self._programs[key] = self._capture(any_sample)
+        return self._programs[key]
+
+    def _idle_inputs(self):
+        """Every slot idle in the tick's input buffers: a run of the
+        program then writes KV only into the pools' sink page."""
+        for k, (_, idle) in _TICK_INPUTS.items():
+            self._inputs[k].fill_(idle)
+        self._inputs["bt"].zero_()
+
+    def _capture(self, any_sample):
+        """Warm the tick body up once on a side stream, then capture it,
+        both with every slot inactive: each KV write then lands in the
+        pools' sink page and no live page is touched (int8 pools'
+        quantize-at-scatter runs inside the graph). The warm-up's
+        launches are real and stay counted; the capture's are taken
+        back out and added again by every replay."""
+        t0 = time.perf_counter()
+        body = self._eager_program(any_sample)
+        self._idle_inputs()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            body()
+        cur.wait_stream(side)
+        self.stats["warmup_ticks"] += 1
+        if self._graph_pool is None:
+            # both variants share one pool: their replays never overlap
+            # (one stream, one tick at a time) and no tensor made inside
+            # a capture outlives it (the outputs go to `_outputs`)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        if any_sample:
+            # each replay draws new Gumbel noise from the engine's
+            # generator, as an eager tick would
+            graph.register_generator_state(self._gen)
+        counters = launch_counters()
+        before = [dict(c) for c in counters]
+        try:
+            # thread_local: the ticker thread may be the one capturing
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  capture_error_mode="thread_local"):
+                body()
+        finally:
+            delta = [(c, k, c[k] - b[k]) for c, b in
+                     zip(counters, before) for k in c if c[k] != b[k]]
+            for c, k, n in delta:
+                c[k] -= n
+        self.stats["warmup_s"] += time.perf_counter() - t0
+        return _CapturedTick(graph, delta)
 
     def _accept_tick(self, live, out_np, counts, eos, lens_np):
         """Truncate by budget then eos, feed the request, advance slot
@@ -625,10 +855,23 @@ class PagedKVEngine:
                 slot.tok = int(emitted[-1])
 
     def step(self):
-        """One scheduler tick: admit pending requests (prefill), then one
-        multi-step decode over every live slot. Returns True if any work
-        was done — an admission counts, even when every admitted request
-        finished in its prefill and left nothing to decode."""
+        """One scheduler tick: retire cancelled requests, admit pending
+        ones (prefill), then one run of the tick program over every live
+        slot. Returns True if any work was done — an admission counts,
+        even when every admitted request finished in its prefill and
+        left nothing to decode."""
+        self._step_seq += 1
+        self._in_step = True     # a tick in flight counts as progress
+        try:
+            return self._step_tick()
+        finally:
+            self._in_step = False
+
+    def _step_tick(self):
+        gone = [i for i, s in enumerate(self._slots)
+                if s is not None and s.req.cancelled.is_set()]
+        self.stats["cancelled"] += len(gone)
+        self._retire_each(gone)
         admitted = self._admit()
         live = [i for i, s in enumerate(self._slots) if s is not None]
         if not live:
@@ -640,16 +883,29 @@ class PagedKVEngine:
             need = min(slot.lens + n, budget_tokens)
             self._alloc_pages(i, -(-need // self.page_size))
         a = self._slot_arrays(live)
+        program = self._tick_program(bool(a["wants"].any()))
         t0 = time.perf_counter()
-        toks_np, lens_np = self._decode_tick(a)
+        for k, t in self._inputs.items():
+            t.copy_(self._staging[k], non_blocking=True)
+        program()
+        back = self._outputs.to("cpu", copy=True).numpy()
         self.stats["ticks"] += 1
         self.stats["tick_s"] += time.perf_counter() - t0
         counts = np.minimum(a["limit"], n)
-        self._accept_tick(live, toks_np, counts, a["eos"], lens_np)
+        self._accept_tick(live, back[:, :n], counts, a["eos"], back[:, n])
         return True
 
     def run_until_idle(self):
-        """Drain every pending and active request."""
+        """Drain every pending and active request. While the background
+        ticker runs it owns the scheduler (stepping here too would race
+        on pages and pools), so this waits for it to drain the work."""
+        t = self._ticker
+        if t is not None and t.is_alive():
+            while t.is_alive() and self.has_work():
+                time.sleep(0.005)
+            if t.is_alive():
+                return
+            # the ticker ended (stop()) with work left: drive it here
         while self.has_work():
             if not self.step() and self._pending:
                 raise RuntimeError(
@@ -662,3 +918,120 @@ class PagedKVEngine:
         reqs = [self.submit(p, max_new_tokens, **kw) for p in prompts]
         self.run_until_idle()
         return [r.result() for r in reqs]
+
+    # -- background ticker -----------------------------------------------
+    def start(self):
+        """Run the scheduler on a daemon thread until stop(). stream()
+        starts it; submit() does not — pair submit() with start() or
+        run_until_idle()."""
+        with self._lock:
+            if self._ticker is None or not self._ticker.is_alive():
+                self._stop_flag = False
+                self._ticker = threading.Thread(
+                    target=self._ticker_loop, daemon=True,
+                    name="PagedKVEngine-ticker")
+                self._ticker.start()
+        return self
+
+    def stop(self):
+        """Ask the ticker to end after its current tick and join it for
+        at most 30 seconds."""
+        self._stop_flag = True
+        t = self._ticker
+        if t is not None:
+            t.join(timeout=30)
+
+    def _ticker_loop(self):
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        idle = 0.0
+        while not self._stop_flag:
+            try:
+                if self.step():
+                    idle = 0.0
+                else:
+                    idle = min(0.05, idle + 0.005)
+                    time.sleep(idle)
+            except Exception as e:      # noqa: BLE001 — fail all waiters
+                self._fail_all(e)
+                raise
+
+    def _fail_all(self, error):
+        """Fail every waiter with `error`: the queued requests, and the
+        live ones, whose slots return their pages and reservations (a
+        restarted ticker is not left short of capacity)."""
+        with self._lock:
+            doomed, self._pending = self._pending, []
+            self._inflight -= len(doomed)       # dropped, not retired
+        for req in doomed:
+            req.error = error
+            req.queue.put(None)
+            req.done.set()
+        live = [i for i, s in enumerate(self._slots) if s is not None]
+        for i in live:
+            self._slots[i].req.error = error
+        self._retire_each(live, reason="error")
+
+    def stream(self, input_ids, max_new_tokens=32, *, eos_token_id=None,
+               pad_token_id=0, do_sample=False, temperature=1.0, top_k=0,
+               top_p=1.0, attention_mask=None, seed=None, deadline=None,
+               tenant=None, session=None, **_ignored):
+        """Generate from a background ticker (started here), yielding
+        one (rows,) int32 array per step: each row of `input_ids` (its
+        `attention_mask` row selecting its tokens) is its own request in
+        the continuous batch, and a finished row yields `pad_token_id`.
+        Closing the iterator early cancels the requests, so the engine
+        stops decoding for nobody."""
+        for name, val in (("deadline", deadline), ("tenant", tenant),
+                          ("session", session)):
+            if val is not None:
+                raise NotImplementedError(
+                    f"stream(): {name}= is not ported yet (ROADMAP.md "
+                    "queue 1 item 4: deadlines, tenancy, sessions)")
+        if seed is not None and do_sample:
+            warnings.warn(
+                "PagedKVEngine ignores per-request seed: sampling noise in "
+                "a continuous batch derives from the ENGINE seed and batch "
+                "composition; construct the engine with seed= for "
+                "reproducible replay", stacklevel=2)
+        ids = np.asarray(input_ids, np.int32)
+        if ids.ndim == 1:
+            ids = ids[None, :]
+        if attention_mask is not None:
+            m = np.asarray(attention_mask).astype(bool)
+            rows = [ids[i][m[i]] for i in range(ids.shape[0])]
+        else:
+            rows = list(ids)
+        self.start()
+        reqs = []
+        try:
+            for r in rows:
+                reqs.append(self.submit(
+                    r, max_new_tokens, eos_token_id=eos_token_id,
+                    do_sample=do_sample, temperature=temperature,
+                    top_k=top_k, top_p=top_p))
+        except BaseException:
+            # a later row failed: the rows already submitted would decode
+            # on for a caller that got an exception
+            for r in reqs:
+                r.cancel()
+            raise
+        streams = [r.stream_tokens() for r in reqs]
+        try:
+            for _ in range(int(max_new_tokens)):
+                row = np.full(len(reqs), pad_token_id, np.int32)
+                alive = False
+                for j, it in enumerate(streams):
+                    if it is None:
+                        continue
+                    try:
+                        row[j] = next(it)
+                        alive = True
+                    except StopIteration:
+                        streams[j] = None
+                if not alive:
+                    return
+                yield row
+        finally:
+            for r in reqs:
+                r.cancel()          # no-op if already finished

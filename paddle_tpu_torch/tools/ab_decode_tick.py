@@ -12,13 +12,17 @@ alone at chip_smoke's phase 3 shape (bf16 pools: host microseconds a
 call over 200 calls queued without a wait, and device milliseconds a
 call), then builds Llama-3-8B (bf16, random weights from seed 0, the
 fused norm and RoPE), serves chip_smoke's 8 prompts of 64 new tokens
-REPEAT times over bf16 KV pages, converts the model with
-`quantize_weight_only` and serves them REPEAT times over int8 pages. It
-prints each run's tick (host wall ms of 4 decode steps of 8 slots),
-decode tokens/s, the batched prefill calls' host wall (ms, each call
-closed by the copy of its logits to the host, so the device work is in
-it) and prefill tokens/s, and their medians over all runs but the first
-(which warms the allocator).
+(one joining after the first tick) REPEAT times over bf16 KV pages,
+converts the model with `quantize_weight_only` and serves them REPEAT
+times over int8 pages. Where the tree's engine captures its tick in a
+CUDA graph (it has `_eager_program`), each KV type is also served REPEAT
+times through the private eager tick, labelled `eager`; the tree's
+default path is labelled by the KV type alone. It prints each run's
+tick (host wall ms of 4 decode steps of 8 slots, the warm-up tick and
+the capture left out), decode tokens/s, the batched prefill calls' host
+wall (ms, each call closed by the copy of its logits to the host, so
+the device work is in it) and prefill tokens/s, and their medians over
+all runs but the first (which warms the allocator).
 """
 from __future__ import annotations
 
@@ -32,10 +36,11 @@ from pathlib import Path
 
 # runs inside each tree: only what every checkout since slice 4 has
 _CHILD = r"""
-import json, sys, time
+import gc, json, sys, time
 import numpy as np
 import torch
 import chip_smoke as cs
+from paddle_tpu_torch.inference.paged import PagedKVEngine
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama3_8b_config
 from paddle_tpu_torch.quantization import quantize_weight_only
@@ -70,19 +75,34 @@ model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
 prompts = cs._prompts(8, cfg.vocab_size, seed=0)
 geom = dict(max_slots=8, page_size=16, num_pages=641,
             max_pages_per_slot=80, steps_per_tick=4)
+
+
+def serve(kv, eager):
+    eng = PagedKVEngine(model, device=dev, kv_dtype=kv, **geom)
+    if eager:
+        eng._tick_program = eng._eager_program
+    reqs = [eng.submit(p, 64) for p in prompts[:7]]
+    eng.step()
+    reqs.append(eng.submit(prompts[7], 64))
+    eng.run_until_idle()
+    st = eng.stats
+    return (st["tick_s"] / st["ticks"] * 1e3,
+            st["decode_tokens"] / st["tick_s"],
+            st["prefill_s"] * 1e3,
+            st["prefill_tokens"] / st["prefill_s"])
+
+
+paths = [False] + ([True] if hasattr(PagedKVEngine, "_eager_program")
+                   else [])
 for kv in ("bf16", "int8"):
     if kv == "int8":
         quantize_weight_only(model)
-    runs = []
-    for _ in range(repeat):
-        eng, _ = cs._serve(model, prompts, 64, late=7, kv_dtype=kv, **geom)
-        st = eng.stats
-        runs.append((st["tick_s"] / st["ticks"] * 1e3,
-                     st["decode_tokens"] / st["tick_s"],
-                     st["prefill_s"] * 1e3,
-                     st["prefill_tokens"] / st["prefill_s"]))
-        del eng
-    out[kv] = runs
+    for eager in paths:
+        runs = []
+        for _ in range(repeat):
+            runs.append(serve(kv, eager))
+            gc.collect()
+        out[kv + (" eager" if eager else "")] = runs
 print("@@" + json.dumps(out))
 """
 
@@ -112,7 +132,7 @@ def main(argv=None):
         res = run_tree(Path(tree).resolve(), args.repeat)
         parts = [f"decode call {res['decode_call_host_us']:.2f} us host, "
                  f"{res['decode_call_ms']:.4f} ms device"]
-        for kv in ("bf16", "int8"):
+        for kv in [k for k in res if k.startswith(("bf16", "int8"))]:
             cols = list(zip(*res[kv]))
             for (name, nd), col in zip((("tick ms", 2), ("tok/s", 1),
                                         ("prefill ms", 2),

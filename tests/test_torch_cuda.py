@@ -57,6 +57,7 @@ shows it failing a split-K kernel and a wgmma kernel that leave out one
 k-tile of 64, and a converter whose byte lane reads its neighbour.
 """
 import shutil
+import time
 from pathlib import Path
 
 import numpy as np
@@ -1385,3 +1386,274 @@ def test_tiny_int8_engine_on_the_card_matches_the_cpu(cuda):
     after = {**tfn.launches, **tpa.launches, **tqm.launches}
     assert all(after[k] > counts[k] for k in path)
     assert after["paged_decode_attention"] == counts["paged_decode_attention"]
+
+
+# -- the decode tick as one captured CUDA graph ---------------------------------
+
+def _capture(run):
+    """`run` warmed up once on a side stream, then captured; returns the
+    graph and what the captured call returned (its static outputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    return graph, out
+
+
+def _wrapper_case(name, dev):
+    """(static inputs, run, new inputs) for one wrapper of the decode
+    path at a Llama-3-8B decode shape (8 slots)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    if name == "rms_norm_residual":
+        ins = [randn(8, 4096), randn(8, 4096), randn(4096)]
+        return ins, lambda: tfn.rms_norm_residual(
+            ins[0], ins[2], ins[1], 1e-5), \
+            lambda: [randn(8, 4096), randn(8, 4096), randn(4096)]
+    if name == "rope_apply":
+        pos = torch.tensor([[3], [700], [16], [1279], [0], [64], [5], [900]],
+                           dtype=torch.int32, device=dev)
+        ins = [randn(8, 1, 32, 128), pos]
+        return ins, lambda: tfn.rope_apply(ins[0], tables=tfn.rope_tables(
+            ins[1].reshape(-1), 128, 500000.0)), \
+            lambda: [randn(8, 1, 32, 128), pos.flip(0) + 11]
+    if name == "weight_only_int8_matmul":
+        assert tqm.plan(8, 4096, 14336)[0] == "split_k"
+        assert tqm.plan(8, 4096, 14336)[2] > 1        # the ws workspace
+        ins = [randn(8, 4096), codes(4096, 14336),
+               torch.rand(14336, generator=g, device=dev) / 127]
+        return ins, lambda: tqm.weight_only_int8_matmul(*ins), \
+            lambda: [randn(8, 4096), codes(4096, 14336),
+                     torch.rand(14336, generator=g, device=dev) / 127]
+    from paddle_tpu_torch.inference.paged import _quant_scatter
+    pages = 642
+
+    def inputs():
+        phys = torch.randperm(pages - 1, generator=g, device=dev)[:8] + 1
+        return [codes(2, pages, 8, 16, 128),
+                torch.rand(2, pages, 8, generator=g, device=dev) / 64,
+                randn(2, 8, 8, 128),
+                phys, torch.randint(0, 16, (8,), generator=g, device=dev)]
+
+    ins = inputs()
+    return ins, lambda: _quant_scatter(*ins), inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rms_norm_residual", "rope_apply",
+                                  "weight_only_int8_matmul",
+                                  "quant_scatter"])
+def test_decode_path_wrappers_replay_in_a_cuda_graph(cuda, name):
+    """Each wrapper the captured tick runs, captured alone: after its
+    inputs change in place, a replay gives the bits of an eager call on
+    the new values (`_quant_scatter` updates its pools and scale planes
+    in place: both runs start from the same copies of them)."""
+    ins, run, fresh = _wrapper_case(name, cuda)
+    graph, out = _capture(run)
+    for _ in range(2):
+        for t, new in zip(ins, fresh()):
+            t.copy_(new)
+        start = [t.clone() for t in ins]
+        graph.replay()
+        torch.cuda.synchronize()
+        got = ([t.clone() for t in ins[:2]] if name == "quant_scatter"
+               else [t.clone() for t in (out if isinstance(out, tuple)
+                                          else (out,))])
+        for t, s in zip(ins, start):
+            t.copy_(s)
+        want = run()
+        if name == "quant_scatter":
+            want = ins[:2]
+        elif not isinstance(want, tuple):
+            want = (want,)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+
+
+_TICK_CFG = dict(num_hidden_layers=2, vocab_size=256, hidden_size=256,
+                 intermediate_size=512, num_attention_heads=4,
+                 num_key_value_heads=2, fused_norm=True, fused_rope=True)
+# 11 allocatable pages for two slots of up to 6: later requests recycle
+# the pages of earlier ones
+_TICK_GEOM = dict(max_slots=2, page_size=4, num_pages=12,
+                  max_pages_per_slot=6, steps_per_tick=3)
+
+
+def _tick_model(dev, kv):
+    model = LlamaForCausalLM(tiny_llama_config(**_TICK_CFG), device=dev,
+                             dtype=torch.bfloat16, seed=0)
+    return quantize_weight_only(model) if kv == "int8" else model
+
+
+def _eager(eng):
+    """The engine with its tick run eagerly (the yardstick)."""
+    eng._tick_program = eng._eager_program
+    return eng
+
+
+def _drive_tick_scenario(eng, eos):
+    """A mid-decode join, an eos stop, a queued request and, after a
+    drain, a request on recycled pages."""
+    ra = eng.submit([5, 9, 2, 14], max_new_tokens=10)
+    eng.step()
+    rb = eng.submit([17, 3, 11], max_new_tokens=6)          # joins
+    rc = eng.submit([40, 41], max_new_tokens=8, eos_token_id=eos)
+    eng.run_until_idle()
+    rd = eng.submit([7, 8, 9], max_new_tokens=9)
+    eng.run_until_idle()
+    return [r.result() for r in (ra, rb, rc, rd)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_captured_tick_gives_the_eager_ticks_tokens(cuda, kv):
+    model = _tick_model(cuda, kv)
+    geom = dict(_TICK_GEOM, kv_dtype=kv)
+    probe = _eager(PagedKVEngine(model, device=cuda, **geom))
+    eos = probe.generate([[40, 41]], max_new_tokens=3)[0][-1]
+    captured = PagedKVEngine(model, device=cuda, **geom)
+    eager = _eager(PagedKVEngine(model, device=cuda, **geom))
+    got = _drive_tick_scenario(captured, eos)
+    want = _drive_tick_scenario(eager, eos)
+    assert got == want
+    assert [len(t) for t in got] == [10, 6, len(got[2]), 9]
+    assert got[2][-1] == eos and len(got[2]) <= 3
+    assert set(captured._programs) == {("tick", False)}
+    assert not eager._programs
+    assert captured.stats["warmup_ticks"] == 1
+    assert eager.stats["warmup_ticks"] == 0
+    assert captured.stats["ticks"] == eager.stats["ticks"] > 0
+    for eng in (captured, eager):
+        assert sorted(eng._free) == list(range(1, eng.num_pages))
+        assert eng._reserved_unalloc == 0
+        if kv == "int8":
+            assert float(eng._scales[:, :, 1:-1].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_sampled_captured_tick_is_seeded(cuda):
+    """The sampled variant (its own graph, the Gumbel noise drawn from
+    the engine's generator inside it): in-vocab tokens, the same from
+    two engines of one seed, greedy rows riding the same tick."""
+    model = _tick_model(cuda, "bf16")
+    outs = []
+    for _ in range(2):
+        eng = PagedKVEngine(model, device=cuda, seed=7, **_TICK_GEOM)
+        rs = eng.submit([5, 9, 2], max_new_tokens=12, do_sample=True,
+                        temperature=1.3, top_k=50, top_p=0.95)
+        rg = eng.submit([5, 9, 2], max_new_tokens=12)
+        eng.run_until_idle()
+        assert ("tick", True) in eng._programs
+        outs.append((rs.result(), rg.result()))
+    assert outs[0] == outs[1]
+    sampled, greedy = outs[0]
+    assert len(sampled) == 12 and all(0 <= t < 256 for t in sampled)
+    alone = PagedKVEngine(model, device=cuda, **_TICK_GEOM)
+    assert alone.generate([[5, 9, 2]], max_new_tokens=12)[0] == greedy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_captured_tick_launch_counts(cuda, kv):
+    """A replay adds what its capture counted; the warm-up tick's
+    launches are real and counted: after the run each kernel's count is
+    (ticks + warm-up ticks) x its launches a tick, plus the prefill
+    calls' own."""
+    model = _tick_model(cuda, kv)
+    eng = PagedKVEngine(model, device=cuda, kv_dtype=kv, **_TICK_GEOM)
+    layers, n = _TICK_CFG["num_hidden_layers"], _TICK_GEOM["steps_per_tick"]
+    decode = ("paged_decode_attention_int8" if kv == "int8"
+              else "paged_decode_attention")
+    before = {**tfn.launches, **tpa.launches, **tqm.launches}
+    eng.generate([[5, 9, 2, 14], [17, 3, 11]], max_new_tokens=10)
+    after = {**tfn.launches, **tpa.launches, **tqm.launches}
+    grew = {k: after[k] - before[k] for k in after}
+    steps = n * (eng.stats["ticks"] + eng.stats["warmup_ticks"])
+    calls = eng.stats["prefill_calls"] + steps
+    assert eng.stats["warmup_ticks"] == 1 and eng.stats["ticks"] >= 3
+    assert grew[decode] == layers * steps
+    assert grew["rms_norm_residual"] == (2 * layers + 1) * calls
+    assert grew["rope_apply"] == 2 * layers * calls
+    per_call = 7 * layers + 1
+    assert grew["weight_only_int8_matmul"] == (per_call * calls
+                                               if kv == "int8" else 0)
+    delta = {k: v for _, k, v in eng._programs[("tick", False)].delta}
+    want = {decode: layers * n, "rms_norm_residual": (2 * layers + 1) * n,
+            "rope_apply": 2 * layers * n}
+    if kv == "int8":
+        want["weight_only_int8_matmul"] = per_call * n
+    assert delta == want
+
+
+@pytest.mark.cuda
+def test_capture_unsafe_body_raises_and_runs_no_eager_tick(cuda,
+                                                           monkeypatch):
+    """A host sync planted in the tick body (an `.item()` on the card)
+    makes the capture, and so step(), raise; the engine does not retreat
+    to an eager tick."""
+    model = _tick_model(cuda, "bf16")
+    logits = model.logits
+
+    def synced(h):
+        float(h.sum().item())
+        return logits(h)
+
+    monkeypatch.setattr(model, "logits", synced)
+    eng = PagedKVEngine(model, device=cuda, **_TICK_GEOM)
+    r = eng.submit([5, 9, 2], max_new_tokens=6)
+    with pytest.raises(RuntimeError):
+        eng.step()
+    assert eng.stats["ticks"] == 0 and eng.stats["decode_tokens"] == 0
+    assert len(r.tokens) == 1          # the prefill's token, no tick's
+    assert not eng._programs
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    fresh = PagedKVEngine(model, device=cuda, **_TICK_GEOM)
+    assert len(fresh.generate([[5, 9, 2]], max_new_tokens=6)[0]) == 6
+
+
+@pytest.mark.cuda
+def test_ticker_thread_captures_streams_and_cancels(cuda):
+    """The ticker thread captures the tick (thread-local capture) and
+    stream() gives each row generate()'s tokens (prompts in different
+    prefill buckets, so each prefills alone either way); a request
+    cancelled mid-decode returns its pages and reservation; stop()
+    joins."""
+    model = _tick_model(cuda, "bf16")
+    geom = dict(_TICK_GEOM, max_pages_per_slot=8, num_pages=24)
+    prompts = [[5, 9, 2, 14], [17, 3, 11, 4, 8, 1, 2, 7, 6]]
+    want = PagedKVEngine(model, device=cuda, **geom).generate(
+        prompts, max_new_tokens=12)
+    eng = PagedKVEngine(model, device=cuda, **geom)
+    try:
+        ids = np.zeros((2, 9), np.int32)
+        mask = np.zeros((2, 9), bool)
+        for i, p in enumerate(prompts):
+            ids[i, :len(p)], mask[i, :len(p)] = p, True
+        rows = list(eng.stream(ids, max_new_tokens=12, attention_mask=mask))
+        assert [[int(r[j]) for r in rows] for j in range(2)] == want
+        assert ("tick", False) in eng._programs
+        r = eng.submit([5, 9, 2], max_new_tokens=20)
+        it = r.stream_tokens()
+        next(it), next(it)
+        r.cancel()
+        assert r.done.wait(timeout=60)
+        deadline = time.monotonic() + 60
+        while eng.has_work() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert sorted(eng._free) == list(range(1, eng.num_pages))
+        assert eng._reserved_unalloc == 0
+        assert eng.stats["cancelled"] == 1
+    finally:
+        eng.stop()
+    assert not eng._ticker.is_alive()
