@@ -88,7 +88,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    tick the same tokens (its decode tokens/s and tick ms printed beside
    the captured path's), KV bytes per slot at most 0.51 x phase 5's. It
    reports the top-1 agreement of the first tokens with phase 5's bf16
-   model.
+   model;
+11. prefix-cached, chunked serving on phase 5's model (run right after
+   it): PagedKVEngine(max_slots=8, page_size=16, max_pages_per_slot=256,
+   prefix_cache_pages=512, prefill_chunk=512, bf16 KV). Wave 1, eight
+   requests of a shared 1024-token system prompt plus a 32-256-token
+   tail, admits together (all miss); wave 2, eight more on the same
+   system prompt, hits 64 pages each (one joins mid-decode); two prompts
+   of 3000-4000 tokens prefill in lockstep rounds of 512 while wave 2's
+   last request decodes; 32 new tokens each. Gates: 8 hits of 1024
+   tokens, prefill tokens = the cold prompts' plus wave 2's tails, the
+   prefill calls the rounds and buckets need, the page ledger settled
+   when idle (every cached page refcount 1, free + cached = the pool),
+   decode, RMSNorm and RoPE launches exact, a second run and the eager
+   tick the same tokens. It prints wave 1's and wave 2's prefill wall
+   and tokens/s, the decode rates (wave 2 also on a cold engine) and
+   prefix_stats(); the two long prompts' peak memory and prefill time
+   chunked against whole (fresh engines, in turns); then an expired
+   deadline refused at submit, a request expiring in the queue of a full
+   engine with no prefill, and a submit past max_pending shed. Its
+   parity runs on phase 6's 2-layer f32 model with f32 and int8 KV: a
+   warm hit's tokens equal a cold, unchunked engine's and a chunked
+   3000-4000-token prompt's the whole prompt's (or, at a near tie, the
+   two tokens' logits agree within 1e-3 on a cold engine); int8 shared
+   pages' scale rows bit-unchanged through the warm request.
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -101,7 +124,8 @@ V 128256, so N x V > 2^31).
 
 `--profile` also traces one prefill and two decode ticks of phases 5 and
 10 (two replays of the captured tick, after one untraced tick that
-captures it) and one step of each training configuration.
+captures it), the same for phase 11's wave 2 warm (after wave 1) and
+cold, and one step of each training configuration.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero
@@ -1233,15 +1257,29 @@ def _prompts(n, vocab, seed, lo=128, hi=1024):
             .astype(np.int32) for _ in range(n)]
 
 
+def _engine(model, eager=False, **geom):
+    """An engine on the model's card; `eager` runs every tick through
+    the engine's private eager tick instead of its captured graph."""
+    from paddle_tpu_torch.inference.paged import PagedKVEngine
+    eng = PagedKVEngine(model, device=model.device, **geom)
+    if eager:
+        eng._tick_program = eng._eager_program
+    return eng
+
+
+def _release():
+    """Free the pools of an engine just dropped (an eager engine holds
+    its own bound method, a cycle)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _serve(model, prompts, max_new, late, eager=False, **geom):
     """Submit all but `late` prompts, run one tick, submit the late one
     (it joins mid-decode), drain. `eager` runs every tick through the
     engine's private eager tick instead of its captured graph. Returns
     (engine, token lists)."""
-    from paddle_tpu_torch.inference.paged import PagedKVEngine
-    eng = PagedKVEngine(model, device=model.device, **geom)
-    if eager:
-        eng._tick_program = eng._eager_program
+    eng = _engine(model, eager, **geom)
     reqs = {i: eng.submit(p, max_new) for i, p in enumerate(prompts)
             if i != late}
     eng.step()
@@ -1324,9 +1362,8 @@ def serving_phase(dev, counters, reset, card, profile=False):
     if profile:
         metrics["profile"] = profile_serving(model, prompts, max_new, geom,
                                              card)
-    del model
-    torch.cuda.empty_cache()
-    return metrics
+    # phase 11 serves the same model
+    return metrics, model
 
 
 def _decode_steps(eng):
@@ -1504,15 +1541,19 @@ def _norm_rows(kernels):
             if "rms" in e.key or "rope" in e.key]
 
 
-def profile_serving(model, prompts, max_new, geom, card, label=""):
+def profile_serving(model, prompts, max_new, geom, card, label="",
+                    prime=()):
     """Where the time goes (`--profile`): torch.profiler over the prefill
     of all prompts and over two decode ticks, replays of the captured
     tick (one untraced tick first warms it up and captures it); device
     busy time is the sum of the kernels' device times (one stream, so
-    they do not overlap), idle share = 1 - busy / host wall time."""
+    they do not overlap), idle share = 1 - busy / host wall time.
+    `prime` prompts are served to the end first (untraced), so a prefix
+    cache holds their pages when the traced prefill runs."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference.paged import PagedKVEngine
     eng = PagedKVEngine(model, device=model.device, **geom)
+    eng.generate(prime, max_new)
     for p in prompts:
         eng.submit(p, max_new)
     out = {}
@@ -2109,6 +2150,432 @@ def int8_serving_phase(dev, counters, reset, card, bf16_serving,
     return metrics
 
 
+# -- phase 11: prefix-cached, chunked serving ------------------------------------
+
+SYSTEM_TOKENS = 1024            # the shared system prompt: 64 full pages
+# 8 full slots of 4096 tokens plus the cache's budget (+ page 0, the trash)
+PREFIX_GEOM = dict(max_slots=8, page_size=16, max_pages_per_slot=256,
+                   num_pages=8 * 256 + 512 + 1, steps_per_tick=4,
+                   prefix_cache_pages=512, prefill_chunk=512,
+                   kv_dtype="bf16")
+# the same engine cold: no cache, whole prompts
+COLD_GEOM = dict(PREFIX_GEOM, prefix_cache_pages=0, prefill_chunk=None)
+PREFIX_MAX_NEW = 32
+
+
+def _prefix_traffic(vocab, seed=11):
+    """Phase 11's prompts from a numpy seed: wave 1 and wave 2, eight
+    each, the shared system prompt plus a distinct 32-256-token tail, and
+    two long prompts of 3000-4000 tokens."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, SYSTEM_TOKENS)
+
+    def wave():
+        return [np.concatenate([system, rng.integers(
+            0, vocab, int(rng.integers(32, 257)))]).astype(np.int32)
+            for _ in range(8)]
+    wave1, wave2 = wave(), wave()
+    long = [rng.integers(0, vocab, int(rng.integers(3000, 4001)))
+            .astype(np.int32) for _ in range(2)]
+    return wave1, wave2, long
+
+
+def _serve_prefix(model, traffic, eager=False, **geom):
+    """Wave 1's eight requests admit together (all miss, one copy of the
+    system prompt's pages is cached) and drain. Then seven of wave 2
+    admit warm, one tick runs, and the eighth joins mid-decode. The two
+    long prompts wait behind a full engine and prefill together, in
+    lockstep rounds, when the first seven retire, while the eighth still
+    decodes. Returns (engine, tokens, stats at each mark)."""
+    eng = _engine(model, eager, **geom)
+    wave1, wave2, long = traffic
+    marks = {}
+    reqs = [eng.submit(p, PREFIX_MAX_NEW) for p in wave1]
+    eng.run_until_idle()
+    marks["wave1"] = dict(eng.stats)
+    w2 = [eng.submit(p, PREFIX_MAX_NEW) for p in wave2[:7]]
+    eng.step()
+    w2.append(eng.submit(wave2[7], PREFIX_MAX_NEW))
+    rl = [eng.submit(p, PREFIX_MAX_NEW) for p in long]
+    eng.step()
+    marks["wave2_admitted"] = dict(eng.stats)
+    if any(r.tokens for r in rl):
+        raise AssertionError("prefix: a long prompt admitted before wave "
+                             "2's first seven retired")
+    while not all(r.done.is_set() for r in w2[:7]):
+        eng.step()
+    marks["wave2_decoded"] = dict(eng.stats)
+    if w2[7].done.is_set():
+        raise AssertionError("prefix: wave 2's last request ended before "
+                             "the long prompts joined")
+    eng.run_until_idle()
+    return eng, [r.result() for r in reqs + w2 + rl], marks
+
+
+def _prefix_calls(traffic, chunk, bucket):
+    """Prefill calls the traffic needs: wave 1's prompts (longer than
+    the chunk) in lockstep rounds, wave 2's first seven tails one call
+    per tail bucket and the eighth's alone, the long prompts in
+    rounds."""
+    wave1, wave2, long = traffic
+    tails = [p.size - SYSTEM_TOKENS for p in wave2]
+    rounds = lambda ps: -(-max(p.size for p in ps) // chunk)  # noqa: E731
+    return (rounds(wave1) + len({bucket(t) for t in tails[:7]}) + 1
+            + rounds(long))
+
+
+def _settled_ledger(eng, tag):
+    """After the engine is idle only the cache holds pages: each cached
+    page has refcount 1, and free plus cached pages is the whole pool."""
+    cached = eng.prefix_cache.pages()
+    refs = eng._page_refs
+    if set(refs) != set(cached) or any(refs[p] != 1 for p in cached) \
+            or len(eng._free) + len(cached) != eng.num_pages - 1 \
+            or eng._reserved_unalloc != 0 \
+            or eng._reclaimable != len(cached):
+        raise AssertionError(
+            f"{tag}: ledger not settled: {len(refs)} pages with refs, "
+            f"{len(cached)} cached, {len(eng._free)} free, reserved "
+            f"{eng._reserved_unalloc}, reclaimable {eng._reclaimable}")
+
+
+def _seg_rate(a, b, num, den):
+    return (b[num] - a[num]) / (b[den] - a[den])
+
+
+def prefix_serving_phase(dev, model, counters, reset, card, profile=False):
+    """Phase 11 on phase 5's Llama-3-8B (seed 0, bf16, fused norm and
+    RoPE): the prefix cache, chunked prefill, deadlines and bounded
+    admission (module doc)."""
+    from paddle_tpu_torch.inference.paged import PagedKVEngine
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    traffic = _prefix_traffic(cfg.vocab_size)
+    wave1, wave2, long = traffic
+    reset()
+    t0 = time.perf_counter()
+    eng, toks, marks = _serve_prefix(model, traffic, **PREFIX_GEOM)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in counters().items() if k in SERVING_KERNELS}
+    st = dict(eng.stats)
+    for i, t in enumerate(toks):
+        if len(t) != PREFIX_MAX_NEW or not all(0 <= x < cfg.vocab_size
+                                               for x in t):
+            raise AssertionError(f"prefix: request {i}: {len(t)} tokens, "
+                                 f"want {PREFIX_MAX_NEW} in-vocab")
+    cold_tokens = sum(p.size for p in wave1 + long)
+    tails = sum(p.size - SYSTEM_TOKENS for p in wave2)
+    pages = SYSTEM_TOKENS // eng.page_size
+    want = dict(prefix_hits=8, prefix_hit_tokens=8 * SYSTEM_TOKENS,
+                prefix_pages_shared=8 * pages, prefix_misses=10,
+                prefill_tokens=cold_tokens + tails,
+                prefill_calls=_prefix_calls(traffic, eng.prefill_chunk,
+                                            PagedKVEngine._bucket),
+                prefills=18, finished=18)
+    got = {k: st[k] for k in want}
+    if got != want:
+        raise AssertionError(f"prefix: stats {got}, want {want}")
+    _settled_ledger(eng, "prefix")
+    steps = _decode_steps(eng)
+    calls = st["prefill_calls"] + steps
+    want_l = {"paged_decode_attention": layers * steps,
+              "rms_norm_residual": (2 * layers + 1) * calls,
+              "rope_apply": 2 * layers * calls}
+    if launches != want_l:
+        raise AssertionError(f"prefix: launches {launches}, want {want_l} "
+                             f"({steps} decode steps, "
+                             f"{st['prefill_calls']} prefill calls)")
+    stats_block = eng.prefix_stats()
+    del eng
+    _release()
+    eng2, toks2, marks2 = _serve_prefix(model, traffic, **PREFIX_GEOM)
+    if toks2 != toks:
+        raise AssertionError("prefix: a second identical run gave other "
+                             "tokens")
+    st2 = dict(eng2.stats)
+    del eng2
+    _release()
+    eng3, toks3, _ = _serve_prefix(model, traffic, eager=True,
+                                   **PREFIX_GEOM)
+    if toks3 != toks:
+        bad = [i for i, (a, b) in enumerate(zip(toks3, toks)) if a != b]
+        raise AssertionError(f"prefix: the eager tick gave other tokens "
+                             f"than the captured tick (requests {bad})")
+    if eng3.stats["warmup_ticks"] or eng3._programs:
+        raise AssertionError("prefix: the eager engine captured a graph")
+    eager = _tick_metrics(eng3.stats)
+    del eng3
+    _release()
+    # wave 2 cold (no cache, whole prompts), with the same late joiner:
+    # top-1 agreement with the warm rows, and the decode rate of the same
+    # ticks cold (until the first seven retire)
+    cold = _engine(model, **COLD_GEOM)
+    creqs = [cold.submit(p, PREFIX_MAX_NEW) for p in wave2[:7]]
+    cold.step()
+    creqs.append(cold.submit(wave2[7], PREFIX_MAX_NEW))
+    while not all(r.done.is_set() for r in creqs[:7]):
+        cold.step()
+    cst = dict(cold.stats)
+    cold.run_until_idle()
+    ctoks = [r.result() for r in creqs]
+    del cold
+    _release()
+    warm = toks[8:16]
+    agree = dict(
+        first_token=sum(a[0] == b[0] for a, b in zip(warm, ctoks)) / 8,
+        all_tokens=sum(a == b for a, b in zip(warm, ctoks)) / 8)
+    m1, m2a, m2d = marks["wave1"], marks["wave2_admitted"], \
+        marks["wave2_decoded"]
+    metrics = dict(
+        card=card, wall_s=wall, stats=st, prefix_stats=stats_block,
+        launches=launches, decode_steps=steps, tokens=toks,
+        prompt_lens=dict(wave1=[int(p.size) for p in wave1],
+                         wave2=[int(p.size) for p in wave2],
+                         long=[int(p.size) for p in long]),
+        wave1_prefill_s=m1["prefill_s"],
+        wave1_prefill_tokens=m1["prefill_tokens"],
+        wave1_prefill_tokens_per_s=m1["prefill_tokens"] / m1["prefill_s"],
+        wave2_prefill_s=m2a["prefill_s"] - m1["prefill_s"],
+        wave2_prefill_tokens=m2a["prefill_tokens"] - m1["prefill_tokens"],
+        wave2_prefill_tokens_per_s=_seg_rate(m1, m2a, "prefill_tokens",
+                                             "prefill_s"),
+        long_prefill_s=st["prefill_s"] - m2d["prefill_s"],
+        wave1_decode_tokens_per_s=m1["decode_tokens"] / m1["tick_s"],
+        wave2_decode_tokens_per_s=_seg_rate(m1, m2d, "decode_tokens",
+                                            "tick_s"),
+        decode_tokens_per_s=st["decode_tokens"] / st["tick_s"],
+        repeat_decode_tokens_per_s=st2["decode_tokens"] / st2["tick_s"],
+        # the same work again: host-clock walls vary from run to run
+        repeat_wave1_prefill_s=marks2["wave1"]["prefill_s"],
+        repeat_wave2_prefill_s=(marks2["wave2_admitted"]["prefill_s"]
+                                - marks2["wave1"]["prefill_s"]),
+        cold_wave2_prefill_s=cst["prefill_s"],
+        cold_wave2_prefill_tokens=cst["prefill_tokens"],
+        cold_wave2_decode_tokens_per_s=(cst["decode_tokens"]
+                                        / cst["tick_s"]),
+        warm_top1_agreement_with_cold=agree, eager=eager)
+    print(f"[prefix] {card}: Llama-3-8B bf16, 8 + 8 requests on a "
+          f"{SYSTEM_TOKENS}-token system prompt and 2 long prompts "
+          f"{[int(p.size) for p in long]}, {PREFIX_MAX_NEW} new tokens "
+          f"each: wave 1 prefill {m1['prefill_tokens']} tokens in "
+          f"{m1['prefill_s'] * 1e3:.1f} ms "
+          f"({metrics['wave1_prefill_tokens_per_s']:.1f} tok/s); wave 2 "
+          f"(warm) {metrics['wave2_prefill_tokens']} tokens in "
+          f"{metrics['wave2_prefill_s'] * 1e3:.1f} ms "
+          f"({metrics['wave2_prefill_tokens_per_s']:.1f} tok/s; cold "
+          f"{cst['prefill_tokens']} tokens in "
+          f"{cst['prefill_s'] * 1e3:.1f} ms); long prompts chunked "
+          f"{metrics['long_prefill_s'] * 1e3:.1f} ms (second run: wave 1 "
+          f"{metrics['repeat_wave1_prefill_s'] * 1e3:.1f} ms, wave 2 "
+          f"{metrics['repeat_wave2_prefill_s'] * 1e3:.1f} ms); decode "
+          f"{metrics['decode_tokens_per_s']:.1f} tok/s (wave 1 "
+          f"{metrics['wave1_decode_tokens_per_s']:.1f}, wave 2 warm "
+          f"{metrics['wave2_decode_tokens_per_s']:.1f}, wave 2 cold "
+          f"{metrics['cold_wave2_decode_tokens_per_s']:.1f}; second run "
+          f"{metrics['repeat_decode_tokens_per_s']:.1f}; eager tick "
+          f"{eager['decode_tokens_per_s']:.1f}), wall {wall:.2f} s, "
+          f"launches {launches}; second run and eager tick identical; "
+          f"warm rows' top-1 agreement with cold {agree}")
+    print(f"[prefix] {card}: prefix_stats() {json.dumps(stats_block)}")
+    metrics["long_memory"] = _long_prefill_memory(model, long, card)
+    metrics["admission"] = _admission_checks(model)
+    if profile:
+        # wave 2's prefill warm (wave 1 served first) and cold
+        metrics["profile"] = {
+            "warm": profile_serving(model, wave2, PREFIX_MAX_NEW,
+                                    PREFIX_GEOM, card, "prefix warm ",
+                                    prime=wave1),
+            "cold": profile_serving(model, wave2, PREFIX_MAX_NEW,
+                                    COLD_GEOM, card, "prefix cold ")}
+        _release()
+    return metrics
+
+
+def _long_prefill_memory(model, long, card):
+    """The two long prompts prefilled alone (one new token each, so no
+    tick runs) on fresh engines, chunked and whole, in turns: peak device
+    memory above the engine's own, and the prefill's host wall."""
+    out = {"chunked": [], "whole": []}
+    for kind in ("chunked", "whole", "whole", "chunked"):
+        geom = dict(PREFIX_GEOM, prefix_cache_pages=0)
+        if kind == "whole":
+            geom["prefill_chunk"] = None
+        eng = _engine(model, **geom)
+        reqs = [eng.submit(p, 1) for p in long]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng.step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if not all(len(r.result()) == 1 for r in reqs) \
+                or eng.stats["ticks"]:
+            raise AssertionError(f"long prompts {kind}: not one token each")
+        out[kind].append(dict(peak_gb=peak / 1e9,
+                              prefill_s=eng.stats["prefill_s"],
+                              calls=eng.stats["prefill_calls"]))
+        del eng, reqs
+        _release()
+    c = min(r["peak_gb"] for r in out["chunked"])
+    w = min(r["peak_gb"] for r in out["whole"])
+    ct = [r["prefill_s"] * 1e3 for r in out["chunked"]]
+    wt = [r["prefill_s"] * 1e3 for r in out["whole"]]
+    print(f"[prefix] {card}: long prompts {[int(p.size) for p in long]} "
+          f"prefilled chunked ({PREFIX_GEOM['prefill_chunk']}) peak "
+          f"+{c:.2f} GB in "
+          f"{', '.join(f'{t:.1f}' for t in ct)} ms "
+          f"({out['chunked'][0]['calls']} calls), whole peak +{w:.2f} GB "
+          f"in {', '.join(f'{t:.1f}' for t in wt)} ms "
+          f"({out['whole'][0]['calls']} calls); saved {w - c:.2f} GB")
+    return out
+
+
+def _admission_checks(model):
+    """Deadlines and max_pending on a small engine: an expired deadline
+    raises at submit; a request queued behind a full engine expires
+    there with no prefill; a submit past max_pending is shed."""
+    from paddle_tpu_torch.inference.overload import (Deadline,
+                                                     DeadlineExceeded,
+                                                     EngineOverloaded)
+    eng = _engine(model, max_slots=1, page_size=16, num_pages=33,
+                  max_pages_per_slot=16, steps_per_tick=4, kv_dtype="bf16",
+                  max_pending=1)
+    ids = (np.arange(100) % model.config.vocab_size).astype(np.int32)
+    try:
+        eng.submit(ids, 8, deadline=Deadline(time.monotonic() - 1.0))
+        raise AssertionError("admission: an expired deadline was queued")
+    except DeadlineExceeded:
+        pass
+    busy = eng.submit(ids, 64)
+    eng.step()
+    prefills = eng.stats["prefills"]
+    late = eng.submit(ids[:50], 8, deadline=Deadline.after_ms(200))
+    eng.step()
+    if late.done.is_set():
+        raise AssertionError("admission: the late request ended early")
+    time.sleep(0.25)
+    eng.step()
+    if not late.done.is_set() \
+            or not isinstance(late.error, DeadlineExceeded) \
+            or eng.stats["expired"] != 1 \
+            or eng.stats["prefills"] != prefills:
+        raise AssertionError(f"admission: a request expired in the queue "
+                             f"was not failed without a prefill "
+                             f"({eng.stats})")
+    queued = eng.submit(ids[:30], 8)
+    try:
+        eng.submit(ids[:40], 8)
+        raise AssertionError("admission: a submit past max_pending was "
+                             "queued")
+    except EngineOverloaded as e:
+        if e.retry_after != 0.1 or eng.stats["overloaded"] != 1:
+            raise AssertionError(f"admission: shed {e.retry_after}, "
+                                 f"{eng.stats}") from e
+    for r in (busy, queued):
+        r.cancel()
+    eng.run_until_idle()
+    if sorted(eng._free) != list(range(1, eng.num_pages)):
+        raise AssertionError("admission: pages not returned")
+    out = {k: eng.stats[k] for k in ("expired", "overloaded", "cancelled",
+                                     "prefills")}
+    del eng
+    _release()
+    print(f"[prefix] admission: expired deadline refused at submit; a "
+          f"request queued behind a full engine expired with no prefill; "
+          f"a submit past max_pending=1 shed (retry_after 0.1): {out}")
+    return out
+
+
+def _engine_logits(model, ids, geom):
+    """The logits a cold engine of `geom` gives at the end of `ids` (its
+    prefill's last row): the yardstick of a near tie."""
+    eng = _engine(model, **dict(geom, prefix_cache_pages=0,
+                                prefill_chunk=None))
+    seen = []
+    eng._first_token = lambda logits, req: (seen.append(logits), 0)[1]
+    eng.generate([ids], 1)
+    del eng
+    _release()
+    return seen[0]
+
+
+def _same_or_near_tie(model, geom, prompt, got, want, tag):
+    """Greedy tokens equal, or at their first difference the two tokens'
+    logits agree within 1e-3 (phase 6's rule), on a cold engine of the
+    same KV type."""
+    if got == want:
+        return {"identical": True}
+    t = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    ids = np.concatenate([prompt, np.asarray(want[:t], np.int32)])
+    logits = _engine_logits(model, ids, geom)
+    gap = abs(float(logits[want[t]] - logits[got[t]]))
+    print(f"[prefix-parity] {tag}: tokens differ at step {t}: {want[t]} vs "
+          f"{got[t]}, logit gap {gap:.3g}")
+    if gap > 1e-3:
+        raise AssertionError(f"prefix parity {tag}: step {t} differs by a "
+                             f"logit gap {gap} > 1e-3")
+    return {"identical": False, "step": t, "logit_gap": gap}
+
+
+def prefix_parity_phase(dev):
+    """Phase 11's parity on phase 6's 2-layer full-width f32 model: a
+    warm hit's tokens equal a cold, unchunked engine's, and a chunked
+    long prompt's the whole prompt's; with int8 KV the shared pages'
+    scale rows are bit-unchanged across the warm request's prefill and
+    decode."""
+    from paddle_tpu_torch.inference.prefix import chain_keys
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama3_8b_config(num_hidden_layers=2, fused_norm=True,
+                           fused_rope=True)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=1)
+    wave1, wave2, long = _prefix_traffic(cfg.vocab_size, seed=12)
+    cold_p, warm_p, long_p = wave1[0], wave2[0], long[0]
+    out = {}
+    for kv in (None, "int8"):
+        geom = dict(PREFIX_GEOM, kv_dtype=kv)
+        tag = kv or "f32"
+        eng = _engine(model, **geom)
+        eng.generate([cold_p], PREFIX_MAX_NEW)
+        ps = eng.page_size
+        shared = [eng.prefix_cache.get(k) for k in
+                  chain_keys(warm_p, ps)[:SYSTEM_TOKENS // ps]]
+        scales = (None if kv is None
+                  else eng._scales[:, :, shared].clone())
+        got = eng.generate([warm_p, long_p], PREFIX_MAX_NEW)
+        st = dict(eng.stats)
+        if st["prefix_hits"] != 1 or None in shared:
+            raise AssertionError(f"prefix parity {tag}: {st} shared "
+                                 f"{len(shared)}")
+        if scales is not None and not torch.equal(
+                eng._scales[:, :, shared], scales):
+            raise AssertionError(f"prefix parity {tag}: the shared pages' "
+                                 "scale rows moved")
+        _settled_ledger(eng, f"prefix parity {tag}")
+        del eng
+        _release()
+        ref = _engine(model, **dict(geom, prefix_cache_pages=0,
+                                    prefill_chunk=None))
+        want = ref.generate([warm_p, long_p], PREFIX_MAX_NEW)
+        del ref
+        _release()
+        out[tag] = dict(
+            warm=_same_or_near_tie(model, geom, warm_p, got[0], want[0],
+                                   f"{tag} warm hit"),
+            chunked=_same_or_near_tie(model, geom, long_p, got[1], want[1],
+                                      f"{tag} chunked {long_p.size}"),
+            scales_frozen=scales is not None)
+    print(f"[prefix-parity] 2-layer f32 model, f32 and int8 KV: a warm hit "
+          f"({warm_p.size} tokens, {SYSTEM_TOKENS} shared) and a chunked "
+          f"{long_p.size}-token prompt against a cold, unchunked engine: "
+          f"{out}; int8 shared scale rows bit-unchanged")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -2160,8 +2627,13 @@ def main(argv=None):
     def counters():
         return {k: v for d in launch_counters() for k, v in d.items()}
 
-    serving = serving_phase(dev, counters, reset, card, args.profile)
+    serving, model = serving_phase(dev, counters, reset, card, args.profile)
+    serving_prefix = prefix_serving_phase(dev, model, counters, reset, card,
+                                          args.profile)
+    del model
+    _release()
     parity = parity_phase(dev)
+    prefix_parity = prefix_parity_phase(dev)
     training = training_phase(dev, counters, reset, card, args.profile)
     train_parity = training_parity_phase(dev)
     bench_training = bench_training_phase(dev, counters, reset, card,
@@ -2170,6 +2642,7 @@ def main(argv=None):
                                       args.profile)
     for name, e in kernels.items():
         by_path = {"serving": serving["launches"].get(name, 0),
+                   "serving_prefix": serving_prefix["launches"].get(name, 0),
                    "training": training["launches"].get(name, 0),
                    "training_bench": bench_training["launches"].get(name, 0),
                    "serving_int8": serving_int8["launches"].get(name, 0)}
@@ -2190,6 +2663,8 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": line["kernels"],
                        "serving": serving, "parity": parity,
+                       "serving_prefix": serving_prefix,
+                       "prefix_parity": prefix_parity,
                        "training": training, "train_parity": train_parity,
                        "training_bench": bench_training,
                        "serving_int8": serving_int8,

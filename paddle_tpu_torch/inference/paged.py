@@ -42,10 +42,28 @@ Counterpart of the core of paddle_tpu/inference/paged.py:
   its requests when the iterator closes; a request handle can be
   cancelled, streamed (`stream_tokens`) and waited on (`result`, with
   a stall guard that raises when nothing drives the engine).
+- Prefix cache (`prefix_cache_pages=N`): full prompt pages are keyed by
+  the hash chain of inference/prefix.py and REFCOUNTED across the slots
+  that share them, so a warm submit points its leading block-table
+  entries at cached pages and prefills only the uncached tail. Cold
+  entries evict LRU at the budget, and on demand when allocation finds
+  the free list dry; admission headroom counts the cached pages only
+  the cache holds. A page returns to the free list (int8: scales
+  zeroed) only when its last referent lets go, so a shared page keeps
+  its scales frozen. Shared pages are only block-table entries, so the
+  captured tick needs no recapture.
+- Chunked prefill (`prefill_chunk=C`): a prompt whose uncached tail is
+  longer than C prefills in lockstep rounds of C tokens that append at
+  lens > 0, which bounds prefill attention's (b, hk, g, s, L) scores
+  at s = C.
+- Bounded admission (`max_pending`) sheds `submit` with
+  `EngineOverloaded` when the request cannot start now and the queue is
+  full; `submit(deadline=)` fails an expired request with
+  `DeadlineExceeded` at submit, or at admission without a slot, pages
+  or a prefill (inference/overload.py).
 
-Not in this slice (ROADMAP.md lists them): prefix cache, host tier,
-disaggregated roles, tenancy, deadlines and overload shedding,
-sessions, speculative decode, chunked prefill and observability.
+Not in this slice (ROADMAP.md lists them): host tier, disaggregated
+roles, tenancy, sessions, speculative decode and observability.
 """
 from __future__ import annotations
 
@@ -62,6 +80,9 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.inference.overload import (DeadlineExceeded,
+                                                 EngineOverloaded)
+from paddle_tpu_torch.inference.prefix import PrefixCache, chain_keys
 from paddle_tpu_torch.kernels import launch_counters
 from paddle_tpu_torch.kernels.paged_attention import (check_decode_shapes,
                                                       gather_window,
@@ -279,8 +300,11 @@ class _Request:
 
     def __init__(self, ids, max_new_tokens, eos_token_id, do_sample,
                  temperature, top_k, top_p, pages_needed, sample_index,
-                 engine=None):
+                 deadline=None, prefix_keys=(), engine=None):
         self.prompt = np.asarray(ids, np.int32).reshape(-1)
+        self.deadline = deadline    # expire-in-queue (overload.Deadline)
+        # chain keys of the prompt's full pages (empty: no prefix cache)
+        self.prefix_keys = list(prefix_keys)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = -1 if eos_token_id is None else int(eos_token_id)
         self.do_sample = bool(do_sample)
@@ -362,7 +386,7 @@ class _Request:
 
 
 class _Slot:
-    __slots__ = ("req", "lens", "tok", "pages", "emitted")
+    __slots__ = ("req", "lens", "tok", "pages", "emitted", "shared")
 
     def __init__(self, req, lens, tok):
         self.req = req
@@ -370,6 +394,8 @@ class _Slot:
         self.tok = int(tok)         # next decode input (last emitted)
         self.pages: list[int] = []  # physical pages in block-table order
         self.emitted = 0            # generated tokens accepted so far
+        self.shared = 0             # leading prefix-cache pages (not
+        #                             drawn from the free list here)
 
 
 # the tick program's per-slot inputs: name -> (type, an idle slot's value)
@@ -414,11 +440,26 @@ class PagedKVEngine:
         KV bytes of bf16 (`kv_bytes_per_slot`).
     device: where the engine runs (default the CUDA card; "cpu" must be
         asked for) — the model must live there.
+    prefill_chunk: prompts whose uncached tail is longer than this
+        prefill in lockstep rounds of this many tokens (appending at
+        lens > 0) instead of in one call; None (default) always
+        prefills whole.
+    max_pending: bound on the not-yet-admitted queue. None (default)
+        queues unboundedly; with a bound, `submit` sheds with
+        EngineOverloaded (retryable) when the request cannot start now
+        and the queue is full.
+    prefix_cache_pages: page budget of the prompt prefix cache (module
+        doc; 0 = disabled, the default).
+
+    Not taken yet (ROADMAP.md queue 1 item 4): the JAX engine's
+    `draft_model`, `tenancy`, `host_tier_bytes`, `suspend_after_s` and
+    `role`, and `submit`'s `tenant` and `session`.
     """
 
     def __init__(self, model, *, max_slots=4, page_size=16, num_pages=64,
                  max_pages_per_slot=None, steps_per_tick=4, seed=0,
-                 kv_dtype=None, device="cuda"):
+                 prefill_chunk=None, max_pending=None, kv_dtype=None,
+                 prefix_cache_pages=0, device="cuda"):
         dev = resolve_device(device)
         mdev = model.device
         if dev.type != mdev.type or (dev.index is not None
@@ -435,6 +476,19 @@ class PagedKVEngine:
             max_pages_per_slot
             or min(num_pages - 1, max(1, (num_pages - 1) // max_slots)))
         self.steps_per_tick = int(steps_per_tick)
+        self.max_pending = (None if max_pending is None
+                            else int(max_pending))
+        self.prefill_chunk = (int(prefill_chunk) if prefill_chunk
+                              else None)
+        if self.prefill_chunk is not None and self.prefill_chunk < 0:
+            # a negative round would never consume a token
+            raise ValueError(f"prefill_chunk must be > 0 or None, got "
+                             f"{prefill_chunk}")
+        if int(prefix_cache_pages) < 0:
+            raise ValueError(f"prefix_cache_pages must be >= 0, got "
+                             f"{prefix_cache_pages}")
+        self.prefix_cache = (PrefixCache(prefix_cache_pages)
+                             if int(prefix_cache_pages) else None)
         if kv_dtype not in (None, "bf16", "int8"):
             raise ValueError(f"kv_dtype must be None, 'bf16' or 'int8' "
                              f"(got {kv_dtype!r})")
@@ -453,7 +507,8 @@ class PagedKVEngine:
                                    device=mdev))
                  for _ in range(n_layers)]
         # int8: every layer's k and v scale planes are views of one
-        # tensor, so freed pages' scales reset in one launch (_retire)
+        # tensor, so freed pages' scales reset in one launch
+        # (_recycle_pages)
         self._scales = None
         if kv_dtype == "int8":
             self._scales = torch.zeros((n_layers, 2, self.num_pages + 1,
@@ -464,8 +519,17 @@ class PagedKVEngine:
         self.pools = pools
         self._free = list(range(self.num_pages - 1, 0, -1))   # 0 = trash
         # pages promised to admitted slots but not yet popped from the
-        # free list; admission headroom = len(_free) - _reserved_unalloc
+        # free list (admission_headroom)
         self._reserved_unalloc = 0
+        # the refcount of every allocated page (its slots, and the
+        # prefix cache's one ref while it holds the page); without a
+        # cache every allocated page has exactly one ref, its slot's
+        self._page_refs: dict[int, int] = {}
+        # the pages the cache holds, and how many of them only the cache
+        # holds (evictable to free, so admission headroom), kept
+        # current at each ref transition
+        self._cached_pages: set[int] = set()
+        self._reclaimable = 0
         self._slots: list[_Slot | None] = [None] * self.max_slots
         self._bt = np.zeros((self.max_slots, self.max_pages_per_slot),
                             np.int32)
@@ -500,9 +564,13 @@ class PagedKVEngine:
         self.stats = {"ticks": 0, "prefills": 0, "prefill_calls": 0,
                       "tokens_out": 0,
                       "admitted": 0, "finished": 0, "cancelled": 0,
+                      "expired": 0, "overloaded": 0,
                       "prefill_s": 0.0, "tick_s": 0.0, "prefill_tokens": 0,
                       "decode_tokens": 0, "warmup_ticks": 0,
-                      "warmup_s": 0.0}
+                      "warmup_s": 0.0,
+                      "prefix_hits": 0, "prefix_misses": 0,
+                      "prefix_hit_tokens": 0, "prefix_pages_shared": 0,
+                      "prefix_evictions": 0}
 
     def kv_bytes_per_slot(self):
         """Device bytes one fully grown slot pins across every layer's KV
@@ -512,14 +580,41 @@ class PagedKVEngine:
                        for grp in self.pools for t in grp)
         return per_page * self.max_pages_per_slot
 
+    def prefix_stats(self):
+        """The prefix cache's counters (the JAX engine's /stats block);
+        None when the cache is disabled."""
+        if self.prefix_cache is None:
+            return None
+        s = self.stats
+        h, m = s["prefix_hits"], s["prefix_misses"]
+        return {"enabled": True,
+                "hits": h, "misses": m,
+                "hit_rate": round(h / (h + m), 4) if (h + m) else 0.0,
+                "hit_tokens": s["prefix_hit_tokens"],
+                "pages_shared": s["prefix_pages_shared"],
+                "evictions": s["prefix_evictions"],
+                "cached_pages": len(self.prefix_cache),
+                "page_budget": self.prefix_cache.page_budget}
+
     # -- submission ------------------------------------------------------
     def admission_headroom(self):
-        """Pages not promised to any admitted slot."""
-        return len(self._free) - self._reserved_unalloc
+        """Pages not promised to any admitted slot: free pages plus the
+        cached pages only the cache holds (evictable on demand), minus
+        outstanding reservations. Exact on the scheduler thread,
+        advisory from submit() callers."""
+        return len(self._free) + self._reclaimable - self._reserved_unalloc
 
     def submit(self, ids, max_new_tokens=32, *, eos_token_id=None,
                do_sample=False, temperature=1.0, top_k=0,
-               top_p=1.0) -> _Request:
+               top_p=1.0, deadline=None) -> _Request:
+        """Queue one request and return its handle. `deadline` (an
+        overload.Deadline) fails it with DeadlineExceeded, here when it
+        has already expired, or at admission when it expires while
+        queued. With `max_pending`, a request that cannot start now
+        behind a full queue is shed with EngineOverloaded."""
+        if deadline is not None and deadline.expired():
+            raise DeadlineExceeded(
+                "deadline exceeded before engine admission")
         ids = np.asarray(ids, np.int32).reshape(-1)
         if ids.size == 0:
             raise ValueError("prompt must hold at least one token")
@@ -533,10 +628,32 @@ class PagedKVEngine:
         if pages > self.num_pages - 1:
             raise ValueError(f"request needs {pages} pages > pool size "
                              f"{self.num_pages - 1}")
+        # hash the prompt's full pages here, on the caller's thread; the
+        # lookup happens at admission. The last full page is keyed too
+        # (decode writes land in later pages); _prefix_lookup caps the
+        # sharing so the prompt's last token is always prefilled
+        keys = (chain_keys(ids, self.page_size)
+                if self.prefix_cache is not None else [])
         with self._lock:
+            if self.max_pending is not None:
+                # shed when the request can neither start now (a free
+                # slot, page headroom, nothing queued ahead of it) nor
+                # wait within the pending bound
+                queued = len(self._pending)
+                admissible_now = (
+                    queued == 0
+                    and any(s is None for s in self._slots)
+                    and pages <= self.admission_headroom())
+                if not admissible_now and queued >= self.max_pending:
+                    self.stats["overloaded"] += 1
+                    raise EngineOverloaded(
+                        f"engine overloaded: {queued} pending >= "
+                        f"max_pending {self.max_pending} and no "
+                        "admission headroom", retry_after=0.1)
             req = _Request(ids, max_new_tokens, eos_token_id, do_sample,
                            temperature, top_k, top_p, pages,
-                           self._submitted, engine=self)
+                           self._submitted, deadline=deadline,
+                           prefix_keys=keys, engine=self)
             self._submitted += 1
             self._inflight += 1
             self._pending.append(req)
@@ -551,20 +668,158 @@ class PagedKVEngine:
     def _bucket(n):
         return max(8, 1 << (n - 1).bit_length())
 
+    # -- the page refcount ledger ----------------------------------------
+    def _ref_page(self, page):
+        n = self._page_refs.get(page, 0)
+        self._page_refs[page] = n + 1
+        if n == 1 and page in self._cached_pages:
+            # a cache-only page just got a slot ref: no longer
+            # evictable to free
+            self._reclaimable -= 1
+
+    def _unref_page(self, page):
+        """Drop one reference; True when the page just became free (the
+        caller recycles it). A page is never freed while a live slot or
+        the cache still references it."""
+        n = self._page_refs.get(page, 1) - 1
+        if n <= 0:
+            self._page_refs.pop(page, None)
+            return True
+        self._page_refs[page] = n
+        if n == 1 and page in self._cached_pages:
+            # back to cache-only: evicting it would free a page
+            self._reclaimable += 1
+        return False
+
+    def _recycle_pages(self, pages):
+        """Return zero-ref pages to the free list. int8 KV: zero their
+        scale rows in one launch over `_scales`, between ticks and
+        outside the graph, on the stream the next replay runs on. Scales
+        only grow at scatter time, so a recycled page keeping its old
+        scale would quantize its next request's k/v on the largest
+        magnitude any earlier request wrote. A shared page reaches here
+        only when its last referent lets go, so its scales stay frozen
+        while it is shared. The pages join the free list first: a
+        reset that raises (a sticky device error) still leaves the
+        ledger whole."""
+        if not pages:
+            return
+        self._free.extend(reversed(pages))
+        if self._scales is not None:
+            idx = torch.tensor(pages, device=self.device)
+            self._scales[:, :, idx] = 0.0
+
+    def _evict_prefix_entries(self, budget_only=True):
+        """Shrink the prefix cache: to its page budget (`budget_only`,
+        LRU whether or not the page is shared; a page a slot still
+        holds just leaves the key space and is freed by its slots'
+        refcounts), or by ONE entry only the cache holds (the on-demand
+        lever when the free list runs dry). Returns the pages freed."""
+        cache = self.prefix_cache
+        freed = []
+        if cache is None:
+            return freed
+        if budget_only:
+            while cache.over_budget():
+                key_page = cache.pop_lru()
+                if key_page is None:
+                    break
+                self._note_evicted(key_page[1], freed)
+        else:
+            key_page = cache.pop_lru_where(
+                lambda p: self._page_refs.get(p, 0) == 1)
+            if key_page is not None:
+                self._note_evicted(key_page[1], freed)
+        self._recycle_pages(freed)
+        return freed
+
+    def _note_evicted(self, page, freed):
+        """An entry left the cache: leave the cached-page ledger, drop
+        the cache's ref, collect the page if that freed it."""
+        self._cached_pages.discard(page)
+        if self._page_refs.get(page, 0) == 1:
+            self._reclaimable -= 1      # was cache-only
+        self.stats["prefix_evictions"] += 1
+        if self._unref_page(page):
+            freed.append(page)
+
     def _alloc_pages(self, slot_idx, need_total):
         """Grow the slot's allocation to `need_total` pages (lazy; the
-        reservation made at admission guarantees the free list covers
-        it)."""
+        reservation made at admission guarantees that the free list,
+        plus the cached pages only the cache holds, evicted here on
+        demand, covers it)."""
         slot = self._slots[slot_idx]
         while len(slot.pages) < need_total:
-            if not self._free:
+            if not self._free and not self._evict_prefix_entries(
+                    budget_only=False):
+                cached = (0 if self.prefix_cache is None
+                          else len(self.prefix_cache))
                 raise RuntimeError(
                     "page pool exhausted despite reservation: free=0 "
-                    f"reserved={self._reserved_unalloc}")
+                    f"reserved={self._reserved_unalloc} cached={cached}")
             page = self._free.pop()
+            self._ref_page(page)
             self._reserved_unalloc -= 1
             self._bt[slot_idx, len(slot.pages)] = page
             slot.pages.append(page)
+
+    # -- the prefix cache ------------------------------------------------
+    def _prefix_lookup(self, req):
+        """The longest cached run of the prompt's full pages, capped at
+        (prompt - 1) // page_size pages so at least the prompt's last
+        token is prefilled (its logits pick the first token)."""
+        if self.prefix_cache is None or not req.prefix_keys:
+            return []
+        shareable = (int(req.prompt.size) - 1) // self.page_size
+        if shareable <= 0:
+            return []
+        return self.prefix_cache.match(req.prefix_keys[:shareable])
+
+    def _note_prefix_outcome(self, req, h):
+        """Hit or miss, counted at the admission decision (a requeued
+        request looks up again next pass and must not count twice).
+        Prompts too short ever to share count neither way."""
+        if self.prefix_cache is None:
+            return
+        if h > 0:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_hit_tokens"] += h * self.page_size
+            self.stats["prefix_pages_shared"] += h
+        elif (int(req.prompt.size) - 1) // self.page_size > 0:
+            self.stats["prefix_misses"] += 1
+
+    def _prefix_insert(self, slot_idx, req):
+        """Register a freshly prefilled slot's full prompt pages in the
+        cache, right after the prefill that wrote them and before
+        `_accept` (a max_new_tokens=1 request retires inside it). An
+        existing key wins: a duplicate prompt admitted in the same pass
+        keeps the first copy canonical, and its own pages retire with
+        its slot. Then the LRU page budget."""
+        cache = self.prefix_cache
+        if cache is None:
+            return
+        slot = self._slots[slot_idx]
+        n_full = min(len(req.prefix_keys),
+                     int(req.prompt.size) // self.page_size,
+                     len(slot.pages))
+        for j in range(n_full):
+            if cache.insert(req.prefix_keys[j], slot.pages[j]):
+                # the ref comes before the ledger: the slot still holds
+                # the page, so it enters the cache not reclaimable and
+                # turns reclaimable when the slot retires
+                self._ref_page(slot.pages[j])
+                self._cached_pages.add(slot.pages[j])
+        self._evict_prefix_entries(budget_only=True)
+
+    # -- admission and prefill -------------------------------------------
+    def _drop_queued(self, req, error=None):
+        """A queued request leaves without a slot (cancelled or
+        expired): wake its waiter."""
+        with self._lock:
+            self._inflight -= 1
+        req.error = error
+        req.queue.put(None)
+        req.done.set()
 
     def _admit(self):
         with self._lock:
@@ -574,18 +829,39 @@ class PagedKVEngine:
         for req in pending:
             if req.cancelled.is_set():        # cancelled while queued
                 self.stats["cancelled"] += 1
-                with self._lock:
-                    self._inflight -= 1
-                req.queue.put(None)
-                req.done.set()
+                self._drop_queued(req)
+                continue
+            if req.deadline is not None and req.deadline.expired():
+                # expired while queued: fail it without spending a slot,
+                # pages or a prefill on work nobody waits for
+                self.stats["expired"] += 1
+                self._drop_queued(req, DeadlineExceeded(
+                    "deadline exceeded while queued for engine "
+                    "admission"))
                 continue
             idx = next((i for i, s in enumerate(self._slots) if s is None),
                        None)
-            if idx is None or req.pages_needed > self.admission_headroom():
+            shared = self._prefix_lookup(req) if idx is not None else []
+            # refs BEFORE the headroom check: matched pages stop being
+            # reclaimable, so the check sees the budget after the hit
+            for p in shared:
+                self._ref_page(p)
+            h = len(shared)
+            if idx is None or \
+                    req.pages_needed - h > self.admission_headroom():
+                for p in shared:
+                    self._unref_page(p)     # the cache's ref remains
                 requeue.append(req)
                 continue
-            self._reserved_unalloc += req.pages_needed
-            self._slots[idx] = _Slot(req, lens=0, tok=0)
+            self._note_prefix_outcome(req, h)
+            # only the uncached tail draws fresh pages from the pool
+            self._reserved_unalloc += req.pages_needed - h
+            slot = _Slot(req, lens=0, tok=0)
+            slot.shared = h
+            self._slots[idx] = slot
+            for j, p in enumerate(shared):
+                self._bt[idx, j] = p
+                slot.pages.append(p)
             self._alloc_pages(idx, -(-req.prompt.size // self.page_size))
             self.stats["admitted"] += 1
             admitted.append((idx, req))
@@ -594,11 +870,19 @@ class PagedKVEngine:
         # finds it
         with self._lock:
             self._pending = requeue + self._pending
-        # same-bucket prompts prefill together in one batched call
+        # prompts prefill together in one batched call per bucket of
+        # their uncached tail (a warm request's whole prefill); tails
+        # longer than prefill_chunk go through the chunked group
         groups = {}
+        long_grp = []
         for idx, req in admitted:
-            groups.setdefault(self._bucket(req.prompt.size),
-                              []).append((idx, req))
+            tail = req.prompt.size - self._slots[idx].shared * self.page_size
+            if self.prefill_chunk and tail > self.prefill_chunk:
+                long_grp.append((idx, req))
+                continue
+            groups.setdefault(self._bucket(tail), []).append((idx, req))
+        if long_grp:
+            self._prefill_chunked_group(long_grp)
         for grp in groups.values():
             self._prefill_group(grp)
         return len(admitted)
@@ -616,43 +900,97 @@ class PagedKVEngine:
             return int(np.argmax(x - np.log(-np.log(u))))
         return int(np.argmax(logits))
 
-    def _prefill_group(self, grp):
-        """Prefill every (slot, request) pair of one bucket in ONE model
-        call. Eager PyTorch compiles nothing per shape, so the batch is
-        padded only to its longest prompt (rows past n_valid drop their
-        writes), not to the bucket."""
-        t0 = time.perf_counter()
-        bw = len(grp)
-        plen = max(int(req.prompt.size) for _, req in grp)
-        ids = np.zeros((bw, plen), np.int32)
+    def _prefill_call(self, rows, with_logits):
+        """One batched model call over `rows` of (slot, start, count):
+        each row's prompt tokens [start, start + count) append to its
+        slot's pages at lens = start, at positions from start. Eager
+        PyTorch compiles nothing per shape, so the batch is padded only
+        to its longest row (writes past n_valid drop into the sink
+        page). Returns, for the rows flagged in `with_logits`, the
+        logits at each row's last real token (host, f32): the full
+        (b, s, vocab) logits are never formed."""
+        bw = len(rows)
+        width = max(n for _, _, n in rows)
+        ids = np.zeros((bw, width), np.int32)
+        lens = np.zeros(bw, np.int32)
         nv = np.zeros(bw, np.int32)
         bt = np.zeros((bw, self.max_pages_per_slot), np.int32)
-        for row, (idx, req) in enumerate(grp):
-            ids[row, :req.prompt.size] = req.prompt
-            nv[row] = req.prompt.size
-            bt[row] = self._bt[idx]
+        for r, (idx, start, n) in enumerate(rows):
+            ids[r, :n] = self._slots[idx].req.prompt[start:start + n]
+            lens[r], nv[r] = start, n
+            bt[r] = self._bt[idx]
         dev = self.device
-        nv_t = torch.from_numpy(nv).to(dev)
-        state = PagedState(torch.from_numpy(bt).to(dev),
-                           torch.zeros(bw, dtype=torch.int32, device=dev),
-                           nv_t)
-        pos = torch.arange(plen, dtype=torch.int32,
-                           device=dev)[None, :].expand(bw, plen)
+        lens_t = torch.from_numpy(lens).to(dev)
+        state = PagedState(torch.from_numpy(bt).to(dev), lens_t,
+                           torch.from_numpy(nv).to(dev))
+        pos = lens_t[:, None] + torch.arange(width, dtype=torch.int32,
+                                             device=dev)[None, :]
         h = self.model.model(torch.from_numpy(ids).to(dev), pos,
                              self.pools, state)
-        # lm_head over each row's last real position only: the full
-        # (bw, plen, vocab) logits are never formed
-        last = h[torch.arange(bw, device=dev), nv_t.long() - 1]
-        logits_np = self.model.logits(last).float().cpu().numpy()
-        self.stats["prefills"] += bw
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += int(nv.sum())
-        self.stats["prefill_s"] += time.perf_counter() - t0
+        sel = [r for r in range(bw) if with_logits[r]]
+        if not sel:
+            return {}
+        last = h[torch.tensor(sel, device=dev),
+                 torch.from_numpy(nv[sel] - 1).to(dev).long()]
+        logits_np = self.model.logits(last).float().cpu().numpy()
+        return dict(zip(sel, logits_np))
+
+    def _prefilled(self, grp, logits):
+        """Each (slot, request) of a finished prefill: its first token,
+        its full prompt pages into the prefix cache, then `_accept`."""
         for row, (idx, req) in enumerate(grp):
             slot = self._slots[idx]
             slot.lens = int(req.prompt.size)
-            slot.tok = self._first_token(logits_np[row], req)
+            slot.tok = self._first_token(logits[row], req)
+            self._prefix_insert(idx, req)
             self._accept(idx, [slot.tok])
+
+    def _prefill_group(self, grp):
+        """Prefill every (slot, request) pair of one tail bucket in ONE
+        model call. A warm row (prefix-cache hit) prefills only its
+        uncached tail: lens and positions start past the shared pages,
+        and the tail attends over their KV through the block table."""
+        t0 = time.perf_counter()
+        rows = []
+        for idx, req in grp:
+            off = self._slots[idx].shared * self.page_size
+            rows.append((idx, off, int(req.prompt.size) - off))
+        logits = self._prefill_call(rows, [True] * len(rows))
+        self.stats["prefills"] += len(grp)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self._prefilled(grp, logits)
+
+    def _prefill_chunked_group(self, grp):
+        """Feed long prompts through lockstep rounds of `prefill_chunk`
+        tokens, each round one call appending at lens > 0 (a warm row
+        starts past its shared pages), so the scores of the attend stay
+        (b, hk, g, chunk, L). An exhausted row drops out of later rounds
+        (eager PyTorch keeps no static batch shape); only the round
+        that consumes a row's last token takes its logits, at
+        n_valid - 1."""
+        t0 = time.perf_counter()
+        chunk = self.prefill_chunk
+        done = [self._slots[idx].shared * self.page_size for idx, _ in grp]
+        plens = [int(req.prompt.size) for _, req in grp]
+        final = {}
+        while True:
+            live = [r for r in range(len(grp)) if done[r] < plens[r]]
+            if not live:
+                break
+            rows, last = [], []
+            for r in live:
+                take = min(chunk, plens[r] - done[r])
+                rows.append((grp[r][0], done[r], take))
+                last.append(done[r] + take >= plens[r])
+            for j, lg in self._prefill_call(rows, last).items():
+                final[live[j]] = lg
+            for r, (_, _, take) in zip(live, rows):
+                done[r] += take
+        self.stats["prefills"] += len(grp)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self._prefilled(grp, final)
 
     def _accept(self, slot_idx, toks):
         """Feed accepted tokens to the request; retire the slot when the
@@ -677,14 +1015,18 @@ class PagedKVEngine:
         return not finished
 
     def _retire(self, slot_idx, reason=None):
-        """Return the slot's pages and the rest of its reservation, and
-        wake its waiter. `reason` names an abnormal end ("error"); a
-        request that finished (no reason, not cancelled) counts in
-        stats["finished"]."""
+        """Release the slot's pages by refcount and the rest of its
+        reservation, and wake its waiter. A page returns to the free
+        list (`_recycle_pages`) only when its last referent lets go: a
+        page another slot or the prefix cache still holds stays
+        allocated, its int8 scales unchanged. `reason` names an abnormal
+        end ("error"); a request that finished (no reason, not
+        cancelled) counts in stats["finished"]."""
         slot = self._slots[slot_idx]
         req = slot.req
-        self._free.extend(reversed(slot.pages))
-        # release the unallocated remainder of this slot's reservation
+        freeable = [p for p in slot.pages if self._unref_page(p)]
+        # the unallocated remainder of this slot's reservation (shared
+        # pages were neither reserved nor drawn from the free list)
         self._reserved_unalloc -= req.pages_needed - len(slot.pages)
         self._bt[slot_idx, :] = 0
         self._slots[slot_idx] = None
@@ -693,13 +1035,7 @@ class PagedKVEngine:
         if reason is None and not req.cancelled.is_set():
             self.stats["finished"] += 1
         try:
-            if self._scales is not None and slot.pages:
-                # scales only grow at scatter time: a recycled page
-                # keeping its old scale would quantize its next request's
-                # k/v on the largest magnitude any earlier request wrote
-                # (JAX `_recycle_pages`). Between ticks, outside the graph
-                idx = torch.tensor(slot.pages, device=self.device)
-                self._scales[:, :, idx] = 0.0
+            self._recycle_pages(freeable)
         finally:
             req.queue.put(None)
             req.done.set()
@@ -981,13 +1317,14 @@ class PagedKVEngine:
         `attention_mask` row selecting its tokens) is its own request in
         the continuous batch, and a finished row yields `pad_token_id`.
         Closing the iterator early cancels the requests, so the engine
-        stops decoding for nobody."""
-        for name, val in (("deadline", deadline), ("tenant", tenant),
-                          ("session", session)):
+        stops decoding for nobody. `deadline` goes to each row's
+        submit()."""
+        for name, val in (("tenant", tenant), ("session", session)):
             if val is not None:
                 raise NotImplementedError(
                     f"stream(): {name}= is not ported yet (ROADMAP.md "
-                    "queue 1 item 4: deadlines, tenancy, sessions)")
+                    "queue 1 item 4: tenancy, then sessions with the "
+                    "host tier)")
         if seed is not None and do_sample:
             warnings.warn(
                 "PagedKVEngine ignores per-request seed: sampling noise in "
@@ -1009,7 +1346,7 @@ class PagedKVEngine:
                 reqs.append(self.submit(
                     r, max_new_tokens, eos_token_id=eos_token_id,
                     do_sample=do_sample, temperature=temperature,
-                    top_k=top_k, top_p=top_p))
+                    top_k=top_k, top_p=top_p, deadline=deadline))
         except BaseException:
             # a later row failed: the rows already submitted would decode
             # on for a caller that got an exception

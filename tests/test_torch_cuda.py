@@ -66,6 +66,7 @@ import torch
 
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.inference.paged import PagedKVEngine
+from paddle_tpu_torch.inference.prefix import chain_keys
 from paddle_tpu_torch.io.prefetch import DevicePrefetcher
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import blockwise_ce as tbce
@@ -1657,3 +1658,118 @@ def test_ticker_thread_captures_streams_and_cancels(cuda):
     finally:
         eng.stop()
     assert not eng._ticker.is_alive()
+
+
+# the prefix cache and chunked prefill on the card: 31 pages of 4, two
+# slots of up to 8, tails past 8 tokens in rounds of 8
+_PREFIX_GEOM = dict(max_slots=2, page_size=4, num_pages=32,
+                    max_pages_per_slot=8, steps_per_tick=3,
+                    prefill_chunk=8, prefix_cache_pages=8)
+_PREFIX = [5, 9, 2, 14, 17, 3, 11, 4]       # two full pages
+
+
+def _prefix_scenario(eng):
+    """A cold prompt that caches its two prefix pages, then a warm hit
+    and, joining mid-decode of it, a long prompt prefilled in rounds."""
+    ra = eng.submit(_PREFIX + [21, 22, 23], max_new_tokens=8)
+    eng.run_until_idle()
+    rb = eng.submit(_PREFIX + [31, 32], max_new_tokens=10)
+    eng.step()
+    rc = eng.submit(list(range(30, 51)), max_new_tokens=6)
+    eng.run_until_idle()
+    return [r.result() for r in (ra, rb, rc)]
+
+
+def _settled(eng):
+    cached = set(eng.prefix_cache.pages())
+    assert set(eng._page_refs) == cached
+    assert all(eng._page_refs[p] == 1 for p in cached)
+    assert len(eng._free) + len(cached) == eng.num_pages - 1
+    assert eng._reclaimable == len(cached) and eng._reserved_unalloc == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_warm_hit_and_chunked_prompt_captured_tick_gives_eager_tokens(cuda,
+                                                                       kv):
+    """A warm slot reads its shared pages through the block table the
+    graph was captured over, and a chunked prompt joins mid-decode: the
+    captured tick's greedy tokens equal the eager tick's."""
+    model = _tick_model(cuda, kv)
+    geom = dict(_PREFIX_GEOM, kv_dtype=kv)
+    captured = PagedKVEngine(model, device=cuda, **geom)
+    eager = _eager(PagedKVEngine(model, device=cuda, **geom))
+    got = _prefix_scenario(captured)
+    assert got == _prefix_scenario(eager)
+    assert [len(t) for t in got] == [8, 10, 6]
+    for eng in (captured, eager):
+        assert eng.stats["prefix_hits"] == 1
+        assert eng.stats["prefix_hit_tokens"] == 8
+        # 11 tokens in rounds of 8 and 3, the warm 2-token tail whole,
+        # 21 tokens in rounds of 8, 8 and 5
+        assert eng.stats["prefill_tokens"] == 11 + 2 + 21
+        assert eng.stats["prefill_calls"] == 2 + 1 + 3
+        _settled(eng)
+    assert set(captured._programs) == {("tick", False)}
+    assert not eager._programs
+
+
+@pytest.mark.cuda
+def test_int8_warm_slot_keeps_the_shared_scale_rows(cuda):
+    """The shared pages' int8 scale rows stay bit-equal through the warm
+    request's tail prefill and its captured decode ticks."""
+    model = _tick_model(cuda, "int8")
+    eng = PagedKVEngine(model, device=cuda, kv_dtype="int8",
+                        **_PREFIX_GEOM)
+    eng.generate([_PREFIX + [21, 22, 23]], max_new_tokens=4)
+    shared = [eng.prefix_cache.get(k) for k in chain_keys(_PREFIX, 4)]
+    before = eng._scales[:, :, shared].clone()
+    assert bool((before > 0).all())
+    r = eng.submit(_PREFIX + [31, 32, 33], max_new_tokens=12)
+    eng.step()
+    assert eng._slots[0].pages[:2] == shared and eng._slots[0].shared == 2
+    assert torch.equal(eng._scales[:, :, shared], before)
+    eng.run_until_idle()
+    assert len(r.result()) == 12
+    assert torch.equal(eng._scales[:, :, shared], before)
+    assert float(eng._scales[:, :, eng._free].abs().sum()) == 0.0
+    _settled(eng)
+
+
+@pytest.mark.cuda
+def test_on_demand_eviction_between_replays_keeps_launch_counts(cuda):
+    """A decode allocation that finds the free list dry evicts a cached
+    page between two replays of the captured tick; the launch counts
+    stay (ticks + warm-up ticks) x a tick's, plus the prefill calls',
+    and the tokens equal the eager tick's."""
+    model = _tick_model(cuda, "bf16")
+    geom = dict(max_slots=1, page_size=4, num_pages=8, max_pages_per_slot=7,
+                steps_per_tick=2, prefix_cache_pages=6)
+    layers, n = _TICK_CFG["num_hidden_layers"], geom["steps_per_tick"]
+    prompts = [list(range(1, 9)) + [40], [60 + i for i in range(12)]]
+    outs = []
+    for eng in (PagedKVEngine(model, device=cuda, **geom),
+                _eager(PagedKVEngine(model, device=cuda, **geom))):
+        evicted_at = []
+        evict = eng._evict_prefix_entries
+
+        def recorded(budget_only=True, eng=eng, evict=evict,
+                     evicted_at=evicted_at):
+            freed = evict(budget_only)
+            if not budget_only and freed:
+                evicted_at.append(eng.stats["ticks"])
+            return freed
+        eng._evict_prefix_entries = recorded
+        before = {**tfn.launches, **tpa.launches}
+        toks = [eng.generate([p], max_new_tokens=m)[0]
+                for p, m in zip(prompts, (3, 12))]
+        grew = {k: v - before[k] for k, v in {**tfn.launches,
+                                              **tpa.launches}.items()}
+        steps = n * (eng.stats["ticks"] + eng.stats["warmup_ticks"])
+        calls = eng.stats["prefill_calls"] + steps
+        assert evicted_at and min(evicted_at) > 1   # after replays ran
+        assert grew["paged_decode_attention"] == layers * steps
+        assert grew["rms_norm_residual"] == (2 * layers + 1) * calls
+        assert grew["rope_apply"] == 2 * layers * calls
+        outs.append(toks)
+    assert outs[0] == outs[1]

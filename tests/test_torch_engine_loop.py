@@ -393,7 +393,7 @@ def test_run_until_idle_waits_on_a_live_ticker(models, monkeypatch):
 
 def test_stream_refuses_unported_arguments_and_warns_on_seed(models):
     eng = _engine(models)
-    for kw in (dict(deadline=1.0), dict(tenant="a"), dict(session="s")):
+    for kw in (dict(tenant="a"), dict(session="s")):
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):
             next(eng.stream(np.asarray([[1, 2]], np.int32),
                             max_new_tokens=2, **kw))

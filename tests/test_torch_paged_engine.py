@@ -19,6 +19,7 @@ KV, its state carried into a port model converted by
 """
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,6 +39,7 @@ from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.models.convert import from_paddle_tpu_state
 from paddle_tpu_torch.quantization import quantize_weight_only
 
+ROOT = str(Path(__file__).resolve().parents[1])
 TINY = dict(num_hidden_layers=2, vocab_size=97, hidden_size=64,
             num_attention_heads=4, num_key_value_heads=2,
             fused_norm=True, fused_rope=True)
@@ -250,6 +252,10 @@ def test_port_imports_without_jax_or_paddle_tpu():
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.models.llama, paddle_tpu_torch.models.convert\n"
         "import paddle_tpu_torch.inference.paged\n"
+        "import paddle_tpu_torch.inference.prefix\n"
+        "import paddle_tpu_torch.inference.overload\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "import chip_smoke\n"
         "import paddle_tpu_torch.kernels.fused_norm\n"
         "import paddle_tpu_torch.kernels.paged_attention\n"
         "import paddle_tpu_torch.kernels.quant_matmul\n"
