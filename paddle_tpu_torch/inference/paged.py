@@ -61,9 +61,21 @@ Counterpart of the core of paddle_tpu/inference/paged.py:
   full; `submit(deadline=)` fails an expired request with
   `DeadlineExceeded` at submit, or at admission without a slot, pages
   or a prefill (inference/overload.py).
+- Speculative decoding (`draft_model=`, `spec_tokens=g`): a draft model
+  rides its own page pools over the same block tables, so a rejected
+  proposal rolls back for free (lens does not advance; its stale
+  positions are masked and later overwritten). Every prefill call also
+  writes the draft's KV. Each tick is then the spec tick (`_spec_body`,
+  the JAX engine's `_spec_tick_fn`): g draft steps at s = 1 through the
+  decode kernel, one target verify at s = g + 1 over `_attend_pages`,
+  acceptance on the device (greedy slots by token equality, which is
+  lossless; sampled slots by Leviathan's rejection rule, which keeps the
+  target's distribution), and the draft's KV at lens + g written for the
+  rows that accepted all g. On the card it is captured per sampling
+  variant as `_programs[("spec_tick", any_sample)]`.
 
 Not in this slice (ROADMAP.md lists them): host tier, disaggregated
-roles, tenancy, sessions, speculative decode and observability.
+roles, tenancy, sessions and observability.
 """
 from __future__ import annotations
 
@@ -116,8 +128,13 @@ def _scatter_kv(kp, vp, k, v, state: PagedState, k_scale=None,
     page is the sink. Rows past n_valid are written there, where no
     block table points, so they are dropped as the JAX engine drops
     them (`mode="drop"` past the pool) by one unconditional index_put_,
-    with no host sync. They never reach page 0, which a caller's block
-    table may legitimately hold.
+    with no host sync. So are rows whose logical page lies past the
+    block table (a speculative verify near the end of a slot's window):
+    the JAX engine clamps those to the table's last column, where they
+    overwrite committed k/v that the same call then reads. Rows past a
+    slot's budget but inside its window (the verify's g + 1 positions
+    near the budget) land in its unallocated entries, page 0, as in the
+    JAX engine; page 0 is only ever read masked.
 
     int8 pools (k_scale / v_scale (num_pages + 1, hk) f32 given) quantize
     here, as the JAX engine's `_scatter_kv` does, in the same expression
@@ -131,9 +148,12 @@ def _scatter_kv(kp, vp, k, v, state: PagedState, k_scale=None,
     sink, page_size = kp.shape[0] - 1, kp.shape[2]
     steps = torch.arange(s, dtype=torch.int32, device=k.device)
     pos = lens[:, None] + steps[None, :]                        # (b, s)
-    logical = (pos // page_size).clamp(0, bt.shape[1] - 1)
-    phys = torch.gather(bt, 1, logical.long())
-    phys = torch.where(steps[None, :] < n_valid[:, None], phys, sink)
+    logical = pos // page_size
+    # the clamp keeps the gather in bounds; past-window rows go to the
+    # sink below
+    phys = torch.gather(bt, 1, logical.clamp(0, bt.shape[1] - 1).long())
+    keep = (steps[None, :] < n_valid[:, None]) & (logical < bt.shape[1])
+    phys = torch.where(keep, phys, sink)
     phys = phys.reshape(-1).long()
     off = (pos % page_size).reshape(-1).long()
     if k_scale is None:
@@ -450,22 +470,31 @@ class PagedKVEngine:
         and the queue is full.
     prefix_cache_pages: page budget of the prompt prefix cache (module
         doc; 0 = disabled, the default).
+    draft_model: a port LlamaForCausalLM on the same device that
+        proposes `spec_tokens` tokens a tick for the target to verify
+        (module doc); its pools take the engine's pool type and its own
+        head geometry. Not with `prefill_chunk`. Each tick then emits 1
+        to spec_tokens + 1 tokens a slot, whatever `steps_per_tick`.
 
     Not taken yet (ROADMAP.md queue 1 item 4): the JAX engine's
-    `draft_model`, `tenancy`, `host_tier_bytes`, `suspend_after_s` and
-    `role`, and `submit`'s `tenant` and `session`.
+    `tenancy`, `host_tier_bytes`, `suspend_after_s` and `role`, and
+    `submit`'s `tenant` and `session`.
     """
 
     def __init__(self, model, *, max_slots=4, page_size=16, num_pages=64,
                  max_pages_per_slot=None, steps_per_tick=4, seed=0,
-                 prefill_chunk=None, max_pending=None, kv_dtype=None,
-                 prefix_cache_pages=0, device="cuda"):
+                 prefill_chunk=None, draft_model=None, spec_tokens=4,
+                 max_pending=None, kv_dtype=None, prefix_cache_pages=0,
+                 device="cuda"):
         dev = resolve_device(device)
         mdev = model.device
-        if dev.type != mdev.type or (dev.index is not None
-                                     and dev.index != mdev.index):
-            raise ValueError(f"model lives on {mdev}, engine asked for "
-                             f"{dev}")
+        for what, m in (("model", model), ("draft_model", draft_model)):
+            if m is None:
+                continue
+            if dev.type != m.device.type or (
+                    dev.index is not None and dev.index != m.device.index):
+                raise ValueError(f"{what} lives on {m.device}, engine "
+                                 f"asked for {dev}")
         self.device = mdev
         cfg = model.config
         self.model = model
@@ -495,28 +524,26 @@ class PagedKVEngine:
         self.kv_dtype = kv_dtype
         pool_dtype = {None: model.dtype, "bf16": torch.bfloat16,
                       "int8": torch.int8}[kv_dtype]
-        n_kv, hd = cfg.num_key_value_heads, cfg.head_dim
-        n_layers = cfg.num_hidden_layers
-        if mdev.type == "cuda":      # the CPU twin takes any geometry
-            check_decode_shapes(cfg.num_attention_heads, n_kv, hd,
-                                self.page_size, pool_dtype)
-        shape = (self.num_pages + 1, n_kv, self.page_size, hd)   # + sink
-        # a layer's k and v pools are the two halves of one buffer: int8
-        # KV quantizes both in one pass (_scatter_kv)
-        pools = [tuple(torch.zeros((2,) + shape, dtype=pool_dtype,
-                                   device=mdev))
-                 for _ in range(n_layers)]
-        # int8: every layer's k and v scale planes are views of one
-        # tensor, so freed pages' scales reset in one launch
-        # (_recycle_pages)
-        self._scales = None
-        if kv_dtype == "int8":
-            self._scales = torch.zeros((n_layers, 2, self.num_pages + 1,
-                                        n_kv), dtype=torch.float32,
-                                       device=mdev)
-            pools = [(kp, vp, self._scales[i, 0], self._scales[i, 1])
-                     for i, (kp, vp) in enumerate(pools)]
-        self.pools = pools
+        if draft_model is not None and prefill_chunk:
+            raise NotImplementedError(
+                "speculative decoding + chunked prefill: the draft "
+                "prefill mirrors the bucketed path only (compose later)")
+        if draft_model is not None and \
+                draft_model.config.vocab_size != cfg.vocab_size:
+            # the verify holds the draft's tokens and q rows against the
+            # target's logits column for column
+            raise ValueError(f"draft_model's vocab_size "
+                             f"{draft_model.config.vocab_size} != the "
+                             f"model's {cfg.vocab_size}")
+        self.draft_model = draft_model
+        self.spec_tokens = int(spec_tokens)
+        self.pools, self._scales = self._make_pools(cfg, pool_dtype)
+        # the draft's pools share the block tables; int8: its scale
+        # planes are one tensor beside `_scales`
+        self.draft_pools = self._draft_scales = None
+        if draft_model is not None:
+            self.draft_pools, self._draft_scales = self._make_pools(
+                draft_model.config, pool_dtype)
         self._free = list(range(self.num_pages - 1, 0, -1))   # 0 = trash
         # pages promised to admitted slots but not yet popped from the
         # free list (admission_headroom)
@@ -544,9 +571,20 @@ class PagedKVEngine:
                          for k, (sh, dt) in shapes.items()}
         self._inputs = {k: torch.zeros(sh, dtype=dt, device=mdev)
                         for k, (sh, dt) in shapes.items()}
-        self._outputs = torch.zeros((b, self.steps_per_tick + 1),
-                                    dtype=torch.int32, device=mdev)
-        self._programs = {}        # ("tick", any_sample) -> _CapturedTick
+        # the program, fixed here: the tick writes (b, n) tokens, then
+        # the final lens; the spec tick (b, g + 1) tokens, then n_emit
+        # and the final lens. The body is looked up by name at each use
+        # (a bound method kept here would make the engine a cycle)
+        if draft_model is None:
+            self._kind, self._body_name = "tick", "_tick_body"
+            width = self.steps_per_tick + 1
+        else:
+            self._kind, self._body_name = "spec_tick", "_spec_body"
+            width = self.spec_tokens + 3
+        self._outputs = torch.zeros((b, width), dtype=torch.int32,
+                                    device=mdev)
+        # ("tick" or "spec_tick", any_sample) -> _CapturedTick
+        self._programs = {}
         self._graph_pool = None    # one memory pool for every variant
         self._pending: list[_Request] = []
         self._seed = int(seed)
@@ -570,14 +608,41 @@ class PagedKVEngine:
                       "warmup_s": 0.0,
                       "prefix_hits": 0, "prefix_misses": 0,
                       "prefix_hit_tokens": 0, "prefix_pages_shared": 0,
-                      "prefix_evictions": 0}
+                      "prefix_evictions": 0, "spec_ticks": 0,
+                      "spec_proposed": 0, "spec_accepted": 0}
+
+    def _make_pools(self, cfg, pool_dtype):
+        """One (k, v) pool pair per layer of a model of config `cfg`
+        (+ the sink page), and for int8 KV the one tensor that holds
+        every layer's scale planes (None otherwise)."""
+        n_kv, hd = cfg.num_key_value_heads, cfg.head_dim
+        n_layers = cfg.num_hidden_layers
+        dev = self.device
+        if dev.type == "cuda":      # the CPU twin takes any geometry
+            check_decode_shapes(cfg.num_attention_heads, n_kv, hd,
+                                self.page_size, pool_dtype)
+        shape = (self.num_pages + 1, n_kv, self.page_size, hd)   # + sink
+        # a layer's k and v pools are the two halves of one buffer: int8
+        # KV quantizes both in one pass (_scatter_kv)
+        pools = [tuple(torch.zeros((2,) + shape, dtype=pool_dtype,
+                                   device=dev))
+                 for _ in range(n_layers)]
+        if pool_dtype != torch.int8:
+            return pools, None
+        # every layer's k and v scale planes are views of one tensor, so
+        # freed pages' scales reset in one launch (_recycle_pages)
+        scales = torch.zeros((n_layers, 2, self.num_pages + 1, n_kv),
+                             dtype=torch.float32, device=dev)
+        return [(kp, vp, scales[i, 0], scales[i, 1])
+                for i, (kp, vp) in enumerate(pools)], scales
 
     def kv_bytes_per_slot(self):
         """Device bytes one fully grown slot pins across every layer's KV
-        pools (and, for int8 KV, their scale rows), from the real buffer
-        types."""
+        pools (and, for int8 KV, their scale rows), the draft model's
+        included, from the real buffer types."""
         per_page = sum(t[0].numel() * t.element_size()
-                       for grp in self.pools for t in grp)
+                       for grp in self.pools + (self.draft_pools or [])
+                       for t in grp)
         return per_page * self.max_pages_per_slot
 
     def prefix_stats(self):
@@ -693,7 +758,8 @@ class PagedKVEngine:
 
     def _recycle_pages(self, pages):
         """Return zero-ref pages to the free list. int8 KV: zero their
-        scale rows in one launch over `_scales`, between ticks and
+        scale rows in one launch over `_scales` (and one over the
+        draft's `_draft_scales`), between ticks and
         outside the graph, on the stream the next replay runs on. Scales
         only grow at scatter time, so a recycled page keeping its old
         scale would quantize its next request's k/v on the largest
@@ -708,6 +774,8 @@ class PagedKVEngine:
         if self._scales is not None:
             idx = torch.tensor(pages, device=self.device)
             self._scales[:, :, idx] = 0.0
+            if self._draft_scales is not None:
+                self._draft_scales[:, :, idx] = 0.0
 
     def _evict_prefix_entries(self, budget_only=True):
         """Shrink the prefix cache: to its page budget (`budget_only`,
@@ -901,7 +969,8 @@ class PagedKVEngine:
         return int(np.argmax(logits))
 
     def _prefill_call(self, rows, with_logits):
-        """One batched model call over `rows` of (slot, start, count):
+        """One batched model call over `rows` of (slot, start, count)
+        (with a draft, one draft call over the same rows after it):
         each row's prompt tokens [start, start + count) append to its
         slot's pages at lens = start, at positions from start. Eager
         PyTorch compiles nothing per shape, so the batch is padded only
@@ -925,8 +994,13 @@ class PagedKVEngine:
                            torch.from_numpy(nv).to(dev))
         pos = lens_t[:, None] + torch.arange(width, dtype=torch.int32,
                                              device=dev)[None, :]
-        h = self.model.model(torch.from_numpy(ids).to(dev), pos,
-                             self.pools, state)
+        ids_t = torch.from_numpy(ids).to(dev)
+        h = self.model.model(ids_t, pos, self.pools, state)
+        if self.draft_model is not None:
+            # the draft's KV for the same rows (k/v only, no lm_head);
+            # shared pages already hold the prefix's draft KV, since
+            # both models' pools share the block tables
+            self.draft_model.model(ids_t, pos, self.draft_pools, state)
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += int(nv.sum())
         sel = [r for r in range(bw) if with_logits[r]]
@@ -1095,12 +1169,10 @@ class PagedKVEngine:
             last = self.model.logits(h[:, -1])
             nxt = last.argmax(dim=-1).to(torch.int32)
             if any_sample:
-                u = torch.rand(last.shape, generator=self._gen,
-                               device=last.device)
-                gumbel = -torch.log(-torch.log(u.clamp_(min=1e-20)))
                 proc = _process_logits_rowwise(last, x["temp"], x["topk"],
                                                x["topp"])
-                sampled = (proc + gumbel).argmax(dim=-1).to(torch.int32)
+                sampled = (proc + self._gumbel(proc.shape)).argmax(
+                    dim=-1).to(torch.int32)
                 nxt = torch.where(x["wants"], sampled, nxt)
             nxt = torch.where(live, nxt, 0)
             lens = lens + live_i
@@ -1111,19 +1183,114 @@ class PagedKVEngine:
             outs.append(nxt)
         torch.stack(outs + [lens], dim=1, out=self._outputs)
 
+    def _gumbel(self, shape):
+        """Gumbel noise drawn from the engine's generator (a captured
+        program registers it, so each replay draws anew)."""
+        u = torch.rand(shape, generator=self._gen, device=self.device)
+        return -torch.log(-torch.log(u.clamp_(min=1e-20)))
+
+    @torch.no_grad()
+    def _spec_body(self, any_sample):
+        """The spec tick (JAX `_spec_tick_fn`): g draft steps at s = 1 on
+        the draft pools, one target verify over the g + 1 candidate
+        positions, acceptance on the device, and the draft's KV at
+        lens + g for the rows that accepted all g. From the static input
+        buffers to the static output buffer ((b, g + 1) tokens, n_emit,
+        the final lens), with no read-back, so a CUDA graph can capture
+        it. The greedy-only variant sorts nothing and keeps no q rows."""
+        x = self._inputs
+        tok, lens, active, bt = x["tok"], x["lens"], x["active"], x["bt"]
+        temp, topk, topp, wants = x["temp"], x["topk"], x["topp"], \
+            x["wants"]
+        draft, target, g = self.draft_model, self.model, self.spec_tokens
+        live = active.to(torch.int32)
+        cur, d_toks, q_rows = tok, [], []
+        for j in range(g):
+            pos = lens + j
+            h = draft.model(cur[:, None], pos[:, None], self.draft_pools,
+                            PagedState(bt, pos, live))
+            last = draft.logits(h[:, -1])
+            nxt = last.argmax(dim=-1).to(torch.int32)
+            if any_sample:
+                proc = _process_logits_rowwise(last, temp, topk, topp)
+                sampled = (proc + self._gumbel(proc.shape)).argmax(
+                    dim=-1).to(torch.int32)
+                nxt = torch.where(wants, sampled, nxt)
+                onehot = torch.zeros_like(proc).scatter_(
+                    1, nxt[:, None].long(), 1.0)
+                q_rows.append(torch.where(wants[:, None],
+                                          torch.softmax(proc, dim=-1),
+                                          onehot))
+            d_toks.append(nxt)
+            cur = nxt
+        d = torch.stack(d_toks, dim=1)                         # (b, g)
+        ids = torch.cat([tok[:, None], d], dim=1)
+        steps = torch.arange(g + 1, dtype=torch.int32, device=tok.device)
+        h = target.model(ids, lens[:, None] + steps[None, :], self.pools,
+                         PagedState(bt, lens, live * (g + 1)))
+        lv = target.logits(h)                               # (b, g + 1, v)
+        picks = lv.argmax(dim=-1).to(torch.int32)
+        acc = picks[:, :g] == d
+        if any_sample:
+            b, v = lv.shape[0], lv.shape[-1]
+            xt = _process_logits_rowwise(
+                lv.reshape(b * (g + 1), v), temp.repeat_interleave(g + 1),
+                topk.repeat_interleave(g + 1),
+                topp.repeat_interleave(g + 1)).reshape(b, g + 1, v)
+            p_rows = torch.softmax(xt, dim=-1)
+            q = torch.stack(q_rows, dim=1)                 # (b, g, v)
+            p_at = p_rows[:, :g].gather(2, d[..., None].long())[..., 0]
+            q_at = q.gather(2, d[..., None].long())[..., 0]
+            u = torch.rand(d.shape, generator=self._gen, device=d.device)
+            acc = torch.where(wants[:, None],
+                              u * q_at.clamp_min(1e-30) < p_at, acc)
+        n_acc = acc.to(torch.int32).cumprod(dim=1).sum(dim=1,
+                                                       dtype=torch.int32)
+        corr = picks.gather(1, n_acc[:, None].long())[:, 0]
+        if any_sample:
+            # the correction from the residual max(p - q, 0) at row
+            # n_acc (the bonus row has q = 0); p where it is empty
+            at = n_acc[:, None, None].long().expand(b, 1, v)
+            q_pad = torch.cat([q, torch.zeros_like(q[:, :1])], dim=1)
+            p_corr = p_rows.gather(1, at)[:, 0]
+            res = (p_corr - q_pad.gather(1, at)[:, 0]).clamp_min(0.0)
+            has_res = res.sum(dim=-1, keepdim=True) > 1e-30
+            res = torch.where(has_res, res, p_corr)
+            sampled = (torch.log(res.clamp_min(1e-30))
+                       + self._gumbel(res.shape)).argmax(dim=-1)
+            corr = torch.where(wants, sampled.to(torch.int32), corr)
+        col = steps[None, :]
+        padded = torch.cat([d, torch.zeros_like(d[:, :1])], dim=1)
+        out = torch.where(col < n_acc[:, None], padded,
+                          torch.where(col == n_acc[:, None], corr[:, None],
+                                      0))
+        out = torch.where(active[:, None], out, 0)
+        n_emit = torch.where(active, n_acc + 1, 0)
+        lens_f = lens + live * (1 + n_acc)
+        # full acceptance commits lens + g (token d_{g-1}), the one
+        # position no draft step wrote: one more draft step writes it,
+        # the other rows drop the write (n_valid 0)
+        bonus = (active & (n_acc == g)).to(torch.int32)
+        draft.model(d[:, g - 1:], (lens + g)[:, None], self.draft_pools,
+                    PagedState(bt, lens + g, bonus))
+        torch.cat([out, n_emit[:, None], lens_f[:, None]], dim=1,
+                  out=self._outputs)
+
     def _eager_program(self, any_sample):
-        """The tick body run eagerly: the CPU's program, and on the card
-        the yardstick the captured tick is held against."""
-        return functools.partial(self._tick_body, any_sample)
+        """The tick body run eagerly (the spec tick's when a draft is
+        set): the CPU's program, and on the card the yardstick the
+        captured tick is held against."""
+        return functools.partial(getattr(self, self._body_name),
+                                 any_sample)
 
     def _tick_program(self, any_sample):
         """The tick program for this sampling variant: on the card a CUDA
         graph captured at first use and cached under ("tick",
-        any_sample), as the JAX engine keys its programs; on the CPU the
-        body itself."""
+        any_sample), or ("spec_tick", any_sample) with a draft, as the
+        JAX engine keys its programs; on the CPU the body itself."""
         if self.device.type != "cuda":
             return self._eager_program(any_sample)
-        key = ("tick", any_sample)
+        key = (self._kind, any_sample)
         if key not in self._programs:
             self._programs[key] = self._capture(any_sample)
         return self._programs[key]
@@ -1136,9 +1303,10 @@ class PagedKVEngine:
         self._inputs["bt"].zero_()
 
     def _capture(self, any_sample):
-        """Warm the tick body up once on a side stream, then capture it,
-        both with every slot inactive: each KV write then lands in the
-        pools' sink page and no live page is touched (int8 pools'
+        """Warm the tick body (or the spec tick's) up once on a side
+        stream, then capture it, both with every slot inactive: each KV
+        write of the target's and the draft's then lands in the pools'
+        sink page and no live page is touched (int8 pools'
         quantize-at-scatter runs inside the graph). The warm-up's
         launches are real and stay counted; the capture's are taken
         back out and added again by every replay."""
@@ -1212,11 +1380,24 @@ class PagedKVEngine:
         live = [i for i, s in enumerate(self._slots) if s is not None]
         if not live:
             return admitted > 0
+        if self.draft_model is not None:
+            return self._step_spec(live)
         n = self.steps_per_tick
+        a, back = self._run_tick(live, n)
+        counts = np.minimum(a["limit"], n)
+        self._accept_tick(live, back[:, :n], counts, a["eos"], back[:, n])
+        return True
+
+    def _run_tick(self, live, ahead):
+        """Grow each live slot's pages to cover the next `ahead`
+        positions (within its budget), then one run of the tick
+        program: one staging copy in, one replay (or eager body), one
+        copy of the outputs back. Returns (the slot arrays, the
+        outputs on the host)."""
         for i in live:
             slot = self._slots[i]
             budget_tokens = slot.req.prompt.size + slot.req.max_new_tokens
-            need = min(slot.lens + n, budget_tokens)
+            need = min(slot.lens + ahead, budget_tokens)
             self._alloc_pages(i, -(-need // self.page_size))
         a = self._slot_arrays(live)
         program = self._tick_program(bool(a["wants"].any()))
@@ -1227,8 +1408,21 @@ class PagedKVEngine:
         back = self._outputs.to("cpu", copy=True).numpy()
         self.stats["ticks"] += 1
         self.stats["tick_s"] += time.perf_counter() - t0
-        counts = np.minimum(a["limit"], n)
-        self._accept_tick(live, back[:, :n], counts, a["eos"], back[:, n])
+        return a, back
+
+    def _step_spec(self, live):
+        """One spec tick (JAX `_step_spec`): greedy and sampled slots
+        ride it together. Pages cover lens + g + 1 within the budget;
+        each slot takes min(n_emit, its limit) tokens."""
+        g = self.spec_tokens
+        a, back = self._run_tick(live, g + 1)
+        n_emit = back[:, g + 1]
+        self.stats["spec_ticks"] += 1
+        self.stats["spec_proposed"] += g * len(live)
+        self.stats["spec_accepted"] += int(sum(n_emit[i] - 1 for i in live))
+        counts = np.minimum(n_emit, a["limit"])
+        self._accept_tick(live, back[:, :g + 1], counts, a["eos"],
+                          back[:, g + 2])
         return True
 
     def run_until_idle(self):

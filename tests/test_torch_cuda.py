@@ -1773,3 +1773,158 @@ def test_on_demand_eviction_between_replays_keeps_launch_counts(cuda):
         assert grew["rope_apply"] == 2 * layers * calls
         outs.append(toks)
     assert outs[0] == outs[1]
+
+
+# -- speculative decoding: the spec tick as one captured CUDA graph -------------
+
+# a draft one layer deep at the target's widths, so the counts tell the
+# two models apart
+_SPEC_DRAFT_CFG = dict(_TICK_CFG, num_hidden_layers=1)
+_SPEC_GEOM = dict(max_slots=2, page_size=4, num_pages=40,
+                  max_pages_per_slot=8, spec_tokens=3)
+_SAMPLE = dict(do_sample=True, temperature=1.3, top_k=50, top_p=0.95)
+
+
+def _spec_models(dev, kv):
+    draft = LlamaForCausalLM(tiny_llama_config(**_SPEC_DRAFT_CFG),
+                             device=dev, dtype=torch.bfloat16, seed=5)
+    if kv == "int8":
+        draft = quantize_weight_only(draft)
+    return _tick_model(dev, kv), draft
+
+
+def _spec_scenario(eng, sample):
+    """A mid-decode join and a queued request; with `sample`, the joiner
+    samples beside the greedy slot."""
+    ra = eng.submit([5, 9, 2, 14], max_new_tokens=9)
+    eng.step()
+    rb = eng.submit([17, 3, 11], max_new_tokens=12,
+                    **(_SAMPLE if sample else {}))
+    rc = eng.submit([40, 41], max_new_tokens=7)
+    eng.run_until_idle()
+    return [r.result() for r in (ra, rb, rc)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample", [False, True])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_captured_spec_tick_gives_the_eager_spec_bodys_tokens(cuda, kv,
+                                                              sample):
+    """Each spec tick is one replay of the graph cached under
+    ("spec_tick", any_sample); its greedy rows equal the eager spec
+    body's (the sampled row draws other noise: the warm-up tick consumed
+    some), and every page returns with both models' int8 scale rows
+    zeroed."""
+    model, draft = _spec_models(cuda, kv)
+    geom = dict(_SPEC_GEOM, kv_dtype=kv, seed=3)
+    captured = PagedKVEngine(model, device=cuda, draft_model=draft, **geom)
+    eager = _eager(PagedKVEngine(model, device=cuda, draft_model=draft,
+                                 **geom))
+    got = _spec_scenario(captured, sample)
+    want = _spec_scenario(eager, sample)
+    assert [len(t) for t in got] == [9, 12, 7]
+    greedy = [0, 2] if sample else [0, 1, 2]
+    assert [got[i] for i in greedy] == [want[i] for i in greedy]
+    assert all(0 <= t < _TICK_CFG["vocab_size"] for t in got[1])
+    assert ("spec_tick", sample) in captured._programs
+    assert all(k[0] == "spec_tick" for k in captured._programs)
+    assert not eager._programs and eager.stats["warmup_ticks"] == 0
+    assert captured.stats["warmup_ticks"] == len(captured._programs)
+    for eng in (captured, eager):
+        st = eng.stats
+        assert st["spec_ticks"] == st["ticks"] > 0
+        assert 0 <= st["spec_accepted"] <= st["spec_proposed"]
+        assert sorted(eng._free) == list(range(1, eng.num_pages))
+        assert eng._reserved_unalloc == 0
+        if kv == "int8":
+            for planes in (eng._scales, eng._draft_scales):
+                assert float(planes[:, :, 1:-1].abs().sum()) == 0.0
+    if not sample:
+        assert captured.stats["ticks"] == eager.stats["ticks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample", [False, True])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_captured_spec_tick_launch_counts(cuda, kv, sample):
+    """A spec tick launches, per replay: the decode kernel L_d (g + 1)
+    times (g draft steps and the bonus write; the verify attends over
+    `_attend_pages`), RMSNorm (2 L_d + 1)(g + 1) + 2 L_t + 1 and RoPE
+    2 L_d (g + 1) + 2 L_t times, and for W8A16 models (7 L_d + 1) g + 7 L_d
+    (the bonus step forms no logits) + 7 L_t + 1 products, the verify's
+    7 L_t + 1 at M = 8 (g + 1) = 40 on the wgmma route. Each prefill call
+    runs both models. The totals of a run are those counts times
+    (ticks + warm-up ticks) plus the prefill calls'."""
+    model, draft = _spec_models(cuda, kv)
+    g = 4
+    eng = PagedKVEngine(model, device=cuda, draft_model=draft, kv_dtype=kv,
+                        **dict(_SPEC_GEOM, max_slots=8, spec_tokens=g))
+    lt, ld = _TICK_CFG["num_hidden_layers"], _SPEC_DRAFT_CFG[
+        "num_hidden_layers"]
+    decode = ("paged_decode_attention_int8" if kv == "int8"
+              else "paged_decode_attention")
+    tick = {decode: ld * (g + 1),
+            "rms_norm_residual": (2 * ld + 1) * (g + 1) + 2 * lt + 1,
+            "rope_apply": 2 * ld * (g + 1) + 2 * lt}
+    call = {"rms_norm_residual": 2 * lt + 1 + 2 * ld + 1,
+            "rope_apply": 2 * lt + 2 * ld}
+    if kv == "int8":
+        tick["weight_only_int8_matmul"] = ((7 * ld + 1) * g + 7 * ld
+                                           + 7 * lt + 1)
+        tick["weight_only_int8_matmul_wgmma"] = 7 * lt + 1
+        call["weight_only_int8_matmul"] = 7 * lt + 1 + 7 * ld
+    before = {**tfn.launches, **tpa.launches, **tqm.launches}
+    # two prompts of 4 tokens: one prefill call at M = 8 (split-K)
+    kw = _SAMPLE if sample else {}
+    eng.generate([[5, 9, 2, 14], [17, 3, 11, 4]], max_new_tokens=10, **kw)
+    after = {**tfn.launches, **tpa.launches, **tqm.launches}
+    grew = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    runs = eng.stats["ticks"] + eng.stats["warmup_ticks"]
+    assert eng.stats["warmup_ticks"] == 1 and eng.stats["ticks"] >= 2
+    calls = eng.stats["prefill_calls"]
+    want = {k: n * runs + call.get(k, 0) for k, n in tick.items()}
+    assert grew == want
+    delta = {k: v for _, k, v in eng._programs[("spec_tick", sample)].delta}
+    assert delta == tick
+    assert calls == 1
+
+
+@pytest.mark.cuda
+def test_two_sampled_spec_replays_from_one_state_draw_other_noise(cuda):
+    """The sampled graph registers the engine's generator: two replays
+    from the same pools and inputs give other tokens."""
+    model, draft = _spec_models(cuda, "bf16")
+    eng = PagedKVEngine(model, device=cuda, draft_model=draft, **_SPEC_GEOM)
+    for p in ([5, 9, 2], [17, 3, 11]):
+        eng.submit(p, max_new_tokens=20, **_SAMPLE)
+    eng._admit()
+    program = eng._tick_program(True)        # captures (idle inputs)
+    eng._slot_arrays([0, 1])
+    for k, t in eng._inputs.items():
+        t.copy_(eng._staging[k])
+    pools = [t for grp in eng.pools + eng.draft_pools for t in grp]
+    saved = [t.clone() for t in pools]
+    outs = []
+    for _ in range(2):
+        for t, s in zip(pools, saved):
+            t.copy_(s)
+        program()
+        outs.append(eng._outputs.clone())
+    assert not torch.equal(outs[0], outs[1])
+    vocab = _TICK_CFG["vocab_size"]
+    g = _SPEC_GEOM["spec_tokens"]
+    for out in outs:
+        assert bool(((out[:, :g + 1] >= 0) & (out[:, :g + 1] < vocab)).all())
+        assert bool(((out[:, g + 1] >= 1) & (out[:, g + 1] <= g + 1)).all())
+
+
+@pytest.mark.cuda
+def test_draft_the_decode_kernel_refuses_raises_at_construction(cuda):
+    """No fallback: a draft of head_dim 32 (the decode kernel takes 64,
+    128 or 256) raises when the engine is built."""
+    model = _tick_model(cuda, "bf16")
+    draft = LlamaForCausalLM(
+        tiny_llama_config(**dict(_TICK_CFG, hidden_size=128)), device=cuda,
+        dtype=torch.bfloat16, seed=5)
+    with pytest.raises(ValueError, match="head_dim"):
+        PagedKVEngine(model, device=cuda, draft_model=draft, **_SPEC_GEOM)
