@@ -139,7 +139,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    tick writes a page's codes in another order), every proposal accepted
    with the target as draft at f32 KV, and 400 replays of the sampled
    spec tick from one state within total variation 0.25 of the
-   target's processed softmax (temperature 0.8, top-k 20).
+   target's processed softmax (temperature 0.8, top-k 20);
+13. the engine's tenancy, host KV tier with sessions and disaggregated
+   roles on phase 5's model and geometry, with the captured tick (run
+   right after phase 12 (b)): (a) tenants a and b at weights 3:1 submit
+   24 and 8 requests of phase 5's prompt lengths at once (64 new
+   tokens): the admission order a CPU WeightedFairScheduler's for that
+   queue, the slot-ticks 2.5-3.5 while both are queued, the greedy
+   tokens those of a tenancy-free engine fed the admitted order; (b) 8
+   sessions (`prefix_cache_pages=512`, a 2 GiB host tier,
+   `suspend_after_s=2`): turn 1 is phase 5's prompts, then every
+   session page spills (the device cache empty, the free list whole),
+   and turn 2 (turn 1, its output and 32 new tokens; 32 to generate)
+   restores them byte-equal, the pools at their addresses and no
+   recapture, with the tokens of sessions that stayed on the device; it
+   prints the bytes and ms of the spill and the restore beside the PCIe
+   bound of one pinned copy, and turn 2's prefill warm from the host
+   against cold; (c) a role="prefill" and a role="decode" engine over
+   the model at bf16 and int8 KV: export, pack_bundle, unpack_bundle,
+   stage_import, decode, the tokens those of a monolithic engine
+   serving the same two hops and the imported pages the prefill
+   engine's, byte for byte; it prints the bundle bytes and the pack,
+   unpack and import ms. Each part's launches are held to the counts
+   per decode step and prefill call (phase 11's rule) and go to its own
+   path ("tenancy", "kvtier", "disagg").
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -550,7 +573,8 @@ def kernel_phases(dev, pa):
           f"ms, sdpa {dec['full_window_library_ms']:.4f} ms, bound "
           f"{dec['full_window_bound_ms']:.5f} ms; {dec['draft_shape']}: "
           f"{dec['draft_ms']:.4f} ms, plain {dec['draft_plain_ms']:.4f} "
-          f"ms, bound {dec['draft_bound_ms']:.5f} ms, max |err| "
+          f"ms, sdpa {dec['draft_library_ms']:.4f} ms, bound "
+          f"{dec['draft_bound_ms']:.5f} ms, max |err| "
           f"{dec['draft_max_abs_err']:.3g}")
     return {dec["name"]: dec}
 
@@ -560,7 +584,9 @@ def _draft_decode(pa, randn, bt, lens, lens_l, hq, hk, ps, npages):
     width draft (head_dim 64, its 32 q / 8 kv heads, the target's slots,
     pages and block tables): held against its twin in f32 and bf16 at
     the phase's lens and with the whole window visible, then timed over
-    4 pool sets (21 MB each) beside its twin and its bound."""
+    4 pool sets (21 MB each) beside its twin, its bound and SDPA over
+    each slot's gathered window masked to its length (the d-128 entry's
+    yardstick)."""
     (b, mp), hd = bt.shape, 64
     full = torch.full_like(lens, mp * ps - 1)
     err = 0.0
@@ -577,6 +603,22 @@ def _draft_decode(pa, randn, bt, lens, lens_l, hq, hk, ps, npages):
                 err = max(err, e)
     psets = [(randn(b, hq, hd), randn(npages, hk, ps, hd),
               randn(npages, hk, ps, hd)) for _ in range(4)]
+    L = mp * ps
+    visible = (torch.arange(L, device=bt.device)[None, :]
+               <= lens[:, None].long())[:, None, None, :]
+    dense = []
+    for q, kp, vp in psets:
+        kd = kp[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, hk, L, hd)
+        vd = vp[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, hk, L, hd)
+        dense.append((q[:, :, None, :], kd.contiguous(), vd.contiguous()))
+
+    def library(q4, kd, vd):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=visible, enable_gqa=True)
+
+    q, kp, vp = psets[0]
+    _check(f"sdpa yardstick d={hd}", library(*dense[0])[:, :, 0].float(),
+           pa.paged_decode_attention_ref(q, kp, vp, bt, lens), 2e-2)
     vis = sum(x + 1 for x in lens_l)
     nbytes = (vis * hk * hd * 2 * 2 + b * hq * hd * 2 + b * hq * hd * 4
               + b * mp * 4 + b * 4)
@@ -584,6 +626,7 @@ def _draft_decode(pa, randn, bt, lens, lens_l, hq, hk, ps, npages):
         draft_shape=f"b={b} hq={hq} hk={hk} d={hd} page={ps} "
                     f"lens={lens_l} bf16",
         draft_max_abs_err=err,
+        draft_library_ms=_time_ms(library, dense),
         draft_ms=_time_ms(lambda q, kp, vp: pa.paged_decode_attention(
             q, kp, vp, bt, lens), psets),
         draft_plain_ms=_time_ms(lambda q, kp, vp:
@@ -3043,6 +3086,413 @@ def spec_parity_phase(dev):
     return out
 
 
+# -- phase 13: tenancy, the host KV tier with sessions, disaggregated roles ---
+
+# phase 5's engine geometry, with the captured tick
+FEATURE_GEOM = dict(max_slots=8, page_size=16, num_pages=641,
+                    max_pages_per_slot=80, steps_per_tick=4, kv_dtype="bf16")
+FEATURE_MAX_NEW = 64
+TURN2_NEW = 32              # turn 2's new prompt tokens and new tokens
+SUSPEND_S = 2.0             # (b)'s suspend_after_s
+HOST_TIER_BYTES = 2 << 30
+
+
+def _feature_launches(tag, counted, engines, layers, decode):
+    """Phase 11's launch gate over `engines`' runs since the counters were
+    reset: the decode kernel `decode` L launches a decode step (the
+    warm-up tick's counted), RMSNorm 2 L + 1 and RoPE 2 L a decode step
+    and a prefill call, the other decode kernel and W8A16 none."""
+    steps = sum(_decode_steps(e) for e in engines)
+    calls = sum(e.stats["prefill_calls"] for e in engines) + steps
+    want = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0,
+            "rms_norm_residual": (2 * layers + 1) * calls,
+            "rope_apply": 2 * layers * calls,
+            "weight_only_int8_matmul": 0}
+    want[decode] = layers * steps
+    got = {k: counted[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, want {want} ({steps} "
+                             f"decode steps, {calls - steps} prefill calls)")
+    return {k: v for k, v in got.items() if v}
+
+
+def _check_tokens(tag, toks, n, vocab):
+    for i, t in enumerate(toks):
+        if len(t) != n or not all(0 <= x < vocab for x in t):
+            raise AssertionError(f"{tag}: request {i}: {len(t)} tokens, "
+                                 f"want {n} in-vocab")
+
+
+def _timed(eng, name, log):
+    """Wrap the engine method `name` so each call appends (host s, a CUDA
+    event pair around it on the engine's stream, its arguments) to
+    `log`; returns a function that takes the wrapper off again (it would
+    keep the engine in a cycle)."""
+    orig = getattr(eng, name)
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = orig(*args)
+        end.record()
+        log.append((time.perf_counter() - t0, start, end, args))
+        return out
+    setattr(eng, name, timed)
+    return lambda: delattr(eng, name)
+
+
+def _device_ms(log):
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for _, a, b, _ in log)
+
+
+def _pcie_rates(nbytes=256 << 20):
+    """Host-to-device and device-to-host bytes/s of one pinned copy of
+    `nbytes` (the best of three, timed between CUDA events)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    rates = {}
+    for kind, (dst, src) in (("h2d", (dev, host)), ("d2h", (host, dev))):
+        best = None
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            best = ms if best is None else min(best, ms)
+        rates[kind] = nbytes / (best / 1e3)
+    return rates
+
+
+def _tenancy_part(model, counters, reset, card, base_rate):
+    """(a): tenants a and b at weights 3:1 submit 24 and 8 requests of
+    phase 5's prompt lengths at once. The admission order must be a CPU
+    WeightedFairScheduler's for that queue, the slot-ticks split 2.5-3.5
+    while both tenants are queued, and the greedy tokens those of a
+    tenancy-free engine fed the same requests in the admitted order (so
+    each batch holds the same rows)."""
+    from paddle_tpu_torch.inference.paged import PagedKVEngine
+    from paddle_tpu_torch.inference.tenancy import (TenantPolicy,
+                                                    TenantTable,
+                                                    WeightedFairScheduler)
+    cfg = model.config
+    lens = [int(p.size) for p in _prompts(8, cfg.vocab_size, seed=0)]
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, lens[i % 8]).astype(np.int32)
+               for i in range(32)]
+    tenants = ["a"] * 24 + ["b"] * 8
+    table = TenantTable([TenantPolicy("a", weight=3.0),
+                         TenantPolicy("b", weight=1.0)])
+    wfq, left, want_order = WeightedFairScheduler(table), \
+        {"a": 24, "b": 8}, []
+    while any(left.values()):
+        t = wfq.pick([k for k, n in left.items() if n])
+        wfq.charge(t)
+        left[t] -= 1
+        want_order.append(t)
+    reset()
+    t0 = time.perf_counter()
+    eng = PagedKVEngine(model, device=model.device, tenancy=table,
+                        **FEATURE_GEOM)
+    seen = []
+    orig = eng._note_tenant_admitted
+    eng._note_tenant_admitted = lambda req: (seen.append(req), orig(req))
+    reqs = [eng.submit(p, FEATURE_MAX_NEW, tenant=t)
+            for p, t in zip(prompts, tenants)]
+    both = None
+    while eng.has_work():
+        eng.step()
+        snap = eng.tenant_snapshot()
+        if snap["a"]["pending"] and snap["b"]["pending"]:
+            both = snap
+    wall = time.perf_counter() - t0
+    launches = _feature_launches("tenancy", counters(), [eng],
+                                 cfg.num_hidden_layers,
+                                 "paged_decode_attention")
+    del eng._note_tenant_admitted, orig
+    toks = [r.result() for r in reqs]
+    _check_tokens("tenancy", toks, FEATURE_MAX_NEW, cfg.vocab_size)
+    order = [r.tenant for r in seen]
+    if order != want_order:
+        raise AssertionError(f"tenancy: admitted {order}, the CPU "
+                             f"WeightedFairScheduler gives {want_order}")
+    ratio = both["a"]["slot_ticks"] / both["b"]["slot_ticks"]
+    if not 2.5 <= ratio <= 3.5:
+        raise AssertionError(f"tenancy: slot-ticks {both} split {ratio}")
+    st, final = dict(eng.stats), eng.tenant_snapshot()
+    del eng
+    _release()
+    plain = PagedKVEngine(model, device=model.device, **FEATURE_GEOM)
+    preqs = [plain.submit(r.prompt, FEATURE_MAX_NEW) for r in seen]
+    plain.run_until_idle()
+    index = {id(r): i for i, r in enumerate(reqs)}
+    bad = [index[id(r)] for r, q in zip(seen, preqs)
+           if r.result() != q.result()]
+    if bad:
+        raise AssertionError(f"tenancy: requests {bad} gave other tokens "
+                             "than a tenancy-free engine fed the admitted "
+                             "order")
+    plain_rate = plain.stats["decode_tokens"] / plain.stats["tick_s"]
+    del plain
+    _release()
+    out = dict(card=card, wall_s=wall, launches=launches, stats=st,
+               **_tick_metrics(st), slot_ticks_both_queued=both,
+               slot_tick_ratio=ratio, tenant_snapshot=final,
+               admission_order="".join(order),
+               tenancy_free_decode_tokens_per_s=plain_rate)
+    print(f"[tenancy] {card}: 24 + 8 requests, weights 3:1, admitted "
+          f"{out['admission_order']} (the CPU WeightedFairScheduler's); "
+          f"slot-ticks while both queued {both['a']['slot_ticks']} : "
+          f"{both['b']['slot_ticks']} = {ratio:.3f}; tokens equal to a "
+          f"tenancy-free engine fed the admitted order; decode "
+          f"{out['decode_tokens_per_s']:.1f} tok/s (tenancy-free "
+          f"{plain_rate:.1f}, phase 5 {base_rate:.1f}), tick "
+          f"{out['tick_ms']:.2f} ms, wall {wall:.2f} s, launches {launches}")
+    return out
+
+
+def _turns(eng, prompts, extra, outs1=None):
+    """Turn 1 of 8 sessions (phase 5's prompts), or with `outs1` turn 2
+    (turn 1, its output and TURN2_NEW new tokens; TURN2_NEW to
+    generate). Returns the token lists."""
+    if outs1 is None:
+        batch = [(p, FEATURE_MAX_NEW) for p in prompts]
+    else:
+        batch = [(np.concatenate([p, np.asarray(o, np.int32), x]),
+                  TURN2_NEW) for p, o, x in zip(prompts, outs1, extra)]
+    reqs = [eng.submit(p, n, session=f"s{i}")
+            for i, (p, n) in enumerate(batch)]
+    eng.run_until_idle()
+    return [r.result() for r in reqs]
+
+
+def _kvtier_part(model, counters, reset, card):
+    """(b): 8 sessions. Turn 1, then SUSPEND_S idle: every session page
+    spills, the device cache empties and the free list is whole. Turn 2
+    restores them: byte-equal to the pages before the spill, the pools
+    at their addresses, no recapture, and the tokens of an engine whose
+    sessions never suspended. Spill and restore ms beside the PCIe
+    bound; turn 2's prefill warm from the host against cold."""
+    from paddle_tpu_torch.inference.paged import PagedKVEngine
+    cfg = model.config
+    prompts = _prompts(8, cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(14)
+    extra = [rng.integers(0, cfg.vocab_size, TURN2_NEW).astype(np.int32)
+             for _ in prompts]
+    rates = _pcie_rates()
+    geom = dict(FEATURE_GEOM, prefix_cache_pages=512)
+    reset()
+    t0 = time.perf_counter()
+    eng = PagedKVEngine(model, device=model.device,
+                        host_tier_bytes=HOST_TIER_BYTES,
+                        suspend_after_s=SUSPEND_S, **geom)
+    outs1 = _turns(eng, prompts, extra)
+    keys = [k for i in range(8) for k in eng._sessions[f"s{i}"]["keys"]]
+    pages = torch.tensor([eng.prefix_cache.get(k) for k in keys],
+                         device=model.device)
+    before = eng._kv[:, :, pages].clone()
+    ptrs = [t.data_ptr() for grp in eng.pools for t in grp]
+    programs, warmups = dict(eng._programs), eng.stats["warmup_ticks"]
+    time.sleep(SUSPEND_S)
+    t1 = time.perf_counter()
+    eng.step()                              # the suspend sweep
+    sweep_s = time.perf_counter() - t1
+    eng.host_tier.flush()
+    spill_s = time.perf_counter() - t1
+    mid = eng.kvtier_stats()
+    if mid["suspends"] != 8 or mid["spilled_pages"] != len(keys) \
+            or len(eng.prefix_cache) or mid["spill_errors"] \
+            or sorted(eng._free) != list(range(1, eng.num_pages)):
+        raise AssertionError(f"kvtier: after the sweep {mid}, cached "
+                             f"{len(eng.prefix_cache)}, free "
+                             f"{len(eng._free)}")
+    log, staging = [], []
+    untime = _timed(eng, "_tier_upload", log)
+    unstage = _timed(eng, "_staged", staging)
+    pre_prefill = eng.stats["prefill_s"]
+    outs2 = _turns(eng, prompts, extra, outs1)
+    untime()
+    unstage()
+    restore_ms = _device_ms(log)
+    restore_host_s = sum(x[0] for x in log)
+    staging_s = sum(x[0] for x in staging)
+    warm_prefill_s = eng.stats["prefill_s"] - pre_prefill
+    wall = time.perf_counter() - t0
+    launches = _feature_launches("kvtier", counters(), [eng],
+                                 cfg.num_hidden_layers,
+                                 "paged_decode_attention")
+    snap = eng.kvtier_stats()
+    after = eng._kv[:, :, torch.tensor(
+        [eng.prefix_cache.get(k) for k in keys], device=model.device)]
+    if snap["restored_pages"] != len(keys) or snap["resumes"] != 8 \
+            or not torch.equal(after, before):
+        raise AssertionError(f"kvtier: restored {snap['restored_pages']} "
+                             f"of {len(keys)} pages, resumes "
+                             f"{snap['resumes']}, byte-equal "
+                             f"{torch.equal(after, before)}")
+    if [t.data_ptr() for grp in eng.pools for t in grp] != ptrs \
+            or eng._programs != programs \
+            or eng.stats["warmup_ticks"] != warmups:
+        raise AssertionError("kvtier: a restore moved a pool or the tick "
+                             "was captured again")
+    _settled_ledger(eng, "kvtier")
+    st = dict(eng.stats)
+    del eng, before, after
+    _release()
+    plain = PagedKVEngine(model, device=model.device, **geom)
+    if _turns(plain, prompts, extra) != outs1 \
+            or _turns(plain, prompts, extra, outs1) != outs2:
+        raise AssertionError("kvtier: the suspended sessions' tokens differ "
+                             "from an engine whose sessions stayed on the "
+                             "device")
+    del plain
+    _release()
+    cold = PagedKVEngine(model, device=model.device, **FEATURE_GEOM)
+    cold_outs = _turns(cold, prompts, extra, outs1)
+    cold_prefill_s = cold.stats["prefill_s"]
+    del cold
+    _release()
+    _check_tokens("kvtier turn 1", outs1, FEATURE_MAX_NEW, cfg.vocab_size)
+    _check_tokens("kvtier turn 2", outs2, TURN2_NEW, cfg.vocab_size)
+    nb_spill, nb_restore = snap["spill_bytes"], snap["restore_bytes"]
+    out = dict(
+        card=card, wall_s=wall, launches=launches, stats=st,
+        kvtier_stats=snap, pcie_bytes_per_s=rates, pages=len(keys),
+        spill_bytes=nb_spill, restore_bytes=nb_restore,
+        spill_ms=spill_s * 1e3, spill_sweep_ms=sweep_s * 1e3,
+        spill_bound_ms=nb_spill / rates["d2h"] * 1e3,
+        restore_device_ms=restore_ms, restore_host_ms=restore_host_s * 1e3,
+        restore_staging_ms=staging_s * 1e3,
+        restore_bound_ms=nb_restore / rates["h2d"] * 1e3,
+        turn2_warm_prefill_ms=warm_prefill_s * 1e3,
+        turn2_cold_prefill_ms=cold_prefill_s * 1e3,
+        turn2_cold_agreement=sum(a == b for a, b in zip(outs2, cold_outs))
+        / 8)
+    print(f"[kvtier] {card}: 8 sessions, {len(keys)} pages "
+          f"({nb_spill} B) spilled after {SUSPEND_S} s idle in "
+          f"{out['spill_ms']:.1f} ms (sweep to last commit, the sweep's "
+          f"step {out['spill_sweep_ms']:.1f} ms; D2H bound "
+          f"{out['spill_bound_ms']:.1f} ms at {rates['d2h'] / 1e9:.2f} GB/s); "
+          f"{nb_restore} B restored in {out['restore_host_ms']:.1f} ms of "
+          f"host wall, {out['restore_staging_ms']:.1f} of them stacking the "
+          f"entries into pinned staging ({restore_ms:.1f} ms between the "
+          f"uploads' device events, staging included; H2D "
+          f"bound {out['restore_bound_ms']:.1f} ms at "
+          f"{rates['h2d'] / 1e9:.2f} GB/s), byte-equal, pools in place, no "
+          f"recapture; turn 2 prefill warm from the host "
+          f"{out['turn2_warm_prefill_ms']:.1f} ms (+ the restore) against "
+          f"cold {out['turn2_cold_prefill_ms']:.1f} ms; tokens equal to "
+          f"unsuspended sessions' (cold agreement "
+          f"{out['turn2_cold_agreement']}); launches {launches}")
+    return out
+
+
+def _disagg_part(model, counters, reset, card, kv):
+    """(c) at one KV type: role="prefill" and role="decode" engines over
+    the same model, export -> pack_bundle -> unpack_bundle ->
+    stage_import -> decode of phase 5's prompts. The tokens must equal a
+    monolithic engine's serving the same two hops (a one-token prefill,
+    then the request warm on its cached pages), and the imported pages
+    the prefill engine's, byte for byte (scales included)."""
+    from paddle_tpu_torch.inference.disagg import pack_bundle, unpack_bundle
+    from paddle_tpu_torch.inference.paged import PagedKVEngine
+    from paddle_tpu_torch.inference.prefix import chain_keys
+    cfg = model.config
+    geom = dict(FEATURE_GEOM, kv_dtype=kv, prefix_cache_pages=512)
+    prompts = _prompts(8, cfg.vocab_size, seed=0)
+    keys = [k for p in prompts for k in chain_keys(p, geom["page_size"])]
+    mono = PagedKVEngine(model, device=model.device, **geom)
+    mono.generate(prompts, 1)
+    want = mono.generate(prompts, FEATURE_MAX_NEW)
+    del mono
+    _release()
+    reset()
+    pre = PagedKVEngine(model, device=model.device, role="prefill",
+                        host_tier_bytes=HOST_TIER_BYTES, **geom)
+    pre.generate(prompts, 1)
+    t0 = time.perf_counter()
+    entries = pre.export_pages(keys)
+    export_s = time.perf_counter() - t0
+    raw = pack_bundle(entries)
+    pack_s = time.perf_counter() - t0 - export_s
+    t1 = time.perf_counter()
+    got = unpack_bundle(raw)
+    unpack_s = time.perf_counter() - t1
+    dec = PagedKVEngine(model, device=model.device, role="decode", **geom)
+    if dec.disagg_missing(keys) != keys:
+        raise AssertionError(f"disagg {kv}: a cold decode engine has pages")
+    dec.stage_import(got)
+    log = []
+    untime = _timed(dec, "_disagg_import", log)
+    toks = dec.generate(prompts, FEATURE_MAX_NEW)
+    untime()
+    import_ms = _device_ms(log)
+    decode = ("paged_decode_attention_int8" if kv == "int8"
+              else "paged_decode_attention")
+    launches = _feature_launches(f"disagg {kv}", counters(), [pre, dec],
+                                 cfg.num_hidden_layers, decode)
+    _check_tokens(f"disagg {kv}", toks, FEATURE_MAX_NEW, cfg.vocab_size)
+    if toks != want:
+        bad = [i for i, (a, b) in enumerate(zip(toks, want)) if a != b]
+        raise AssertionError(f"disagg {kv}: requests {bad} gave other "
+                             "tokens than the monolithic engine's")
+    snap = dec.disagg_stats()
+    if len(entries) != len(keys) or snap["imported_pages"] != len(keys) \
+            or dec.stats["prefix_hits"] != 8:
+        raise AssertionError(f"disagg {kv}: exported {len(entries)} of "
+                             f"{len(keys)} pages, {snap}, hits "
+                             f"{dec.stats['prefix_hits']}")
+    src = torch.tensor([pre.prefix_cache.get(k) for k in keys],
+                       device=model.device)
+    dst = torch.tensor([dec.prefix_cache.get(k) for k in keys],
+                       device=model.device)
+    for a, b in ((pre._kv, dec._kv), (pre._scales, dec._scales)):
+        if a is not None and not torch.equal(a[:, :, src], b[:, :, dst]):
+            raise AssertionError(f"disagg {kv}: imported pages differ from "
+                                 "the prefill engine's")
+    st = {"prefill": dict(pre.stats), "decode": dict(dec.stats)}
+    del pre, dec, entries, got
+    _release()
+    out = dict(kv=kv, pages=len(keys), bundle_bytes=len(raw),
+               export_ms=export_s * 1e3, pack_ms=pack_s * 1e3,
+               unpack_ms=unpack_s * 1e3,
+               import_device_ms=import_ms,
+               import_host_ms=sum(x[0] for x in log) * 1e3,
+               disagg_stats=snap, stats=st, launches=launches,
+               decode_tokens_per_s=(st["decode"]["decode_tokens"]
+                                    / st["decode"]["tick_s"]))
+    print(f"[disagg] {card}: {kv} KV, {len(keys)} pages, bundle "
+          f"{len(raw)} B: export {out['export_ms']:.1f} ms, pack "
+          f"{out['pack_ms']:.1f} ms, unpack {out['unpack_ms']:.1f} ms, "
+          f"import {import_ms:.1f} device ms ({out['import_host_ms']:.1f} ms "
+          f"host); imported pages byte-equal to the prefill engine's, "
+          f"tokens equal to the monolithic engine's; decode "
+          f"{out['decode_tokens_per_s']:.1f} tok/s; launches {launches}")
+    return out
+
+
+def feature_phase(model, counters, reset, card, bf16_serving):
+    """Phase 13 on phase 5's Llama-3-8B (module doc): (a) tenancy, (b) the
+    host KV tier with sessions, (c) disaggregated roles at bf16 and int8
+    KV. Each part's launches go to its own path."""
+    out = {"tenancy": _tenancy_part(model, counters, reset, card,
+                                    bf16_serving["decode_tokens_per_s"]),
+           "kvtier": _kvtier_part(model, counters, reset, card)}
+    parts = [_disagg_part(model, counters, reset, card, kv)
+             for kv in ("bf16", "int8")]
+    launches = {}
+    for part in parts:
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["disagg"] = {"parts": parts, "launches": launches}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -3099,6 +3549,7 @@ def main(argv=None):
                                           args.profile)
     serving_spec = spec_serving_phase(model, counters, reset, card, serving,
                                       args.profile)
+    features = feature_phase(model, counters, reset, card, serving)
     del model
     _release()
     parity = parity_phase(dev)
@@ -3121,7 +3572,9 @@ def main(argv=None):
                                        for part in serving_spec.values()),
                    "training": training["launches"].get(name, 0),
                    "training_bench": bench_training["launches"].get(name, 0),
-                   "serving_int8": serving_int8["launches"].get(name, 0)}
+                   "serving_int8": serving_int8["launches"].get(name, 0),
+                   **{path: features[path]["launches"].get(name, 0)
+                      for path in ("tenancy", "kvtier", "disagg")}}
         if sum(by_path.values()) <= 0:
             raise AssertionError(f"{name} was launched on no main path")
         e["launches"] = sum(by_path.values())
@@ -3146,6 +3599,7 @@ def main(argv=None):
                        "serving_int8": serving_int8,
                        "serving_spec": serving_spec,
                        "spec_parity": spec_parity,
+                       "features": features,
                        "torch": torch.__version__}, f, indent=1)
     print(json.dumps(line))
     print(card)

@@ -3,8 +3,10 @@
 Counterpart of the part of paddle_tpu/inference/overload.py that
 `PagedKVEngine` uses, copied (that module is stdlib-only, but importing
 it would import the JAX package): `submit` sheds with `EngineOverloaded`
-when the pending queue is at its bound, and fails a request whose
-`Deadline` expired, before or while queued, with `DeadlineExceeded`.
+when the pending queue is at its bound, with `TenantQuotaExceeded` (an
+`AdmissionRejected`) when one tenant is over its own queue quota, and
+fails a request whose `Deadline` expired, before or while queued, with
+`DeadlineExceeded`.
 The admission controller, the circuit breaker and the Retry-After
 jitter belong to the HTTP serving surface and are not here.
 """
@@ -13,7 +15,8 @@ from __future__ import annotations
 import time
 
 __all__ = ["OverloadError", "DeadlineExceeded", "EngineOverloaded",
-           "Deadline", "expired"]
+           "AdmissionRejected", "TenantQuotaExceeded", "Deadline",
+           "expired"]
 
 
 class OverloadError(RuntimeError):
@@ -42,6 +45,24 @@ class EngineOverloaded(OverloadError):
 
     status = 503
     counter = "shed_engine"
+
+
+class AdmissionRejected(OverloadError):
+    """No admission headroom (queue depth + concurrency bound hit)."""
+
+    status = 429
+    counter = "shed_admission"
+
+
+class TenantQuotaExceeded(AdmissionRejected):
+    """One tenant is over ITS OWN quota (per-tenant admission or queue
+    bound, or the router's fleet-wide rate cap — inference/tenancy.py)
+    while the server may have plenty of global headroom: shed THIS
+    tenant's excess with a typed, retryable 429 without touching any
+    other tenant's budget (the bulkhead contract)."""
+
+    status = 429
+    counter = "shed_tenant"
 
 
 class Deadline:

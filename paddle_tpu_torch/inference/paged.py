@@ -74,11 +74,41 @@ Counterpart of the core of paddle_tpu/inference/paged.py:
   rows that accepted all g. On the card it is captured per sampling
   variant as `_programs[("spec_tick", any_sample)]`.
 
-Not in this slice (ROADMAP.md lists them): host tier, disaggregated
-roles, tenancy, sessions and observability.
+- Tenancy (`tenancy=` a TenantTable of inference/tenancy.py): admission
+  takes a weighted-fair pick across per-tenant queues (strict priority
+  classes above the fair tiers), so decode slots divide by policy
+  weight under saturation; a tenant past its own `max_queued` sheds
+  with `TenantQuotaExceeded`; under `max_pending` pressure the newest
+  queued request of the tenant most over its weighted share is evicted
+  in a newcomer's favor. `tenant_snapshot()` gives each tenant's
+  admissions, slot-ticks, sheds and pending count.
+- Host KV tier (`host_tier_bytes=N`, inference/kvtier.py): evicting a
+  cached page spills it to host RAM. The capture gathers the page's
+  rows of every pool buffer into a fresh device tensor on the engine's
+  stream, before the page is recycled, and copies it to pinned host
+  memory on a side stream; the tier's worker waits on an event, never
+  the scheduler. Admission extends a device-cache run with
+  host-resident pages: one pinned host-to-device copy and one in-place
+  `index_copy_` per pool buffer (k/v, int8 scales, the draft's), into
+  the buffers the captured tick reads, between ticks on its stream, so
+  no recapture follows; then the tail-only warm prefill runs.
+- Sessions (`submit(session=)`, `suspend_after_s`): a finished turn's
+  full pages (prompt and generated tokens) stay keyed in the cache;
+  a session idle past `suspend_after_s` spills them to the host tier,
+  freeing the device pages, and its next turn restores them.
+- Disaggregated roles (`role="prefill"` / `"decode"`,
+  inference/disagg.py): a prefill engine captures each prefilled
+  request's full prompt pages to its host tier, and `export_pages`
+  hands them out; a decode engine takes them through `stage_import`
+  and inserts them into its prefix cache at the top of the next
+  admission, through the same in-place upload.
+
+Not in this slice (ROADMAP.md lists them): `export_metrics` and the
+observability counters, and the chaos sites.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import math
 import queue
@@ -92,9 +122,14 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.inference.disagg import (DisaggStats,
+                                               PageBundleEntry, dtype_name)
+from paddle_tpu_torch.inference.kvtier import HostKVTier
 from paddle_tpu_torch.inference.overload import (DeadlineExceeded,
-                                                 EngineOverloaded)
+                                                 EngineOverloaded,
+                                                 TenantQuotaExceeded)
 from paddle_tpu_torch.inference.prefix import PrefixCache, chain_keys
+from paddle_tpu_torch.inference.tenancy import WeightedFairScheduler
 from paddle_tpu_torch.kernels import launch_counters
 from paddle_tpu_torch.kernels.paged_attention import (check_decode_shapes,
                                                       gather_window,
@@ -314,15 +349,31 @@ def _process_logits_rowwise(x, temp, topk, topp):
     return torch.where(x < thresh, -1e9, x)
 
 
+def _torch_dtype(dtype, default):
+    """The pool type a constructor's `dtype` names: a torch dtype, or
+    its name as numpy spells it ("bfloat16", "float32"); None takes
+    `default`. An unknown name raises numpy's TypeError text."""
+    if dtype is None:
+        return default
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    got = getattr(torch, str(dtype), None)
+    if not isinstance(got, torch.dtype):
+        raise TypeError(f"data type {str(dtype)!r} not understood")
+    return got
+
+
 class _Request:
     """One generation request: the engine's record and the caller's
     handle (thread-safe: tokens stream through a queue)."""
 
     def __init__(self, ids, max_new_tokens, eos_token_id, do_sample,
-                 temperature, top_k, top_p, pages_needed, sample_index,
-                 deadline=None, prefix_keys=(), engine=None):
+                 temperature, top_k, top_p, pages_needed, deadline=None,
+                 prefix_keys=(), engine=None, tenant=None, session=None):
         self.prompt = np.asarray(ids, np.int32).reshape(-1)
         self.deadline = deadline    # expire-in-queue (overload.Deadline)
+        self.tenant = tenant        # tenant id (tenancy)
+        self.session = session      # conversation id (host tier)
         # chain keys of the prompt's full pages (empty: no prefix cache)
         self.prefix_keys = list(prefix_keys)
         self.max_new_tokens = int(max_new_tokens)
@@ -332,9 +383,9 @@ class _Request:
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         self.pages_needed = pages_needed
-        # engine-local submission index: the first sampled token derives
-        # from (engine seed, this index)
-        self.sample_index = sample_index
+        # engine-local submission index, set by submit(): the first
+        # sampled token derives from (engine seed, this index)
+        self.sample_index = 0
         # weak, so an abandoned handle does not keep the engine (and its
         # KV pools) alive; result() reads it for its stall guard
         self._engine = weakref.ref(engine) if engine is not None else None
@@ -405,6 +456,28 @@ class _Request:
         return list(self.tokens)
 
 
+def _host_layers(kv, scales):
+    """A page's (layers, 2, kv_heads, page_size, head_dim) k/v and
+    (layers, 2, kv_heads) scale snapshot as the host entry's per-layer
+    tuples: (k, v), or (k, v, k_scale_row, v_scale_row)."""
+    if scales is None:
+        return [(kv[i, 0], kv[i, 1]) for i in range(kv.shape[0])]
+    return [(kv[i, 0], kv[i, 1], scales[i, 0], scales[i, 1])
+            for i in range(kv.shape[0])]
+
+
+def _groups_match(groups, pools):
+    """True when host arrays `groups` (per-layer tuples) have the layer
+    count, arity, page shape and element type of the engine pools
+    `pools` (whose arrays carry a leading page axis)."""
+    if len(groups) != len(pools):
+        return False
+    grp, ref = groups[0], pools[0]
+    return (len(grp) == len(ref)
+            and tuple(grp[0].shape) == tuple(ref[0].shape[1:])
+            and dtype_name(grp[0]) == dtype_name(ref[0]))
+
+
 class _Slot:
     __slots__ = ("req", "lens", "tok", "pages", "emitted", "shared")
 
@@ -454,10 +527,20 @@ class PagedKVEngine:
         per request at max_pages_per_slot * page_size tokens.
     steps_per_tick: decode steps per tick (admission granularity, and
         one host sync per tick).
-    kv_dtype: None keeps the model's parameter type for the pools;
-        "bf16" stores bf16 pools; "int8" stores int8 pools with f32
-        (num_pages + 1, kv_heads) scale planes per layer, about half the
-        KV bytes of bf16 (`kv_bytes_per_slot`).
+    kv_dtype: None keeps `dtype` for the pools; "bf16" stores bf16
+        pools; "int8" stores int8 pools with f32 (num_pages + 1,
+        kv_heads) scale planes per layer, about half the KV bytes of
+        bf16 (`kv_bytes_per_slot`).
+    dtype: the pool type when `kv_dtype` is None, a torch dtype or its
+        name ("bfloat16", "float32"); None (default) takes the model's
+        parameter type.
+    kernel: the decode attend, the JAX engine's choice of None,
+        "pallas" or "jnp". On the card None and "pallas" both name the
+        hand-written decode kernel (`check_decode_shapes` raises,
+        naming the dims, for a geometry it refuses) and "jnp" raises:
+        the port has no plain decode path on the card. On the CPU every
+        value runs the kernel's plain twin. `decode_kernel` reads
+        "cuda" or "twin".
     device: where the engine runs (default the CUDA card; "cpu" must be
         asked for) — the model must live there.
     prefill_chunk: prompts whose uncached tail is longer than this
@@ -475,16 +558,26 @@ class PagedKVEngine:
         (module doc); its pools take the engine's pool type and its own
         head geometry. Not with `prefill_chunk`. Each tick then emits 1
         to spec_tokens + 1 tokens a slot, whatever `steps_per_tick`.
-
-    Not taken yet (ROADMAP.md queue 1 item 4): the JAX engine's
-    `tenancy`, `host_tier_bytes`, `suspend_after_s` and `role`, and
-    `submit`'s `tenant` and `session`.
+    tenancy: a tenancy.TenantTable (module doc); None (default) keeps
+        FIFO admission and the tenant-free shed rules.
+    host_tier_bytes: the host KV tier's byte budget (module doc; 0 =
+        disabled, the default). Needs `prefix_cache_pages` > 0. Host
+        entries are pinned when the engine is on the card.
+    suspend_after_s: seconds a session may idle before its cached pages
+        spill to the host tier (module doc; None = never). Needs
+        `host_tier_bytes` > 0.
+    role: "both" (default, the monolithic engine), "prefill" (needs
+        `host_tier_bytes` > 0: committed pages export from the host
+        tier) or "decode" (needs `prefix_cache_pages` > 0: imported
+        pages land in the prefix cache); module doc.
     """
 
     def __init__(self, model, *, max_slots=4, page_size=16, num_pages=64,
                  max_pages_per_slot=None, steps_per_tick=4, seed=0,
                  prefill_chunk=None, draft_model=None, spec_tokens=4,
-                 max_pending=None, kv_dtype=None, prefix_cache_pages=0,
+                 dtype=None, max_pending=None, kernel=None,
+                 kv_dtype=None, prefix_cache_pages=0, tenancy=None,
+                 host_tier_bytes=0, suspend_after_s=None, role="both",
                  device="cuda"):
         dev = resolve_device(device)
         mdev = model.device
@@ -522,8 +615,20 @@ class PagedKVEngine:
             raise ValueError(f"kv_dtype must be None, 'bf16' or 'int8' "
                              f"(got {kv_dtype!r})")
         self.kv_dtype = kv_dtype
-        pool_dtype = {None: model.dtype, "bf16": torch.bfloat16,
-                      "int8": torch.int8}[kv_dtype]
+        pool_dtype = {None: _torch_dtype(dtype, model.dtype),
+                      "bf16": torch.bfloat16, "int8": torch.int8}[kv_dtype]
+        if kernel not in (None, "pallas", "jnp"):
+            raise ValueError(f"kernel must be None, 'pallas' or 'jnp' "
+                             f"(got {kernel!r})")
+        if kernel == "jnp" and dev.type == "cuda":
+            raise ValueError(
+                "kernel='jnp' asks for the plain decode attend, which the "
+                "port runs only on the CPU (device='cpu'); on the card "
+                "decode goes through the hand-written kernel (kernel=None "
+                "or 'pallas')")
+        # the decode attend: the hand-written kernel on the card (its
+        # shapes are checked in _make_pools), the plain twin on the CPU
+        self.decode_kernel = "cuda" if dev.type == "cuda" else "twin"
         if draft_model is not None and prefill_chunk:
             raise NotImplementedError(
                 "speculative decoding + chunked prefill: the draft "
@@ -537,13 +642,54 @@ class PagedKVEngine:
                              f"model's {cfg.vocab_size}")
         self.draft_model = draft_model
         self.spec_tokens = int(spec_tokens)
-        self.pools, self._scales = self._make_pools(cfg, pool_dtype)
-        # the draft's pools share the block tables; int8: its scale
-        # planes are one tensor beside `_scales`
-        self.draft_pools = self._draft_scales = None
+        self.pools, self._kv, self._scales = self._make_pools(cfg,
+                                                             pool_dtype)
+        # the draft's pools share the block tables; its k/v and int8
+        # scale planes are one tensor each beside `_kv` and `_scales`
+        self.draft_pools = self._draft_kv = self._draft_scales = None
         if draft_model is not None:
-            self.draft_pools, self._draft_scales = self._make_pools(
-                draft_model.config, pool_dtype)
+            self.draft_pools, self._draft_kv, self._draft_scales = \
+                self._make_pools(draft_model.config, pool_dtype)
+        # host-RAM KV tier (module doc): spill and restore below the
+        # device prefix cache, and session suspend/resume over them
+        if int(host_tier_bytes) < 0:
+            raise ValueError(f"host_tier_bytes must be >= 0, got "
+                             f"{host_tier_bytes}")
+        if int(host_tier_bytes) and self.prefix_cache is None:
+            raise ValueError(
+                "host_tier_bytes requires prefix_cache_pages > 0: the "
+                "tier spills and restores PREFIX-CACHE pages (chain "
+                "keys are the page identity)")
+        self.host_tier = (HostKVTier(int(host_tier_bytes))
+                          if int(host_tier_bytes) else None)
+        self._tier_stream = None    # the spill copies' side stream (card)
+        if suspend_after_s is not None and self.host_tier is None:
+            raise ValueError(
+                "suspend_after_s requires host_tier_bytes > 0: a "
+                "suspended session's pages live in the host tier")
+        self.suspend_after_s = (None if suspend_after_s is None
+                                else float(suspend_after_s))
+        # disaggregated prefill/decode (inference/disagg.py); "both" is
+        # the monolithic engine, with every disagg path dormant
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(f"role must be 'prefill', 'decode' or "
+                             f"'both' (got {role!r})")
+        if role == "prefill" and self.host_tier is None:
+            raise ValueError(
+                "role='prefill' requires host_tier_bytes > 0: committed "
+                "pages export through the host-snapshot path")
+        if role == "decode" and self.prefix_cache is None:
+            raise ValueError(
+                "role='decode' requires prefix_cache_pages > 0: "
+                "imported pages land in the prefix cache")
+        self.role = role
+        self.disagg = DisaggStats(role)
+        # bundles staged by caller threads (stage_import), drained into
+        # the pools at the top of _admit; guarded by _lock
+        self._import_staged: list = []
+        # session id -> {keys, last, suspended}; scheduler thread only
+        self._sessions: collections.OrderedDict[str, dict] = \
+            collections.OrderedDict()
         self._free = list(range(self.num_pages - 1, 0, -1))   # 0 = trash
         # pages promised to admitted slots but not yet popped from the
         # free list (admission_headroom)
@@ -599,6 +745,18 @@ class PagedKVEngine:
         self._in_step = False   # is in flight: result()'s stall guard
         self._ticker = None
         self._stop_flag = False
+        # multi-tenant QoS (module doc): the WFQ pick and per-tenant
+        # shares; None keeps every scheduling path tenant-free
+        self.tenancy = tenancy
+        self._wfq = (WeightedFairScheduler(tenancy)
+                     if tenancy is not None else None)
+        self._tenant_lock = threading.Lock()
+        self._tenant_stats: dict[str, dict] = {}
+        # per-tenant queued counts (guarded by _lock): submit adds, every
+        # way out of the queue (admit, cancel, expire, shed, _fail_all)
+        # takes away. The quota reads this, not _pending, which _admit
+        # swaps out while it prefills
+        self._queued_by_tenant: dict[str, int] = {}
         self.stats = {"ticks": 0, "prefills": 0, "prefill_calls": 0,
                       "tokens_out": 0,
                       "admitted": 0, "finished": 0, "cancelled": 0,
@@ -613,8 +771,10 @@ class PagedKVEngine:
 
     def _make_pools(self, cfg, pool_dtype):
         """One (k, v) pool pair per layer of a model of config `cfg`
-        (+ the sink page), and for int8 KV the one tensor that holds
-        every layer's scale planes (None otherwise)."""
+        (+ the sink page), all views of one (layers, 2, num_pages + 1,
+        kv_heads, page_size, head_dim) tensor, which is returned too;
+        and for int8 KV the one tensor that holds every layer's scale
+        planes (None otherwise)."""
         n_kv, hd = cfg.num_key_value_heads, cfg.head_dim
         n_layers = cfg.num_hidden_layers
         dev = self.device
@@ -622,19 +782,21 @@ class PagedKVEngine:
             check_decode_shapes(cfg.num_attention_heads, n_kv, hd,
                                 self.page_size, pool_dtype)
         shape = (self.num_pages + 1, n_kv, self.page_size, hd)   # + sink
-        # a layer's k and v pools are the two halves of one buffer: int8
-        # KV quantizes both in one pass (_scatter_kv)
-        pools = [tuple(torch.zeros((2,) + shape, dtype=pool_dtype,
-                                   device=dev))
-                 for _ in range(n_layers)]
+        # a layer's k and v pools are the two halves of one buffer (int8
+        # KV quantizes both in one pass, _scatter_kv), and every layer's
+        # are views of one tensor: a spill gathers a page of all of them
+        # in one launch, a restore writes pages in one (_tier_upload)
+        kv = torch.zeros((n_layers, 2) + shape, dtype=pool_dtype,
+                         device=dev)
+        pools = [tuple(kv[i]) for i in range(n_layers)]
         if pool_dtype != torch.int8:
-            return pools, None
+            return pools, kv, None
         # every layer's k and v scale planes are views of one tensor, so
         # freed pages' scales reset in one launch (_recycle_pages)
         scales = torch.zeros((n_layers, 2, self.num_pages + 1, n_kv),
                              dtype=torch.float32, device=dev)
         return [(kp, vp, scales[i, 0], scales[i, 1])
-                for i, (kp, vp) in enumerate(pools)], scales
+                for i, (kp, vp) in enumerate(pools)], kv, scales
 
     def kv_bytes_per_slot(self):
         """Device bytes one fully grown slot pins across every layer's KV
@@ -661,6 +823,90 @@ class PagedKVEngine:
                 "cached_pages": len(self.prefix_cache),
                 "page_budget": self.prefix_cache.page_budget}
 
+    def kvtier_stats(self):
+        """The host tier's /stats block; None when the tier is
+        disabled."""
+        return (None if self.host_tier is None
+                else self.host_tier.snapshot())
+
+    def disagg_stats(self):
+        """The /stats `disagg` block; always present, since a router
+        reads `role` from it."""
+        return self.disagg.snapshot()
+
+    # -- disaggregated handoff (inference/disagg.py) ---------------------
+    def export_pages(self, keys):
+        """Prefill side: PageBundleEntry objects for the longest leading
+        run of `keys` resident in the host tier. Runs on a caller thread
+        and touches only the host tier, never the device pools; queued
+        captures are flushed first, so pages a prefill just committed
+        are there."""
+        if self.host_tier is None:
+            return []
+        self.host_tier.flush(timeout=10.0)
+        return [PageBundleEntry(k, e.layers, e.draft)
+                for k, e in self.host_tier.peek_run(keys)]
+
+    def disagg_missing(self, keys):
+        """Decode side: the suffix of `keys` resident neither in the
+        prefix cache nor in the host tier, the pages a handoff has to
+        move. Advisory (a caller thread, while the scheduler changes
+        both tiers): a stale answer costs a redundant transfer or a
+        shorter warm run, never a wrong token."""
+        if self.prefix_cache is None:
+            return list(keys)
+        have = self.prefix_cache.leading_run(keys)
+        if self.host_tier is not None:
+            for k in keys[have:]:
+                if not self.host_tier.has(k):
+                    break
+                have += 1
+        return list(keys[have:])
+
+    def stage_import(self, entries):
+        """Queue peer page bundles for insertion (a caller thread; only
+        appends under `_lock`). The scheduler inserts them at the top of
+        its next `_admit`, before the prefix lookups of that pass."""
+        if not entries:
+            return
+        if self.prefix_cache is None:
+            raise RuntimeError("disagg import requires a prefix cache")
+        with self._lock:
+            self._import_staged.extend(entries)
+
+    def _disagg_import(self, entries):
+        """Scheduler thread: insert staged peer pages through the ledger
+        steps of `_tier_restore` (a free page, evicting a cold cache
+        entry on demand; the cache's ref; insert; one upload). Headroom
+        is unchanged: each page taken is a cache-only, reclaimable page.
+        Keys already resident are skipped."""
+        cache = self.prefix_cache
+        ents, pages = [], []
+        skipped = 0
+        for ent in entries:
+            if ent.key in cache:
+                skipped += 1
+                continue
+            if not self._tier_entry_compatible(ent):
+                continue
+            if not self._free and \
+                    not self._evict_prefix_entries(budget_only=False):
+                break               # the cache holds only pages in use
+            page = self._free.pop()
+            self._ref_page(page)
+            cache.insert(ent.key, page)
+            self._cached_pages.add(page)
+            self._reclaimable += 1
+            ents.append(ent)
+            pages.append(page)
+        if ents:
+            self._tier_upload(ents, pages)
+            self._evict_prefix_entries(budget_only=True)
+            self.disagg.note_imported(
+                len(ents), sum(e.nbytes for e in ents))
+        if skipped:
+            self.disagg.note_dedup(skipped)
+
     # -- submission ------------------------------------------------------
     def admission_headroom(self):
         """Pages not promised to any admitted slot: free pages plus the
@@ -671,12 +917,16 @@ class PagedKVEngine:
 
     def submit(self, ids, max_new_tokens=32, *, eos_token_id=None,
                do_sample=False, temperature=1.0, top_k=0,
-               top_p=1.0, deadline=None) -> _Request:
+               top_p=1.0, deadline=None, tenant=None, session=None,
+               **_ignored) -> _Request:
         """Queue one request and return its handle. `deadline` (an
         overload.Deadline) fails it with DeadlineExceeded, here when it
         has already expired, or at admission when it expires while
         queued. With `max_pending`, a request that cannot start now
-        behind a full queue is shed with EngineOverloaded."""
+        behind a full queue is shed with EngineOverloaded; with
+        `tenancy`, a tenant past its `max_queued` with
+        TenantQuotaExceeded. `session` opts a conversation into turn
+        retention and suspend/resume (inert without a prefix cache)."""
         if deadline is not None and deadline.expired():
             raise DeadlineExceeded(
                 "deadline exceeded before engine admission")
@@ -699,7 +949,30 @@ class PagedKVEngine:
         # sharing so the prompt's last token is always prefilled
         keys = (chain_keys(ids, self.page_size)
                 if self.prefix_cache is not None else [])
+        sess = (str(session) if session is not None
+                and self.prefix_cache is not None else None)
+        req = _Request(ids, max_new_tokens, eos_token_id, do_sample,
+                       temperature, top_k, top_p, pages,
+                       deadline=deadline, prefix_keys=keys, engine=self,
+                       tenant=tenant, session=sess)
+        return self._submit_locked(req, pages)
+
+    def _submit_locked(self, req, pages):
         with self._lock:
+            if self.tenancy is not None:
+                # the tenant's own queue quota sheds first (a typed 429,
+                # the bulkhead): its storm never reaches the global bound
+                # other tenants share
+                pol = self.tenancy.policy(req.tenant)
+                tkey = self.tenancy.key(req.tenant)
+                if pol.max_queued is not None \
+                        and self._queued_by_tenant.get(tkey, 0) \
+                        >= pol.max_queued:
+                    self.stats["overloaded"] += 1
+                    self._note_tenant_shed(tkey)
+                    raise TenantQuotaExceeded(
+                        f"tenant {tkey!r} over engine queue quota "
+                        f"({pol.max_queued} pending)", retry_after=0.1)
             if self.max_pending is not None:
                 # shed when the request can neither start now (a free
                 # slot, page headroom, nothing queued ahead of it) nor
@@ -710,19 +983,93 @@ class PagedKVEngine:
                     and any(s is None for s in self._slots)
                     and pages <= self.admission_headroom())
                 if not admissible_now and queued >= self.max_pending:
-                    self.stats["overloaded"] += 1
-                    raise EngineOverloaded(
-                        f"engine overloaded: {queued} pending >= "
-                        f"max_pending {self.max_pending} and no "
-                        "admission headroom", retry_after=0.1)
-            req = _Request(ids, max_new_tokens, eos_token_id, do_sample,
-                           temperature, top_k, top_p, pages,
-                           self._submitted, deadline=deadline,
-                           prefix_keys=keys, engine=self)
+                    victim = (self._pressure_victim_locked(req)
+                              if self.tenancy is not None else None)
+                    if victim is None:
+                        self.stats["overloaded"] += 1
+                        raise EngineOverloaded(
+                            f"engine overloaded: {queued} pending >= "
+                            f"max_pending {self.max_pending} and no "
+                            "admission headroom", retry_after=0.1)
+                    # the over-share tenant's newest queued request
+                    # yields the place to the newcomer
+                    self._shed_pending_locked(victim)
+            req.sample_index = self._submitted
             self._submitted += 1
             self._inflight += 1
             self._pending.append(req)
+            if self.tenancy is not None:
+                k = self.tenancy.key(req.tenant)
+                self._queued_by_tenant[k] = \
+                    self._queued_by_tenant.get(k, 0) + 1
         return req
+
+    def _queued_dec_locked(self, req):
+        """A request left the queue (admitted, cancelled, expired, shed
+        or failed). The caller holds `_lock`."""
+        if self.tenancy is None:
+            return
+        k = self.tenancy.key(req.tenant)
+        n = self._queued_by_tenant.get(k, 0) - 1
+        if n > 0:
+            self._queued_by_tenant[k] = n
+        else:
+            self._queued_by_tenant.pop(k, None)
+
+    def _pressure_victim_locked(self, req):
+        """Under global `max_pending` pressure, the queued request to
+        evict in the newcomer's favor: the newest pending request of the
+        tenant most over its weighted fair share of the queue, and only
+        when that tenant's weighted backlog strictly exceeds the
+        newcomer's own (so a storm never evicts itself a place, and
+        equal-share tenants shed the newcomer). None when there is no
+        such tenant, or when all its backlog is in an `_admit` pass
+        (the shares count it; the victim must be in `_pending`)."""
+        counts = dict(self._queued_by_tenant)
+        nkey = self.tenancy.key(req.tenant)
+        # the weighted backlog the newcomer would have, itself included
+        nshare = (counts.get(nkey, 0) + 1) \
+            / self.tenancy.policy(req.tenant).weight
+        worst = None
+        for k, n in counts.items():
+            if k == nkey:
+                continue
+            share = n / self.tenancy.policy(k).weight
+            if share > nshare and (worst is None or share > worst[1]):
+                worst = (k, share)
+        if worst is None:
+            return None
+        for r in reversed(self._pending):
+            if self.tenancy.key(r.tenant) == worst[0]:
+                return r
+        return None
+
+    def _shed_pending_locked(self, victim):
+        """Evict one queued request under pressure (the caller holds
+        `_lock`): the submit-shed contract, a typed retryable error and
+        a woken waiter, for a request already queued."""
+        self._pending.remove(victim)
+        self._queued_dec_locked(victim)
+        self._inflight -= 1
+        self.stats["overloaded"] += 1
+        self._note_tenant_shed(self.tenancy.key(victim.tenant))
+        victim.error = EngineOverloaded(
+            "engine overloaded: evicted from the pending queue under "
+            "pressure (tenant over its weighted fair share)",
+            retry_after=0.1)
+        victim.queue.put(None)
+        victim.done.set()
+
+    def _tenant_row(self, tkey):
+        """A tenant's stats row (the caller holds `_tenant_lock`)."""
+        return self._tenant_stats.setdefault(
+            tkey, {"admitted": 0, "slot_ticks": 0, "shed": 0})
+
+    def _note_tenant_shed(self, tkey):
+        """One shed of `tkey`'s: over its quota, or evicted under
+        pressure."""
+        with self._tenant_lock:
+            self._tenant_row(tkey)["shed"] += 1
 
     def has_work(self):
         with self._lock:
@@ -792,18 +1139,25 @@ class PagedKVEngine:
                 key_page = cache.pop_lru()
                 if key_page is None:
                     break
-                self._note_evicted(key_page[1], freed)
+                self._note_evicted(key_page[1], freed, key=key_page[0])
         else:
             key_page = cache.pop_lru_where(
                 lambda p: self._page_refs.get(p, 0) == 1)
             if key_page is not None:
-                self._note_evicted(key_page[1], freed)
+                self._note_evicted(key_page[1], freed, key=key_page[0])
         self._recycle_pages(freed)
         return freed
 
-    def _note_evicted(self, page, freed):
-        """An entry left the cache: leave the cached-page ledger, drop
-        the cache's ref, collect the page if that freed it."""
+    def _note_evicted(self, page, freed, key=None):
+        """An entry left the cache: spill the page to the host tier when
+        there is one (the capture comes before the recycle, so it holds
+        the page's content; a key already on the host is not captured
+        again, since the chain key fixes the content), then leave the
+        cached-page ledger, drop the cache's ref, collect the page if
+        that freed it."""
+        if key is not None and self.host_tier is not None \
+                and not self.host_tier.has(key):
+            self._tier_capture(key, page)
         self._cached_pages.discard(page)
         if self._page_refs.get(page, 0) == 1:
             self._reclaimable -= 1      # was cache-only
@@ -879,12 +1233,311 @@ class PagedKVEngine:
                 self._cached_pages.add(slot.pages[j])
         self._evict_prefix_entries(budget_only=True)
 
+    def _disagg_capture(self, req):
+        """A prefill-role engine snapshots a request's committed full
+        prompt pages into its host tier right after the prefill that
+        wrote them: that host copy is what `export_pages` hands out, so
+        an export never touches the device pools. A key already on the
+        host is not captured again."""
+        if self.role != "prefill":
+            return
+        cache = self.prefix_cache
+        n_full = min(len(req.prefix_keys),
+                     int(req.prompt.size) // self.page_size)
+        for j in range(n_full):
+            key = req.prefix_keys[j]
+            if self.host_tier.has(key):
+                continue
+            page = cache.get(key)
+            if page is not None:
+                self._tier_capture(key, page)
+
+    # -- the host tier ---------------------------------------------------
+    def _pool_buffers(self):
+        """(k/v tensor, scale tensor or None) of the target's pools, then
+        the draft's: every buffer a page lives in."""
+        out = [(self._kv, self._scales)]
+        if self.draft_pools is not None:
+            out.append((self._draft_kv, self._draft_scales))
+        return out
+
+    def _tier_capture(self, key, page):
+        """Snapshot one page of every pool buffer and hand it to the
+        tier. The page's rows are gathered into fresh device tensors on
+        the engine's stream now, before the page is recycled (its int8
+        scales zeroed, the next request's k/v written over it): a view
+        would see those writes. On the card the snapshot then goes to
+        pinned host memory on a side stream that waits on the engine's,
+        and the tier's worker waits on the event recorded after it;
+        nothing here waits for the copy. On the CPU the gather is the
+        host copy."""
+        snaps = [[None if t is None
+                  else t[:, :, page].clone(memory_format=torch
+                                           .contiguous_format)
+                  for t in buf] for buf in self._pool_buffers()]
+        ready = None
+        if self.device.type == "cuda":
+            cur = torch.cuda.current_stream(self.device)
+            if self._tier_stream is None:
+                self._tier_stream = torch.cuda.Stream(self.device)
+            side = self._tier_stream
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                for pair in snaps:
+                    for j, t in enumerate(pair):
+                        if t is None:
+                            continue
+                        host = torch.empty(t.shape, dtype=t.dtype,
+                                           pin_memory=True)
+                        host.copy_(t, non_blocking=True)
+                        t.record_stream(side)   # read on the side stream
+                        pair[j] = host
+                ready = torch.cuda.Event()
+                ready.record(side)
+        groups = [_host_layers(kv, sc) for kv, sc in snaps]
+        self.host_tier.spill(key, groups[0],
+                             groups[1] if len(groups) > 1 else None,
+                             ready=ready)
+
+    def _tier_entry_compatible(self, entry):
+        """A host entry must match this engine's pool geometry exactly
+        (defensive: a stale entry after a reconfiguration, or a peer's
+        bundle, must be dropped, not written over pages). Types are
+        compared by numpy's name, so a JAX engine's bundle matches."""
+        return _groups_match(entry.layers, self.pools)
+
+    def _tier_upload(self, ents, pages):
+        """Write host entries into `pages` in place: per pool buffer one
+        host staging tensor (pinned on the card), one host-to-device
+        copy and one `index_copy_`, into the buffers the captured tick
+        programs read at fixed addresses, on the stream their replays
+        run on, between ticks. The draft's pages of an entry without a
+        usable draft mirror (shed by the tier's budget, or a peer
+        without a draft) are zero-filled: speculation then proposes
+        badly, and the verify keeps the tokens exact."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        per_buffer = [[e.layers for e in ents]]
+        if self.draft_pools is not None:
+            blank = None
+            drafts = []
+            for e in ents:
+                if e.draft is not None and _groups_match(e.draft,
+                                                         self.draft_pools):
+                    drafts.append(e.draft)
+                    continue
+                if blank is None:
+                    blank = [tuple(torch.zeros(a.shape[1:], dtype=a.dtype)
+                                   for a in grp)
+                             for grp in self.draft_pools]
+                drafts.append(blank)
+            per_buffer.append(drafts)
+        for (kv, sc), per_entry in zip(self._pool_buffers(), per_buffer):
+            for dst, cols in ((kv, (0, 1)), (sc, (2, 3))):
+                if dst is not None:
+                    dst.index_copy_(2, idx, self._staged(dst, per_entry,
+                                                         cols))
+
+    def _staged(self, dst, per_entry, cols):
+        """The arrays `cols` of each entry's layers stacked as
+        (layers, 2, entries, ...) in one host tensor (pinned on the
+        card), then on the engine's device."""
+        n_layers, n = dst.shape[0], len(per_entry)
+        pin = self.device.type == "cuda"
+        host = torch.empty((n_layers, 2, n) + tuple(dst.shape[3:]),
+                           dtype=dst.dtype, pin_memory=pin)
+        torch.stack([torch.as_tensor(per_entry[j][li][c])
+                     for li in range(n_layers) for c in cols
+                     for j in range(n)],
+                    out=host.view((-1,) + tuple(dst.shape[3:])))
+        return host.to(self.device, non_blocking=True) if pin else host
+
+    def _tier_restore(self, req, shared_pages):
+        """On a device miss or partial hit, extend the leading shared
+        run with pages restored from host RAM. Each restored page comes
+        off the free list and enters the ledger like a freshly inserted
+        prefix page (the cache's ref only, reclaimable), so
+        `admission_headroom()` stays truthful; `_admit` then refs the
+        whole run for the slot like any warm hit, and the tail-only
+        prefill runs unchanged."""
+        tier = self.host_tier
+        cache = self.prefix_cache
+        if tier is None or cache is None or not req.prefix_keys:
+            return shared_pages
+        have = len(shared_pages)
+        shareable = (int(req.prompt.size) - 1) // self.page_size
+        keys = req.prefix_keys[have:shareable]
+        if not keys:
+            return shared_pages
+        # restored pages leave the free list now instead of off the
+        # reservation later (the same total draw), so consult the tier
+        # only when the request fits anyway: a restore never pushes a
+        # request past the headroom check _admit runs next
+        if req.pages_needed - have > self.admission_headroom():
+            return shared_pages
+        run = tier.match_run(keys)
+        if not run:
+            return shared_pages
+        ents, pages = [], []
+        for key, entry in run:
+            if not self._tier_entry_compatible(entry):
+                tier.discard(key)
+                break
+            if not self._free and \
+                    not self._evict_prefix_entries(budget_only=False):
+                break
+            page = self._free.pop()
+            self._ref_page(page)
+            cache.insert(key, page)
+            self._cached_pages.add(page)
+            self._reclaimable += 1
+            ents.append(entry)
+            pages.append(page)
+        if not ents:
+            return shared_pages
+        self._tier_upload(ents, pages)
+        tier.note_restored(len(pages), sum(e.nbytes for e in ents))
+        # restored entries joined the device cache hot: its page budget
+        # evicts (and spills) the coldest entries
+        self._evict_prefix_entries(budget_only=True)
+        return shared_pages + pages
+
+    # -- sessions ----------------------------------------------------------
+    def _session_retain(self, slot):
+        """A finished turn with a session id keeps its KV: the slot's
+        full committed pages (prompt and generated tokens) go into the
+        prefix cache under the chain over the committed token stream,
+        and the session's idle clock restarts. The next turn's prompt
+        replays those tokens, so its chain keys match and its prefill
+        runs only the new text."""
+        req = slot.req
+        cache = self.prefix_cache
+        if cache is None or req.session is None:
+            return
+        # slot.lens counts the tokens whose KV was committed (the last
+        # emitted token's KV was never fed back)
+        committed = (list(map(int, req.prompt)) + req.tokens)[:slot.lens]
+        keys = chain_keys(committed, self.page_size)
+        n = min(len(keys), len(slot.pages))
+        for j in range(n):
+            if cache.insert(keys[j], slot.pages[j]):
+                self._ref_page(slot.pages[j])
+                self._cached_pages.add(slot.pages[j])
+        rec = self._sessions.pop(req.session, None) \
+            or {"keys": [], "last": 0.0, "suspended": False}
+        rec["keys"] = keys[:n]
+        rec["last"] = time.monotonic()
+        rec["suspended"] = False
+        self._sessions[req.session] = rec
+        while len(self._sessions) > 4096:   # bound the registry: the LRU
+            self._sessions.popitem(last=False)  # session loses retention
+        self._evict_prefix_entries(budget_only=True)
+
+    def _session_touch(self, sid):
+        """Admission saw this session again: restart its idle clock, and
+        count a resume if it was suspended (its pages just came back
+        through _tier_restore or the warm path)."""
+        rec = self._sessions.get(sid)
+        if rec is None:
+            return
+        rec["last"] = time.monotonic()
+        self._sessions.move_to_end(sid)
+        if rec["suspended"]:
+            rec["suspended"] = False
+            if self.host_tier is not None:
+                self.host_tier.note_resume()
+
+    def _suspend_sweep(self):
+        """Once a step: spill each session idle past `suspend_after_s`
+        to the host tier and free its device pages, by its own keys
+        (PrefixCache.pop; LRU order does not matter). A session with a
+        queued next turn is skipped: the admission about to run would
+        restore it right back."""
+        if not self._sessions:
+            return
+        now = time.monotonic()
+        with self._lock:
+            queued = {r.session for r in self._pending
+                      if r.session is not None}
+        freed = []
+        for sid, rec in self._sessions.items():
+            if rec["suspended"] or sid in queued \
+                    or now - rec["last"] < self.suspend_after_s:
+                continue
+            for k in rec["keys"]:
+                page = self.prefix_cache.pop(k)
+                if page is not None:
+                    self._note_evicted(page, freed, key=k)
+            rec["suspended"] = True
+            self.host_tier.note_suspend()
+        self._recycle_pages(freed)
+
+    # -- tenancy -----------------------------------------------------------
+    def _admission_order(self, pending):
+        """The order pending requests are considered for admission:
+        arrival without a TenantTable; with one, an iterative
+        weighted-fair pick across per-tenant FIFOs, each pick seeing the
+        charges of the admissions made earlier in the same pass, with
+        strict priority classes above the fair tiers."""
+        if self._wfq is None or len(pending) <= 1:
+            return pending
+        queues: dict[str, collections.deque] = {}
+        for r in pending:
+            queues.setdefault(self.tenancy.key(r.tenant),
+                              collections.deque()).append(r)
+
+        def order():
+            while queues:
+                t = self._wfq.pick(queues)
+                q = queues[t]
+                r = q.popleft()
+                if not q:
+                    del queues[t]
+                yield r
+        return order()
+
+    def _note_tenant_admitted(self, req):
+        """The tenant's admission count and the WFQ charge, at the
+        moment the request takes a slot (scheduler thread)."""
+        tkey = self.tenancy.key(req.tenant)
+        self._wfq.charge(tkey)
+        with self._tenant_lock:
+            self._tenant_row(tkey)["admitted"] += 1
+
+    def _note_slot_ticks(self, live):
+        """One slot-tick per live slot per tick: the evidence of the
+        weighted-fair share, counted per tenant under one lock pass."""
+        counts: dict[str, int] = {}
+        for i in live:
+            k = self.tenancy.key(self._slots[i].req.tenant)
+            counts[k] = counts.get(k, 0) + 1
+        with self._tenant_lock:
+            for k, n in counts.items():
+                self._tenant_row(k)["slot_ticks"] += n
+
+    def tenant_snapshot(self):
+        """Each tenant's admissions, decode slot-ticks, sheds and pending
+        count (the serving /stats rows); {} without tenancy."""
+        if self.tenancy is None:
+            return {}
+        with self._lock:
+            # the queued counter also covers requests an _admit pass is
+            # holding, which _pending alone would miss
+            pend = dict(self._queued_by_tenant)
+        with self._tenant_lock:
+            out = {k: dict(v) for k, v in self._tenant_stats.items()}
+        for k in pend:
+            out.setdefault(k, {"admitted": 0, "slot_ticks": 0, "shed": 0})
+        for k in out:
+            out[k]["pending"] = pend.get(k, 0)
+        return out
+
     # -- admission and prefill -------------------------------------------
     def _drop_queued(self, req, error=None):
         """A queued request leaves without a slot (cancelled or
         expired): wake its waiter."""
         with self._lock:
             self._inflight -= 1
+            self._queued_dec_locked(req)
         req.error = error
         req.queue.put(None)
         req.done.set()
@@ -892,9 +1545,14 @@ class PagedKVEngine:
     def _admit(self):
         with self._lock:
             pending, self._pending = self._pending, []
+            staged, self._import_staged = self._import_staged, []
+        if staged:
+            # peer pages pulled ahead of a routed request land before
+            # this pass's prefix lookups, so that request admits warm
+            self._disagg_import(staged)
         requeue = []
         admitted = []
-        for req in pending:
+        for req in self._admission_order(pending):
             if req.cancelled.is_set():        # cancelled while queued
                 self.stats["cancelled"] += 1
                 self._drop_queued(req)
@@ -910,6 +1568,10 @@ class PagedKVEngine:
             idx = next((i for i, s in enumerate(self._slots) if s is None),
                        None)
             shared = self._prefix_lookup(req) if idx is not None else []
+            if idx is not None and self.host_tier is not None:
+                # a device miss or partial hit: extend the run from the
+                # host tier (an upload; headroom unchanged)
+                shared = self._tier_restore(req, shared)
             # refs BEFORE the headroom check: matched pages stop being
             # reclaimable, so the check sees the budget after the hit
             for p in shared:
@@ -922,6 +1584,8 @@ class PagedKVEngine:
                 requeue.append(req)
                 continue
             self._note_prefix_outcome(req, h)
+            if req.session is not None:
+                self._session_touch(req.session)
             # only the uncached tail draws fresh pages from the pool
             self._reserved_unalloc += req.pages_needed - h
             slot = _Slot(req, lens=0, tok=0)
@@ -932,6 +1596,10 @@ class PagedKVEngine:
                 slot.pages.append(p)
             self._alloc_pages(idx, -(-req.prompt.size // self.page_size))
             self.stats["admitted"] += 1
+            if self.tenancy is not None:
+                with self._lock:
+                    self._queued_dec_locked(req)
+                self._note_tenant_admitted(req)
             admitted.append((idx, req))
         # back in the queue before any prefill runs: a prefill that
         # raises leaves every waiter where the ticker's failure path
@@ -1019,6 +1687,7 @@ class PagedKVEngine:
             slot.lens = int(req.prompt.size)
             slot.tok = self._first_token(logits[row], req)
             self._prefix_insert(idx, req)
+            self._disagg_capture(req)
             self._accept(idx, [slot.tok])
 
     def _prefill_group(self, grp):
@@ -1098,6 +1767,11 @@ class PagedKVEngine:
         cancelled) counts in stats["finished"]."""
         slot = self._slots[slot_idx]
         req = slot.req
+        if reason is None and not req.cancelled.is_set() \
+                and req.session is not None:
+            # before the release below: the cache refs it adds keep the
+            # conversation's pages alive through the slot's unref
+            self._session_retain(slot)
         freeable = [p for p in slot.pages if self._unref_page(p)]
         # the unallocated remainder of this slot's reservation (shared
         # pages were neither reserved nor drawn from the free list)
@@ -1376,10 +2050,14 @@ class PagedKVEngine:
                 if s is not None and s.req.cancelled.is_set()]
         self.stats["cancelled"] += len(gone)
         self._retire_each(gone)
+        if self.suspend_after_s is not None:
+            self._suspend_sweep()
         admitted = self._admit()
         live = [i for i, s in enumerate(self._slots) if s is not None]
         if not live:
             return admitted > 0
+        if self.tenancy is not None:
+            self._note_slot_ticks(live)
         if self.draft_model is not None:
             return self._step_spec(live)
         n = self.steps_per_tick
@@ -1470,6 +2148,10 @@ class PagedKVEngine:
         t = self._ticker
         if t is not None:
             t.join(timeout=30)
+        if self.host_tier is not None:
+            # drain and join the spill worker (a later spill starts it
+            # again, so stop()/start() cycles keep working)
+            self.host_tier.stop()
 
     def _ticker_loop(self):
         if self.device.type == "cuda":
@@ -1493,6 +2175,8 @@ class PagedKVEngine:
         with self._lock:
             doomed, self._pending = self._pending, []
             self._inflight -= len(doomed)       # dropped, not retired
+            for req in doomed:
+                self._queued_dec_locked(req)
         for req in doomed:
             req.error = error
             req.queue.put(None)
@@ -1511,14 +2195,8 @@ class PagedKVEngine:
         `attention_mask` row selecting its tokens) is its own request in
         the continuous batch, and a finished row yields `pad_token_id`.
         Closing the iterator early cancels the requests, so the engine
-        stops decoding for nobody. `deadline` goes to each row's
-        submit()."""
-        for name, val in (("tenant", tenant), ("session", session)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"stream(): {name}= is not ported yet (ROADMAP.md "
-                    "queue 1 item 4: tenancy, then sessions with the "
-                    "host tier)")
+        stops decoding for nobody. `deadline`, `tenant` and `session`
+        go to each row's submit()."""
         if seed is not None and do_sample:
             warnings.warn(
                 "PagedKVEngine ignores per-request seed: sampling noise in "
@@ -1540,7 +2218,8 @@ class PagedKVEngine:
                 reqs.append(self.submit(
                     r, max_new_tokens, eos_token_id=eos_token_id,
                     do_sample=do_sample, temperature=temperature,
-                    top_k=top_k, top_p=top_p, deadline=deadline))
+                    top_k=top_k, top_p=top_p, deadline=deadline,
+                    tenant=tenant, session=session))
         except BaseException:
             # a later row failed: the rows already submitted would decode
             # on for a caller that got an exception

@@ -1928,3 +1928,168 @@ def test_draft_the_decode_kernel_refuses_raises_at_construction(cuda):
         dtype=torch.bfloat16, seed=5)
     with pytest.raises(ValueError, match="head_dim"):
         PagedKVEngine(model, device=cuda, draft_model=draft, **_SPEC_GEOM)
+
+
+# -- the host KV tier and disaggregated roles ---------------------------------
+
+_TIER_GEOM = dict(max_slots=1, page_size=4, num_pages=32,
+                  max_pages_per_slot=8, steps_per_tick=3,
+                  prefix_cache_pages=2, host_tier_bytes=1 << 20)
+
+
+def _tier_scenario(eng):
+    """A prompt that caches its two prefix pages; two more prompts that
+    evict them (spilled) and take and write over the recycled pages;
+    the first prompt again, restored from the host tier."""
+    pa = _PREFIX + [21, 22, 23]
+    first = eng.generate([pa], max_new_tokens=6)[0]
+    eng.generate([[60 + i for i in range(9)]], max_new_tokens=2)
+    assert eng.host_tier.flush()
+    eng.generate([[30 + i for i in range(10)]], max_new_tokens=6)
+    again = eng.generate([pa], max_new_tokens=6)[0]
+    return first, again
+
+
+def _pool_ptrs(eng):
+    return [t.data_ptr() for grp in eng.pools for t in grp] + [
+        eng._kv.data_ptr(),
+        None if eng._scales is None else eng._scales.data_ptr()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_restore_keeps_pool_addresses_and_the_captured_ticks_tokens(cuda,
+                                                                    kv):
+    """A restore writes the pools in place: every pool's data_ptr() is
+    unchanged, the tick captured before it is replayed after it (no
+    recapture), and its tokens equal the eager tick's."""
+    model = _tick_model(cuda, kv)
+    geom = dict(_TIER_GEOM, kv_dtype=kv)
+    captured = PagedKVEngine(model, device=cuda, **geom)
+    eager = _eager(PagedKVEngine(model, device=cuda, **geom))
+    try:
+        captured.generate([[7, 8, 9]], max_new_tokens=4)   # captures
+        ptrs = _pool_ptrs(captured)
+        program = captured._programs[("tick", False)]
+        got = _tier_scenario(captured)
+        assert got == _tier_scenario(eager)
+        assert got[0] == got[1] and len(got[0]) == 6
+        assert _pool_ptrs(captured) == ptrs
+        assert captured._programs[("tick", False)] is program
+        assert captured.stats["warmup_ticks"] == 1
+        for eng in (captured, eager):
+            snap = eng.kvtier_stats()
+            assert snap["restored_pages"] == 2 and snap["spill_errors"] == 0
+            _settled(eng)
+    finally:
+        captured.stop()
+        eager.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_spilled_bytes_equal_the_pool_page_at_capture(cuda, kv):
+    """The host entry holds the page as it stood when it was evicted, in
+    pinned memory, although the next request has written over the page
+    (int8: its scales zeroed and grown again) by the time the worker
+    commits."""
+    model = _tick_model(cuda, kv)
+    eng = PagedKVEngine(model, device=cuda, **dict(_TIER_GEOM, kv_dtype=kv))
+    try:
+        eng.generate([_PREFIX + [21, 22, 23]], max_new_tokens=6)
+        keys = chain_keys(_PREFIX, 4)
+        pages = eng.prefix_cache.match(keys)
+        idx = torch.tensor(pages, device=cuda)
+        kv0 = eng._kv[:, :, idx].cpu()
+        sc0 = None if eng._scales is None else eng._scales[:, :, idx].cpu()
+        eng.generate([[60 + i for i in range(9)]], max_new_tokens=2)
+        eng.generate([[30 + i for i in range(10)]], max_new_tokens=6)
+        assert eng.host_tier.flush()
+        assert not torch.equal(eng._kv[:, :, idx].cpu(), kv0)
+        for j, key in enumerate(keys):
+            entry = eng.host_tier._entries[key]
+            assert entry.draft is None
+            for li, grp in enumerate(entry.layers):
+                assert len(grp) == (4 if kv == "int8" else 2)
+                for c in range(2):
+                    assert grp[c].is_pinned()
+                    assert torch.equal(grp[c], kv0[li, c, j])
+                    if sc0 is not None:
+                        assert torch.equal(grp[2 + c], sc0[li, c, j])
+    finally:
+        eng.stop()
+
+
+@pytest.mark.cuda
+def test_suspended_session_resumes_to_the_eager_tokens(cuda):
+    """A session's pages spill when it idles, the device cache empties,
+    and the next turn, restored, gives the eager tick's tokens."""
+    model = _tick_model(cuda, "bf16")
+    geom = dict(_TIER_GEOM, num_pages=64, max_pages_per_slot=16,
+                prefix_cache_pages=16, suspend_after_s=0.3)
+    outs = []
+    for eager in (False, True):
+        eng = PagedKVEngine(model, device=cuda, **geom)
+        if eager:
+            _eager(eng)
+        try:
+            turn1 = [int(x) for x in np.random.RandomState(3).randint(
+                1, 97, 11)]
+            out1 = eng.generate([turn1], max_new_tokens=8, session="s")[0]
+            time.sleep(0.4)
+            eng.step()                          # the sweep spills
+            assert eng.host_tier.flush()
+            assert len(eng.prefix_cache) == 0
+            assert len(eng._free) == eng.num_pages - 1
+            turn2 = turn1 + out1 + [3, 1, 4]
+            out2 = eng.generate([turn2], max_new_tokens=6, session="s")[0]
+            snap = eng.kvtier_stats()
+            assert snap["suspends"] == 1 and snap["resumes"] == 1
+            assert snap["restored_pages"] >= 4
+            outs.append((out1, out2))
+        finally:
+            eng.stop()
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_disagg_handoff_on_the_card_gives_the_monolithic_tokens(cuda):
+    """export -> pack -> unpack -> stage -> decode between two engines on
+    the card, int8 KV: the monolithic engine's tokens and the prefill
+    engine's page bytes."""
+    from paddle_tpu_torch.inference.disagg import pack_bundle, unpack_bundle
+    model = _tick_model(cuda, "int8")
+    geom = dict(_TIER_GEOM, kv_dtype="int8", max_slots=2,
+                prefix_cache_pages=8)
+    geom.pop("host_tier_bytes")
+    mono = PagedKVEngine(model, device=cuda, **geom)
+    pre = PagedKVEngine(model, device=cuda, role="prefill",
+                        host_tier_bytes=1 << 20, **geom)
+    dec = PagedKVEngine(model, device=cuda, role="decode", **geom)
+    try:
+        prompt = _PREFIX + [21, 22, 23]
+        want = mono.generate([prompt], max_new_tokens=6)[0]
+        pre.generate([prompt], max_new_tokens=1)
+        keys = chain_keys(prompt, 4)
+        dec.stage_import(unpack_bundle(pack_bundle(pre.export_pages(keys))))
+        assert dec.generate([prompt], max_new_tokens=6)[0] == want
+        for key in keys:
+            p, q = pre.prefix_cache.get(key), dec.prefix_cache.get(key)
+            for gp, gd in zip(pre.pools, dec.pools):
+                for a, b in zip(gp, gd):
+                    assert torch.equal(a[p], b[q])
+    finally:
+        for e in (mono, pre, dec):
+            e.stop()
+
+
+@pytest.mark.cuda
+def test_kernel_jnp_on_the_card_raises(cuda):
+    """No plain decode path on the card: kernel='jnp' raises, None and
+    'pallas' both take the hand-written kernel."""
+    model = _tick_model(cuda, "bf16")
+    with pytest.raises(ValueError, match="kernel='jnp'"):
+        PagedKVEngine(model, device=cuda, kernel="jnp", **_TICK_GEOM)
+    for kernel in (None, "pallas"):
+        eng = PagedKVEngine(model, device=cuda, kernel=kernel, **_TICK_GEOM)
+        assert eng.decode_kernel == "cuda"

@@ -392,13 +392,17 @@ def test_run_until_idle_waits_on_a_live_ticker(models, monkeypatch):
 
 
 def test_stream_refuses_unported_arguments_and_warns_on_seed(models):
+    # stream() takes tenant= and session= since the tenancy and host-tier
+    # slice; without a TenantTable or a prefix cache both are inert, so
+    # the rows equal those without them
     eng = _engine(models)
-    for kw in (dict(tenant="a"), dict(session="s")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            next(eng.stream(np.asarray([[1, 2]], np.int32),
-                            max_new_tokens=2, **kw))
-    assert eng._ticker is None and not eng.has_work()
     try:
+        ids = np.asarray([[1, 2]], np.int32)
+        want = [r.tolist() for r in eng.stream(ids, max_new_tokens=2)]
+        for kw in (dict(tenant="a"), dict(session="s")):
+            assert [r.tolist() for r in eng.stream(
+                ids, max_new_tokens=2, **kw)] == want
+        assert eng.tenant_snapshot() == {} and eng._sessions == {}
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             rows = list(eng.stream(np.asarray([[1, 2]], np.int32),

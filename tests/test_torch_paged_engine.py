@@ -249,11 +249,16 @@ def test_port_imports_without_jax_or_paddle_tpu():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.models.llama, paddle_tpu_torch.models.convert\n"
         "import paddle_tpu_torch.inference.paged\n"
         "import paddle_tpu_torch.inference.prefix\n"
         "import paddle_tpu_torch.inference.overload\n"
+        "import paddle_tpu_torch.inference.tenancy\n"
+        "import paddle_tpu_torch.inference.kvtier\n"
+        "import paddle_tpu_torch.inference.disagg\n"
+        "import paddle_tpu_torch.observability.requests\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "import paddle_tpu_torch.kernels.fused_norm\n"
@@ -261,7 +266,8 @@ def test_port_imports_without_jax_or_paddle_tpu():
         "import paddle_tpu_torch.kernels.quant_matmul\n"
         "import paddle_tpu_torch.quantization\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
-        " (m.split('.')[0] in ('paddle_tpu', 'jax', 'jaxlib'))]\n"
+        " (m.split('.')[0] in ('paddle_tpu', 'jax', 'jaxlib',"
+        " 'ml_dtypes'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
