@@ -162,7 +162,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    engine's, byte for byte; it prints the bundle bytes and the pack,
    unpack and import ms. Each part's launches are held to the counts
    per decode step and prefill call (phase 11's rule) and go to its own
-   path ("tenancy", "kvtier", "disagg").
+   path ("tenancy", "kvtier", "disagg");
+14. HTTP serving on phase 5's model and geometry (run right after phase
+   13): the port's PredictorServer on 127.0.0.1 over a captured-tick
+   engine, with the port's observability on. (a) 8 client threads POST
+   /generate with phase 5's prompts (64 new tokens; 4 ndjson streams, 4
+   unary; each with X-Request-Id and traceparent; the last posts after
+   another's first streamed line): every request gets 64 in-vocabulary
+   tokens, the tokens its engine request recorded; both headers come
+   back; the wave leaves the captured programs and the pools' addresses
+   as they were; the launches are held to the counts per decode step
+   and prefill call (phase 11's rule). (b) /metrics parses, its engine
+   gauges are engine.stats, request.ttft.seconds counts 8,
+   request.tokens sums 512, request.outcome counts 8 ("finished" and
+   "ok" together: the engine's retire and the handler race for it),
+   inference.decode.kernel{path="cuda"} counts the wave's ticks, and
+   /debug/requests is empty when idle. (c) timeout_ms=1 behind a 20 ms
+   `serving.admit.delay` chaos fault gives 504; on a server with
+   max_concurrent=1 and max_queue_depth=0 a /generate sent while a
+   stream is in flight gives 429 with Retry-After and /readyz says
+   "saturated"; drain() during a stream finishes it, /readyz says
+   "draining" meanwhile, and the server stops. It prints the HTTP
+   decode rate (tokens over the wave's wall, first request sent to last
+   byte read) beside phase 5's, and TTFT and ITL p50/p99. Its launches
+   go to the path "http".
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -189,9 +212,13 @@ import argparse
 import gc
 import itertools
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1551,6 +1578,36 @@ def _trace_want(c):
 TRACE_TRIES = 3
 
 
+def _graph_nodes(program, syms):
+    """The captured tick's own graph as the CUDA driver lists it
+    (cudaGraphDebugDotPrint; the engine keeps each captured cudaGraph_t
+    beside its instantiation): its kernel nodes counted by the rows
+    `_trace_want` names, matched as identifiers in the mangled kernel
+    names, and its nodes by kind (KERNEL, MEMSET, MEMCPY, ...)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tick.dot")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            program.graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    pats = {sym: re.compile(r"(?<![A-Za-z_])" + re.escape(sym.rstrip("<"))
+                            + r"(?![a-z0-9_])") for sym in syms}
+    rows, kinds = dict.fromkeys(syms, 0), {}
+    for block in re.split(r'\n(?="graph_\d+_node_\d+"\[)', text):
+        kind = re.match(r'"graph_\d+_node_\d+"\[[^\n]*label="\{(\w+)', block)
+        if kind is None:
+            continue
+        kinds[kind[1]] = kinds.get(kind[1], 0) + 1
+        name = re.search(r"\| (\S+?)\\<\\<\\<", block)
+        if kind[1] != "KERNEL" or name is None:
+            continue
+        for sym, pat in pats.items():
+            if pat.search(name[1]):
+                rows[sym] += 1
+    return rows, kinds
+
+
 def _trace_replay(program, counters, reset):
     """One replay of `program` under torch.profiler: the counters' gain,
     the kernel rows the trace must hold for it (`_trace_want`), the rows
@@ -1578,22 +1635,34 @@ def _trace_replay(program, counters, reset):
 
 def traced_replays(eng, counters, reset, card, tag, path, n=2):
     """The launch gates read from the card. A captured tick's counts come
-    from its capture (each replay adds them), so here each of `n` replays
-    of the engine's greedy tick runs under torch.profiler, and each
-    kernel's rows in its trace must equal what the counters gained; every
-    kernel of `path` must have run. A replay runs the same graph nodes
-    every time, so a trace that holds fewer rows of some kernel and fewer
-    device events in all than a whole trace of the same replay has lost
-    records of the profiler's, not kernels: that replay is traced again,
-    up to TRACE_TRIES sessions, and the lost sessions are reported. A row
-    above the counters, a counter off the decode path, or a replay never
-    traced whole fails. Every slot is idle (KV writes land in the sink
-    page, and the decode kernel reads no page), so the replays do less
-    work than a served tick. Also the replays' kernel time beside the
-    host wall of `n` untraced replays of the same inputs: an idle
-    estimate (busy traced, wall untraced)."""
+    from its capture (each replay adds them), so the tick's graph, as
+    the CUDA driver lists it, must hold exactly as many nodes of each
+    kernel as the counters gain a replay, and every kernel of `path`
+    must be among them: a replay runs every node of its graph. Then
+    each of `n` replays of the engine's greedy tick runs under
+    torch.profiler, to see the kernels run on the card and to time them:
+    a row above the counters, a counter off the decode path, or a kernel
+    of `path` that no trace saw fails. The profiler can lose records of
+    a replay this long (CUPTI drops some when its device buffer fills):
+    a trace that holds fewer rows than the graph's nodes is taken again,
+    up to TRACE_TRIES sessions, and every short trace is reported under
+    `lost_traces`; a short trace with as many device events as a whole
+    trace of the same replay fails. Every slot is idle (KV writes land
+    in the sink page, and the decode kernel reads no page), so the
+    replays do less work than a served tick. Also the replays' kernel
+    time beside the host wall of `n` untraced replays of the same
+    inputs: an idle estimate (busy traced, wall untraced)."""
     # the greedy tick, or spec tick, captured here if no tick needed it
     program = eng._tick_program(False)
+    gain = dict.fromkeys(counters(), 0)
+    for _, k, c in program.delta:
+        gain[k] += c
+    want = _trace_want(gain)
+    nodes, kinds = _graph_nodes(program, want)
+    if nodes != want or min(want[k] for k in path) <= 0:
+        raise AssertionError(
+            f"{tag}: the captured tick's graph holds kernel nodes {nodes}, "
+            f"the counters gain {want} a replay (path {path})")
     eng._idle_inputs()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1601,51 +1670,53 @@ def traced_replays(eng, counters, reset, card, tag, path, n=2):
         program.graph.replay()
     torch.cuda.synchronize()
     replay_ms = (time.perf_counter() - t0) / n * 1e3
-    rows, busy_us, whole, lost = {}, 0.0, [], []
+    rows, busy_us, whole, lost, events_n = {}, 0.0, [], [], []
     for i in range(n):
         for _ in range(TRACE_TRIES):
-            counted, want, got, us, events = _trace_replay(
+            counted, want_i, got, us, events = _trace_replay(
                 program, counters, reset)
             others = {k: v for k, v in counted.items() if v and k not in (
                 "paged_decode_attention", "paged_decode_attention_int8",
                 "rms_norm_residual", "rope_apply", "weight_only_int8_matmul",
                 "weight_only_int8_matmul_wgmma")}
-            if others or any(got[k] > want[k] for k in want):
+            if others or want_i != want or any(got[k] > want[k]
+                                               for k in want):
                 raise AssertionError(
                     f"{tag}: replay {i}'s trace ran kernels {got}, the "
-                    f"counters say {want} (other counters {others})")
+                    f"counters say {want_i}, the graph {want} (other "
+                    f"counters {others})")
             if got == want:
+                whole.append(events)
                 break
             lost.append(dict(replay=i, kernel_rows=got, want=want,
                              device_events=events))
-        else:
-            raise AssertionError(
-                f"{tag}: {TRACE_TRIES} traces of replay {i} ran kernels "
-                f"below the counters' {want}: {lost[-TRACE_TRIES:]}")
-        if min(want[k] for k in path) <= 0:
-            raise AssertionError(f"{tag}: a replay launched no {path}: "
-                                 f"{want}")
         rows = {k: rows.get(k, 0) + v for k, v in got.items()}
         busy_us += us
-        whole.append(events)
+        events_n.append(events)
+    if min(rows[k] for k in path) <= 0:
+        raise AssertionError(f"{tag}: no trace saw a kernel of {path} run: "
+                             f"{rows}")
     for t in lost:
-        if t["device_events"] >= min(whole):
+        if whole and t["device_events"] >= min(whole):
             raise AssertionError(
                 f"{tag}: a trace of replay {t['replay']} held "
                 f"{t['device_events']} device events, as many as a whole "
                 f"trace ({min(whole)}), yet kernel rows {t['kernel_rows']} "
                 f"below the counters' {t['want']}")
     busy_ms = busy_us / 1e3 / n
-    out = dict(replays=n, kernel_rows=rows, busy_ms=busy_ms,
-               replay_ms=replay_ms, device_events=whole, lost_traces=lost,
+    out = dict(replays=n, graph_kernel_nodes=nodes, graph_nodes=kinds,
+               kernel_rows=rows, busy_ms=busy_ms, replay_ms=replay_ms,
+               device_events=events_n, whole_traces=len(whole),
+               lost_traces=lost,
                replay_idle_estimate=1 - busy_ms / replay_ms)
-    print(f"[{tag}] {card}: {n} traced replays of the captured "
-          f"{'spec tick' if eng.draft_model is not None else 'tick'} (every "
-          f"slot idle) ran {rows}, as the counters say; kernels "
-          f"{busy_ms:.3f} ms a replay; untraced a replay takes "
+    print(f"[{tag}] {card}: the captured "
+          f"{'spec tick' if eng.draft_model is not None else 'tick'}'s "
+          f"graph holds {nodes}, as the counters say (nodes by kind "
+          f"{kinds}); {n} traced replays (every slot idle) ran {rows}; "
+          f"kernels {busy_ms:.3f} ms a replay; untraced a replay takes "
           f"{replay_ms:.3f} ms (idle estimate "
           f"{out['replay_idle_estimate']:.3f}); device events a replay "
-          f"{whole}; traces that lost records and were taken again: "
+          f"{events_n}; traces that lost records and were taken again: "
           f"{[(t['replay'], t['device_events']) for t in lost]}")
     return out
 
@@ -3493,6 +3564,339 @@ def feature_phase(model, counters, reset, card, bf16_serving):
     return out
 
 
+# -- phase 14: HTTP serving ---------------------------------------------------
+
+HTTP_TIMEOUT = 300          # each client socket's timeout, s
+WAVE_TRACEPARENT = "00-" + "ab" * 16 + "-" + "cd" * 8 + "-01"
+PROM_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? '
+                         r'([0-9.eE+-]+|\+Inf)$')
+
+
+def _http_json(port, path, obj=None, headers=None):
+    """(status, JSON body, headers) of one request to the local server."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT)
+    try:
+        if obj is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, json.dumps(obj),
+                         {"Content-Type": "application/json",
+                          **(headers or {})})
+        resp = conn.getresponse()
+        raw = resp.read()
+        body = json.loads(raw) if path != "/metrics" else raw.decode()
+        return resp.status, body, dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def _generate(port, obj, headers, first=None):
+    """POST /generate, reading a stream line by line; `first` is set at
+    its first line. Returns the status, each row's tokens, the headers
+    and the host times of the send, the first line and the last byte."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/generate", json.dumps(obj),
+                     {"Content-Type": "application/json", **headers})
+        resp = conn.getresponse()
+        hdrs = dict(resp.getheaders())
+        t_first = None
+        if not obj.get("stream"):
+            body = json.loads(resp.read())
+            rows = body.get("sequences", body)
+        else:
+            steps = []
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                if not line.strip():
+                    continue
+                if t_first is None:
+                    t_first = time.perf_counter()
+                    if first is not None:
+                        first.set()
+                item = json.loads(line)
+                if "error" in item:
+                    raise AssertionError(f"http: stream error {item}")
+                if "tokens" in item:
+                    steps.append(item["tokens"])
+            rows = [[st[b] for st in steps] for b in range(len(steps[0]))]
+        return dict(status=resp.status, rows=rows, headers=hdrs, t0=t0,
+                    t_first=t_first, t_end=time.perf_counter())
+    finally:
+        conn.close()
+
+
+def _in_threads(fns):
+    """Run each function on its own thread; re-raise the first error."""
+    import threading
+    out, errs = [None] * len(fns), []
+
+    def run(i):
+        try:
+            out[i] = fns[i]()
+        except BaseException as e:      # noqa: BLE001 — re-raised below
+            errs.append(e)
+    ts = [threading.Thread(target=run, args=(i,), daemon=True)
+          for i in range(len(fns))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=2 * HTTP_TIMEOUT)
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("http: a client thread did not finish")
+    return out
+
+
+def _prom(text):
+    """{(name, labels): value} of a Prometheus text body; raises on a line
+    that is not a comment or a sample."""
+    out = {}
+    for line in text.strip().split("\n"):
+        if line.startswith("#"):
+            continue
+        m = PROM_SAMPLE.match(line)
+        if m is None:
+            raise AssertionError(f"http: /metrics line {line!r} does not "
+                                 "parse")
+        out[(m.group(1), m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def _pool_addresses(eng):
+    return [t.data_ptr() for grp in eng.pools for t in grp] \
+        + [eng._kv.data_ptr()]
+
+
+def _idle(eng, obs):
+    t_end = time.monotonic() + HTTP_TIMEOUT
+    while eng.has_work() or obs.requests.live_count():
+        if time.monotonic() > t_end:
+            raise AssertionError("http: the engine did not go idle")
+        time.sleep(0.01)
+
+
+def _refusals(eng, port, prompt, chaos):
+    """(c): a 504 from a 1 ms budget behind a 20 ms admission delay; on a
+    server of one slot, a 429 with Retry-After and /readyz "saturated"
+    while a stream is in flight; drain() during a stream."""
+    import threading
+    from paddle_tpu_torch.inference.serving import PredictorServer
+    req = {"ids": [prompt.tolist()], "max_new_tokens": FEATURE_MAX_NEW}
+    with chaos.scoped(rates={"serving.admit.delay": 1.0}, delay_ms=20.0):
+        code, body, _h = _http_json(port, "/generate",
+                                    dict(req, timeout_ms=1))
+    if code != 504:
+        raise AssertionError(f"http: timeout_ms=1 gave {code} {body}")
+    srv = PredictorServer(lambda d: d, generator=eng, max_concurrent=1,
+                          max_queue_depth=0).start()
+    try:
+        first = threading.Event()
+
+        def probe():
+            if not first.wait(timeout=HTTP_TIMEOUT):
+                raise AssertionError("http: no first streamed line")
+            shed = _http_json(srv.port, "/generate", req)
+            ready = _http_json(srv.port, "/readyz")
+            return shed, ready
+        streamed, (shed, ready) = _in_threads([
+            lambda: _generate(srv.port, dict(req, stream=True), {}, first),
+            probe])
+        if shed[0] != 429 or "Retry-After" not in shed[2]:
+            raise AssertionError(f"http: second request gave {shed[:2]}, "
+                                 "want 429 with Retry-After")
+        if ready[0] != 503 or ready[1]["reason"] != "saturated":
+            raise AssertionError(f"http: /readyz gave {ready[:2]}")
+        first = threading.Event()
+
+        def drain():
+            if not first.wait(timeout=HTTP_TIMEOUT):
+                raise AssertionError("http: no first streamed line")
+            result = {}
+            t = threading.Thread(
+                target=lambda: result.update(clean=srv.drain(timeout=120)),
+                daemon=True)
+            t.start()
+            t_end = time.monotonic() + 60
+            while not srv._draining and time.monotonic() < t_end:
+                time.sleep(0.005)
+            readyz = _http_json(srv.port, "/readyz")
+            t.join(timeout=150)
+            return readyz, result.get("clean")
+        drained, (readyz, clean) = _in_threads([
+            lambda: _generate(srv.port, dict(req, stream=True), {}, first),
+            drain])
+        if readyz[0] != 503 or readyz[1]["reason"] != "draining":
+            raise AssertionError(f"http: /readyz while draining gave "
+                                 f"{readyz[:2]}")
+        if clean is not True or srv._thread.is_alive():
+            raise AssertionError(f"http: drain() returned {clean}, server "
+                                 f"thread alive {srv._thread.is_alive()}")
+        for tag, r in (("saturated", streamed), ("drained", drained)):
+            if r["status"] != 200 or len(r["rows"][0]) != FEATURE_MAX_NEW:
+                raise AssertionError(f"http: the {tag} stream gave "
+                                     f"{r['status']}, "
+                                     f"{len(r['rows'][0])} tokens")
+        return dict(timeout_504=code, saturated_429=shed[0],
+                    retry_after=shed[2]["Retry-After"],
+                    readyz_saturated=ready[1]["reason"],
+                    readyz_draining=readyz[1]["reason"],
+                    drain_clean=clean)
+    finally:
+        if srv._thread.is_alive():
+            srv.stop()
+
+
+def http_phase(model, counters, reset, card, bf16_serving):
+    """Phase 14 on phase 5's Llama-3-8B (module doc): (a) one wave of 8
+    requests through HTTP, (b) /metrics and /debug/requests after it,
+    (c) the front end's refusals."""
+    import threading
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import chaos
+    from paddle_tpu_torch.inference.serving import PredictorServer
+    cfg = model.config
+    prompts = _prompts(8, cfg.vocab_size, seed=0)
+    t_phase = time.perf_counter()
+    reset()
+    eng = _engine(model, **FEATURE_GEOM)
+    srv = None
+    try:
+        # the tick is captured before the wave, which must not capture
+        eng.generate([prompts[0][:16]], max_new_tokens=8)
+        programs = dict(eng._programs)
+        addresses = _pool_addresses(eng)
+        ticks0 = eng.stats["ticks"]
+        handles = {}
+        submit = eng.submit
+
+        def recording_submit(*args, **kw):
+            r = submit(*args, **kw)
+            ctx = obs.requests.current()
+            handles[None if ctx is None else ctx.request_id] = r
+            return r
+        eng.submit = recording_submit
+        obs.enable(reset=True)
+        srv = PredictorServer(lambda d: d, generator=eng).start()
+        first = threading.Event()
+
+        def client(i):
+            if i == 7 and not first.wait(timeout=HTTP_TIMEOUT):
+                raise AssertionError("http: no first streamed line")
+            return _generate(
+                srv.port, {"ids": [prompts[i].tolist()],
+                           "max_new_tokens": FEATURE_MAX_NEW,
+                           "stream": i % 2 == 0},
+                {"X-Request-Id": f"wave-{i}",
+                 "traceparent": WAVE_TRACEPARENT},
+                first if i == 0 else None)
+        res = _in_threads([lambda i=i: client(i) for i in range(8)])
+        _idle(eng, obs)
+        del eng.submit
+        toks = []
+        for i, r in enumerate(res):
+            rid = r["headers"].get("X-Request-Id")
+            tp = (r["headers"].get("traceparent") or "").split("-")
+            if r["status"] != 200 or rid != f"wave-{i}" or len(tp) != 4 \
+                    or tp[1] != "ab" * 16 or tp[2] == "cd" * 8:
+                raise AssertionError(f"http: request {i}: {r['status']}, "
+                                     f"echoed {rid!r} {tp}")
+            if r["rows"] != [handles[rid].tokens]:
+                raise AssertionError(f"http: request {i}'s reply is not "
+                                     "its engine request's tokens")
+            toks.append(r["rows"][0])
+        _check_tokens("http", toks, FEATURE_MAX_NEW, cfg.vocab_size)
+        if dict(eng._programs) != programs \
+                or _pool_addresses(eng) != addresses:
+            raise AssertionError(f"http: the wave recaptured: programs "
+                                 f"{list(eng._programs)}, pools moved "
+                                 f"{_pool_addresses(eng) != addresses}")
+        wall = max(r["t_end"] for r in res) - min(r["t0"] for r in res)
+        rate = 8 * FEATURE_MAX_NEW / wall
+        ttft = [r["t_first"] - r["t0"] for r in res if r["t_first"]]
+        agree = sum(a == b for a, b in zip(toks, bf16_serving["tokens"]))
+        # (b) /metrics, /stats and /debug/requests, idle
+        code, text, hdrs = _http_json(srv.port, "/metrics")
+        vals = _prom(text)
+        st = eng.stats
+        want = {f"paddle_tpu_engine_{k}": st[k]
+                for k in ("ticks", "prefills", "tokens_out", "admitted",
+                          "finished", "cancelled", "expired", "overloaded")}
+        want["paddle_tpu_engine_pending"] = 0
+        got = {k: vals.get((k, "")) for k in want}
+        if code != 200 or got != {k: float(v) for k, v in want.items()}:
+            raise AssertionError(f"http: /metrics engine gauges {got}, "
+                                 f"engine.stats {want}")
+        checks = {
+            ("paddle_tpu_request_ttft_seconds_count", ""): 8.0,
+            ("paddle_tpu_request_tokens_sum", ""): 8.0 * FEATURE_MAX_NEW,
+            ("paddle_tpu_inference_decode_kernel_total", '{path="cuda"}'):
+                float(st["ticks"] - ticks0)}
+        bad = {k: (vals.get(k), v) for k, v in checks.items()
+               if vals.get(k) != v}
+        # one terminal outcome a request: the engine's "finished" or,
+        # when the handler reads the last tokens first, its "ok"
+        done = {k[1]: v for k, v in vals.items()
+                if k[0] == "paddle_tpu_request_outcome_total"}
+        if sum(done.values()) != 8.0 or not set(done) <= {
+                '{reason="finished"}', '{reason="ok"}'}:
+            bad["paddle_tpu_request_outcome_total"] = (done, 8.0)
+        if bad:
+            raise AssertionError(f"http: /metrics (got, want) {bad}")
+        code, stats, _h = _http_json(srv.port, "/stats")
+        code2, live, _h = _http_json(srv.port, "/debug/requests")
+        if code != 200 or stats["requests"] != {"total": 8, "ok": 8} \
+                or code2 != 200 or live["count"] != 0:
+            raise AssertionError(f"http: /stats requests "
+                                 f"{stats['requests']}, /debug/requests "
+                                 f"{live}")
+        reg = obs.REGISTRY
+        pct = {name: {p: reg.histogram(f"request.{name}.seconds")
+                      .percentile(p) for p in (50, 99)}
+               for name in ("ttft", "itl")}
+        wave = dict(ticks=st["ticks"] - ticks0, tokens_out=st["tokens_out"])
+        # (c) the front end's refusals
+        refusals = _refusals(eng, srv.port, prompts[1], chaos)
+        _idle(eng, obs)
+        launches = _feature_launches("http", counters(), [eng],
+                                     cfg.num_hidden_layers,
+                                     "paged_decode_attention")
+    finally:
+        obs.disable()
+        if srv is not None:
+            srv.stop()
+        eng.stop()
+        eng.__dict__.pop("submit", None)
+    out = dict(card=card, wall_s=wall, decode_tokens_per_s=rate,
+               direct_decode_tokens_per_s=bf16_serving[
+                   "decode_tokens_per_s"],
+               client_ttft_s=ttft, ttft_s=pct["ttft"], itl_s=pct["itl"],
+               agree_with_phase5=agree, launches=launches, wave=wave,
+               refusals=refusals, engine_stats=dict(eng.stats))
+    del eng
+    _release()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[http] {card}: 8 requests x {FEATURE_MAX_NEW} tokens through "
+          f"PredictorServer (4 streamed, 4 unary, one late): decode "
+          f"{rate:.1f} tok/s over the wave's wall {wall:.3f} s (phase 5 "
+          f"direct {out['direct_decode_tokens_per_s']:.1f} tok/s); TTFT "
+          f"p50 {pct['ttft'][50]:.4f} s p99 {pct['ttft'][99]:.4f} s, ITL "
+          f"p50 {pct['itl'][50]:.5f} s p99 {pct['itl'][99]:.5f} s "
+          f"(per-token gap of a tick's emission); {wave['ticks']} ticks, "
+          f"no recapture; {agree} of 8 equal to phase 5's tokens; "
+          f"refusals {refusals}; launches {launches}; phase "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -3550,6 +3954,7 @@ def main(argv=None):
     serving_spec = spec_serving_phase(model, counters, reset, card, serving,
                                       args.profile)
     features = feature_phase(model, counters, reset, card, serving)
+    http = http_phase(model, counters, reset, card, serving)
     del model
     _release()
     parity = parity_phase(dev)
@@ -3574,7 +3979,8 @@ def main(argv=None):
                    "training_bench": bench_training["launches"].get(name, 0),
                    "serving_int8": serving_int8["launches"].get(name, 0),
                    **{path: features[path]["launches"].get(name, 0)
-                      for path in ("tenancy", "kvtier", "disagg")}}
+                      for path in ("tenancy", "kvtier", "disagg")},
+                   "http": http["launches"].get(name, 0)}
         if sum(by_path.values()) <= 0:
             raise AssertionError(f"{name} was launched on no main path")
         e["launches"] = sum(by_path.values())
@@ -3599,7 +4005,7 @@ def main(argv=None):
                        "serving_int8": serving_int8,
                        "serving_spec": serving_spec,
                        "spec_parity": spec_parity,
-                       "features": features,
+                       "features": features, "http": http,
                        "torch": torch.__version__}, f, indent=1)
     print(json.dumps(line))
     print(card)

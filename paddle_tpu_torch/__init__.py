@@ -12,6 +12,8 @@ follow the JAX package so each counterpart is easy to find:
 - `models.llama` / `models.convert`: the Llama family and weight
   conversion from a paddle_tpu state dict;
 - `inference.paged`: the continuous-batching paged-KV serving engine;
+  `inference.serving`: the HTTP front end over it; `observability` and
+  `distributed.chaos`: metrics, request tracing and fault injection;
 - `optimizer` (with `optimizer.lr`, the LR schedules), `parallel.trainer`
   and `io.prefetch`: the training step, its optimizer and its input
   pipeline.

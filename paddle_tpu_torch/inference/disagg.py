@@ -19,12 +19,11 @@ module holds the pieces between them:
   arrays; `unpack_bundle` gives CPU torch tensors (bfloat16 read by
   torch itself, no ml_dtypes).
 - **`DisaggStats`**: the engine-side counters; `snapshot()` is the
-  /stats `disagg` block, which always carries `role`.
+  /stats `disagg` block, which always carries `role`. With
+  observability on they also count into the `inference.disagg.*`
+  instruments, at the JAX module's sites.
 - **`HandoffArbiter`**: weighted-fair ordering of concurrent transfers
   (virtual-finish-time WFQ with weights from `TenantPolicy.weight`).
-
-The JAX module's `inference.disagg.*` metric calls wait for the port's
-metrics registry.
 """
 from __future__ import annotations
 
@@ -34,6 +33,8 @@ import threading
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch import observability
 
 __all__ = ["PageBundleEntry", "pack_bundle", "unpack_bundle",
            "DisaggStats", "HandoffArbiter"]
@@ -189,6 +190,9 @@ class DisaggStats:
         with self._lock:
             self.handoff_pages += pages
             self.handoff_bytes += nbytes
+        if observability.ENABLED:
+            observability.inc("inference.disagg.handoff_pages", pages)
+            observability.inc("inference.disagg.handoff_bytes", nbytes)
 
     def note_pull(self, pages, nbytes, seconds, skipped=0):
         with self._lock:
@@ -196,20 +200,34 @@ class DisaggStats:
             self.pulled_bytes += nbytes
             self.transfer_s += seconds
             self.dedup_skipped_pages += skipped
+        if observability.ENABLED:
+            observability.observe("inference.disagg.transfer_seconds",
+                                  seconds)
+            if skipped:
+                observability.inc(
+                    "inference.disagg.dedup_skipped_pages", skipped)
 
     def note_dedup(self, pages):
         """Every key was already resident: the handoff moved nothing."""
         with self._lock:
             self.dedup_skipped_pages += pages
+        if observability.ENABLED:
+            observability.inc("inference.disagg.dedup_skipped_pages",
+                              pages)
 
     def note_imported(self, pages, nbytes):
         with self._lock:
             self.imported_pages += pages
             self.imported_bytes += nbytes
+        if observability.ENABLED:
+            observability.inc("inference.disagg.imported_pages", pages)
+            observability.inc("inference.disagg.imported_bytes", nbytes)
 
     def note_pull_failure(self):
         with self._lock:
             self.pull_failures += 1
+        if observability.ENABLED:
+            observability.inc("inference.disagg.pull_failures")
 
     def snapshot(self):
         with self._lock:

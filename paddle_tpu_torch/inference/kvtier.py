@@ -31,9 +31,10 @@ never needs capturing again.
 
 One leaf lock guards everything (never held while calling back into
 the engine). The worker is a daemon holding a weakref to the tier, so
-an abandoned tier stays collectable; `stop()` joins it. The JAX
-module's observability counters wait for the port's metrics registry;
-`snapshot()` carries the same keys.
+an abandoned tier stays collectable; `stop()` joins it. With
+observability on, spills, restores, suspends and resumes count into the
+`inference.kvtier.*` instruments, at the JAX module's sites;
+`snapshot()` carries the JAX module's keys.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ import queue as _queue
 import threading
 import warnings
 import weakref
+
+from paddle_tpu_torch import observability
 
 __all__ = ["HostKVTier"]
 
@@ -210,6 +213,10 @@ class HostKVTier:
                 self.evictions += 1
             self._pending -= 1
             self._cond.notify_all()
+        if observability.ENABLED:
+            observability.inc("inference.kvtier.spilled_pages")
+            observability.inc("inference.kvtier.spill_bytes",
+                              entry.nbytes)
 
     def flush(self, timeout=30.0):
         """Block until every queued spill has committed. Returns True
@@ -270,18 +277,26 @@ class HostKVTier:
         with self._lock:
             self.restored_pages += n_pages
             self.restore_bytes += nbytes
+        if observability.ENABLED:
+            observability.inc("inference.kvtier.restored_pages",
+                              n_pages)
+            observability.inc("inference.kvtier.restore_bytes", nbytes)
 
     def note_suspend(self):
         with self._lock:
             self.suspends += 1
+        if observability.ENABLED:
+            observability.inc("inference.kvtier.suspends")
 
     def note_resume(self):
         with self._lock:
             self.resumes += 1
+        if observability.ENABLED:
+            observability.inc("inference.kvtier.resumes")
 
     def note_spill_skipped(self):
-        """A capture was dropped and the eviction went on as a plain
-        (destructive) one."""
+        """Chaos `kvtier.spill.fail`: the capture was dropped and the
+        eviction went on as a plain (destructive) one."""
         with self._lock:
             self.spill_skipped += 1
 

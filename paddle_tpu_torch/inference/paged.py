@@ -103,8 +103,27 @@ Counterpart of the core of paddle_tpu/inference/paged.py:
   and inserts them into its prefix cache at the top of the next
   admission, through the same in-place upload.
 
-Not in this slice (ROADMAP.md lists them): `export_metrics` and the
-observability counters, and the chaos sites.
+- Serving integration: `concurrent_safe` tells inference/serving.py's
+  `PredictorServer` not to serialize streams through its lock (the
+  ticker thread is the only device user), and `export_metrics(registry)`
+  publishes the engine's stats as the `engine.*` gauges of its
+  /metrics.
+- Observability (paddle_tpu_torch/observability, off by default; every
+  site is one attribute check): `submit` adopts the request context the
+  serving layer bound to its contextvar (or registers a fresh one) and
+  the engine records the request's timeline into it, queued, scheduled,
+  prefill start and end, every emission (`record_tokens`, up to
+  `steps_per_tick` tokens a row at once) and the terminal outcome; a
+  context shared by several rows finishes with the last. The counters
+  `tenant.*`, `inference.prefix.*`, `inference.decode.kernel` (path
+  "cuda" or "twin") and, in kvtier.py and disagg.py,
+  `inference.kvtier.*` and `inference.disagg.*` count at the JAX
+  engine's sites.
+- Chaos (paddle_tpu_torch/distributed/chaos.py, off by default):
+  `engine.tick.delay` sleeps on the host at the top of a tick, before
+  any replay; `prefix.cache.bypass` turns a prefix hit into a miss;
+  `kvtier.spill.fail` drops a spill, so the eviction destroys the page;
+  `kvtier.restore.delay` slows a restore.
 """
 from __future__ import annotations
 
@@ -121,16 +140,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch import observability
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.distributed import chaos
 from paddle_tpu_torch.inference.disagg import (DisaggStats,
                                                PageBundleEntry, dtype_name)
 from paddle_tpu_torch.inference.kvtier import HostKVTier
 from paddle_tpu_torch.inference.overload import (DeadlineExceeded,
                                                  EngineOverloaded,
+                                                 OverloadError,
                                                  TenantQuotaExceeded)
 from paddle_tpu_torch.inference.prefix import PrefixCache, chain_keys
 from paddle_tpu_torch.inference.tenancy import WeightedFairScheduler
 from paddle_tpu_torch.kernels import launch_counters
+from paddle_tpu_torch.observability import requests as obs_requests
 from paddle_tpu_torch.kernels.paged_attention import (check_decode_shapes,
                                                       gather_window,
                                                       paged_decode_attention)
@@ -367,9 +390,19 @@ class _Request:
     """One generation request: the engine's record and the caller's
     handle (thread-safe: tokens stream through a queue)."""
 
+    _next_id = 0
+    _id_lock = threading.Lock()
+
     def __init__(self, ids, max_new_tokens, eos_token_id, do_sample,
                  temperature, top_k, top_p, pages_needed, deadline=None,
                  prefix_keys=(), engine=None, tenant=None, session=None):
+        # process-wide row id: keys this row's clocks in a request
+        # context that several rows share
+        with _Request._id_lock:
+            self.rid = _Request._next_id
+            _Request._next_id += 1
+        self.obs = None             # request-tracing context (or None)
+        self.queued_at = time.monotonic()   # per-tenant queue-wait clock
         self.prompt = np.asarray(ids, np.int32).reshape(-1)
         self.deadline = deadline    # expire-in-queue (overload.Deadline)
         self.tenant = tenant        # tenant id (tenancy)
@@ -768,6 +801,10 @@ class PagedKVEngine:
                       "prefix_hit_tokens": 0, "prefix_pages_shared": 0,
                       "prefix_evictions": 0, "spec_ticks": 0,
                       "spec_proposed": 0, "spec_accepted": 0}
+        # serving integration: PredictorServer must not serialize
+        # concurrent streams through its lock; the ticker thread is the
+        # only device user
+        self.concurrent_safe = True
 
     def _make_pools(self, cfg, pool_dtype):
         """One (k, v) pool pair per layer of a model of config `cfg`
@@ -806,6 +843,29 @@ class PagedKVEngine:
                        for grp in self.pools + (self.draft_pools or [])
                        for t in grp)
         return per_page * self.max_pages_per_slot
+
+    def export_metrics(self, registry):
+        """Publish the engine's stats into a metrics registry as
+        scrape-time gauges (PredictorServer's GET /metrics calls this on
+        its generator): absolute values sampled at the scrape."""
+        s = self.stats
+        registry.set_gauge("inference.kv.bytes_per_slot",
+                           self.kv_bytes_per_slot())
+        if self.host_tier is not None:
+            registry.set_gauge("inference.kvtier.host_pages",
+                               len(self.host_tier))
+        registry.set_gauge("engine.ticks", s["ticks"])
+        registry.set_gauge("engine.prefills", s["prefills"])
+        registry.set_gauge("engine.tokens_out", s["tokens_out"])
+        registry.set_gauge("engine.admitted", s["admitted"])
+        registry.set_gauge("engine.finished", s["finished"])
+        registry.set_gauge("engine.cancelled", s["cancelled"])
+        registry.set_gauge("engine.expired", s["expired"])
+        registry.set_gauge("engine.overloaded", s["overloaded"])
+        # the ticker swaps _pending under _lock
+        with self._lock:
+            pending = len(self._pending)
+        registry.set_gauge("engine.pending", pending)
 
     def prefix_stats(self):
         """The prefix cache's counters (the JAX engine's /stats block);
@@ -955,7 +1015,34 @@ class PagedKVEngine:
                        temperature, top_k, top_p, pages,
                        deadline=deadline, prefix_keys=keys, engine=self,
                        tenant=tenant, session=sess)
-        return self._submit_locked(req, pages)
+        if observability.ENABLED:
+            # adopt the serving layer's request context (its contextvar,
+            # copied into the stream's producer thread) or start one for
+            # a direct caller; claiming the token accounting keeps the
+            # HTTP consumer from recording the emissions again
+            ctx = obs_requests.current()
+            if ctx is None:
+                ctx = obs_requests.register(
+                    obs_requests.RequestContext.new())
+            if tenant is not None and ctx.tenant is None:
+                ctx.tenant = tenant
+            if self.tenancy is not None and tenant is not None \
+                    and ctx.tenant_key is None:
+                ctx.tenant_key = self.tenancy.key(tenant)
+            ctx.claim_tokens()
+            req.obs = ctx
+            ctx.record("queued", rid=req.rid)
+            # the ref comes before the request is visible to the ticker,
+            # which may expire or cancel it at once
+            ctx.adopt_engine()
+        try:
+            return self._submit_locked(req, pages)
+        except OverloadError as e:
+            if req.obs is not None:
+                # the shed row never entered the queue, so nothing else
+                # releases its ref
+                req.obs.engine_finish(e.counter)
+            raise
 
     def _submit_locked(self, req, pages):
         with self._lock:
@@ -969,7 +1056,7 @@ class PagedKVEngine:
                         and self._queued_by_tenant.get(tkey, 0) \
                         >= pol.max_queued:
                     self.stats["overloaded"] += 1
-                    self._note_tenant_shed(tkey)
+                    self._note_tenant_shed(tkey, "queue")
                     raise TenantQuotaExceeded(
                         f"tenant {tkey!r} over engine queue quota "
                         f"({pol.max_queued} pending)", retry_after=0.1)
@@ -1052,11 +1139,13 @@ class PagedKVEngine:
         self._queued_dec_locked(victim)
         self._inflight -= 1
         self.stats["overloaded"] += 1
-        self._note_tenant_shed(self.tenancy.key(victim.tenant))
+        self._note_tenant_shed(self.tenancy.key(victim.tenant), "engine")
         victim.error = EngineOverloaded(
             "engine overloaded: evicted from the pending queue under "
             "pressure (tenant over its weighted fair share)",
             retry_after=0.1)
+        if victim.obs is not None:
+            victim.obs.engine_finish("shed_engine")
         victim.queue.put(None)
         victim.done.set()
 
@@ -1065,11 +1154,13 @@ class PagedKVEngine:
         return self._tenant_stats.setdefault(
             tkey, {"admitted": 0, "slot_ticks": 0, "shed": 0})
 
-    def _note_tenant_shed(self, tkey):
-        """One shed of `tkey`'s: over its quota, or evicted under
-        pressure."""
+    def _note_tenant_shed(self, tkey, reason):
+        """One shed of `tkey`'s: over its quota ("queue"), or evicted
+        under pressure ("engine")."""
         with self._tenant_lock:
             self._tenant_row(tkey)["shed"] += 1
+        if observability.ENABLED:
+            observability.inc("tenant.shed", tenant=tkey, reason=reason)
 
     def has_work(self):
         with self._lock:
@@ -1157,11 +1248,18 @@ class PagedKVEngine:
         that freed it."""
         if key is not None and self.host_tier is not None \
                 and not self.host_tier.has(key):
-            self._tier_capture(key, page)
+            if chaos.ENABLED and chaos.should_fire("kvtier.spill.fail"):
+                # degraded mode: a plain (destructive) eviction, so the
+                # next hit on this prefix is cold
+                self.host_tier.note_spill_skipped()
+            else:
+                self._tier_capture(key, page)
         self._cached_pages.discard(page)
         if self._page_refs.get(page, 0) == 1:
             self._reclaimable -= 1      # was cache-only
         self.stats["prefix_evictions"] += 1
+        if observability.ENABLED:
+            observability.inc("inference.prefix.evictions")
         if self._unref_page(page):
             freed.append(page)
 
@@ -1189,11 +1287,14 @@ class PagedKVEngine:
     def _prefix_lookup(self, req):
         """The longest cached run of the prompt's full pages, capped at
         (prompt - 1) // page_size pages so at least the prompt's last
-        token is prefilled (its logits pick the first token)."""
+        token is prefilled (its logits pick the first token). The chaos
+        site `prefix.cache.bypass` turns a hit into a miss."""
         if self.prefix_cache is None or not req.prefix_keys:
             return []
         shareable = (int(req.prompt.size) - 1) // self.page_size
         if shareable <= 0:
+            return []
+        if chaos.ENABLED and chaos.should_fire("prefix.cache.bypass"):
             return []
         return self.prefix_cache.match(req.prefix_keys[:shareable])
 
@@ -1203,12 +1304,19 @@ class PagedKVEngine:
         Prompts too short ever to share count neither way."""
         if self.prefix_cache is None:
             return
+        ps = self.page_size
         if h > 0:
             self.stats["prefix_hits"] += 1
-            self.stats["prefix_hit_tokens"] += h * self.page_size
+            self.stats["prefix_hit_tokens"] += h * ps
             self.stats["prefix_pages_shared"] += h
-        elif (int(req.prompt.size) - 1) // self.page_size > 0:
+            if observability.ENABLED:
+                observability.inc("inference.prefix.hits")
+                observability.inc("inference.prefix.hit_tokens", h * ps)
+                observability.inc("inference.prefix.pages_shared", h)
+        elif (int(req.prompt.size) - 1) // ps > 0:
             self.stats["prefix_misses"] += 1
+            if observability.ENABLED:
+                observability.inc("inference.prefix.misses")
 
     def _prefix_insert(self, slot_idx, req):
         """Register a freshly prefilled slot's full prompt pages in the
@@ -1377,6 +1485,9 @@ class PagedKVEngine:
         run = tier.match_run(keys)
         if not run:
             return shared_pages
+        if chaos.ENABLED:
+            # a slow host-to-device restore: the warm-TTFT lever
+            chaos.maybe_delay("kvtier.restore.delay")
         ents, pages = [], []
         for key, entry in run:
             if not self._tier_entry_compatible(entry):
@@ -1502,6 +1613,11 @@ class PagedKVEngine:
         self._wfq.charge(tkey)
         with self._tenant_lock:
             self._tenant_row(tkey)["admitted"] += 1
+        if observability.ENABLED:
+            observability.inc("tenant.admitted", tenant=tkey)
+            observability.observe("tenant.queue_wait.seconds",
+                                  time.monotonic() - req.queued_at,
+                                  tenant=tkey)
 
     def _note_slot_ticks(self, live):
         """One slot-tick per live slot per tick: the evidence of the
@@ -1513,6 +1629,9 @@ class PagedKVEngine:
         with self._tenant_lock:
             for k, n in counts.items():
                 self._tenant_row(k)["slot_ticks"] += n
+        if observability.ENABLED:
+            for k, n in counts.items():
+                observability.inc("tenant.decode.slots", n, tenant=k)
 
     def tenant_snapshot(self):
         """Each tenant's admissions, decode slot-ticks, sheds and pending
@@ -1532,13 +1651,15 @@ class PagedKVEngine:
         return out
 
     # -- admission and prefill -------------------------------------------
-    def _drop_queued(self, req, error=None):
-        """A queued request leaves without a slot (cancelled or
-        expired): wake its waiter."""
+    def _drop_queued(self, req, reason, error=None):
+        """A queued request leaves without a slot (`reason` "cancelled"
+        or "expired"): wake its waiter."""
         with self._lock:
             self._inflight -= 1
             self._queued_dec_locked(req)
         req.error = error
+        if req.obs is not None:
+            req.obs.engine_finish(reason)
         req.queue.put(None)
         req.done.set()
 
@@ -1555,13 +1676,13 @@ class PagedKVEngine:
         for req in self._admission_order(pending):
             if req.cancelled.is_set():        # cancelled while queued
                 self.stats["cancelled"] += 1
-                self._drop_queued(req)
+                self._drop_queued(req, "cancelled")
                 continue
             if req.deadline is not None and req.deadline.expired():
                 # expired while queued: fail it without spending a slot,
                 # pages or a prefill on work nobody waits for
                 self.stats["expired"] += 1
-                self._drop_queued(req, DeadlineExceeded(
+                self._drop_queued(req, "expired", DeadlineExceeded(
                     "deadline exceeded while queued for engine "
                     "admission"))
                 continue
@@ -1600,6 +1721,9 @@ class PagedKVEngine:
                 with self._lock:
                     self._queued_dec_locked(req)
                 self._note_tenant_admitted(req)
+            if req.obs is not None:
+                # rid pairs this row's scheduled with its own queued
+                req.obs.record("scheduled", rid=req.rid, slot=idx)
             admitted.append((idx, req))
         # back in the queue before any prefill runs: a prefill that
         # raises leaves every waiter where the ticker's failure path
@@ -1696,6 +1820,7 @@ class PagedKVEngine:
         uncached tail: lens and positions start past the shared pages,
         and the tail attends over their KV through the block table."""
         t0 = time.perf_counter()
+        self._note_prefill(grp, "prefill_start")
         rows = []
         for idx, req in grp:
             off = self._slots[idx].shared * self.page_size
@@ -1703,6 +1828,7 @@ class PagedKVEngine:
         logits = self._prefill_call(rows, [True] * len(rows))
         self.stats["prefills"] += len(grp)
         self.stats["prefill_s"] += time.perf_counter() - t0
+        self._note_prefill(grp, "prefill_end")
         self._prefilled(grp, logits)
 
     def _prefill_chunked_group(self, grp):
@@ -1714,6 +1840,7 @@ class PagedKVEngine:
         that consumes a row's last token takes its logits, at
         n_valid - 1."""
         t0 = time.perf_counter()
+        self._note_prefill(grp, "prefill_start")
         chunk = self.prefill_chunk
         done = [self._slots[idx].shared * self.page_size for idx, _ in grp]
         plens = [int(req.prompt.size) for _, req in grp]
@@ -1733,7 +1860,15 @@ class PagedKVEngine:
                 done[r] += take
         self.stats["prefills"] += len(grp)
         self.stats["prefill_s"] += time.perf_counter() - t0
+        self._note_prefill(grp, "prefill_end")
         self._prefilled(grp, final)
+
+    @staticmethod
+    def _note_prefill(grp, event):
+        """A prefill's start or end on each traced row's timeline."""
+        for _, req in grp:
+            if req.obs is not None:
+                req.obs.record(event, rid=req.rid)
 
     def _accept(self, slot_idx, toks):
         """Feed accepted tokens to the request; retire the slot when the
@@ -1753,6 +1888,11 @@ class PagedKVEngine:
         self.stats["tokens_out"] += len(out)
         if out:
             req.queue.put(out)
+            if req.obs is not None:
+                # the first emission records first_token (TTFT), later
+                # ones a tick's tokens (ITL); the row id keys the gap
+                # clock, so sibling rows do not read each other's times
+                req.obs.record_tokens(len(out), stream=req.rid)
         if finished:
             self._retire(slot_idx)
         return not finished
@@ -1780,11 +1920,15 @@ class PagedKVEngine:
         self._slots[slot_idx] = None
         with self._lock:
             self._inflight -= 1
-        if reason is None and not req.cancelled.is_set():
+        cancelled = req.cancelled.is_set()
+        if reason is None and not cancelled:
             self.stats["finished"] += 1
         try:
             self._recycle_pages(freeable)
         finally:
+            if req.obs is not None:
+                req.obs.engine_finish(
+                    reason or ("cancelled" if cancelled else "finished"))
             req.queue.put(None)
             req.done.set()
 
@@ -1999,7 +2143,9 @@ class PagedKVEngine:
             # (one stream, one tick at a time) and no tensor made inside
             # a capture outlives it (the outputs go to `_outputs`)
             self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
+        # keep_graph: the captured cudaGraph_t stays beside its
+        # instantiation, so its kernel nodes can be listed (debug_dump)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         if any_sample:
             # each replay draws new Gumbel noise from the engine's
             # generator, as an eager tick would
@@ -2016,6 +2162,7 @@ class PagedKVEngine:
                      zip(counters, before) for k in c if c[k] != b[k]]
             for c, k, n in delta:
                 c[k] -= n
+        graph.instantiate()
         self.stats["warmup_s"] += time.perf_counter() - t0
         return _CapturedTick(graph, delta)
 
@@ -2046,6 +2193,10 @@ class PagedKVEngine:
             self._in_step = False
 
     def _step_tick(self):
+        if chaos.ENABLED:
+            # a slow tick (a congested card, a straggling host), on the
+            # host before any replay: stretches TTFT and ITL
+            chaos.maybe_delay("engine.tick.delay")
         gone = [i for i, s in enumerate(self._slots)
                 if s is not None and s.req.cancelled.is_set()]
         self.stats["cancelled"] += len(gone)
@@ -2086,6 +2237,9 @@ class PagedKVEngine:
         back = self._outputs.to("cpu", copy=True).numpy()
         self.stats["ticks"] += 1
         self.stats["tick_s"] += time.perf_counter() - t0
+        if observability.ENABLED:
+            observability.inc("inference.decode.kernel",
+                              path=self.decode_kernel)
         return a, back
 
     def _step_spec(self, live):
@@ -2179,6 +2333,8 @@ class PagedKVEngine:
                 self._queued_dec_locked(req)
         for req in doomed:
             req.error = error
+            if req.obs is not None:
+                req.obs.engine_finish("error")
             req.queue.put(None)
             req.done.set()
         live = [i for i, s in enumerate(self._slots) if s is not None]
@@ -2212,6 +2368,14 @@ class PagedKVEngine:
         else:
             rows = list(ids)
         self.start()
+        # a guard ref across the submission window: the ticker already
+        # runs, so a fast first row could retire, dropping the shared
+        # context's last ref, before the next row submits. "finished"
+        # never beats an abnormal row's reason, so the guard may go last
+        guard_ctx = obs_requests.current() if observability.ENABLED \
+            else None
+        if guard_ctx is not None:
+            guard_ctx.adopt_engine()
         reqs = []
         try:
             for r in rows:
@@ -2226,6 +2390,9 @@ class PagedKVEngine:
             for r in reqs:
                 r.cancel()
             raise
+        finally:
+            if guard_ctx is not None:
+                guard_ctx.engine_finish("finished")
         streams = [r.stream_tokens() for r in reqs]
         try:
             for _ in range(int(max_new_tokens)):

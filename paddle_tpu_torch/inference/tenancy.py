@@ -31,9 +31,9 @@ stdlib-only, but importing it would import the JAX package):
 Identity is sanitized with the same RFC 7230 rules as a request id
 (observability/requests.py): it is echoed on replies, so CR/LF or
 oversized values are a response-header injection vector.
-`resolve_tenant(headers)` is the single extraction point. The JAX
-module's chaos site there (`tenant.storm`, which stamps unlabeled
-requests as the storm tenant) waits for the port's chaos module.
+`resolve_tenant(headers)` is the single extraction point; the chaos
+site `tenant.storm` stamps an UNLABELED request as the synthetic storm
+tenant there (the noisy-neighbor lever of the starvation soak).
 
 Everything here activates only when a TenantTable is passed
 (`tenancy=`); everything is stdlib-only and thread-safe.
@@ -44,6 +44,7 @@ import collections
 import threading
 import time
 
+from paddle_tpu_torch.distributed import chaos
 from paddle_tpu_torch.inference.overload import TenantQuotaExceeded
 from paddle_tpu_torch.observability.requests import safe_request_id
 
@@ -55,8 +56,8 @@ __all__ = [
 
 #: accounting id for traffic with no (valid) X-Tenant-Id header
 DEFAULT_TENANT = "default"
-#: synthetic tenant id the JAX package's `tenant.storm` chaos site
-#: stamps onto unlabeled requests (the noisy-neighbor flood)
+#: synthetic tenant id the `tenant.storm` chaos site stamps onto
+#: unlabeled requests (the deterministic noisy-neighbor flood)
 STORM_TENANT = "storm"
 
 
@@ -70,9 +71,15 @@ def safe_tenant_id(value):
 
 def resolve_tenant(headers):
     """Tenant id for one inbound request: the sanitized `X-Tenant-Id`
-    header, or None when it is absent or unsafe to echo."""
+    header, or — for UNLABELED requests only — the synthetic storm
+    tenant when the `tenant.storm` chaos site fires (rate 1.0 turns
+    all unlabeled traffic into a deterministic noisy-neighbor flood
+    without touching labeled tenants). None when unlabeled and calm."""
     get = headers.get if headers is not None else (lambda k: None)
-    return safe_tenant_id(get("X-Tenant-Id"))
+    tid = safe_tenant_id(get("X-Tenant-Id"))
+    if tid is None and chaos.ENABLED and chaos.should_fire("tenant.storm"):
+        return STORM_TENANT
+    return tid
 
 
 class TenantPolicy:

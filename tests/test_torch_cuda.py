@@ -55,7 +55,12 @@ order), 2^-7 in bf16 (one rounding step: the two f32 sums may round to
 neighbouring bf16 values); `test_w8a16_rule_rejects_a_dropped_k_tile`
 shows it failing a split-K kernel and a wgmma kernel that leave out one
 k-tile of 64, and a converter whose byte lane reads its neighbour.
+`test_http_serving_over_the_captured_engine` serves a tiny f32 model
+through the port's PredictorServer: its HTTP tokens equal the engine's
+own generate(), the wave recaptures nothing, and the decode-kernel
+counter reads "cuda" once per tick.
 """
+import os
 import shutil
 import time
 from pathlib import Path
@@ -1890,6 +1895,35 @@ def test_captured_spec_tick_launch_counts(cuda, kv, sample):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_captured_graph_holds_the_counted_kernel_nodes(cuda, kv):
+    """The engine keeps each captured cudaGraph_t beside its
+    instantiation: the spec tick's graph, as the CUDA driver lists it,
+    holds as many nodes of each port kernel as its capture counted
+    (`chip_smoke.py` gates a replay's launches on this list)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    model, draft = _spec_models(cuda, kv)
+    eng = PagedKVEngine(model, device=cuda, draft_model=draft, kv_dtype=kv,
+                        **dict(_SPEC_GEOM, max_slots=8, spec_tokens=4))
+    eng.generate([[5, 9, 2, 14], [17, 3, 11, 4]], max_new_tokens=6)
+    program = eng._programs[("spec_tick", False)]
+    gain = dict.fromkeys({**tfn.launches, **tpa.launches, **tqm.launches}, 0)
+    for _, k, n in program.delta:
+        gain[k] += n
+    want = smoke._trace_want(gain)
+    nodes, kinds = smoke._graph_nodes(program, want)
+    assert nodes == want
+    assert want["paged_decode_split<"] > 0 and want["rope_kernel<"] > 0
+    assert (want["w8a16_wgmma_kernel<"] > 0) == (kv == "int8")
+    assert kinds["KERNEL"] > sum(want.values())
+
+
+@pytest.mark.cuda
 def test_two_sampled_spec_replays_from_one_state_draw_other_noise(cuda):
     """The sampled graph registers the engine's generator: two replays
     from the same pools and inputs give other tokens."""
@@ -2093,3 +2127,100 @@ def test_kernel_jnp_on_the_card_raises(cuda):
     for kernel in (None, "pallas"):
         eng = PagedKVEngine(model, device=cuda, kernel=kernel, **_TICK_GEOM)
         assert eng.decode_kernel == "cuda"
+
+
+def _http_generate(port, ids, max_new, stream, rid):
+    """One /generate round trip to a local PredictorServer; the tokens
+    of each row, and the echoed request id."""
+    import json
+    import urllib.request
+    body = json.dumps({"ids": ids, "max_new_tokens": max_new,
+                       "stream": stream}).encode()
+    r = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=body,
+        headers={"Content-Type": "application/json", "X-Request-Id": rid})
+    with urllib.request.urlopen(r, timeout=120) as resp:
+        assert resp.status == 200
+        echoed = resp.headers["X-Request-Id"]
+        text = resp.read().decode()
+    if not stream:
+        return json.loads(text)["sequences"], echoed
+    steps = [json.loads(ln)["tokens"] for ln in text.splitlines()
+             if ln.strip() and "tokens" in json.loads(ln)]
+    return [[s[b] for s in steps] for b in range(len(steps[0]))], echoed
+
+
+@pytest.mark.cuda
+def test_http_serving_over_the_captured_engine(cuda):
+    """A tiny f32 model behind the port's PredictorServer on the card:
+    HTTP tokens (unary and streamed, from concurrent clients) equal the
+    same engine's direct generate() (the tick runs every slot whether
+    idle or not, so a row's decode does not depend on its neighbours); the wave recaptures nothing (the
+    captured program and every pool address unchanged); the
+    decode-kernel counter counts one per tick on the "cuda" path; the
+    request.* instruments count every request."""
+    import threading
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference.serving import PredictorServer
+    model = LlamaForCausalLM(tiny_llama_config(**_TICK_CFG), device=cuda,
+                             dtype=torch.float32, seed=0)
+    geom = dict(max_slots=4, page_size=4, num_pages=72,
+                max_pages_per_slot=16, steps_per_tick=3)
+    # prompts in four prefill buckets (8, 16, 32, 64), so each prefills
+    # alone whether the clients arrive together or not
+    rng = np.random.RandomState(0)
+    prompts = [[int(x) for x in rng.randint(1, 256, n)]
+               for n in (4, 9, 17, 33)]
+    eng = PagedKVEngine(model, device=cuda, **geom)
+    srv = None
+    try:
+        want = [eng.generate([p], max_new_tokens=8)[0] for p in prompts]
+        program = eng._programs[("tick", False)]
+        ptrs = _pool_ptrs(eng)
+        warm = eng.stats["warmup_ticks"]
+        ticks0 = eng.stats["ticks"]
+        obs.enable(reset=True)
+        srv = PredictorServer(lambda d: d, generator=eng).start()
+        got, errs = {}, []
+
+        def client(i):
+            try:
+                got[i] = _http_generate(srv.port, [prompts[i]], 8,
+                                        stream=i % 2 == 0, rid=f"r{i}")
+            except Exception as e:      # noqa: BLE001
+                errs.append(e)
+        ts = [threading.Thread(target=client, args=(i,))
+              for i in range(len(prompts))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+        assert not errs, errs
+        for i, p in enumerate(prompts):
+            rows, echoed = got[i]
+            assert rows == [want[i]] and echoed == f"r{i}"
+        deadline = time.monotonic() + 60
+        while (eng.has_work() or obs.requests.live_count()) \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert eng._programs[("tick", False)] is program
+        assert list(eng._programs) == [("tick", False)]
+        assert _pool_ptrs(eng) == ptrs
+        assert eng.stats["warmup_ticks"] == warm
+        reg = obs.REGISTRY
+        assert reg.counter("inference.decode.kernel").value(path="cuda") \
+            == eng.stats["ticks"] - ticks0
+        assert reg.histogram("request.ttft.seconds").count() == len(prompts)
+        # one terminal outcome a request: the engine's retire and the
+        # HTTP handler race for it
+        outcome = reg.counter("request.outcome")
+        assert outcome.value(reason="finished") + outcome.value(
+            reason="ok") == len(prompts) == sum(outcome.labeled().values())
+        assert sorted(eng._free) == list(range(1, eng.num_pages))
+        with pytest.raises(ValueError, match="kernel='jnp'"):
+            PagedKVEngine(model, device=cuda, kernel="jnp", **geom)
+    finally:
+        obs.disable()
+        if srv is not None:
+            srv.stop()
+        eng.stop()

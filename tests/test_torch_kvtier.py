@@ -21,7 +21,6 @@ it.
 """
 import sys
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -469,6 +468,13 @@ def test_session_retention_warm_second_turn(models):
         _stop(je, te)
 
 
+# long enough that turn 2's own prefill and decode (a JAX compile
+# included) never idle the session past it: a second suspend mid-turn
+# would make the counts depend on timing. The idle window itself is
+# made by moving the session's clock back past it
+SUSPEND_S = 60.0
+
+
 def _two_turns(eng, turn1, tail, suspend):
     r1 = eng.submit(np.asarray(turn1, np.int32), max_new_tokens=8,
                     session="s1")
@@ -476,7 +482,7 @@ def _two_turns(eng, turn1, tail, suspend):
     out1 = r1.result()
     mid = None
     if suspend:
-        time.sleep(0.05)
+        eng._sessions["s1"]["last"] -= SUSPEND_S + 1.0   # idle past it
         eng.step()                          # the sweep fires
         assert eng.host_tier.flush()
         mid = eng.kvtier_stats()
@@ -496,7 +502,7 @@ def test_suspend_resume_token_parity(models):
     unsuspended session and of the JAX engine, and the suspends and
     resumes counters and the tier's stats equal the JAX engine's."""
     geom = dict(num_pages=64, max_pages_per_slot=16, prefix_cache_pages=16)
-    je, te = _pair(models, suspend_after_s=0.02, **geom)
+    je, te = _pair(models, suspend_after_s=SUSPEND_S, **geom)
     plain = TEngine(models[1], device="cpu", **dict(GEOM, **geom))
     try:
         rng = np.random.RandomState(3)

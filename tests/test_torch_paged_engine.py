@@ -258,7 +258,12 @@ def test_port_imports_without_jax_or_paddle_tpu():
         "import paddle_tpu_torch.inference.tenancy\n"
         "import paddle_tpu_torch.inference.kvtier\n"
         "import paddle_tpu_torch.inference.disagg\n"
+        "import paddle_tpu_torch.observability\n"
+        "import paddle_tpu_torch.observability.metrics\n"
+        "import paddle_tpu_torch.observability.trace\n"
         "import paddle_tpu_torch.observability.requests\n"
+        "import paddle_tpu_torch.distributed.chaos\n"
+        "import paddle_tpu_torch.inference.serving\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "import paddle_tpu_torch.kernels.fused_norm\n"

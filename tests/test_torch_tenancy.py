@@ -143,8 +143,8 @@ def test_unknown_tenant_ids_share_the_default_budget(pkg):
 
 
 def test_resolve_tenant_sanitizes(pkg):
-    # the JAX module's chaos stamping of unlabeled requests waits for the
-    # port's chaos module; the sanitizing is the same
+    # the chaos stamping of unlabeled requests is held in
+    # tests/test_torch_chaos.py
     ten, _ = pkg
     assert ten.resolve_tenant({"X-Tenant-Id": "acme-1"}) == "acme-1"
     assert ten.resolve_tenant({"X-Tenant-Id": "bad\r\nX-Evil: 1"}) is None
