@@ -185,7 +185,39 @@ Phases, each of which fails the run (non-zero exit) on any error:
    "draining" meanwhile, and the server stops. It prints the HTTP
    decode rate (tokens over the wave's wall, first request sent to last
    byte read) beside phase 5's, and TTFT and ITL p50/p99. Its launches
-   go to the path "http".
+   go to the path "http";
+15. static-cache generation (models/generation.py) on phase 5's model
+   (run right after phase 14) and on phase 10's W8A16 model (after phase
+   12 (c)): phase 5's 8 prompts left-padded with a mask to the longest.
+   (a) greedy, 64 new tokens, at tokens_per_fetch 1 (the per-token
+   decode step, one captured graph) and 16 (the block, 16 steps in one
+   captured graph): the two streams equal, a second run of each equal
+   (it times prefill and decode), each row against phase 5's engine
+   tokens: equal, or at the first difference a near tie (GEN_TIE_RMS);
+   every row's prefill logits and one teacher-forced decode step's
+   within GEN_LOGITS_RMS of a cold engine's, where two planted faults
+   (the decode step's position one too far, the padding mask ignored)
+   must read above it and a third (bf16 scores) is reported;
+   the decode and block graphs hold exactly the RMSNorm and RoPE nodes
+   their captures counted, one and 16 model calls' worth. (b) 37 new
+   tokens, which 16 does not divide: both runs equal, the tail block's
+   k/v the per-token run's below the buffer's last slot, each row
+   against (a)'s first 37 by the near-tie rule. (c) sampled (temperature
+   0.8, top-k 50, seed 5) per-token runs repeat bit for bit; a sampled
+   block at top_k=1 equals (a) but at exact ties of the bf16 logits. (d)
+   the W8A16 model at tokens_per_fetch 1 and 16, equal (W8A16 on its
+   wgmma route in prefill, split-K in the graphs). (e)
+   generate_speculative at batch 1, g = 4, the 8B as its own draft,
+   against greedy by the near-tie rule; it prints target_forwards and
+   accepted_drafts. (f) PredictorServer(generator=model) answers
+   /generate, streamed and unary, tokens_per_fetch 16, with (a)'s tokens
+   and no recapture. Every run's launches equal a model call's counts
+   times its model calls (prefills, decode and block steps, warm-ups;
+   the W8A16 wgmma route's per prefill), and the decode kernel none. It
+   prints prefill ms, decode tokens/s at tokens_per_fetch 1 and 16
+   beside phase 5's engine, the captures' seconds, the cache bytes and
+   the launches a decode step and a prefill call. Its launches go to the
+   paths "generation" and "generation_int8".
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -199,7 +231,8 @@ V 128256, so N x V > 2^31).
 `--profile` also traces one prefill and two decode ticks of phases 5 and
 10 (two replays of the captured tick, after one untraced tick that
 captures it), the same for phase 11's wave 2 warm (after wave 1) and
-cold and for each part of phase 12, and one step of each training
+cold and for each part of phase 12, phase 15 (a)'s prefill and two of
+its captured decode steps, and one step of each training
 configuration.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
@@ -209,6 +242,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import itertools
 import json
@@ -1794,6 +1828,37 @@ def _norm_rows(kernels):
             if "rms" in e.key or "rope" in e.key]
 
 
+def _trace_window(card, label, run):
+    """torch.profiler over run(): its host wall, the kernels' device time
+    (one stream, so they do not overlap), idle share = 1 - busy / wall,
+    the top 12 kernel rows and the RMSNorm and RoPE rows, printed."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernel rows only: an operator's row repeats its kernels' time
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in kernels) / 1e6
+    top = sorted(kernels, key=_device_us, reverse=True)[:12]
+    out = dict(
+        wall_s=wall, device_busy_s=busy,
+        idle_share=max(0.0, 1 - busy / wall) if wall else None,
+        top=[(e.key[:90], _device_us(e) / 1e3, e.count) for e in top],
+        norm=_norm_rows(kernels))
+    print(f"[profile] {card} {label}: wall {wall * 1e3:.1f} ms, device "
+          f"busy {busy * 1e3:.1f} ms, idle share {out['idle_share']:.3f}")
+    for name, ms, n in out["top"]:
+        print(f"[profile]   {ms:9.3f} ms  x{n:<6} {name}")
+    for name, ms, n in out["norm"]:
+        print(f"[profile] norm {ms:9.3f} ms  x{n:<6} {name}")
+    return out
+
+
 def profile_serving(model, prompts, max_new, geom, card, label="",
                     prime=()):
     """Where the time goes (`--profile`): torch.profiler over the prefill
@@ -1803,7 +1868,6 @@ def profile_serving(model, prompts, max_new, geom, card, label="",
     they do not overlap), idle share = 1 - busy / host wall time.
     `prime` prompts are served to the end first (untraced), so a prefix
     cache holds their pages when the traced prefill runs."""
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference.paged import PagedKVEngine
     eng = PagedKVEngine(model, device=model.device, **geom)
     eng.generate(prime, max_new)
@@ -1812,31 +1876,7 @@ def profile_serving(model, prompts, max_new, geom, card, label="",
     out = {}
 
     def trace(phase, run):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # kernel rows only: an operator's row repeats its kernels' time
-        kernels = [e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")
-                   and _device_us(e) > 0]
-        busy = sum(_device_us(e) for e in kernels) / 1e6
-        top = sorted(kernels, key=_device_us, reverse=True)[:12]
-        out[phase] = dict(
-            wall_s=wall, device_busy_s=busy,
-            idle_share=max(0.0, 1 - busy / wall) if wall else None,
-            top=[(e.key[:90], _device_us(e) / 1e3, e.count) for e in top],
-            norm=_norm_rows(kernels))
-        print(f"[profile] {card} {label}{phase}: wall {wall * 1e3:.1f} ms, device "
-              f"busy {busy * 1e3:.1f} ms, idle share "
-              f"{out[phase]['idle_share']:.3f}")
-        for name, ms, n in out[phase]["top"]:
-            print(f"[profile]   {ms:9.3f} ms  x{n:<6} {name}")
-        for name, ms, n in out[phase]["norm"]:
-            print(f"[profile] norm {ms:9.3f} ms  x{n:<6} {name}")
+        out[phase] = _trace_window(card, label + phase, run)
 
     trace("prefill", eng._admit)
     eng.step()          # untraced: the warm-up tick and the capture
@@ -3897,6 +3937,694 @@ def http_phase(model, counters, reset, card, bf16_serving):
     return out
 
 
+# -- phase 15: static-cache generation ------------------------------------------
+
+GEN_MAX_NEW = 64            # (a), (c), (d), (e), (f): phase 5's new tokens
+GEN_TAIL_NEW = 37           # (b): a max_new_tokens that GEN_TPF does not divide
+GEN_TPF = 16                # the block's decode steps (tokens_per_fetch)
+GEN_SPEC_G = 4
+GEN_SAMPLE = dict(do_sample=True, temperature=0.8, top_k=50, seed=5)
+# the generation path's logits, at every row's prefill and at one
+# teacher-forced decode step, and at each near tie's prefix, stay within
+# GEN_LOGITS_RMS x the RMS of a cold engine's logits at the same prefix
+# (RMS of the difference); a planted fault in the decode step's RoPE
+# position must read above it (`_gen_logits_check`)
+GEN_LOGITS_RMS = 2 ** -3
+# a difference between two paths' tokens passes as a near tie when the
+# chosen token's lead on the exact path is within the larger of 1e-3, two
+# bf16 steps of the two logits, and GEN_TIE_RMS x the RMS difference of
+# that path's logits and a cold engine's at the prefix. The bound must
+# sit below the median top-two gap of the cold engine's logits, so that a
+# token that is second by a typical margin fails
+GEN_TIE_RMS = 1.75
+
+
+def _keep_slots(mask, max_len):
+    """A prompt's keep mask (b, s) over a cache of `max_len` slots: the
+    slots past the prompt are kept (models/generation.py `_graph_mask`)."""
+    keep = np.ones((mask.shape[0], max_len), bool)
+    keep[:, :mask.shape[1]] = mask
+    return keep
+
+
+def _left_pad(prompts):
+    """The prompts left-padded with id 0 to the longest, and the keep
+    mask."""
+    s = max(p.size for p in prompts)
+    ids = np.zeros((len(prompts), s), np.int32)
+    mask = np.zeros((len(prompts), s), bool)
+    for i, p in enumerate(prompts):
+        ids[i, s - p.size:], mask[i, s - p.size:] = p, True
+    return ids, mask
+
+
+def _gen_steps(model, b, s, max_new, do_sample):
+    """The cached programs and buffers generate() uses at this shape."""
+    from paddle_tpu_torch.models.generation import _compiled_steps
+    return _compiled_steps(model, b, s + max_new, do_sample)
+
+
+def _gen_calls(st0, st1):
+    """(model calls, prefills) between two snapshots of a `_Steps.stats`:
+    prefills, per-token decode steps, block steps and warm-up steps."""
+    calls = sum(st1[k] - st0[k] for k in ("prefills", "decode_steps",
+                                          "block_steps", "warmup_steps"))
+    return calls, st1["prefills"] - st0["prefills"]
+
+
+def _gen_check_launches(tag, counted, calls, prefills, per_call,
+                        wgmma_per_prefill=0):
+    """Every launch of the run is one of a model call's: `per_call` a
+    call, and the W8A16 wgmma route's at each prefill (M = b x s); the
+    decode kernel none (the dense cache attends in PyTorch)."""
+    want = {k: n * calls for k, n in per_call.items() if n}
+    if wgmma_per_prefill:
+        want["weight_only_int8_matmul_wgmma"] = wgmma_per_prefill * prefills
+    got = {k: v for k, v in counted.items() if v}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, want {want} ({calls} "
+                             f"model calls, {prefills} prefills)")
+    return got
+
+
+def _gen_run(tag, model, steps, ids, n, counters, reset, per_call,
+             wgmma_per_prefill=0, **kw):
+    """One generate_stream() to its end, its launches held to the model
+    calls it made: (tokens (b, n), seconds to the first token on the
+    host (the prefill), seconds of the rest, launches)."""
+    from paddle_tpu_torch.models.generation import generate_stream
+    st0 = dict(steps.stats)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = generate_stream(model, ids, n, **kw)
+    rows = [next(it)]
+    t1 = time.perf_counter()
+    rows += list(it)
+    t2 = time.perf_counter()
+    toks = np.stack(rows, axis=1)
+    vocab = model.config.vocab_size
+    if toks.shape != (ids.shape[0], n) or toks.min() < 0 \
+            or toks.max() >= vocab:
+        raise AssertionError(f"{tag}: tokens {toks.shape}, want "
+                             f"{(ids.shape[0], n)} in-vocab")
+    calls, prefills = _gen_calls(st0, steps.stats)
+    got = _gen_check_launches(tag, counters(), calls, prefills, per_call,
+                              wgmma_per_prefill)
+    return toks, t1 - t0, t2 - t1, got
+
+
+def _gen_graph(tag, steps, key, per_call, n_steps, counters, path):
+    """The captured program's graph as the CUDA driver lists it holds, of
+    each kernel, exactly the nodes its capture counted, and those are
+    `n_steps` model calls' counts (`per_call`)."""
+    from paddle_tpu_torch.core.graphs import CapturedProgram
+    program = steps.programs[key]
+    if not isinstance(program, CapturedProgram):
+        raise AssertionError(f"{tag}: {key} ran without a captured graph")
+    gain = dict.fromkeys(counters(), 0)
+    for _, k, c in program.delta:
+        gain[k] += c
+    want_gain = {k: (n_steps * per_call.get(k, 0)) for k in gain}
+    if gain != want_gain:
+        raise AssertionError(f"{tag}: the capture of {key} counted {gain}, "
+                             f"want {n_steps} x {per_call}")
+    want = _trace_want(gain)
+    nodes, kinds = _graph_nodes(program, want)
+    if nodes != want or min(want[k] for k in path) <= 0:
+        raise AssertionError(f"{tag}: the graph of {key} holds kernel nodes "
+                             f"{nodes}, its capture counted {want}")
+    return dict(launches={k: v for k, v in gain.items() if v},
+                kernel_nodes=nodes, nodes=kinds)
+
+
+def _gen_exact_logits(model, ids, mask, toks, max_len, need):
+    """The generation path's own logits (f32 numpy (v,)) at each (row,
+    step) of `need`, recomputed eagerly over a fresh cache of `max_len`
+    slots: the bodies the captured graphs hold, on the same shapes, so
+    the same bits (tests/test_torch_cuda.py holds the captured steps to
+    the eager bodies). `toks` (b, n) are that path's tokens; step 0 is
+    the prefill."""
+    from paddle_tpu_torch.models import generation as tgen
+    dev = model.device
+    b, s = ids.shape
+    caches = tgen.init_kv_cache(model, b, max_len)
+    keep = torch.from_numpy(_keep_slots(mask, max_len)).to(dev)
+    out = {}
+    with torch.no_grad():
+        last = tgen._prefill_logits(model, s, True,
+                                    torch.from_numpy(ids).to(dev), keep,
+                                    caches)
+        for t in range(max(t for _, t in need) + 1):
+            if t:
+                last = tgen._step_logits(
+                    model, b, True, torch.from_numpy(toks[:, t - 1])
+                    .to(dev), torch.tensor(s + t - 1, dtype=torch.int32,
+                                           device=dev), keep, caches)
+            for r, tt in need:
+                if tt == t:
+                    out[(r, t)] = last[r].float().cpu().numpy()
+    del caches
+    return out
+
+
+def _first_diff(a, b):
+    return next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+
+
+def _ref_logits(model):
+    """ids -> the logits a cold engine of phase 5's geometry gives at the
+    end of `ids` (its prefill's last row), one engine for every call (no
+    prefix cache, so each prefill is cold)."""
+    eng = _engine(model, **dict(FEATURE_GEOM, prefix_cache_pages=0,
+                                prefill_chunk=None))
+    seen = []
+    eng._first_token = lambda logits, req: (seen.append(logits), 0)[1]
+
+    def logits(ids):
+        eng.generate([ids], 1)
+        return seen.pop()
+    return logits
+
+
+def _rms_rel(x, ref):
+    """RMS of x - ref over the RMS of ref (f64)."""
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return float(np.sqrt(np.mean((x - ref) ** 2) / np.mean(ref ** 2)))
+
+
+class _DecodePositionFault:
+    """A planted fault: the model's one-token (decode) calls get RoPE
+    positions one past the right ones."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __enter__(self):
+        forward = type(self.model).forward.__get__(self.model)
+
+        def shifted(input_ids, *args, position_ids=None, **kw):
+            if input_ids.shape[1] == 1:
+                position_ids = position_ids + 1
+            return forward(input_ids, *args, position_ids=position_ids, **kw)
+        self.model.forward = shifted
+
+    def __exit__(self, *exc):
+        del self.model.forward
+
+
+class _Bf16ScoresFault:
+    """A planted fault: the plain attention (every attention of the
+    dense-cache path) rounds its q kᵀ scores to bf16 before the mask and
+    the softmax; the rest is `scaled_dot_product_attention`'s."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.nn import functional as fnl
+        self.fnl, self.sdpa = fnl, fnl.scaled_dot_product_attention
+
+        def bf16_scores(q, k, v, attn_mask=None, is_causal=False,
+                        scale=None):
+            b, sq, hq, d = q.shape
+            kl, hk = k.shape[1], k.shape[2]
+            qg = q.transpose(1, 2).reshape(b, hk, hq // hk * sq, d)
+            scores = (qg.float() @ k.transpose(1, 2).float().transpose(
+                -1, -2)).to(torch.bfloat16).float()
+            scores = scores.reshape(b, hq, sq, kl) * (scale or d ** -0.5)
+            if is_causal:
+                keep = torch.ones(sq, kl, dtype=torch.bool,
+                                  device=q.device).tril(kl - sq)
+                scores = scores.masked_fill(~keep, float("-inf"))
+            if attn_mask is not None:
+                scores = (scores.masked_fill(~attn_mask, float("-inf"))
+                          if attn_mask.dtype == torch.bool
+                          else scores + attn_mask.float())
+            probs = torch.softmax(scores, dim=-1).to(q.dtype).masked_fill(
+                torch.isneginf(scores).all(-1, keepdim=True), 0.0)
+            out = probs.reshape(b, hk, hq // hk * sq, kl) @ v.transpose(1, 2)
+            return out.reshape(b, hq, sq, d).transpose(1, 2)
+        fnl.scaled_dot_product_attention = bf16_scores
+
+    def __exit__(self, *exc):
+        self.fnl.scaled_dot_product_attention = self.sdpa
+
+
+def _gen_logits_readings(model, prompts, ids, mask, greedy, ref_logits):
+    """Every row's prefill logits and one teacher-forced decode step's
+    (the step fed (a)'s first token) on the generation path (the eager
+    bodies of `_gen_exact_logits`) against a cold engine's at the same
+    prefix, as `_rms_rel` ({step: [a row's reading]}): the sound path,
+    and three planted faults: the decode step's RoPE position one too
+    far, the padding mask ignored (its readings only for padded rows),
+    bf16 scores. Also the median top-two gap of the engine's logits
+    (GEN_TIE_RMS)."""
+    b, s = ids.shape
+    need = [(r, t) for r in range(b) for t in (0, 1)]
+    refs = {(r, t): np.asarray(ref_logits(np.concatenate(
+        [prompts[r], greedy[r, :t]]).astype(np.int32)), np.float64)
+        for r, t in need}
+    padded = [r for r in range(b) if not mask[r].all()]
+
+    def readings(fault, keep=mask, rows=range(b)):
+        with fault:
+            ex = _gen_exact_logits(model, ids, keep, greedy,
+                                   s + GEN_MAX_NEW, need)
+        return {t: [_rms_rel(ex[(r, t)], refs[(r, t)]) for r in rows]
+                for t in (0, 1)}
+    none = contextlib.nullcontext()
+    sound = readings(none)
+    position = readings(_DecodePositionFault(model))
+    pad = readings(none, np.ones_like(mask), padded)
+    bf16 = readings(_Bf16ScoresFault())
+    top2 = [np.sort(x)[-2:] for x in refs.values()]
+    gap = float(np.median([hi - lo for lo, hi in top2]))
+    out = dict(sound=sound, decode_position_fault=position,
+               pad_mask_fault=pad, bf16_scores_fault=bf16,
+               limit=GEN_LOGITS_RMS, sound_max=max(sound[0] + sound[1]),
+               position_fault_min=min(position[1]),
+               pad_fault_min=min(pad[0] + pad[1]),
+               bf16_fault_max=max(bf16[0] + bf16[1]),
+               median_top2_gap=gap)
+    print(f"[gen] logits against a cold engine (RMS difference / RMS), "
+          f"{b} rows, prefill and one teacher-forced decode step: sound "
+          f"{sound}; planted decode-position fault {position}; planted "
+          f"pad-mask fault (rows {padded}) {pad}; planted bf16-scores "
+          f"fault {bf16}; limit {GEN_LOGITS_RMS}; the engine logits' "
+          f"median top-two gap {gap:.4g}")
+    return out
+
+
+def _gen_logits_check(model, prompts, ids, mask, greedy, ref_logits):
+    """`_gen_logits_readings`, held: the sound path's readings all within
+    GEN_LOGITS_RMS, every reading of the decode-position and pad-mask
+    faults above it (the bf16-scores fault's are reported)."""
+    out = _gen_logits_readings(model, prompts, ids, mask, greedy,
+                               ref_logits)
+    if out["sound_max"] > GEN_LOGITS_RMS:
+        raise AssertionError(f"gen: the generation path's logits are "
+                             f"{out['sound_max']:.4g} of RMS from a cold "
+                             f"engine's (limit {GEN_LOGITS_RMS})")
+    for name in ("position_fault_min", "pad_fault_min"):
+        if out[name] <= GEN_LOGITS_RMS:
+            raise AssertionError(f"gen: a planted fault reads {name} "
+                                 f"{out[name]:.4g}, within the limit "
+                                 f"{GEN_LOGITS_RMS}: the check is blind")
+    return out
+
+
+def _gen_near_tie(tag, ref_logits, prompt, chosen_toks, other_toks, exact,
+                  typical_gap):
+    """At the first difference t of two token lists, the exact path (the
+    one that gave `chosen_toks`, logits `exact` at t) leads the other
+    token by a near tie (GEN_TIE_RMS's rule, its bound below
+    `typical_gap`, the engine logits' median top-two gap), measured
+    against a cold engine's logits at the same prefix (`ref_logits`)."""
+    t = _first_diff(chosen_toks, other_toks)
+    chosen, other = chosen_toks[t], other_toks[t]
+    ref = ref_logits(np.concatenate(
+        [prompt, np.asarray(chosen_toks[:t], np.int32)]))
+    lx, lr = exact.astype(np.float64), np.asarray(ref, np.float64)
+    gap = float(lx[chosen] - lx[other])
+    rms_diff = float(np.sqrt(np.mean((lx - lr) ** 2)))
+    rms_ref = float(np.sqrt(np.mean(lr ** 2)))
+    top = max(abs(lx[chosen]), abs(lx[other]), 2.0 ** -126)
+    bf16_step = 2.0 ** (np.floor(np.log2(top)) - 7)
+    bound = float(max(1e-3, 2 * bf16_step, GEN_TIE_RMS * rms_diff))
+    out = dict(step=t, chosen=int(chosen), other=int(other), gap=gap,
+               bound=bound, rms_diff=rms_diff, rms_logits=rms_ref)
+    print(f"[gen] {tag}: differs at step {t}: {chosen} vs {other}, lead "
+          f"{gap:.4g} (bound {bound:.4g}, median top-two gap "
+          f"{typical_gap:.4g}); logits' RMS difference to a cold engine "
+          f"{rms_diff:.4g} of RMS {rms_ref:.4g}")
+    if (not 0 <= gap <= bound or bound >= typical_gap
+            or rms_diff > GEN_LOGITS_RMS * rms_ref):
+        raise AssertionError(f"gen {tag}: not a near tie: {out}")
+    return out
+
+
+def _gen_rows(tag, exact_toks, other_toks, need):
+    """The rows of `exact_toks` (token lists of (a)'s path, whose logits
+    `_gen_exact_logits` recomputes) equal to `other_toks`'; each other
+    row's first difference is queued in `need` for the near-tie rule."""
+    same = 0
+    for r, (g, w) in enumerate(zip(exact_toks, other_toks)):
+        g, w = [int(x) for x in g], [int(x) for x in w]
+        if g == w:
+            same += 1
+        else:
+            need.append((tag, r, _first_diff(g, w), g, w))
+    return same
+
+
+def _dense_attn_ms(model, mask, max_len):
+    """Device ms of one layer's dense-cache attention (models/llama.py
+    `_dense_cache_attention`: the k/v writes, the masks, the f32 scores,
+    the softmax and the value product) at the decode step's shape (b
+    queries at slot max_len - 2) and at the prefill's (the padded prompt
+    at slot 0), over random buffers of the model's cache type, replayed
+    in a graph (`_time_ms`)."""
+    from paddle_tpu_torch.models.generation import _graph_mask
+    from paddle_tpu_torch.models.llama import _dense_cache_attention
+    cfg, dev, dt = model.config, model.device, model.dtype
+    hq, hk, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    b, s = mask.shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dt)
+    cache = (randn(b, max_len, hk, d), randn(b, max_len, hk, d))
+    attn = _graph_mask(torch.from_numpy(_keep_slots(mask, max_len)).to(dev))
+    out = {}
+    for name, sq, index, iters in (("decode", 1, max_len - 2, 50),
+                                   ("prefill", s, 0, 5)):
+        idx = torch.tensor(index, dtype=torch.int32, device=dev)
+        out[name] = _time_ms(
+            lambda q, k, v: _dense_cache_attention(q, k, v, cache, idx,
+                                                   attn),
+            [(randn(b, sq, hq, d), randn(b, sq, hk, d),
+              randn(b, sq, hk, d))], iters=iters)
+    return out
+
+
+def _gen_greedy(tag, model, steps, ids, mask, counters, reset, per_call,
+                path, add, wgmma_per_prefill=0):
+    """Greedy generation of GEN_MAX_NEW tokens at tokens_per_fetch 1 and
+    GEN_TPF, two runs each (the first captures, the second is timed): all
+    four give the same tokens, and the decode and block graphs hold
+    exactly the kernel nodes their captures counted. -> ({tpf: tokens,
+    prefill ms, decode tokens/s}, the graphs' node counts)."""
+    b = ids.shape[0]
+    runs = {}
+    for tpf in (1, GEN_TPF):
+        toks = []
+        for _ in range(2):
+            t, pre_s, dec_s, got = _gen_run(
+                f"{tag} tpf {tpf}", model, steps, ids, GEN_MAX_NEW, counters,
+                reset, per_call, wgmma_per_prefill, attention_mask=mask,
+                tokens_per_fetch=tpf)
+            add(got)
+            toks.append(t)
+        if not np.array_equal(toks[0], toks[1]):
+            raise AssertionError(f"gen {tag} tpf {tpf}: a second run gave "
+                                 "other tokens")
+        runs[tpf] = dict(tokens=toks[1], prefill_ms=pre_s * 1e3,
+                         decode_tokens_per_s=b * (GEN_MAX_NEW - 1) / dec_s)
+    if not np.array_equal(runs[1]["tokens"], runs[GEN_TPF]["tokens"]):
+        raise AssertionError(f"gen {tag}: tokens_per_fetch {GEN_TPF} gave "
+                             "other tokens than 1")
+    graphs = {"decode": _gen_graph(tag, steps, "decode", per_call, 1,
+                                   counters, path),
+              "block": _gen_graph(tag, steps, ("block", GEN_TPF), per_call,
+                                  GEN_TPF, counters, path)}
+    return runs, graphs
+
+
+def generation_phase(model, counters, reset, card, bf16_serving,
+                     profile=False):
+    """Phase 15 (a), (b), (c), (e), (f) on phase 5's Llama-3-8B (module
+    doc); with `profile`, torch.profiler over (a)'s prefill and two of
+    its decode steps."""
+    from paddle_tpu_torch.inference.serving import PredictorServer
+    from paddle_tpu_torch.models.generation import generate_speculative
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    per_call = {"rms_norm_residual": 2 * n_layers + 1,
+                "rope_apply": 2 * n_layers}
+    path = ("rmsn_fwd_kernel<", "rope_kernel<")
+    t_phase = time.perf_counter()
+    prompts = _prompts(8, cfg.vocab_size, seed=0)
+    ids, mask = _left_pad(prompts)
+    b, s = ids.shape
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) greedy, tokens_per_fetch 1 and GEN_TPF
+    steps = _gen_steps(model, b, s, GEN_MAX_NEW, False)
+    runs, graphs = _gen_greedy("(a)", model, steps, ids, mask, counters,
+                               reset, per_call, path, add)
+    greedy = runs[1]["tokens"]
+    attn_ms = _dense_attn_ms(model, mask, s + GEN_MAX_NEW)
+    traced = None
+    if profile:
+        from paddle_tpu_torch.models.generation import generate_stream
+        it = generate_stream(model, ids, GEN_MAX_NEW, attention_mask=mask)
+        traced = {"prefill": _trace_window(card, "gen prefill",
+                                           lambda: next(it)),
+                  "decode_2_steps": _trace_window(
+                      card, "gen decode_2_steps",
+                      lambda: (next(it), next(it)))}
+        it.close()
+    need = []
+    engine_tokens = bf16_serving["tokens"]
+    same_engine = _gen_rows("(a) against phase 5's engine", greedy.tolist(),
+                            engine_tokens, need)
+    cache_bytes = steps.nbytes()
+    capture_s = dict(steps.stats["capture_s"])
+
+    parts = {"a": time.perf_counter() - t_phase}
+
+    # (b) a tail block: the steps past `limit` of the last block write
+    # only the buffers' last slot
+    steps_b = _gen_steps(model, b, s, GEN_TAIL_NEW, False)
+    tail = {}
+    for tpf in (1, GEN_TPF):
+        t, _, _, got = _gen_run(f"(b) tpf {tpf}", model, steps_b, ids,
+                                GEN_TAIL_NEW, counters, reset, per_call,
+                                attention_mask=mask, tokens_per_fetch=tpf)
+        add(got)
+        tail[tpf] = t
+        if tpf == 1:
+            per_token_kv = [x[:, :-1].clone() for kv in steps_b.caches
+                            for x in kv]
+    if not np.array_equal(tail[1], tail[GEN_TPF]):
+        raise AssertionError("gen (b): the tail block gave other tokens")
+    for x, y in zip(per_token_kv, [x[:, :-1] for kv in steps_b.caches
+                                   for x in kv]):
+        if not torch.equal(x, y):
+            raise AssertionError("gen (b): the block left other k/v than "
+                                 "per-token decode below the last slot")
+    del per_token_kv
+    same_tail = _gen_rows("(b) against (a)",
+                          greedy[:, :GEN_TAIL_NEW].tolist(),
+                          tail[1].tolist(), need)
+
+    parts["b"] = time.perf_counter() - t_phase - sum(parts.values())
+
+    # (c) sampled: seeded per-token runs repeat; a block at top_k=1 is
+    # greedy, but for exact ties (bf16 logits: top_k=1 keeps every entry
+    # equal to the largest, and the noise picks among them)
+    steps_c = _gen_steps(model, b, s, GEN_MAX_NEW, True)
+    sampled = []
+    for _ in range(2):
+        t, _, _, got = _gen_run("(c) sampled", model, steps_c, ids,
+                                GEN_MAX_NEW, counters, reset, per_call,
+                                attention_mask=mask, **GEN_SAMPLE)
+        add(got)
+        sampled.append(t)
+    if not np.array_equal(sampled[0], sampled[1]):
+        raise AssertionError("gen (c): a seeded sampled run did not repeat")
+    k1, _, _, got = _gen_run("(c) top_k=1 block", model, steps_c, ids,
+                             GEN_MAX_NEW, counters, reset, per_call,
+                             attention_mask=mask, do_sample=True, top_k=1,
+                             seed=6, tokens_per_fetch=GEN_TPF)
+    add(got)
+    ties = []
+    for r in range(b):
+        if not np.array_equal(k1[r], greedy[r]):
+            ties.append((r, _first_diff(greedy[r], k1[r])))
+
+    parts["c"] = time.perf_counter() - t_phase - sum(parts.values())
+
+    # the near ties and exact ties, on (a)'s exact logits
+    want_logits = {(r, t) for _, r, t, _, _ in need} | set(ties)
+    exact = (_gen_exact_logits(model, ids, mask, greedy, s + GEN_MAX_NEW,
+                               sorted(want_logits)) if want_logits else {})
+    tie_checks = []
+    ref_logits = _ref_logits(model)
+    logits_check = _gen_logits_check(model, prompts, ids, mask, greedy,
+                                     ref_logits)
+    typical_gap = logits_check["median_top2_gap"]
+    for tag, r, t, g, w in need:
+        tie_checks.append(dict(tag=tag, row=r, **_gen_near_tie(
+            f"{tag} row {r}", ref_logits, prompts[r], g, w,
+            exact[(r, t)], typical_gap)))
+    for r, t in ties:
+        lx = exact[(r, t)]
+        a, c = int(greedy[r, t]), int(k1[r, t])
+        if not lx[a] == lx[c] == lx.max():
+            raise AssertionError(f"gen (c): the top_k=1 block differs from "
+                                 f"greedy at row {r} step {t} without a "
+                                 f"tie: {lx[a]} vs {lx[c]} (max "
+                                 f"{lx.max()})")
+    del exact
+
+    parts["ties"] = time.perf_counter() - t_phase - sum(parts.values())
+
+    # (e) speculative decoding at batch 1, the 8B as its own draft
+    prompt = prompts[0]
+    steps_e = _gen_steps(model, 1, prompt.size, GEN_MAX_NEW, False)
+    ref_e, _, _, got = _gen_run("(e) greedy, batch 1", model, steps_e,
+                                prompt[None], GEN_MAX_NEW, counters, reset,
+                                per_call)
+    add(got)
+    reset()
+    spec_stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec = generate_speculative(model, model, prompt[None], GEN_MAX_NEW,
+                                num_speculative_tokens=GEN_SPEC_G,
+                                stats=spec_stats).numpy()[0, prompt.size:]
+    spec_s = time.perf_counter() - t0
+    rounds = spec_stats["target_forwards"] - 1
+    got = _gen_check_launches("(e) speculative", counters(),
+                              2 + (GEN_SPEC_G + 1) * rounds, 2, per_call)
+    add(got)
+    if spec.size != GEN_MAX_NEW or spec_stats["generated"] != GEN_MAX_NEW:
+        raise AssertionError(f"gen (e): {spec.size} tokens, stats "
+                             f"{spec_stats}")
+    spec_tie = None
+    if not np.array_equal(spec, ref_e[0]):
+        t = _first_diff(ref_e[0], spec)
+        ex = _gen_exact_logits(model, prompt[None], np.ones((1, prompt.size),
+                               bool), ref_e, prompt.size + GEN_MAX_NEW,
+                               [(0, t)])
+        spec_tie = _gen_near_tie("(e) spec against greedy", ref_logits,
+                                 prompt, ref_e[0].tolist(), spec.tolist(),
+                                 ex[(0, t)], typical_gap)
+
+    del ref_logits              # its engine's pools
+    _release()
+
+    parts["e"] = time.perf_counter() - t_phase - sum(parts.values())
+
+    # (f) HTTP: PredictorServer(generator=model), tokens_per_fetch 16
+    programs = dict(steps.programs)
+    st0 = dict(steps.stats)
+    reset()
+    srv = PredictorServer(lambda d: d, generator=model).start()
+    try:
+        http = {}
+        for stream in (True, False):
+            r = _generate(srv.port, {
+                "ids": ids.tolist(), "attention_mask": mask.astype(
+                    int).tolist(), "max_new_tokens": GEN_MAX_NEW,
+                "tokens_per_fetch": GEN_TPF, "stream": stream}, {})
+            if r["status"] != 200 or r["rows"] != greedy.tolist():
+                raise AssertionError(f"gen (f): HTTP (stream {stream}) "
+                                     f"gave status {r['status']} and other "
+                                     "tokens than (a)")
+            http["stream" if stream else "unary"] = r["t_end"] - r["t0"]
+    finally:
+        srv.stop()
+    calls, prefills = _gen_calls(st0, steps.stats)
+    add(_gen_check_launches("(f) http", counters(), calls, prefills,
+                            per_call))
+    if steps.programs != programs:
+        raise AssertionError("gen (f): the HTTP requests captured again")
+
+    parts["f"] = time.perf_counter() - t_phase - sum(parts.values())
+    held = model.__dict__["_gen_step_cache"]
+    cache_held = dict(entries=len(held), bytes=sum(e.nbytes()
+                                                   for e in held.values()))
+    pool_bytes = {str(k): p.pool_bytes for k, p in steps.programs.items()}
+    engine_rate = bf16_serving["decode_tokens_per_s"]
+    decode_delta = graphs["decode"]["launches"]
+    out = dict(
+        card=card, batch=b, prompt_len=s, max_new_tokens=GEN_MAX_NEW,
+        prefill_ms=runs[1]["prefill_ms"],
+        prefill_ms_tpf16=runs[GEN_TPF]["prefill_ms"],
+        decode_tokens_per_s={str(k): v["decode_tokens_per_s"]
+                             for k, v in runs.items()},
+        engine_decode_tokens_per_s=engine_rate,
+        capture_s={str(k): v for k, v in capture_s.items()},
+        dense_attention_layer_ms=attn_ms,
+        cache_bytes=cache_bytes, cache_held=cache_held,
+        graph_pool_bytes=pool_bytes, launches_per_decode_step=decode_delta,
+        launches_per_prefill=per_call, graphs=graphs,
+        rows_equal_engine=same_engine, tail_rows_equal=same_tail,
+        logits_check=logits_check, top_k1_ties=ties, near_ties=tie_checks, spec_stats=spec_stats,
+        spec_s=spec_s, spec_equal_greedy=spec_tie is None,
+        spec_near_tie=spec_tie, http_s=http, launches=total,
+        profile=traced, part_s=parts)
+    model.__dict__.pop("_gen_step_cache", None)
+    _release()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[gen] {card}: generate() on Llama-3-8B, 8 left-padded prompts "
+          f"({b} x {s}), {GEN_MAX_NEW} new tokens: prefill "
+          f"{out['prefill_ms']:.1f} ms; decode "
+          f"{runs[1]['decode_tokens_per_s']:.1f} tok/s at tokens_per_fetch "
+          f"1, {runs[GEN_TPF]['decode_tokens_per_s']:.1f} at {GEN_TPF} "
+          f"(phase 5's engine {engine_rate:.1f}); one layer's dense-cache "
+          f"attention {attn_ms['decode']:.4f} ms a decode step, "
+          f"{attn_ms['prefill']:.3f} ms a prefill (x {n_layers} layers); "
+          f"capture s (warm-up "
+          f"included) {out['capture_s']}; cache {cache_bytes} B (graph pools "
+          f"{pool_bytes}; the step cache at the end {cache_held}); launches a "
+          f"decode step {decode_delta}, a prefill {per_call}; graphs "
+          f"{ {k: v['kernel_nodes'] for k, v in graphs.items()} }; "
+          f"logits against a cold engine: sound at most "
+          f"{logits_check['sound_max']:.4g} of RMS, a decode-position fault "
+          f"at least {logits_check['position_fault_min']:.4g}, bf16 scores "
+          f"at most {logits_check['bf16_fault_max']:.4g} (limit "
+          f"{GEN_LOGITS_RMS}); "
+          f"{same_engine} of 8 rows equal to phase 5's engine, the tail run "
+          f"{same_tail} of 8 equal to (a)'s first {GEN_TAIL_NEW}, near ties "
+          f"{[(c['tag'], c['row'], c['step']) for c in tie_checks]}; "
+          f"sampled runs repeat; top_k=1 block equal to greedy but at exact "
+          f"ties {ties}; speculative (g {GEN_SPEC_G}, the 8B as its own "
+          f"draft) {spec_stats} in {spec_s:.2f} s, "
+          f"{'equal to greedy' if spec_tie is None else 'a near tie'}; "
+          f"HTTP stream and unary equal to (a) in {http}; phase "
+          f"{out['phase_s']:.1f} s (s a part: {parts})")
+    return out
+
+
+def generation_int8_part(model, counters, reset, card, bf16_serving):
+    """Phase 15 (d) on phase 10's W8A16 model: greedy at tokens_per_fetch
+    1 and GEN_TPF, equal; the W8A16 kernel in prefill (wgmma) and decode
+    (split-K), in the captured graphs."""
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    per_call = {"rms_norm_residual": 2 * n_layers + 1,
+                "rope_apply": 2 * n_layers,
+                "weight_only_int8_matmul": 7 * n_layers + 1}
+    path = ("rmsn_fwd_kernel<", "rope_kernel<", "w8a16_kernel<")
+    t_phase = time.perf_counter()
+    ids, mask = _left_pad(_prompts(8, cfg.vocab_size, seed=0))
+    b, s = ids.shape
+    steps = _gen_steps(model, b, s, GEN_MAX_NEW, False)
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    runs, graphs = _gen_greedy("(d)", model, steps, ids, mask, counters,
+                               reset, per_call, path, add,
+                               wgmma_per_prefill=7 * n_layers + 1)
+    out = dict(
+        card=card, prefill_ms=runs[1]["prefill_ms"],
+        decode_tokens_per_s={str(k): v["decode_tokens_per_s"]
+                             for k, v in runs.items()},
+        engine_decode_tokens_per_s=bf16_serving["decode_tokens_per_s"],
+        capture_s={str(k): v for k, v in steps.stats["capture_s"].items()},
+        cache_bytes=steps.nbytes(), graphs=graphs, launches=total)
+    model.__dict__.pop("_gen_step_cache", None)
+    _release()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[gen-int8] {card}: generate() on the W8A16 Llama-3-8B ({b} x "
+          f"{s}, {GEN_MAX_NEW} new tokens): prefill {out['prefill_ms']:.1f} "
+          f"ms; decode {runs[1]['decode_tokens_per_s']:.1f} tok/s at "
+          f"tokens_per_fetch 1, {runs[GEN_TPF]['decode_tokens_per_s']:.1f} "
+          f"at {GEN_TPF}, equal tokens; capture s {out['capture_s']}; "
+          f"graphs {({k: v['kernel_nodes'] for k, v in graphs.items()})}; "
+          f"launches {total}; phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -3955,6 +4683,8 @@ def main(argv=None):
                                       args.profile)
     features = feature_phase(model, counters, reset, card, serving)
     http = http_phase(model, counters, reset, card, serving)
+    generation = generation_phase(model, counters, reset, card, serving,
+                                  args.profile)
     del model
     _release()
     parity = parity_phase(dev)
@@ -3968,6 +4698,8 @@ def main(argv=None):
                                              serving, args.profile)
     serving_spec["c"] = spec_int8_part(model, counters, reset, card,
                                        args.profile)
+    generation_int8 = generation_int8_part(model, counters, reset, card,
+                                           serving)
     del model
     _release()
     for name, e in kernels.items():
@@ -3980,7 +4712,10 @@ def main(argv=None):
                    "serving_int8": serving_int8["launches"].get(name, 0),
                    **{path: features[path]["launches"].get(name, 0)
                       for path in ("tenancy", "kvtier", "disagg")},
-                   "http": http["launches"].get(name, 0)}
+                   "http": http["launches"].get(name, 0),
+                   "generation": generation["launches"].get(name, 0),
+                   "generation_int8": generation_int8["launches"].get(name,
+                                                                      0)}
         if sum(by_path.values()) <= 0:
             raise AssertionError(f"{name} was launched on no main path")
         e["launches"] = sum(by_path.values())
@@ -4006,6 +4741,8 @@ def main(argv=None):
                        "serving_spec": serving_spec,
                        "spec_parity": spec_parity,
                        "features": features, "http": http,
+                       "generation": generation,
+                       "generation_int8": generation_int8,
                        "torch": torch.__version__}, f, indent=1)
     print(json.dumps(line))
     print(card)

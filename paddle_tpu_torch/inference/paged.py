@@ -142,6 +142,7 @@ import torch
 
 from paddle_tpu_torch import observability
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.graphs import capture_graph
 from paddle_tpu_torch.distributed import chaos
 from paddle_tpu_torch.inference.disagg import (DisaggStats,
                                                PageBundleEntry, dtype_name)
@@ -152,7 +153,7 @@ from paddle_tpu_torch.inference.overload import (DeadlineExceeded,
                                                  TenantQuotaExceeded)
 from paddle_tpu_torch.inference.prefix import PrefixCache, chain_keys
 from paddle_tpu_torch.inference.tenancy import WeightedFairScheduler
-from paddle_tpu_torch.kernels import launch_counters
+from paddle_tpu_torch.models.generation import _np_process_logits
 from paddle_tpu_torch.observability import requests as obs_requests
 from paddle_tpu_torch.kernels.paged_attention import (check_decode_shapes,
                                                       gather_window,
@@ -324,30 +325,6 @@ def paged_attention_update(q, k, v, cache, state: PagedState):
                                      v_scale=v_scale)
         return out.to(q.dtype).reshape(b, 1, hq * d)
     return _attend_pages(q, kp, vp, state, k_scale, v_scale)
-
-
-def _np_process_logits(logits, temperature, top_k, top_p):
-    """numpy temperature / top-k / top-p filter (a copy of the JAX
-    package's models/generation.py `_np_process_logits`)."""
-    x = np.asarray(logits, "float32")
-    if temperature != 1.0:
-        if temperature <= 0:
-            raise ValueError(f"temperature must be > 0, got {temperature}")
-        x = x / float(temperature)
-    v = x.shape[-1]
-    if top_k and 0 < top_k < v:
-        kth = np.sort(x, axis=-1)[:, -top_k][:, None]
-        x = np.where(x < kth, -1e9, x)
-    if top_p < 1.0:
-        s = np.sort(x, axis=-1)[:, ::-1]
-        e = np.exp(s - s.max(-1, keepdims=True))
-        probs = e / e.sum(-1, keepdims=True)
-        cum = np.cumsum(probs, axis=-1)
-        keep = cum - probs < top_p
-        masked = np.where(keep, s, np.inf)
-        thresh = masked.min(-1, keepdims=True)
-        x = np.where(x < thresh, -1e9, x)
-    return x
 
 
 def _process_logits_rowwise(x, temp, topk, topp):
@@ -530,21 +507,6 @@ _TICK_INPUTS = {"tok": (torch.int32, 0), "lens": (torch.int32, 0),
                 "eos": (torch.int32, -1), "temp": (torch.float32, 1.0),
                 "topk": (torch.int32, 0), "topp": (torch.float32, 1.0),
                 "wants": (torch.bool, False)}
-
-
-class _CapturedTick:
-    """One sampling variant of the tick program as a CUDA graph. A replay
-    runs none of the wrappers that count launches, so it adds the counts
-    its capture took (`delta`: (counter, name, launches) triples)."""
-
-    def __init__(self, graph, delta):
-        self.graph = graph
-        self.delta = delta
-
-    def __call__(self):
-        self.graph.replay()
-        for counter, name, n in self.delta:
-            counter[name] += n
 
 
 class PagedKVEngine:
@@ -762,7 +724,7 @@ class PagedKVEngine:
             width = self.spec_tokens + 3
         self._outputs = torch.zeros((b, width), dtype=torch.int32,
                                     device=mdev)
-        # ("tick" or "spec_tick", any_sample) -> _CapturedTick
+        # ("tick" or "spec_tick", any_sample) -> CapturedProgram
         self._programs = {}
         self._graph_pool = None    # one memory pool for every variant
         self._pending: list[_Request] = []
@@ -2129,42 +2091,20 @@ class PagedKVEngine:
         launches are real and stay counted; the capture's are taken
         back out and added again by every replay."""
         t0 = time.perf_counter()
-        body = self._eager_program(any_sample)
         self._idle_inputs()
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            body()
-        cur.wait_stream(side)
-        self.stats["warmup_ticks"] += 1
         if self._graph_pool is None:
             # both variants share one pool: their replays never overlap
             # (one stream, one tick at a time) and no tensor made inside
             # a capture outlives it (the outputs go to `_outputs`)
             self._graph_pool = torch.cuda.graph_pool_handle()
-        # keep_graph: the captured cudaGraph_t stays beside its
-        # instantiation, so its kernel nodes can be listed (debug_dump)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        if any_sample:
-            # each replay draws new Gumbel noise from the engine's
-            # generator, as an eager tick would
-            graph.register_generator_state(self._gen)
-        counters = launch_counters()
-        before = [dict(c) for c in counters]
-        try:
-            # thread_local: the ticker thread may be the one capturing
-            with torch.cuda.graph(graph, pool=self._graph_pool,
-                                  capture_error_mode="thread_local"):
-                body()
-        finally:
-            delta = [(c, k, c[k] - b[k]) for c, b in
-                     zip(counters, before) for k in c if c[k] != b[k]]
-            for c, k, n in delta:
-                c[k] -= n
-        graph.instantiate()
+        # a sampled variant's replays draw new Gumbel noise from the
+        # engine's generator each time, as an eager tick would
+        program = capture_graph(self._eager_program(any_sample), self.device,
+                                pool=self._graph_pool,
+                                generator=self._gen if any_sample else None)
+        self.stats["warmup_ticks"] += 1
         self.stats["warmup_s"] += time.perf_counter() - t0
-        return _CapturedTick(graph, delta)
+        return program
 
     def _accept_tick(self, live, out_np, counts, eos, lens_np):
         """Truncate by budget then eos, feed the request, advance slot

@@ -19,11 +19,11 @@ POST /generate {"ids": [[..]], "max_new_tokens": n, "stream": bool,
                stream=true: application/x-ndjson chunks, one
                {"step": i, "tokens": [..]} line per generated position,
                then {"done": true} — the token-streaming surface, over a
-               generator with `stream()` (the port's PagedKVEngine).
-               The JAX server's other branch, a cache-capable CausalLM
-               driven by models/generation.generate_stream, needs the
-               generation module, which the port does not have yet: it
-               raises NotImplementedError here
+               generator with `stream()` (the port's PagedKVEngine), or
+               a CausalLM driven by models/generation.generate_stream
+               (`tokens_per_fetch` passes through to its block decode;
+               serialized by the executable lock). The JAX server's
+               exported-bundle generator is not ported
 POST /kv/pull  {"keys": [chain keys]} -> packed KV page bundle
                (application/octet-stream) — the disaggregated
                prefill/decode handoff data plane (inference/disagg.py)
@@ -111,6 +111,7 @@ from paddle_tpu_torch.inference.overload import (
 from paddle_tpu_torch.inference.tenancy import (TenantAdmission,
                                                 WeightedFairScheduler,
                                                 resolve_tenant)
+from paddle_tpu_torch.models.generation import generate_stream
 from paddle_tpu_torch.observability import requests as obs_requests
 from paddle_tpu_torch.observability.metrics import MetricsRegistry
 
@@ -1223,34 +1224,33 @@ class PredictorServer:
         ids = np.asarray(req["ids"], "int32")
         kw = {k: req[k] for k in self._GEN_PARAMS if k in req}
         g = self.generator
-        if not hasattr(g, "stream"):
-            raise NotImplementedError(
-                "this generator has no stream(): serving a cache-capable "
-                "CausalLM needs models/generation.generate_stream, which "
-                "paddle_tpu_torch does not have yet; serve a "
-                "PagedKVEngine (generator=engine)")
-        # stream() decodes the rows itself; the device block loop
-        # of generate_stream does not apply
-        kw.pop("tokens_per_fetch", None)
-        if deadline is not None \
-                and getattr(g, "concurrent_safe", False):
-            # the paged engine's admission understands deadlines
-            kw["deadline"] = deadline
-        if tenant is not None \
-                and getattr(g, "concurrent_safe", False):
-            # attribution rides into the ENGINE's per-request
-            # bookkeeping (stream() forwards it to submit());
-            # gated like `deadline` above — bundle predictors'
-            # stream() takes no tenant kwarg, and a labeled
-            # request must not 500 on them
-            kw["tenant"] = tenant
-        if "session" in req \
-                and getattr(g, "concurrent_safe", False):
-            # conversation identity rides to the engine's tiered-KV
-            # session retention / suspend-resume bookkeeping; gated
-            # like tenant — bundle predictors have no sessions
-            kw["session"] = req["session"]
-        it = g.stream(ids, **kw)
+        if hasattr(g, "stream"):
+            # stream() decodes the rows itself; the device block loop
+            # of generate_stream does not apply
+            kw.pop("tokens_per_fetch", None)
+            if deadline is not None \
+                    and getattr(g, "concurrent_safe", False):
+                # the paged engine's admission understands deadlines
+                kw["deadline"] = deadline
+            if tenant is not None \
+                    and getattr(g, "concurrent_safe", False):
+                # attribution rides into the ENGINE's per-request
+                # bookkeeping (stream() forwards it to submit());
+                # gated like `deadline` above — bundle predictors'
+                # stream() takes no tenant kwarg, and a labeled
+                # request must not 500 on them
+                kw["tenant"] = tenant
+            if "session" in req \
+                    and getattr(g, "concurrent_safe", False):
+                # conversation identity rides to the engine's tiered-KV
+                # session retention / suspend-resume bookkeeping; gated
+                # like tenant — bundle predictors have no sessions
+                kw["session"] = req["session"]
+            it = g.stream(ids, **kw)
+        else:
+            # a CausalLM: static-cache generation, run lazily on the
+            # producer thread under the executable lock below
+            it = generate_stream(g, ids, **kw)
 
         import queue
         q: queue.Queue = queue.Queue()

@@ -10,6 +10,15 @@ entropy (kernels/blockwise_ce.py) straight from the final hidden states,
 and the forward returns (loss, None), as in JAX. The FSDP overlap is not
 ported yet.
 
+With an int or 0-d tensor `cache_index` and per-layer (k, v) buffers
+of (B, max_len, Hk, D) as `caches`, the forward is the dense-cache step
+models/generation.py drives: it writes this call's k/v into the buffers
+at cache_index + arange(S), in place, attends over the whole buffer
+under the position mask (key j visible to query i iff j <= cache_index
++ i) combined with `attn_mask`, and returns (logits, caches). The index
+stays on the device, so a captured CUDA graph replays it at each step's
+own position.
+
 `fused_norm` routes the decoder's RMSNorms through the RMSNorm(+residual)
 kernels and `fused_rope` routes RoPE through the RoPE kernel
 (kernels/fused_norm.py), forward and backward; the plain paths compute
@@ -27,9 +36,11 @@ from torch import nn
 
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.distributed.recompute import recompute
-from paddle_tpu_torch.inference.paged import paged_attention_update
+from paddle_tpu_torch.inference.paged import (PagedState,
+                                             paged_attention_update)
 from paddle_tpu_torch.kernels.fused_norm import (rms_norm_residual,
                                                  rope_apply, rope_tables)
+from paddle_tpu_torch.models.generation import generate, kv_cache_update
 from paddle_tpu_torch.nn import functional as F
 
 __all__ = ["LlamaConfig", "llama3_8b_config", "tiny_llama_config",
@@ -149,11 +160,15 @@ class LlamaAttention(nn.Module):
         self.o_proj = _linear(d, d)
 
     def forward(self, hidden_states, position_ids=None, cache=None,
-                cache_index=None, rope=None):
+                cache_index=None, rope=None, attn_mask=None):
         """`rope` carries RoPE tables shared across layers (fused_rope);
         None builds them here. With a (k_pool, v_pool) `cache` and a
         PagedState `cache_index`, k/v are written into the pools in place
-        and attention runs over each slot's pages."""
+        and attention runs over each slot's pages; with (k_buf, v_buf)
+        and an int or 0-d tensor `cache_index`, the dense-cache step (the
+        module doc). `attn_mask` (bool keep or additive float,
+        broadcastable to (B, H, S, L)) joins the causal or position
+        mask."""
         cfg = self.config
         b, s = hidden_states.shape[0], hidden_states.shape[1]
         hq, hk, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -175,14 +190,41 @@ class LlamaAttention(nn.Module):
         else:
             q = F.rope_neox(q, position_ids, cfg.rope_theta)
             k = F.rope_neox(k, position_ids, cfg.rope_theta)
-        if cache is not None:
+        if isinstance(cache_index, PagedState):
             out = paged_attention_update(q, k, v, cache, cache_index)
-        elif cfg.use_flash_attention:
+        elif cache is not None:
+            out = _dense_cache_attention(q, k, v, cache, cache_index,
+                                         attn_mask).reshape(b, s, hq * hd)
+        elif cfg.use_flash_attention and attn_mask is None:
             out = F.flash_attention(q, k, v, causal=True)[0]
             out = out.reshape(b, s, hq * hd)
         else:
-            out = F.causal_attention(q, k, v).reshape(b, s, hq * hd)
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask,
+                is_causal=attn_mask is None).reshape(b, s, hq * hd)
         return self.o_proj(out)
+
+
+def _dense_cache_attention(q, k, v, cache, index, attn_mask):
+    """The JAX dense-cache step (models/llama.py `LlamaAttention`): this
+    call's k/v into the buffers at `index`, then attention over the whole
+    buffer, key j visible to query i iff j <= index + i, combined with
+    the caller's mask: a bool mask by `and`, a float mask added to a 0 /
+    -inf position mask, so a row the float mask hides entirely still
+    gives 0."""
+    k_buf, v_buf = kv_cache_update(cache[0], k, index), \
+        kv_cache_update(cache[1], v, index)
+    s, kl = q.shape[1], k_buf.shape[1]
+    q_pos = torch.arange(s, device=q.device) + index
+    mask = (torch.arange(kl, device=q.device)[None, :]
+            <= q_pos[:, None])[None, None]                 # (1, 1, S, L)
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            mask = mask & attn_mask
+        else:
+            mask = torch.zeros(mask.shape, device=q.device).masked_fill(
+                ~mask, float("-inf")) + attn_mask
+    return F.scaled_dot_product_attention(q, k_buf, v_buf, attn_mask=mask)
 
 
 class LlamaMLP(nn.Module):
@@ -219,7 +261,7 @@ class LlamaDecoderLayer(nn.Module):
                                                 config.rms_norm_eps)
 
     def forward(self, hidden_states, position_ids=None, cache=None,
-                cache_index=None, rope=None):
+                cache_index=None, rope=None, attn_mask=None):
         eps = self.config.rms_norm_eps
         residual = hidden_states
         if self.config.fused_norm:
@@ -227,7 +269,8 @@ class LlamaDecoderLayer(nn.Module):
                                      self.input_layernorm.weight, None, eps)
         else:
             h = self.input_layernorm(hidden_states)
-        h = self.self_attn(h, position_ids, cache, cache_index, rope)
+        h = self.self_attn(h, position_ids, cache, cache_index, rope,
+                           attn_mask)
         if self.config.fused_norm:
             # the attention residual add rides the norm's pass
             h2, residual = rms_norm_residual(
@@ -251,9 +294,10 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
 
     def forward(self, input_ids, position_ids=None, caches=None,
-                cache_index=None):
+                cache_index=None, attn_mask=None):
         """Final hidden states (B, S, D). `caches`: one (k_pool, v_pool)
-        pair per layer, updated in place (paged forward)."""
+        pair per layer (paged forward) or one (k_buf, v_buf) pair (dense
+        cache), updated in place."""
         cfg = self.config
         h = self.embed_tokens(input_ids)
         rope = None
@@ -269,10 +313,11 @@ class LlamaModel(nn.Module):
         train_recompute = cfg.recompute and self.training and caches is None
         for i, layer in enumerate(self.layers):
             if train_recompute:
-                h = recompute(layer, h, position_ids, None, None, rope)
+                h = recompute(layer, h, position_ids, None, None, rope,
+                              attn_mask)
                 continue
             cache = None if caches is None else caches[i]
-            h = layer(h, position_ids, cache, cache_index, rope)
+            h = layer(h, position_ids, cache, cache_index, rope, attn_mask)
         if cfg.fused_norm:
             return rms_norm_residual(h, self.norm.weight, None,
                                      cfg.rms_norm_eps)[0]
@@ -331,16 +376,24 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(hidden)
 
     def forward(self, input_ids, position_ids=None, caches=None,
-                cache_index=None, labels=None):
+                cache_index=None, labels=None, attn_mask=None):
         """Logits (B, S, vocab). With `caches`/`cache_index` (a
         PagedState), the paged forward: pools are updated in place. With
-        `labels` (B, S), (loss, logits): the shifted next-token loss, f32
-        (a no-cache forward only); with `loss_chunk > 0`, (loss, None):
-        the blockwise loss builds no logits to return."""
+        dense (k_buf, v_buf) `caches` and an int or 0-d tensor
+        `cache_index`, (logits, caches): the dense-cache step (module
+        doc). `attn_mask` (bool keep or additive float, broadcastable to
+        (B, H, S, L)) joins the causal or position mask; without a cache
+        it takes the plain masked attention. With `labels` (B, S), (loss,
+        logits): the shifted next-token loss, f32 (a no-cache forward
+        only); with `loss_chunk > 0`, (loss, None): the blockwise loss
+        builds no logits to return."""
         if labels is not None and caches is not None:
-            raise ValueError("the paged forward is inference-only; drop "
+            raise ValueError("KV-cache decode is inference-only; drop "
                              "labels or caches")
-        h = self.model(input_ids, position_ids, caches, cache_index)
+        h = self.model(input_ids, position_ids, caches, cache_index,
+                       attn_mask)
+        if caches is not None and not isinstance(cache_index, PagedState):
+            return self.logits(h), caches
         if labels is not None and self.config.loss_chunk:
             # both heads hold W as (V, D): the embedding, and nn.Linear's
             # (out, in) weight
@@ -353,6 +406,11 @@ class LlamaForCausalLM(nn.Module):
             return logits
         return next_token_loss(logits, labels, self.config.vocab_size), \
             logits
+
+    def generate(self, input_ids, max_new_tokens=32, **kwargs):
+        """KV-cache autoregressive generation (models/generation.py
+        `generate`)."""
+        return generate(self, input_ids, max_new_tokens, **kwargs)
 
 
 def param_count(config: LlamaConfig) -> int:

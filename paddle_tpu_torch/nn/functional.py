@@ -6,9 +6,12 @@
   cast back, then times y in the input type);
 - `rope_neox`: the half-split NeoX rotation `_rope_neox_raw` with the
   tables of `_rope_cos_sin`, for `LlamaConfig(fused_rope=False)`;
-- `causal_attention`: the no-cache causal attention of `_sdpa_ref`
-  (f32 scores, probabilities cast to the input type before the value
-  product), GQA by head groups instead of repeated K/V;
+- `scaled_dot_product_attention`: nn/functional/attention.py `_sdpa_ref`
+  (every plain attention of models/llama.py: causal, masked and over
+  the dense cache): f32 scores times the scale, GQA by head groups
+  instead of repeated K/V, a bool mask as -inf and a float mask added,
+  probabilities cast to q's type before the value product, and a row
+  the mask hides entirely gives 0, not NaN;
 - `flash_attention`: nn/functional/attention.py `flash_attention` over
   the flash kernels (kernels/flash_attention.py);
 - `cross_entropy`: the pretrain-shape fast path of nn/functional/loss.py
@@ -27,8 +30,9 @@ import torch
 from paddle_tpu_torch.kernels.blockwise_ce import blockwise_ce_loss
 from paddle_tpu_torch.kernels.flash_attention import flash_attention_bshd
 
-__all__ = ["rms_norm", "swiglu", "rope_neox", "causal_attention",
-           "flash_attention", "cross_entropy", "blockwise_cross_entropy"]
+__all__ = ["rms_norm", "swiglu", "rope_neox",
+           "scaled_dot_product_attention", "flash_attention",
+           "cross_entropy", "blockwise_cross_entropy"]
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -66,22 +70,38 @@ def rope_neox(x, position_ids=None, theta=10000.0):
                      dim=-1).to(x.dtype)
 
 
-def causal_attention(q, k, v):
-    """softmax(q kᵀ / sqrt(d), causal) v for q (B, S, Hq, D) and k/v
-    (B, S, Hk, D); query head h reads kv head h // (Hq/Hk). Returns
-    (B, S, Hq, D) in q's type."""
-    b, s, hq, d = q.shape
-    hk = k.shape[2]
+def scaled_dot_product_attention(q, k, v, attn_mask=None, is_causal=False,
+                                 scale=None):
+    """softmax(q kᵀ · scale + mask) v on (B, S, H, D) inputs, k/v (B, L,
+    Hk, D): query head h reads kv head h // (H/Hk), the head a repeat of
+    the kv heads gives it, without the repeated copy. `attn_mask` is
+    broadcastable to (B, H, S, L): bool keeps where True, a float mask
+    is added to the scores. torch's own scaled_dot_product_attention
+    gives NaN for a row the mask hides entirely (a left-padded
+    position); this gives 0 there, as the JAX reference does."""
+    b, sq, hq, d = q.shape
+    kl, hk = k.shape[1], k.shape[2]
     g = hq // hk
-    qg = q.transpose(1, 2).reshape(b, hk, g, s, d)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)           # (B, Hk, S, D)
-    scores = torch.einsum("bhgsd,bhcd->bhgsc", qg.float(),
-                          kt.float()) / math.sqrt(d)
-    causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    scores = scores.masked_fill(~causal, float("-inf"))
-    p = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgsc,bhcd->bhgsd", p, vt)
-    return out.reshape(b, hq, s, d).transpose(1, 2)
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.transpose(1, 2).reshape(b, hk, g * sq, d).float()
+    kt = k.transpose(1, 2).float()                         # (B, Hk, L, D)
+    scores = (qg @ kt.transpose(-1, -2)).reshape(b, hq, sq, kl) * sc
+    if is_causal:
+        keep = torch.ones(sq, kl, dtype=torch.bool,
+                          device=q.device).tril(kl - sq)
+        scores = scores.masked_fill(~keep, float("-inf"))
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            scores = scores.masked_fill(~attn_mask, float("-inf"))
+        else:
+            scores = scores + attn_mask.to(scores.dtype)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if attn_mask is not None or (is_causal and kl < sq):
+        # a causal row is fully hidden only when queries outnumber keys
+        hidden = torch.isneginf(scores).all(-1, keepdim=True)
+        probs = probs.masked_fill(hidden, 0.0)
+    out = probs.reshape(b, hk, g * sq, kl) @ v.transpose(1, 2)
+    return out.reshape(b, hq, sq, d).transpose(1, 2)
 
 
 def flash_attention(query, key, value, causal=False):

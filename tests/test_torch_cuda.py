@@ -58,7 +58,12 @@ k-tile of 64, and a converter whose byte lane reads its neighbour.
 `test_http_serving_over_the_captured_engine` serves a tiny f32 model
 through the port's PredictorServer: its HTTP tokens equal the engine's
 own generate(), the wave recaptures nothing, and the decode-kernel
-counter reads "cuda" once per tick.
+counter reads "cuda" once per tick. Static-cache generation
+(models/generation.py): the captured per-token decode step and block
+give the eager bodies' tokens (bf16 and W8A16) and hold exactly the
+kernel nodes their captures counted; a tail block stays inside max_len;
+a sampled block's graph is seeded per stream; a capture that fails
+raises.
 """
 import os
 import shutil
@@ -2224,3 +2229,147 @@ def test_http_serving_over_the_captured_engine(cuda):
         if srv is not None:
             srv.stop()
         eng.stop()
+
+
+# -- static-cache generation (models/generation.py) -------------------------------
+
+def _smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _gen_batch():
+    """Three prompts of 7, left-padded by 0, 2 and 4 tokens, and the keep
+    mask."""
+    rng = np.random.RandomState(1)
+    ids = rng.randint(1, 256, (3, 7)).astype(np.int32)
+    mask = np.ones((3, 7), bool)
+    mask[1, :2] = mask[2, :4] = False
+    return ids, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_captured_generation_gives_the_eager_bodies_tokens(cuda, int8,
+                                                           monkeypatch):
+    """The per-token decode step and the block as captured graphs give
+    the tokens of the same bodies run eagerly, bf16 and W8A16; each graph
+    holds exactly the kernel nodes its capture counted (one and four
+    model calls' worth)."""
+    from paddle_tpu_torch.core.graphs import CapturedProgram
+    from paddle_tpu_torch.models import generation as tgen
+    model = _tick_model(cuda, "int8" if int8 else "bf16")
+    ids, mask = _gen_batch()
+    captured = [tgen.generate(model, ids, 9, attention_mask=mask,
+                              tokens_per_fetch=n).numpy() for n in (1, 4)]
+    steps = tgen._compiled_steps(model, 3, 16, False)
+    assert isinstance(steps.programs["decode"], CapturedProgram)
+    assert isinstance(steps.programs[("block", 4)], CapturedProgram)
+    assert np.array_equal(captured[0], captured[1])
+    # each graph has a pool of its own, which the entry's size counts
+    pools = [p.pool_bytes for p in steps.programs.values()]
+    kv = sum(t.numel() * t.element_size() for pair in steps.caches
+             for t in pair)
+    assert min(pools) > 0 and steps.nbytes() > kv + sum(pools)
+    smoke = _smoke()
+    for key, n in (("decode", 1), (("block", 4), 4)):
+        program = steps.programs[key]
+        gain = dict.fromkeys({**tfn.launches, **tpa.launches,
+                              **tqm.launches}, 0)
+        for _, k, c in program.delta:
+            gain[k] += c
+        assert gain["rms_norm_residual"] == 5 * n
+        assert gain["rope_apply"] == 4 * n
+        assert gain["weight_only_int8_matmul"] == (15 * n if int8 else 0)
+        assert gain["paged_decode_attention"] == 0
+        want = smoke._trace_want(gain)
+        assert smoke._graph_nodes(program, want)[0] == want
+    model.__dict__.pop("_gen_step_cache")
+    monkeypatch.setattr(tgen, "capture_graph", lambda body, device, **kw:
+                        body)
+    for n, want in zip((1, 4), captured):
+        got = tgen.generate(model, ids, 9, attention_mask=mask,
+                            tokens_per_fetch=n).numpy()
+        assert np.array_equal(got, want), n
+
+
+@pytest.mark.cuda
+def test_tail_block_on_the_card_stays_inside_max_len(cuda):
+    """max_new_tokens 7 at tokens_per_fetch 4: the last block's steps past
+    its limit write only the buffers' last slot (an index past max_len
+    would fault the card); tokens and the k/v below that slot are the
+    per-token run's."""
+    from paddle_tpu_torch.models import generation as tgen
+    model = LlamaForCausalLM(tiny_llama_config(**_TICK_CFG), device=cuda,
+                             dtype=torch.float32, seed=0)
+    ids, mask = _gen_batch()
+    per_token = tgen.generate(model, ids, 7, attention_mask=mask).numpy()
+    steps = tgen._compiled_steps(model, 3, 14, False)
+    kv = [t[:, :-1].clone() for pair in steps.caches for t in pair]
+    blocked = tgen.generate(model, ids, 7, attention_mask=mask,
+                            tokens_per_fetch=4).numpy()
+    torch.cuda.synchronize()
+    assert np.array_equal(blocked, per_token)
+    for a, b in zip(kv, [t[:, :-1] for pair in steps.caches for t in pair]):
+        assert torch.equal(a, b)
+    assert steps.stats["block_steps"] == 8          # two runs of 4
+
+
+@pytest.mark.cuda
+def test_sampled_block_graph_is_seeded(cuda):
+    """The sampled block's graph registers its generator, seeded per
+    stream after the capture: one seed repeats (the capture's own first
+    stream included), another differs, and top_k=1 gives greedy (f32: no
+    ties). Seeded per-token sampling repeats too."""
+    from paddle_tpu_torch.models import generation as tgen
+    model = LlamaForCausalLM(tiny_llama_config(**_TICK_CFG), device=cuda,
+                             dtype=torch.float32, seed=0)
+    ids, mask = _gen_batch()
+    kw = dict(attention_mask=mask, do_sample=True, temperature=0.8,
+              top_k=20, tokens_per_fetch=4)
+    s1 = tgen.generate(model, ids, 10, seed=11, **kw).numpy()
+    s2 = tgen.generate(model, ids, 10, seed=11, **kw).numpy()
+    s3 = tgen.generate(model, ids, 10, seed=12, **kw).numpy()
+    assert np.array_equal(s1, s2) and not np.array_equal(s1, s3)
+    greedy = tgen.generate(model, ids, 10, attention_mask=mask).numpy()
+    k1 = tgen.generate(model, ids, 10, seed=3, **{**kw, "top_k": 1}).numpy()
+    assert np.array_equal(k1, greedy)
+    p1, p2 = (tgen.generate(model, ids, 10, attention_mask=mask,
+                            do_sample=True, top_p=0.9, seed=4).numpy()
+              for _ in range(2))
+    assert np.array_equal(p1, p2)
+
+
+@pytest.mark.cuda
+def test_generation_capture_error_raises_and_runs_no_eager_step(
+        cuda, monkeypatch):
+    """A host sync planted in the model (an `.item()` on the card) makes
+    the decode step's and the block's capture raise; generation does not
+    retreat to the eager body, and a fresh model generates afterwards."""
+    from paddle_tpu_torch.models import generation as tgen
+    model = _tick_model(cuda, "bf16")
+    logits = model.logits
+
+    def synced(h):
+        float(h.sum().item())
+        return logits(h)
+
+    monkeypatch.setattr(model, "logits", synced)
+    ids, mask = _gen_batch()
+    for n in (1, 3):
+        it = tgen.generate_stream(model, ids, 6, attention_mask=mask,
+                                  tokens_per_fetch=n)
+        assert next(it).shape == (3,)      # the eager prefill
+        with pytest.raises(RuntimeError):
+            next(it)
+    steps = tgen._compiled_steps(model, 3, 13, False)
+    assert not steps.programs and steps.stats["decode_steps"] == 0
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    fresh = _tick_model(cuda, "bf16")
+    assert tgen.generate(fresh, ids, 6, attention_mask=mask).shape == (3, 13)

@@ -123,7 +123,8 @@ def test_bhsd_entry_and_functional_surface():
     assert none is None
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     # the plain causal attention of the serving slice computes the same
-    torch.testing.assert_close(tF.causal_attention(tq, tk, tv), ref, **TOL)
+    torch.testing.assert_close(tF.scaled_dot_product_attention(
+        tq, tk, tv, is_causal=True), ref, **TOL)
 
 
 def test_flash_shape_contract_names_the_dims():

@@ -252,6 +252,8 @@ def test_port_imports_without_jax_or_paddle_tpu():
         "sys.modules['ml_dtypes'] = None\n"
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.models.llama, paddle_tpu_torch.models.convert\n"
+        "import paddle_tpu_torch.models, paddle_tpu_torch.models.generation\n"
+        "import paddle_tpu_torch.core.graphs\n"
         "import paddle_tpu_torch.inference.paged\n"
         "import paddle_tpu_torch.inference.prefix\n"
         "import paddle_tpu_torch.inference.overload\n"

@@ -758,9 +758,9 @@ def test_http_stream_client_disconnect_cancels_producer(pkg):
 
 
 def test_generate_without_stream_generator(pkg):
-    """A generator without stream(): the JAX server hands it to
-    models/generation.generate_stream; the port, which has no generation
-    module yet, answers 500 with an error naming it."""
+    """A generator without stream(): both servers hand it to their
+    package's models/generation.generate_stream, which finds no model
+    forward there: 500 with the same error."""
     class NoStream:
         pass
 
@@ -770,8 +770,8 @@ def test_generate_without_stream_generator(pkg):
         code, body, _h = _req(srv.port, "/generate",
                               {"ids": [[1, 2]], "max_new_tokens": 2})
         assert code == 500
-        if pkg.srv is t_serving:
-            assert "generate_stream" in body["error"]
+        assert body["error"] == \
+            "type object 'NoStream' has no attribute 'forward'"
         code, body, _h = _req(srv.port, "/generate",
                               {"ids": [[1, 2]], "max_new_tokens": 2})
         assert code == 500
@@ -785,6 +785,97 @@ def test_generate_without_stream_generator(pkg):
         assert code == 404 and "disagg" in body["error"]
     finally:
         srv.stop()
+
+
+# -- a CausalLM generator (models/generation.py) ----------------------------------
+
+@pytest.fixture(scope="module")
+def llamas():
+    """{"jax": JAX tiny Llama, "port": the port's with its weights}."""
+    import paddle_tpu
+    from paddle_tpu.models import llama as jllama
+    from paddle_tpu_torch.models import llama as tllama
+    from paddle_tpu_torch.models.convert import from_paddle_tpu_state
+    paddle_tpu.seed(0)
+    kw = dict(num_hidden_layers=2, fused_norm=True, fused_rope=True)
+    jm = jllama.LlamaForCausalLM(jllama.tiny_llama_config(**kw))
+    jm.eval()
+    cfg = tllama.tiny_llama_config(**kw)
+    tm = tllama.LlamaForCausalLM(cfg, device="cpu")
+    tm.load_state_dict(from_paddle_tpu_state(
+        {k: np.asarray(v._value) for k, v in jm.state_dict().items()}, cfg))
+    return {"jax": jm, "port": tm}
+
+
+def _gen_ids(b=2, s=8):
+    return np.random.RandomState(0).randint(0, 256, (b, s)).astype("int32")
+
+
+def _post_lines(port, obj):
+    """The ndjson lines of one streamed /generate."""
+    r = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=json.dumps(obj).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(r, timeout=60) as resp:
+        assert resp.status == 200
+        return [json.loads(raw) for raw in resp if raw.strip()]
+
+
+def test_serving_generate_stream(llamas):
+    """The JAX test of the same name over both servers, each serving its
+    package's CausalLM: streamed /generate sends one ndjson line a
+    position and the unary reply's sequences, and every body (greedy,
+    padded, sampled, block decode) is the JAX server's."""
+    bodies = {}
+    for name, model in llamas.items():
+        srv = PACKAGES[name].srv.PredictorServer(
+            lambda d: d, generator=model).start()
+        try:
+            ids = _gen_ids().tolist()
+            mask = [[0, 0, 1, 1, 1, 1, 1, 1], [1] * 8]
+            got = []
+            for extra in ({}, {"attention_mask": mask},
+                          {"tokens_per_fetch": 3},
+                          {"do_sample": True, "top_k": 8, "seed": 1}):
+                obj = {"ids": ids, "max_new_tokens": 4, **extra}
+                code, solid, _h = _req(srv.port, "/generate", obj)
+                assert code == 200
+                lines = _post_lines(srv.port, dict(obj, stream=True))
+                toks = [ln["tokens"] for ln in lines if "tokens" in ln]
+                assert len(toks) == 4
+                assert lines[-1] == {"done": True, "steps": 4}
+                assert [[t[b] for t in toks] for b in range(2)] \
+                    == solid["sequences"]
+                got.append((solid, lines))
+            bodies[name] = got
+        finally:
+            srv.stop()
+    assert bodies["port"] == bodies["jax"]
+
+
+def test_stream_consumer_disconnect_releases_lock(llamas):
+    """Closing the generate_steps consumer (a client disconnect) cancels
+    the producer, so the executable lock frees without the remaining
+    steps, on both servers; the port's model is back in its mode."""
+    import time
+    for name, model in llamas.items():
+        srv = PACKAGES[name].srv.PredictorServer(lambda d: d,
+                                                 generator=model)
+        it = srv.generate_steps({"ids": _gen_ids().tolist(),
+                                 "max_new_tokens": 200})
+        first = next(it)
+        assert first["step"] == 0 and len(first["tokens"]) == 2
+        it.close()                       # a simulated disconnect
+        deadline = time.monotonic() + 30
+        acquired = False
+        while time.monotonic() < deadline:
+            acquired = srv._lock.acquire(timeout=0.5)
+            if acquired:
+                srv._lock.release()
+                break
+        assert acquired, f"{name}: the producer kept the lock"
+        srv.stop()
+    assert not llamas["port"].training
 
 
 # -- lifecycle joins -----------------------------------------------------------------
