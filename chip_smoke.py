@@ -218,6 +218,39 @@ Phases, each of which fails the run (non-zero exit) on any error:
    beside phase 5's engine, the captures' seconds, the cache bytes and
    the launches a decode step and a prefill call. Its launches go to the
    paths "generation" and "generation_int8".
+16. the replica router (inference/router.py) over the port's servers on
+   phase 5's model (run right after phase 15), every engine with its own
+   pools and captured tick, servers and routers on 127.0.0.1 with the
+   port's observability on and the background prober running. (a) Two
+   monolithic replicas (phase 11's geometry, whole-prompt prefill) behind
+   `ReplicaRouter(prefix_page_size=16)`: phase 14's wave of 8 (4 streams,
+   4 unary, one late) gets, on each request, X-Routed-To, both trace
+   headers and the 64 in-vocabulary tokens its replica's engine recorded,
+   both replicas serving; then phase 11's wave 2 (the 1024-token system
+   prompt, 32 new tokens), its first request alone and the other 7
+   together: the 7 follow it to its replica, router.prefix.hits counts 7
+   and that engine 7 hits of 1024 tokens. (c) On the same router: one
+   `router.connect.fail` replays on the other replica (router.retries
+   counts it); a `kill_hook` kills r1 (its listener, its engine's loop,
+   every waiter failed) after the first relayed chunk of a stream pinned
+   to it: the client gets a prefix of the engine's tokens and the typed
+   `{"error", "reason": "replica_failed", "retryable": true, "replica":
+   "r1"}` chunk, r1's engine gets every page and reservation back, the
+   prober ejects r1, and the next 4 requests go to r0 while /readyz says
+   200. (b) A role="prefill" replica (2 GiB host tier) and a
+   role="decode" one (phase 13 (c)'s geometry, bf16 KV) behind a second
+   router that learns the roles from its probes: phase 5's 8 prompts one
+   at a time take two hops each (8 handoffs, 8 pulls over /kv/pull, the
+   imported pages byte-equal to the prefill replica's, the tokens those
+   of a monolithic engine serving each prompt alone over the same two
+   hops); a warm repeat of two pulls nothing; with
+   `disagg.transfer.fail` two requests decode on the prefill replica with
+   the same tokens. Launches are held to the counts per decode step and
+   prefill call (phase 11's rule) and go to the path "router". It prints
+   the HTTP decode rate, TTFT and ITL through the router beside phase
+   14's, wave 2's warm prefill beside phase 11's, TTFT through the two
+   hops, the bytes, pull and import ms of each handoff, and how long the
+   ejection took after the kill.
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -3795,6 +3828,19 @@ def _refusals(eng, port, prompt, chaos):
             srv.stop()
 
 
+def _record_submits(eng, obs, handles):
+    """Wrap eng.submit so each request's engine handle is kept under its
+    X-Request-Id; `del eng.submit` takes it off."""
+    submit = eng.submit
+
+    def recording_submit(*args, **kw):
+        r = submit(*args, **kw)
+        ctx = obs.requests.current()
+        handles[None if ctx is None else ctx.request_id] = r
+        return r
+    eng.submit = recording_submit
+
+
 def http_phase(model, counters, reset, card, bf16_serving):
     """Phase 14 on phase 5's Llama-3-8B (module doc): (a) one wave of 8
     requests through HTTP, (b) /metrics and /debug/requests after it,
@@ -3816,14 +3862,7 @@ def http_phase(model, counters, reset, card, bf16_serving):
         addresses = _pool_addresses(eng)
         ticks0 = eng.stats["ticks"]
         handles = {}
-        submit = eng.submit
-
-        def recording_submit(*args, **kw):
-            r = submit(*args, **kw)
-            ctx = obs.requests.current()
-            handles[None if ctx is None else ctx.request_id] = r
-            return r
-        eng.submit = recording_submit
+        _record_submits(eng, obs, handles)
         obs.enable(reset=True)
         srv = PredictorServer(lambda d: d, generator=eng).start()
         first = threading.Event()
@@ -4625,6 +4664,481 @@ def generation_int8_part(model, counters, reset, card, bf16_serving):
     return out
 
 
+# -- phase 16: the replica router -----------------------------------------------
+
+# phase 11's geometry with whole-prompt prefill (two monolithic replicas)
+ROUTER_GEOM = {k: v for k, v in PREFIX_GEOM.items() if k != "prefill_chunk"}
+# phase 13 (c)'s geometry at bf16 KV (the prefill and decode replicas)
+HANDOFF_GEOM = dict(FEATURE_GEOM, prefix_cache_pages=512)
+ROUTER_SHORT_NEW = 16       # (c)'s requests
+ROUTER_EJECT_S = 10.0       # how long (c) waits for the prober to eject
+
+
+def _prime(eng, vocab):
+    """Capture the engine's tick before traffic, on a 15-token prompt: no
+    full page, so nothing enters the prefix cache."""
+    eng.generate([_prompts(1, vocab, seed=99, lo=15, hi=15)[0]],
+                 max_new_tokens=8)
+
+
+def _stream_lines(port, obj, headers):
+    """POST a streamed /generate and return (status, headers, every ndjson
+    line), error lines included."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT)
+    try:
+        conn.request("POST", "/generate", json.dumps({**obj, "stream": True}),
+                     {"Content-Type": "application/json", **headers})
+        resp = conn.getresponse()
+        lines = [json.loads(ln) for ln in resp.read().splitlines()
+                 if ln.strip()]
+        return resp.status, dict(resp.getheaders()), lines
+    finally:
+        conn.close()
+
+
+def _routed_reply(tag, r, handles, vocab, n, rid=None):
+    """One routed reply: 200, X-Routed-To a replica (`rid` when given),
+    `n` in-vocabulary tokens that its engine recorded for the request."""
+    to = r["headers"].get("X-Routed-To")
+    req = r["headers"].get("X-Request-Id")
+    if r["status"] != 200 or to not in handles or (rid and to != rid):
+        raise AssertionError(f"router {tag}: {r['status']}, routed to "
+                             f"{to!r}, want {rid or 'a replica'}")
+    toks = r["rows"][0]
+    _check_tokens(f"router {tag}", [toks], n, vocab)
+    if r["rows"] != [handles[to][req].tokens]:
+        raise AssertionError(f"router {tag}: the reply is not the tokens "
+                             f"{to}'s engine recorded for {req}")
+    return to
+
+
+def _pct(xs, p):
+    return float(np.percentile(np.asarray(xs), p))
+
+
+def _router_monolithic(model, counters, reset, card, obs, chaos, http_out,
+                       prefix_out):
+    """(a) two monolithic replicas behind one router, then (c) failover on
+    that router."""
+    import threading
+    from paddle_tpu_torch.inference.router import ReplicaRouter
+    from paddle_tpu_torch.inference.serving import PredictorServer
+    cfg = model.config
+    vocab = cfg.vocab_size
+    prompts = _prompts(8, vocab, seed=0)
+    wave2 = _prefix_traffic(vocab)[1]
+    reset()
+    engines = {rid: _engine(model, **ROUTER_GEOM) for rid in ("r0", "r1")}
+    handles = {rid: {} for rid in engines}
+    servers, router = {}, None
+    kill = {}
+
+    def kill_hook(rid):
+        # the replica dies: its listener goes (connects and probes fail),
+        # its engine's loop stops and every waiter fails, as when the
+        # ticker raises (`_fail_all`: the slots return their pages)
+        kill.setdefault("t", time.perf_counter())
+        kill["rid"] = rid
+        servers[rid].stop()
+        engines[rid].stop()
+        engines[rid]._fail_all(RuntimeError(f"replica {rid} killed"))
+
+    try:
+        for rid, eng in engines.items():
+            _prime(eng, vocab)
+            _record_submits(eng, obs, handles[rid])
+            servers[rid] = PredictorServer(lambda d: d, model_name=rid,
+                                           generator=eng).start()
+        obs.enable(reset=True)
+        router = ReplicaRouter(
+            [(rid, f"127.0.0.1:{s.port}") for rid, s in servers.items()],
+            prefix_page_size=ROUTER_GEOM["page_size"],
+            kill_hook=kill_hook).start()
+        # (a) wave 1: phase 14's wave through the router
+        first = threading.Event()
+
+        def client(i):
+            if i == 7 and not first.wait(timeout=HTTP_TIMEOUT):
+                raise AssertionError("router: no first streamed line")
+            return _generate(
+                router.port, {"ids": [prompts[i].tolist()],
+                              "max_new_tokens": FEATURE_MAX_NEW,
+                              "stream": i % 2 == 0},
+                {"X-Request-Id": f"router-{i}",
+                 "traceparent": WAVE_TRACEPARENT},
+                first if i == 0 else None)
+        res = _in_threads([lambda i=i: client(i) for i in range(8)])
+        for eng in engines.values():
+            _idle(eng, obs)
+        wave1_to = []
+        for i, r in enumerate(res):
+            tp = (r["headers"].get("traceparent") or "").split("-")
+            if r["headers"].get("X-Request-Id") != f"router-{i}" \
+                    or len(tp) != 4 or tp[1] != "ab" * 16 \
+                    or tp[2] == "cd" * 8:
+                raise AssertionError(f"router: request {i} echoed "
+                                     f"{r['headers'].get('X-Request-Id')!r}"
+                                     f" {tp}")
+            wave1_to.append(_routed_reply(f"wave 1 request {i}", r,
+                                          handles, vocab, FEATURE_MAX_NEW))
+        if set(wave1_to) != set(engines):
+            raise AssertionError(f"router: wave 1 went to {wave1_to}")
+        wall = max(r["t_end"] for r in res) - min(r["t0"] for r in res)
+        reg = obs.REGISTRY
+        wave1 = dict(
+            routed_to=wave1_to, wall_s=wall,
+            decode_tokens_per_s=8 * FEATURE_MAX_NEW / wall,
+            client_ttft_s=[r["t_first"] - r["t0"] for r in res
+                           if r["t_first"]],
+            ttft_s={p: reg.histogram("request.ttft.seconds").percentile(p)
+                    for p in (50, 99)},
+            itl_s={p: reg.histogram("request.itl.seconds").percentile(p)
+                   for p in (50, 99)})
+        # (a) wave 2: phase 11's shared system prompt, the first request
+        # alone, then seven together: they follow it to its replica
+        hits = router.metrics.counter("router.prefix.hits")
+        if hits.value() != 0:
+            raise AssertionError(f"router: {hits.value()} prefix hits in "
+                                 "wave 1 (distinct prompts)")
+
+        def sys_req(i):
+            return _generate(router.port, {"ids": [wave2[i].tolist()],
+                                           "max_new_tokens": PREFIX_MAX_NEW},
+                             {"X-Request-Id": f"system-{i}"})
+        home = _routed_reply("wave 2 request 0", sys_req(0), handles, vocab,
+                             PREFIX_MAX_NEW)
+        _idle(engines[home], obs)
+        before = {rid: dict(e.stats) for rid, e in engines.items()}
+        res2 = _in_threads([lambda i=i: sys_req(i) for i in range(1, 8)])
+        for eng in engines.values():
+            _idle(eng, obs)
+        for i, r in enumerate(res2, 1):
+            _routed_reply(f"wave 2 request {i}", r, handles, vocab,
+                          PREFIX_MAX_NEW, rid=home)
+        got = {rid: {k: e.stats[k] - before[rid][k]
+                     for k in ("prefix_hits", "prefix_hit_tokens")}
+               for rid, e in engines.items()}
+        want = {rid: {"prefix_hits": 7 if rid == home else 0,
+                      "prefix_hit_tokens": 7 * SYSTEM_TOKENS
+                      if rid == home else 0} for rid in engines}
+        if hits.value() != 7 or got != want:
+            raise AssertionError(f"router: wave 2 router.prefix.hits "
+                                 f"{hits.value()} (want 7), engine hits "
+                                 f"{got}, want {want}")
+        wave2_out = dict(
+            home=home, prefix_stats=engines[home].prefix_stats(),
+            prefill_s=(engines[home].stats["prefill_s"]
+                       - before[home]["prefill_s"]),
+            prefill_calls=(engines[home].stats["prefill_calls"]
+                           - before[home]["prefill_calls"]),
+            prefill_tokens=(engines[home].stats["prefill_tokens"]
+                            - before[home]["prefill_tokens"]))
+        # (c) failover: one dropped connect replays on the other replica
+        j = 2
+        with chaos.scoped(rates={"router.connect.fail": (1.0, 1)}):
+            r = _generate(router.port, {"ids": [prompts[j].tolist()],
+                                        "max_new_tokens": ROUTER_SHORT_NEW},
+                          {"X-Request-Id": "failover-0"})
+            fired = chaos.fire_count("router.connect.fail")
+        other = next(rid for rid in engines if rid != wave1_to[j])
+        _routed_reply("connect.fail", r, handles, vocab, ROUTER_SHORT_NEW,
+                      rid=other)
+        retries = router.metrics.counter("router.retries").value(
+            kind="connect")
+        if fired != 1 or retries != 1:
+            raise AssertionError(f"router: router.connect.fail fired "
+                                 f"{fired}, router.retries{{connect}} "
+                                 f"{retries}")
+        # (c) a replica killed mid-stream: a prompt pinned to r1 since
+        # wave 1 goes back to r1, which dies after the first relayed chunk
+        victim = "r1"
+        k = wave1_to.index(victim)
+        with chaos.scoped(rates={"router.replica.kill": (1.0, 1)}):
+            status, _h, lines = _stream_lines(
+                router.port, {"ids": [prompts[k].tolist()],
+                              "max_new_tokens": FEATURE_MAX_NEW},
+                {"X-Request-Id": "kill-0"})
+            fired = chaos.fire_count("router.replica.kill")
+        relayed = [ln["tokens"][0] for ln in lines if "tokens" in ln]
+        last = lines[-1] if lines else {}
+        typed = {key: last.get(key) for key in
+                 ("reason", "retryable", "replica")}
+        if status != 200 or fired != 1 or kill.get("rid") != victim \
+                or "error" not in last or typed != {
+                    "reason": "replica_failed", "retryable": True,
+                    "replica": victim}:
+            raise AssertionError(f"router: kill gave {status}, fired "
+                                 f"{fired} on {kill.get('rid')}, last line "
+                                 f"{last}")
+        recorded = handles[victim]["kill-0"].tokens
+        if not relayed or relayed != recorded[:len(relayed)] \
+                or len(relayed) >= FEATURE_MAX_NEW:
+            raise AssertionError(f"router: the killed stream relayed "
+                                 f"{len(relayed)} tokens, not a proper "
+                                 f"prefix of the {len(recorded)} its engine "
+                                 "made")
+        t_end = time.perf_counter() + ROUTER_EJECT_S
+        while router.replica(victim).in_rotation:
+            if time.perf_counter() > t_end:
+                raise AssertionError(f"router: {victim} still in rotation "
+                                     f"{ROUTER_EJECT_S} s after the kill")
+            time.sleep(0.005)
+        eject_s = time.perf_counter() - kill["t"]
+        _settled_ledger(engines[victim], "router kill")
+        if engines[victim].has_work():
+            raise AssertionError("router: the killed engine has work left")
+        code, view, _h = _http_json(router.port, "/debug/replicas")
+        rows = {row["id"]: row for row in view["replicas"]}
+        if code != 200 or rows[victim]["in_rotation"] \
+                or not rows["r0"]["in_rotation"]:
+            raise AssertionError(f"router: /debug/replicas {view}")
+        after = _in_threads([
+            lambda i=i: _generate(router.port,
+                                  {"ids": [prompts[4 + i].tolist()],
+                                   "max_new_tokens": ROUTER_SHORT_NEW},
+                                  {"X-Request-Id": f"after-{i}"})
+            for i in range(4)])
+        for i, r in enumerate(after):
+            _routed_reply(f"after the kill {i}", r, handles, vocab,
+                          ROUTER_SHORT_NEW, rid="r0")
+        code, ready, _h = _http_json(router.port, "/readyz")
+        if code != 200:
+            raise AssertionError(f"router: /readyz {code} {ready}")
+        _idle(engines["r0"], obs)
+        failover = dict(connect_retries=retries, killed=victim,
+                        relayed_tokens=len(relayed),
+                        engine_tokens=len(recorded), typed_chunk=last,
+                        eject_s=eject_s,
+                        eject_reason=rows[victim]["reason"])
+        stats = router.stats()
+    finally:
+        obs.disable()
+        if router is not None:
+            router.stop()
+        for s in servers.values():
+            s.stop()
+        for eng in engines.values():
+            eng.stop()
+            eng.__dict__.pop("submit", None)
+    launches = _feature_launches("router (a)", counters(),
+                                 list(engines.values()),
+                                 cfg.num_hidden_layers,
+                                 "paged_decode_attention")
+    engine_stats = {rid: dict(e.stats) for rid, e in engines.items()}
+    del engines, handles, servers, router
+    _release()
+    out = dict(wave1=wave1, wave2=wave2_out, failover=failover,
+               router_stats=stats, engine_stats=engine_stats,
+               launches=launches)
+    ttft = wave1["client_ttft_s"]
+    print(f"[router] {card}: (a) 8 requests x {FEATURE_MAX_NEW} tokens "
+          f"through the router to {wave1_to}: decode "
+          f"{wave1['decode_tokens_per_s']:.1f} tok/s over the wave's wall "
+          f"{wall:.3f} s (phase 14 direct "
+          f"{http_out['decode_tokens_per_s']:.1f}); client TTFT of the "
+          f"streams p50 {_pct(ttft, 50):.4f} s max {max(ttft):.4f} s "
+          f"(phase 14 {[round(x, 4) for x in http_out['client_ttft_s']]}); "
+          f"replica TTFT p50 {wave1['ttft_s'][50]:.4f} s p99 "
+          f"{wave1['ttft_s'][99]:.4f} s (phase 14 "
+          f"{http_out['ttft_s'][50]:.4f} / {http_out['ttft_s'][99]:.4f}), "
+          f"ITL p50 {wave1['itl_s'][50]:.5f} s p99 {wave1['itl_s'][99]:.5f} "
+          f"s (phase 14 {http_out['itl_s'][50]:.5f} / "
+          f"{http_out['itl_s'][99]:.5f}); wave 2: 7 of 7 followed the "
+          f"system prompt to {home} (router.prefix.hits 7, engine hits 7 x "
+          f"{SYSTEM_TOKENS} tokens), warm prefill {wave2_out['prefill_tokens']}"
+          f" tokens in {wave2_out['prefill_s'] * 1e3:.1f} ms over "
+          f"{wave2_out['prefill_calls']} calls (phase 11's wave 2 "
+          f"{prefix_out['wave2_prefill_s'] * 1e3:.1f} ms); (c) connect.fail "
+          f"replayed on {other}; {victim} killed after {len(relayed)} "
+          f"relayed tokens, typed chunk {typed}, ejected "
+          f"({failover['eject_reason']}) {eject_s * 1e3:.1f} ms after the "
+          f"kill, pages back, the next 4 on r0; launches {launches}")
+    return out
+
+
+def _router_handoff(model, counters, reset, card, obs, chaos, ttft_a):
+    """(b) a prefill and a decode replica behind their own router: every
+    request takes two hops, the decode server pulls the pages over
+    /kv/pull and imports them while its captured tick runs."""
+    from paddle_tpu_torch.inference.prefix import chain_keys
+    from paddle_tpu_torch.inference.router import ReplicaRouter
+    from paddle_tpu_torch.inference.serving import PredictorServer
+    cfg = model.config
+    vocab = cfg.vocab_size
+    ps = HANDOFF_GEOM["page_size"]
+    prompts = _prompts(8, vocab, seed=0)
+    keys = [chain_keys(p, ps, max_pages=(p.size - 1) // ps) for p in prompts]
+    reset()
+    # each prompt alone on a monolithic engine, over the same two hops: a
+    # one-token prefill, then the request warm on its cached pages
+    mono = _engine(model, **HANDOFF_GEOM)
+    want = []
+    for p in prompts:
+        mono.generate([p], 1)
+        want.append(mono.generate([p], FEATURE_MAX_NEW)[0])
+    p0 = _engine(model, role="prefill", host_tier_bytes=HOST_TIER_BYTES,
+                 **HANDOFF_GEOM)
+    d0 = _engine(model, role="decode", **HANDOFF_GEOM)
+    servers, router, log = {}, None, []
+    untime = None
+    try:
+        for rid, eng in (("p0", p0), ("d0", d0)):
+            _prime(eng, vocab)
+            servers[rid] = PredictorServer(lambda d: d, model_name=rid,
+                                           generator=eng).start()
+        obs.enable(reset=True)
+        router = ReplicaRouter(
+            [(rid, f"127.0.0.1:{s.port}") for rid, s in servers.items()],
+            prefix_page_size=ps, prefix_max_pages=max(len(k) for k in keys)
+        ).start()
+        roles = {row["id"]: row["role"]
+                 for row in router.debug_replicas()["replicas"]}
+        if roles != {"p0": "prefill", "d0": "decode"}:
+            raise AssertionError(f"router (b): roles from the probes {roles}")
+        untime = _timed(d0, "_disagg_import", log)
+        per = []
+        for i, p in enumerate(prompts):
+            s0 = d0.disagg.snapshot()
+            r = _generate(router.port, {"ids": [p.tolist()],
+                                        "max_new_tokens": FEATURE_MAX_NEW,
+                                        "stream": True},
+                          {"X-Request-Id": f"hop-{i}"})
+            s1 = d0.disagg.snapshot()
+            if r["status"] != 200 or r["headers"].get("X-Routed-To") != "d0" \
+                    or r["rows"] != [want[i]]:
+                raise AssertionError(
+                    f"router (b): request {i} gave {r['status']} from "
+                    f"{r['headers'].get('X-Routed-To')}, tokens equal to the "
+                    f"monolithic engine's: {r['rows'] == [want[i]]}")
+            if s1["pulled_pages"] - s0["pulled_pages"] != len(keys[i]) \
+                    or len(log) != i + 1:
+                raise AssertionError(f"router (b): request {i} pulled "
+                                     f"{s1['pulled_pages'] - s0['pulled_pages']}"
+                                     f" of {len(keys[i])} pages in "
+                                     f"{len(log) - i} imports")
+            per.append(dict(
+                pages=len(keys[i]),
+                bytes=s1["pulled_bytes"] - s0["pulled_bytes"],
+                ttft_s=r["t_first"] - r["t0"],
+                pull_ms=(s1["transfer_s"] - s0["transfer_s"]) * 1e3))
+        untime()
+        untime = None
+        torch.cuda.synchronize()
+        import_ms = [a.elapsed_time(b) for _, a, b, _ in log]
+        for row, (host_s, *_rest), ms in zip(per, log, import_ms):
+            row["import_device_ms"] = ms
+            row["import_host_ms"] = host_s * 1e3
+        snap = d0.disagg.snapshot()
+        pulls = obs.REGISTRY.histogram(
+            "inference.disagg.transfer_seconds").count()
+        handoffs = router.metrics.counter("router.disagg.handoffs").value()
+        if handoffs != 8 or pulls != 8 \
+                or snap["imported_pages"] != sum(map(len, keys)):
+            raise AssertionError(f"router (b): handoffs {handoffs}, pulls "
+                                 f"{pulls}, {snap}")
+        for i, ks in enumerate(keys):
+            src = torch.tensor([p0.prefix_cache.get(k) for k in ks],
+                               device=model.device)
+            dst = torch.tensor([d0.prefix_cache.get(k) for k in ks],
+                               device=model.device)
+            if not torch.equal(p0._kv[:, :, src], d0._kv[:, :, dst]):
+                raise AssertionError(f"router (b): prompt {i}'s imported "
+                                     "pages differ from the prefill "
+                                     "replica's")
+        # the warm repeat: d0 holds every page, so the hop moves nothing
+        for i in (0, 1):
+            r = _generate(router.port, {"ids": [prompts[i].tolist()],
+                                        "max_new_tokens": FEATURE_MAX_NEW},
+                          {"X-Request-Id": f"warm-{i}"})
+            if r["headers"].get("X-Routed-To") != "d0" \
+                    or r["rows"] != [want[i]]:
+                raise AssertionError(f"router (b): warm repeat {i} from "
+                                     f"{r['headers'].get('X-Routed-To')}")
+        warm = d0.disagg.snapshot()
+        if warm["pulled_pages"] != snap["pulled_pages"] \
+                or warm["dedup_skipped_pages"] - snap["dedup_skipped_pages"] \
+                != len(keys[0]) + len(keys[1]):
+            raise AssertionError(f"router (b): the warm repeat pulled: "
+                                 f"{snap} -> {warm}")
+        # the transfer down: the prefill replica decodes, warm
+        with chaos.scoped(rates={"disagg.transfer.fail": 1.0}):
+            fb = [_generate(router.port, {"ids": [prompts[i].tolist()],
+                                          "max_new_tokens": FEATURE_MAX_NEW},
+                            {"X-Request-Id": f"fallback-{i}"})
+                  for i in (2, 3)]
+        fallbacks = router.metrics.counter("router.disagg.fallbacks").value(
+            reason="transfer_fail")
+        if fallbacks != 2 or any(
+                r["headers"].get("X-Routed-To") != "p0"
+                or r["rows"] != [want[i]] for r, i in zip(fb, (2, 3))) \
+                or d0.disagg.snapshot()["pulled_pages"] != \
+                snap["pulled_pages"]:
+            raise AssertionError(
+                f"router (b): transfer_fail fallbacks {fallbacks}, routed "
+                f"{[r['headers'].get('X-Routed-To') for r in fb]}")
+        for eng in (p0, d0):
+            _idle(eng, obs)
+        stats = router.stats()
+    finally:
+        if untime is not None:
+            untime()
+        obs.disable()
+        if router is not None:
+            router.stop()
+        for s in servers.values():
+            s.stop()
+        for eng in (p0, d0):
+            eng.stop()
+    launches = _feature_launches("router (b)", counters(), [mono, p0, d0],
+                                 cfg.num_hidden_layers,
+                                 "paged_decode_attention")
+    out = dict(requests=per, disagg_stats=snap,
+               prefill_stats=p0.disagg.snapshot(),
+               bundle_bytes=sum(r["bytes"] for r in per),
+               router_stats=stats, launches=launches,
+               engine_stats={"mono": dict(mono.stats),
+                             "p0": dict(p0.stats), "d0": dict(d0.stats)})
+    del mono, p0, d0, servers, router
+    _release()
+    ttft = [r["ttft_s"] for r in per]
+    print(f"[router] {card}: (b) 8 requests x {FEATURE_MAX_NEW} tokens, one "
+          f"at a time, prefill on p0 and decode on d0 (roles from the "
+          f"probes): 8 handoffs, {snap['pulled_pages']} pages, "
+          f"{out['bundle_bytes']} B pulled, imported pages byte-equal to "
+          f"p0's, tokens equal to the monolithic engine's; TTFT through the "
+          f"two hops p50 {_pct(ttft, 50):.4f} s max {max(ttft):.4f} s "
+          f"((a)'s streams p50 {_pct(ttft_a, 50):.4f} s); per request pull "
+          f"ms {[round(r['pull_ms'], 1) for r in per]}, import device ms "
+          f"{[round(r['import_device_ms'], 2) for r in per]} (host ms "
+          f"{[round(r['import_host_ms'], 2) for r in per]}); the warm "
+          f"repeat pulled nothing; disagg.transfer.fail: 2 fallbacks "
+          f"decoded on p0, same tokens; launches {launches}")
+    return out
+
+
+def router_phase(model, counters, reset, card, http_out, prefix_out):
+    """Phase 16 on phase 5's Llama-3-8B (module doc): (a) two monolithic
+    replicas behind one router, (c) failover on it, (b) the two-pool
+    handoff behind a second router. Launches go to the path "router"."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import chaos
+    t_phase = time.perf_counter()
+    mono = _router_monolithic(model, counters, reset, card, obs, chaos,
+                              http_out, prefix_out)
+    handoff = _router_handoff(model, counters, reset, card, obs, chaos,
+                              mono["wave1"]["client_ttft_s"])
+    launches = dict(mono["launches"])
+    for k, v in handoff["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    out = dict(card=card, monolithic=mono, handoff=handoff,
+               launches=launches, phase_s=time.perf_counter() - t_phase)
+    print(f"[router] {card}: phase 16 {out['phase_s']:.1f} s; launches "
+          f"{launches}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -4685,6 +5199,7 @@ def main(argv=None):
     http = http_phase(model, counters, reset, card, serving)
     generation = generation_phase(model, counters, reset, card, serving,
                                   args.profile)
+    router = router_phase(model, counters, reset, card, http, serving_prefix)
     del model
     _release()
     parity = parity_phase(dev)
@@ -4715,7 +5230,8 @@ def main(argv=None):
                    "http": http["launches"].get(name, 0),
                    "generation": generation["launches"].get(name, 0),
                    "generation_int8": generation_int8["launches"].get(name,
-                                                                      0)}
+                                                                      0),
+                   "router": router["launches"].get(name, 0)}
         if sum(by_path.values()) <= 0:
             raise AssertionError(f"{name} was launched on no main path")
         e["launches"] = sum(by_path.values())
@@ -4743,6 +5259,7 @@ def main(argv=None):
                        "features": features, "http": http,
                        "generation": generation,
                        "generation_int8": generation_int8,
+                       "router": router,
                        "torch": torch.__version__}, f, indent=1)
     print(json.dumps(line))
     print(card)

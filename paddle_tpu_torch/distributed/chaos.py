@@ -46,7 +46,8 @@ from contextlib import contextmanager
 from paddle_tpu_torch import observability
 
 __all__ = [
-    "ENABLED", "InjectedFault", "POINTS", "configure", "disable",
+    "ENABLED", "InjectedFault", "InjectedConnectionDrop", "POINTS",
+    "configure", "disable",
     "scoped", "should_fire", "maybe_delay", "fire_count", "fires",
     "site_rate",
 ]
@@ -159,6 +160,11 @@ POINTS = {
 
 class InjectedFault(RuntimeError):
     """Base of faults raised (not simulated) by an injection point."""
+
+
+class InjectedConnectionDrop(ConnectionError, InjectedFault):
+    """A torn network connection. Subclasses ConnectionError so every
+    handler written for the real failure also handles the injected one."""
 
 
 # the ONE attribute hot paths branch on; everything else lives in _State

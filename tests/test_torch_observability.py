@@ -172,17 +172,23 @@ def _scan(modules):
 def test_port_metric_and_chaos_sites_are_catalogued():
     bad, metrics_seen, sites_seen = _scan(_port_modules())
     assert not bad, "\n".join(bad)
-    # the scan saw the engine's, kvtier's, disagg's, serving's and the
-    # request tracer's sites, and every chaos site the port wires
+    # the scan saw the engine's, kvtier's, disagg's, serving's, the
+    # request tracer's and the router's sites, and every chaos site the
+    # port wires
     assert {"inference.decode.kernel", "inference.prefix.hits",
             "tenant.decode.slots", "inference.kvtier.spilled_pages",
             "inference.disagg.imported_pages", "engine.pending",
-            "request.ttft.seconds", "serving.requests"} <= metrics_seen
+            "request.ttft.seconds", "serving.requests",
+            "router.requests", "router.disagg.handoffs"} <= metrics_seen
     assert sites_seen == {"engine.tick.delay", "prefix.cache.bypass",
                           "kvtier.spill.fail", "kvtier.restore.delay",
                           "tenant.storm", "serving.batch.delay",
                           "serving.batch.fail", "serving.admit.delay",
-                          "serving.run.delay", "serving.run.fail"}
+                          "serving.run.delay", "serving.run.fail",
+                          "router.probe.delay", "router.probe.flap",
+                          "router.connect.fail", "router.replica.kill",
+                          "router.prefix.scramble", "disagg.transfer.fail",
+                          "disagg.transfer.delay"}
 
 
 def test_catalogue_check_catches_planted_sites():

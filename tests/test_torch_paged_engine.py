@@ -266,6 +266,8 @@ def test_port_imports_without_jax_or_paddle_tpu():
         "import paddle_tpu_torch.observability.requests\n"
         "import paddle_tpu_torch.distributed.chaos\n"
         "import paddle_tpu_torch.inference.serving\n"
+        "import paddle_tpu_torch.distributed.retries\n"
+        "import paddle_tpu_torch.inference.router\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "import paddle_tpu_torch.kernels.fused_norm\n"
