@@ -251,6 +251,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
    14's, wave 2's warm prefill beside phase 11's, TTFT through the two
    hops, the bytes, pull and import ms of each handoff, and how long the
    ejection took after the kill.
+17. the fleet autopilot (inference/autopilot.py) and the fleet plane and
+   flight recorder (observability/fleet.py) over the port's servers on
+   phase 5's model (run right after phase 16) and a second Llama-3-8B
+   from seed 1 ("v2"), with the port's observability on and bundles in a
+   temporary flight directory. Each supervised replica is an engine at
+   phase 13's geometry (641 pages), its tick captured before it serves,
+   behind a PredictorServer, with a heartbeat into a
+   `torch.distributed.TCPStore` on 127.0.0.1; its stop stops and drops the
+   engine. The router and the supervisor are driven by hand
+   (`probe_all()`, `tick()`), as in the JAX tests. (a) Two v1 replicas
+   under 4 streaming clients (phase 5's prompts, 16 new tokens): r0 is
+   killed as in phase 16; no client hangs, every failed request ends in
+   r0's typed chunk, the router ejects r0 with a `replica_ejected` bundle,
+   the supervisor relaunches it through probation, its probe tokens equal
+   a cold engine's, and the allocated bytes come back within 64 MiB; it
+   prints kill to ejection, kill to rotation, the relaunch's build and
+   capture seconds and the other replica's /healthz latency during them.
+   (b) A rolling swap to v2 under the same traffic (min_in_rotation 1):
+   no failed request, never below 1 in rotation, each slot's tokens a cold
+   v2 engine's, `autopilot.rollouts{completed}` 1, /debug/autopilot, the
+   bytes within 64 MiB of two engines over both weights. (c) A third slot
+   under `autopilot.launch.fail`: quarantined after exactly 3 attempts
+   with a `replica_crash_loop` bundle, no byte allocated. (e)
+   `Autoscaler.tick()` by hand: a TTFT target the traffic burns scales out
+   to a third engine after 2 burning samples, which serves; with the
+   traffic stopped 3 idle samples scale it in, the bytes back within
+   64 MiB. (d) r0's server answers /debug/fleet with both ranks fresh;
+   `fleet.heartbeat.drop` on rank 1 makes it stale once its age passes
+   1 s; every bundle of the phase (ejection, drains, crash loop) holds
+   the six files and `tools/obs_dump.py` renders it. Launches are held to
+   phase 11's counts over every engine built and go to the path
+   "autopilot".
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -285,6 +317,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -5139,6 +5172,743 @@ def router_phase(model, counters, reset, card, http_out, prefix_out):
     return out
 
 
+# -- phase 17: the fleet autopilot and the fleet plane -------------------------
+
+AUTOPILOT_NEW = 16          # each live request's and each probe's new tokens
+AUTOPILOT_CLIENTS = 4
+# the launcher's /healthz timeout. InProcessLauncher keeps the JAX module's
+# 1.0 s default; here a relaunch builds and captures an engine on the
+# supervisor's thread while the other replica serves, so the phase passes
+# a bound above the /healthz latency (a) measures during that build
+AUTOPILOT_PROBE_TIMEOUT_S = 5.0
+AUTOPILOT_MEM_SLACK = 64 << 20      # the memory gates' slack, bytes
+AUTOPILOT_WAIT_S = 120.0    # the bound of every wait of the phase
+FLEET_BEAT_S = 0.2          # each replica's heartbeat interval
+FLEET_STALE_S = 1.0         # the aggregator's stale_after_s
+AUTOSCALE_TTFT_S = 1e-3     # (e)'s TTFT p95 target: an 8B prefill burns it
+FLEET_RANKS = {"r0": 0, "r1": 1}
+
+
+def _mem():
+    return torch.cuda.memory_allocated()
+
+
+def _ap_blocks():
+    """Live allocations by (bytes, stream, pool): what a memory gate that
+    fails names."""
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                key = (b["size"], seg["stream"], str(seg.get(
+                    "segment_pool_id")))
+                out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _ap_mark():
+    """(allocated bytes, live blocks) after freeing what was dropped."""
+    _release()
+    return _mem(), _ap_blocks()
+
+
+class _Replica:
+    """One supervised replica on the card, in the launcher's duck-typed
+    contract (start, stop, drain, mark_warming, host, port): a
+    PagedKVEngine at FEATURE_GEOM, its tick captured before it takes
+    traffic (`_prime`), behind a PredictorServer, with a FleetHeartbeat
+    carrying its queue depth when `heartbeat` makes one. stop and drain
+    also stop the engine and drop it: the server's own stop leaves its
+    generator running, and the pools and the graph pool go back only with
+    the engine's last reference."""
+
+    def __init__(self, model, fleet=None, heartbeat=None):
+        from paddle_tpu_torch.inference.serving import PredictorServer
+        t0 = time.perf_counter()
+        self.engine = _engine(model, **FEATURE_GEOM)
+        t1 = time.perf_counter()
+        _prime(self.engine, model.config.vocab_size)
+        self.build_s, self.prime_s = t1 - t0, time.perf_counter() - t1
+        # what the launch gate reads; neither holds the engine
+        self.spent = types.SimpleNamespace(
+            stats=self.engine.stats, steps_per_tick=self.engine.steps_per_tick)
+        self.server = PredictorServer(lambda d: d, generator=self.engine,
+                                      fleet=fleet)
+        self.host, self.port = self.server.host, self.server.port
+        self.heartbeat = heartbeat(self.server) if heartbeat else None
+
+    def start(self):
+        self.server.start()
+        if self.heartbeat is not None:
+            self.heartbeat.start()
+        return self
+
+    def mark_warming(self):
+        self.server.mark_warming()
+
+    def kill(self):
+        """Die as phase 16's killed replica does: the listener stops, the
+        engine's loop stops and every waiter fails (`_fail_all`)."""
+        self.server.stop()
+        self.engine.stop()
+        self.engine._fail_all(RuntimeError("replica killed"))
+
+    def drain(self, timeout=30.0):
+        try:
+            return self.server.drain(timeout=timeout)
+        finally:
+            self._drop()
+
+    def stop(self):
+        self.server.stop()
+        self._drop()
+
+    def _drop(self):
+        if self.heartbeat is not None:
+            self.heartbeat.stop()
+        if self.engine is not None:
+            self.engine.stop()
+            self.server.generator = None
+            self.engine = None
+
+
+class _LiveTraffic:
+    """AUTOPILOT_CLIENTS threads streaming /generate requests of phase 5's
+    prompts (AUTOPILOT_NEW new tokens) through the router until `stop`;
+    each request's outcome is kept: "ok" (every token), "typed" (a typed
+    `replica_failed` chunk last, after a prefix of the tokens), "failed"
+    (a replica's own 5xx, relayed: its engine failed the request before
+    the stream's first line) or "bad"."""
+
+    def __init__(self, port, prompts, tag):
+        import threading
+        self.port, self.prompts, self.tag = port, prompts, tag
+        self.log = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(k,),
+                                          daemon=True)
+                         for k in range(AUTOPILOT_CLIENTS)]
+        for t in self._threads:
+            t.start()
+
+    def _run(self, k):
+        i = k
+        while not self._stop.is_set():
+            rid = f"{self.tag}-{k}-{i}"
+            t0 = time.perf_counter()
+            try:
+                status, hdrs, lines = _stream_lines(
+                    self.port,
+                    {"ids": [self.prompts[i % len(self.prompts)].tolist()],
+                     "max_new_tokens": AUTOPILOT_NEW},
+                    {"X-Request-Id": rid})
+                toks = [ln["tokens"][0] for ln in lines if "tokens" in ln]
+                last = lines[-1] if lines else {}
+                if status == 200 and "error" not in last \
+                        and len(toks) == AUTOPILOT_NEW:
+                    kind = "ok"
+                elif status == 200 and last.get("reason") == \
+                        "replica_failed" and last.get("retryable") is True \
+                        and len(toks) < AUTOPILOT_NEW:
+                    kind = "typed"
+                elif status >= 500 and not toks and "error" in last \
+                        and hdrs.get("X-Routed-To"):
+                    kind = "failed"
+                else:
+                    kind = "bad"
+                rec = dict(kind=kind, status=status, tokens=len(toks),
+                           to=hdrs.get("X-Routed-To"), last=last)
+            except Exception as e:      # noqa: BLE001 — the gates read the log
+                rec = dict(kind="bad", error=repr(e))
+            rec.update(rid=rid, t0=t0, t_end=time.perf_counter())
+            with self._lock:
+                self.log.append(rec)
+            i += AUTOPILOT_CLIENTS
+
+    def count(self, kind="ok", to=None):
+        with self._lock:
+            return sum(1 for r in self.log if r["kind"] == kind
+                       and (to is None or r.get("to") == to))
+
+    def stop(self):
+        """Stop and join every client; a client still running after
+        AUTOPILOT_WAIT_S is a hung client."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=AUTOPILOT_WAIT_S)
+        if any(t.is_alive() for t in self._threads):
+            raise AssertionError(f"autopilot {self.tag}: a client hung")
+        return list(self.log)
+
+
+def _ap_wait(cond, tick, what):
+    t_end = time.perf_counter() + AUTOPILOT_WAIT_S
+    while True:
+        if tick is not None:
+            tick()
+        if cond():
+            return
+        if time.perf_counter() > t_end:
+            raise AssertionError(f"autopilot: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def _ap_idle(launcher, obs, slots):
+    for slot in slots:
+        eng = launcher.server(slot).engine
+        _ap_wait(lambda: not eng.has_work(), None, f"{slot} idle")
+    _ap_wait(lambda: obs.requests.live_count() == 0, None,
+             "no live request")
+
+
+def _ap_probe_tokens(tag, launcher, slots, want):
+    """The probe prompt alone to each slot's own server: its greedy tokens
+    must be the cold engine's."""
+    probe, toks = want
+    for slot in slots:
+        r = _generate(launcher.server(slot).port,
+                      {"ids": [probe.tolist()],
+                       "max_new_tokens": AUTOPILOT_NEW}, {})
+        if r["status"] != 200 or r["rows"] != [toks]:
+            raise AssertionError(f"autopilot {tag}: {slot} gave "
+                                 f"{r['status']} {r['rows']}, want a cold "
+                                 f"engine's {toks}")
+
+
+def _ap_mem(tag, mark, what):
+    """Allocated bytes now, within AUTOPILOT_MEM_SLACK of `mark`'s; a miss
+    names the blocks that came or went."""
+    now, blocks = _ap_mark()
+    if abs(now - mark[0]) > AUTOPILOT_MEM_SLACK:
+        came = {k: n - mark[1].get(k, 0) for k, n in blocks.items()
+                if n > mark[1].get(k, 0)}
+        went = {k: n - blocks.get(k, 0) for k, n in mark[1].items()
+                if n > blocks.get(k, 0)}
+        raise AssertionError(f"autopilot {tag}: {now} B allocated, "
+                             f"{(now - mark[0]) / 2**20:.1f} MiB from "
+                             f"{what} ({mark[0]} B); blocks (bytes, stream, "
+                             f"pool) that came {came}, went {went}")
+    return now
+
+
+def _ap_bundles(fleet, flight_dir, reason):
+    out = []
+    for b in fleet.flight_records(flight_dir):
+        with open(os.path.join(b, "manifest.json")) as f:
+            man = json.load(f)
+        if man["reason"] == reason:
+            out.append((b, man))
+    return out
+
+
+def _ap_kill(ctx):
+    """(a) two supervised v1 replicas under live traffic; r0 killed, the
+    router ejects it, the supervisor relaunches it through probation."""
+    import threading
+    router, launcher, sup = ctx.router, ctx.launcher, ctx.sup
+    pre = _mem()
+    for slot in ("r0", "r1"):
+        sup.add_slot(slot, version="v1")
+    _ap_wait(lambda: all(sup.slot_state(s) == "serving"
+                         for s in ("r0", "r1"))
+             and router.in_rotation_count() == 2, ctx.pump,
+             "r0 and r1 in rotation")
+    engine_bytes = (_ap_mark()[0] - pre) / 2
+    # the baseline is taken idle after a first burst of the same traffic:
+    # each serving thread's first GEMM leaves a cuBLAS workspace that the
+    # process keeps, whichever engine it served (PERF.md §6)
+    warm = _LiveTraffic(router.port, ctx.prompts, "warm")
+    try:
+        _ap_wait(lambda: warm.count() >= 2 * AUTOPILOT_CLIENTS, None,
+                 "the warm-up burst")
+    finally:
+        warm.stop()
+    _ap_idle(launcher, ctx.obs, ("r0", "r1"))
+    mark_two = _ap_mark()
+    traffic = _LiveTraffic(router.port, ctx.prompts, "kill")
+    try:
+        _ap_wait(lambda: traffic.count() >= AUTOPILOT_CLIENTS, None,
+                 "requests before the kill")
+        # r1's /healthz latency while r0's relaunch builds and captures
+        healthz, done = [], threading.Event()
+        port1 = launcher.server("r1").port
+
+        def poll():
+            import http.client
+            while not done.is_set():
+                t0 = time.perf_counter()
+                conn = http.client.HTTPConnection("127.0.0.1", port1,
+                                                  timeout=HTTP_TIMEOUT)
+                try:
+                    conn.request("GET", "/healthz")
+                    ok = conn.getresponse().status == 200
+                except (OSError, http.client.HTTPException):
+                    ok = False
+                finally:
+                    conn.close()
+                healthz.append((time.perf_counter() - t0,
+                                ctx.building.is_set(), ok))
+                time.sleep(0.01)
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        dead = launcher.server("r0")
+        n_built = len(ctx.builds)
+        t_kill = time.perf_counter()
+        dead.kill()
+        _ap_wait(lambda: not router.replica("r0").in_rotation,
+                 router.probe_all, "the router to eject r0")
+        eject_s = time.perf_counter() - t_kill
+        _ap_wait(lambda: sup.slot_state("r0") == "serving"
+                 and router.in_rotation_count() == 2
+                 and launcher.server("r0") is not dead, ctx.pump,
+                 "r0 relaunched and back in rotation")
+        rotation_s = time.perf_counter() - t_kill
+        after = traffic.count(to="r0")
+        _ap_wait(lambda: traffic.count(to="r0") > after, None,
+                 "a request on the relaunched r0")
+        done.set()
+        poller.join(timeout=HTTP_TIMEOUT)
+    finally:
+        log = traffic.stop()
+    relaunch = ctx.builds[n_built:]
+    # a request r0 had admitted but not yet streamed gets r0's own 500 with
+    # the kill's error, which the router relays and does not replay (a
+    # replica's 5xx, router.py `_forward_once`; ROADMAP queue 3): that and
+    # the typed chunk are the only failures the kill may cause
+    bad = [r for r in log if r["kind"] == "bad"
+           or (r["kind"] == "typed" and r["last"].get("replica") != "r0")
+           or (r["kind"] == "failed" and (
+               r["to"] != "r0" or r["status"] != 500
+               or r["last"] != {"error": "replica killed"}))]
+    if bad or len(relaunch) != 1 or dead.engine is not None \
+            or not all(ok for _, _, ok in healthz):
+        raise AssertionError(f"autopilot (a): failed requests {bad[:4]}, "
+                             f"relaunches {relaunch}, dead engine dropped "
+                             f"{dead.engine is None}, /healthz "
+                             f"{[x for x in healthz if not x[2]][:4]}")
+    during = [s for s, b, _ in healthz if b] or [0.0]
+    if max(during) >= AUTOPILOT_PROBE_TIMEOUT_S:
+        raise AssertionError(f"autopilot (a): r1's /healthz took "
+                             f"{max(during):.3f} s during the relaunch, the "
+                             f"launcher's bound is {AUTOPILOT_PROBE_TIMEOUT_S}")
+    m = router.metrics
+    restarts = m.counter("autopilot.restarts").value(rid="r0")
+    ejected = [(b, man) for b, man in _ap_bundles(ctx.fleet, ctx.flight_dir,
+                                                  "replica_ejected")
+               if man["extra"]["replica"] == "r0"]
+    if restarts != 2 or len(ejected) != 1 \
+            or sorted(os.listdir(ejected[0][0])) != sorted(
+                ctx.fleet.BUNDLE_FILES):
+        raise AssertionError(f"autopilot (a): autopilot.restarts{{r0}} "
+                             f"{restarts}, replica_ejected bundles "
+                             f"{[b for b, _ in ejected]}")
+    _ap_idle(launcher, ctx.obs, ("r0", "r1"))
+    _ap_probe_tokens("(a)", launcher, ("r0",), ctx.want["v1"])
+    mem_after = _ap_mem("(a)", mark_two, "before the kill")
+    out = dict(engine_bytes=engine_bytes, eject_s=eject_s,
+               rotation_s=rotation_s,
+               build_s=relaunch[0][2], prime_s=relaunch[0][3],
+               eject_reason=ejected[0][1]["extra"]["reason"],
+               requests=len(log),
+               typed=sum(1 for r in log if r["kind"] == "typed"),
+               failed_500=sum(1 for r in log if r["kind"] == "failed"),
+               healthz_build_s=dict(n=len(during), p50=_pct(during, 50),
+                                    max=max(during)),
+               healthz_other_max_s=max([s for s, b, _ in healthz if not b]
+                                       or [0.0]),
+               restart_s=m.histogram("autopilot.restart.seconds").percentile(
+                   50),
+               mem_two=mark_two[0], mem_after=mem_after)
+    print(f"[autopilot] {ctx.card}: (a) r0 killed under {AUTOPILOT_CLIENTS} "
+          f"streaming clients: ejected ({out['eject_reason']}) "
+          f"{eject_s * 1e3:.1f} ms after the kill, back in rotation after "
+          f"{rotation_s:.3f} s (relaunch build {out['build_s']:.3f} s, prime "
+          f"and capture {out['prime_s']:.3f} s; autopilot.restart.seconds "
+          f"{out['restart_s']:.3f}); {len(log)} requests: {out['typed']} "
+          f"ended in r0's typed chunk, {out['failed_500']} got r0's own 500 "
+          f"(admitted, not yet streamed), none failed otherwise; r1's /healthz "
+          f"during the relaunch p50 {out['healthz_build_s']['p50'] * 1e3:.1f}"
+          f" ms max {out['healthz_build_s']['max'] * 1e3:.1f} ms over "
+          f"{len(during)} probes (otherwise max "
+          f"{out['healthz_other_max_s'] * 1e3:.1f} ms); the relaunched r0's "
+          f"probe tokens equal a cold engine's; allocated {mark_two[0]} B before "
+          f"the kill, {mem_after} B after the relaunch; a replica_ejected "
+          f"bundle")
+    return out
+
+
+def _ap_rollout(ctx):
+    """(b) a rolling swap v1 -> v2 under live traffic, min_in_rotation 1."""
+    from paddle_tpu_torch.inference.autopilot import (FleetAutopilot,
+                                                      RolloutController)
+    router, launcher, sup = ctx.router, ctx.launcher, ctx.sup
+    samples = []
+
+    def pump():
+        ctx.pump()
+        samples.append(router.in_rotation_count())
+    rc = RolloutController(router, sup, min_in_rotation=1,
+                           step_timeout_s=AUTOPILOT_WAIT_S, probe_fn=pump)
+    router.attach_autopilot(FleetAutopilot(sup, rollout=rc))
+    mark_two = _ap_mark()           # v1 + v2 weights + two engines, idle
+    n_built = len(ctx.builds)
+    traffic = _LiveTraffic(router.port, ctx.prompts, "roll")
+    try:
+        _ap_wait(lambda: traffic.count() >= AUTOPILOT_CLIENTS, None,
+                 "requests before the rollout")
+        t0 = time.perf_counter()
+        done = rc.run("v2")
+        wave_s = time.perf_counter() - t0
+        _ap_wait(lambda: all(sup.slot_state(s) == "serving"
+                             for s in ("r0", "r1")), pump,
+                 "both slots serving after the wave")
+    finally:
+        log = traffic.stop()
+    st = rc.state()
+    failed = [r for r in log if r["kind"] != "ok"]
+    completed = router.metrics.counter("autopilot.rollouts").value(
+        outcome="completed")
+    code, dbg, _h = _http_json(router.port, "/debug/autopilot")
+    if not done or st["done"] != ["r0", "r1"] or failed or not samples \
+            or min(samples) < 1 or completed != 1 \
+            or [v for _s, v, _b, _p in ctx.builds[n_built:]] != ["v2"] * 2 \
+            or code != 200 or dbg["rollout"]["state"] != "completed" \
+            or router.stats()["rollout"]["version"] != "v2":
+        raise AssertionError(f"autopilot (b): run {done}, state {st}, failed "
+                             f"{failed[:4]}, in rotation min "
+                             f"{min(samples or [None])}, rollouts completed "
+                             f"{completed}, builds {ctx.builds[n_built:]}, "
+                             f"/debug/autopilot {code}")
+    _ap_idle(launcher, ctx.obs, ("r0", "r1"))
+    _ap_probe_tokens("(b)", launcher, ("r0", "r1"), ctx.want["v2"])
+    mem_after = _ap_mem("(b)", mark_two, "v1 + v2 weights + two engines")
+    out = dict(wave_s=wave_s, requests=len(log),
+               in_rotation_min=min(samples), samples=len(samples),
+               builds=[dict(slot=s, build_s=b, prime_s=p)
+                       for s, _v, b, p in ctx.builds[n_built:]],
+               mem_after=mem_after)
+    print(f"[autopilot] {ctx.card}: (b) rolling swap v1 -> v2 under "
+          f"{AUTOPILOT_CLIENTS} streaming clients in {wave_s:.3f} s: "
+          f"{len(log)} requests, none failed, in rotation never below "
+          f"{min(samples)} over {len(samples)} samples; builds "
+          f"{[(s, round(b, 3), round(p, 3)) for s, _v, b, p in ctx.builds[n_built:]]}"
+          f"; each slot's probe tokens equal a cold v2 engine's; allocated "
+          f"{mem_after} B (v1 + v2 + two engines: {mark_two[0]} B)")
+    return out
+
+
+def _ap_crash_loop(ctx):
+    """(c) a third slot whose every launch fails (`autopilot.launch.fail`
+    at rate 1): quarantined after exactly crash_loop_restarts attempts."""
+    router, sup, chaos = ctx.router, ctx.sup, ctx.chaos
+    n_built = len(ctx.builds)
+    mem0 = _mem()
+    t0 = time.perf_counter()
+    with chaos.scoped(rates={"autopilot.launch.fail": 1.0}):
+        sup.add_slot("r2", version="v2")
+        _ap_wait(lambda: sup.slot_state("r2") == "quarantined", sup.tick,
+                 "r2 quarantined")
+        fired = chaos.fire_count("autopilot.launch.fail")
+    quarantine_s = time.perf_counter() - t0
+    for _ in range(5):
+        sup.tick()
+    m = router.metrics
+    got = dict(fired=fired,
+               failures=m.counter("autopilot.launch.failures").value(
+                   rid="r2"),
+               quarantines=m.counter("autopilot.quarantines").value(rid="r2"),
+               gauge=m.gauge("autopilot.replicas.quarantined").value(),
+               builds=len(ctx.builds) - n_built, state=sup.slot_state("r2"))
+    k = sup.crash_loop_restarts
+    want = dict(fired=k, failures=k, quarantines=1, gauge=1.0, builds=0,
+                state="quarantined")
+    crash = _ap_bundles(ctx.fleet, ctx.flight_dir, "replica_crash_loop")
+    extra = crash[0][1]["extra"] if len(crash) == 1 else {}
+    mem1 = _mem()
+    if got != want or extra.get("slot") != "r2" \
+            or extra.get("attempts_in_window") != k or mem1 != mem0:
+        raise AssertionError(f"autopilot (c): {got}, want {want}; "
+                             f"replica_crash_loop bundles {crash}; allocated "
+                             f"{mem0} -> {mem1} B")
+    sup.remove_slot("r2", stop=False)
+    print(f"[autopilot] {ctx.card}: (c) r2 quarantined after exactly {k} "
+          f"failed launches in {quarantine_s:.3f} s (no engine built, "
+          f"allocated {mem0} B before and after), autopilot.quarantines{{r2}}"
+          f" 1, a replica_crash_loop bundle (last error "
+          f"{extra.get('last_error')!r})")
+    return dict(got, quarantine_s=quarantine_s,
+                last_error=extra.get("last_error"))
+
+
+def _ap_autoscale(ctx):
+    """(e) Autoscaler.tick() by hand: a TTFT target the live traffic burns
+    scales out to a third engine after burn_ticks; with the traffic
+    stopped, the idle streak scales it in."""
+    from paddle_tpu_torch.inference.autopilot import Autoscaler
+    router, launcher, sup, obs = ctx.router, ctx.launcher, ctx.sup, ctx.obs
+    asc = Autoscaler(router, sup, min_replicas=2, max_replicas=3,
+                     ttft_p95_target_s=AUTOSCALE_TTFT_S, burn_ticks=2,
+                     idle_ticks=3, cooldown_s=0.0, version="v2")
+    mark0 = _ap_mark()
+    # the TTFT window is a ring of the last observations and does not age:
+    # each half starts from an empty registry (ROADMAP queue 3)
+    obs.enable(reset=True)
+
+    def ticks(stop_at, limit):
+        acts = []
+        while len(acts) < limit:
+            router.probe_all()
+            acts.append(asc.tick())
+            if acts[-1] == stop_at:
+                break
+        return acts
+    traffic = _LiveTraffic(router.port, ctx.prompts, "scale")
+    try:
+        _ap_wait(lambda: traffic.count() >= AUTOPILOT_CLIENTS, None,
+                 "requests before the burn")
+        burn_sample = asc.signals()
+        out_acts = ticks("out", asc.burn_ticks + 2)
+        _ap_wait(lambda: sup.slot_state("auto-1") == "serving", ctx.pump,
+                 "auto-1 serving")
+        after = traffic.count()
+        _ap_wait(lambda: traffic.count(to="auto-1") > 0
+                 and traffic.count() > after + AUTOPILOT_CLIENTS, ctx.pump,
+                 "a request on auto-1")
+    finally:
+        log = traffic.stop()
+    _ap_idle(launcher, obs, ("r0", "r1", "auto-1"))
+    three = _mem()
+    obs.enable(reset=True)
+    in_acts = ticks("in", asc.idle_ticks + 2)
+    m = router.metrics
+    events = {d: m.counter("autopilot.scale.events").value(direction=d)
+              for d in ("out", "in")}
+    failed = [r for r in log if r["kind"] != "ok"]
+    want_out = ["none"] * (asc.burn_ticks - 1) + ["out"]
+    want_in = ["none"] * (asc.idle_ticks - 1) + ["in"]
+    if out_acts != want_out or in_acts != want_in \
+            or events != {"out": 1, "in": 1} or failed \
+            or sup.slot_state("auto-1") is not None \
+            or sup.active_slot_count() != 2:
+        raise AssertionError(f"autopilot (e): actions {out_acts} then "
+                             f"{in_acts}, want {want_out} then {want_in}; "
+                             f"scale events {events}; failed {failed[:4]}; "
+                             f"auto-1 {sup.slot_state('auto-1')}")
+    mem_after = _ap_mem("(e)", mark0, "before the scale-out")
+    out = dict(burn_sample=burn_sample, out_actions=out_acts,
+               in_actions=in_acts, requests=len(log),
+               on_auto=sum(1 for r in log if r.get("to") == "auto-1"),
+               build=ctx.builds[-1][2:], mem_three=three,
+               mem_after=mem_after)
+    print(f"[autopilot] {ctx.card}: (e) TTFT p95 "
+          f"{burn_sample['ttft_p95_s']:.4f} s against a target of "
+          f"{AUTOSCALE_TTFT_S} s: {out_acts} (auto-1 built in "
+          f"{out['build'][0]:.3f} s, primed in {out['build'][1]:.3f} s, "
+          f"{out['on_auto']} of {len(log)} requests on it, none failed); "
+          f"traffic stopped: {in_acts}; allocated {mark0[0]} B before, {three} "
+          f"B with three engines, {mem_after} B after the scale-in")
+    return out
+
+
+def _ap_fleet(ctx):
+    """(d) the fleet plane: r0's server answers /debug/fleet with both
+    ranks fresh; `fleet.heartbeat.drop` on rank 1 makes it stale; every
+    bundle of the phase renders through tools/obs_dump.py."""
+    launcher, chaos, fleet = ctx.launcher, ctx.chaos, ctx.fleet
+    port0 = launcher.server("r0").port
+    seen = {}
+
+    def fresh():
+        code, body, _h = _http_json(port0, "/debug/fleet")
+        seen.update(code=code, body=body)
+        view = body.get("view") or {}
+        rows = view.get("ranks", [])
+        return code == 200 and body.get("enabled") is True \
+            and len(rows) == 2 and all(r["present"] and not r["stale"]
+                                       and "queue_depth" in r for r in rows)
+    _ap_wait(fresh, None, "two fresh ranks on /debug/fleet")
+    r1 = launcher.server("r1")
+    victim = r1.heartbeat
+    victim.stop()
+    dropped, t0 = 0, time.perf_counter()
+    while True:
+        with chaos.scoped(rates={"fleet.heartbeat.drop": 1.0}):
+            if victim.publish() is not False:
+                raise AssertionError("autopilot (d): a dropped beat landed")
+        dropped += 1
+        rank0, rank1 = ctx.agg.scan()["ranks"]
+        if rank0["stale"]:
+            raise AssertionError(f"autopilot (d): rank 0 went stale {rank0}")
+        if rank1["stale"]:
+            break
+        if time.perf_counter() - t0 > FLEET_STALE_S + 5.0:
+            raise AssertionError(f"autopilot (d): rank 1 not stale {rank1}")
+        time.sleep(0.01)
+    stale_age = rank1["age_s"]
+    stale_gauge = ctx.obs.REGISTRY.gauge("fleet.stale_ranks").value()
+    if stale_age > FLEET_STALE_S + 0.25 or stale_gauge != 1.0:
+        raise AssertionError(f"autopilot (d): rank 1 read stale at age "
+                             f"{stale_age} s (limit {FLEET_STALE_S} s), "
+                             f"fleet.stale_ranks {stale_gauge}")
+    # a stopped heartbeat has closed its store connection where the store
+    # has close(): rank 1 beats again through a new one
+    r1.heartbeat = ctx.heartbeat(1)(r1.server).start()
+    _ap_wait(lambda: not ctx.agg.scan()["ranks"][1]["stale"], None,
+             "rank 1 fresh again")
+    drains = _ap_bundles(fleet, ctx.flight_dir, "serving_drain")
+    bundles = fleet.flight_records(ctx.flight_dir)
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "obs_dump.py")
+    reasons = {}
+    for b in bundles:
+        with open(os.path.join(b, "manifest.json")) as f:
+            reason = json.load(f)["reason"]
+        run = subprocess.run([sys.executable, tool, b], capture_output=True,
+                             text=True, timeout=60)
+        if sorted(os.listdir(b)) != sorted(fleet.BUNDLE_FILES) \
+                or run.returncode != 0 or reason not in run.stdout:
+            raise AssertionError(f"autopilot (d): {b}: files "
+                                 f"{sorted(os.listdir(b))}, obs_dump rc "
+                                 f"{run.returncode} {run.stderr[-400:]}")
+        reasons[reason] = reasons.get(reason, 0) + 1
+    if len(drains) < 3 or set(reasons) != {"replica_ejected",
+                                           "serving_drain",
+                                           "replica_crash_loop"}:
+        raise AssertionError(f"autopilot (d): bundles {reasons}")
+    out = dict(stale_age_s=stale_age, dropped=dropped, bundles=reasons,
+               clone=r1.heartbeat._pub_store is not r1.heartbeat.store,
+               view=seen["body"]["view"]["summary"])
+    print(f"[autopilot] {ctx.card}: (d) r0's /debug/fleet: 2 fresh ranks "
+          f"(beats every {FLEET_BEAT_S} s, on a cloned store connection: "
+          f"{out['clone']}); rank 1's beats dropped ({dropped} publishes): "
+          f"stale at age {stale_age:.3f} s (stale_after_s {FLEET_STALE_S}), "
+          f"rank 0 fresh throughout, fresh again after a restart; bundles "
+          f"{reasons}, each with the six files and rendered by "
+          f"tools/obs_dump.py (exit 0)")
+    return out
+
+
+def autopilot_phase(model, counters, reset, card):
+    """Phase 17 on phase 5's Llama-3-8B (module doc): (a) kill and relaunch,
+    (b) a rolling swap to a second 8B, (c) a crash loop, (e) the
+    autoscaler, (d) the fleet plane. Launches go to the path
+    "autopilot"."""
+    import datetime
+    import shutil
+    import threading
+    import torch.distributed as tdist
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import chaos
+    from paddle_tpu_torch.inference.autopilot import (InProcessLauncher,
+                                                      ReplicaSupervisor)
+    from paddle_tpu_torch.inference.router import ReplicaRouter
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.observability import fleet
+    t_phase = time.perf_counter()
+    cfg = model.config
+    vocab = cfg.vocab_size
+    base = _ap_mark()
+    t0 = time.perf_counter()
+    model2 = LlamaForCausalLM(cfg, device=model.device,
+                              dtype=next(model.parameters()).dtype, seed=1)
+    torch.cuda.synchronize()
+    v2_build_s = time.perf_counter() - t0
+    w2 = _mem() - base[0]
+    models = {"v1": model, "v2": model2}
+    probe = _prompts(1, vocab, seed=21, lo=64, hi=64)[0]
+    reset()
+    spent, want = [], {}
+    for version, m in models.items():
+        eng = _engine(m, **FEATURE_GEOM)
+        _prime(eng, vocab)
+        want[version] = (probe, eng.generate(
+            [probe], max_new_tokens=AUTOPILOT_NEW)[0])
+        _check_tokens(f"autopilot cold {version}", [want[version][1]],
+                      AUTOPILOT_NEW, vocab)
+        spent.append(types.SimpleNamespace(stats=eng.stats,
+                                           steps_per_tick=eng.steps_per_tick))
+        del eng, m
+        _release()
+    if want["v1"][1] == want["v2"][1]:
+        raise AssertionError("autopilot: v1 and v2 gave the same tokens")
+    flight_dir = tempfile.mkdtemp(prefix="flight-")
+    store = tdist.TCPStore("127.0.0.1", 0, 1, True, wait_for_workers=False,
+                           timeout=datetime.timedelta(seconds=10))
+    agg = fleet.FleetAggregator(store, 2, stale_after_s=FLEET_STALE_S)
+    ctx = types.SimpleNamespace(card=card, obs=obs, chaos=chaos, fleet=fleet,
+                                agg=agg, want=want, builds=[],
+                                flight_dir=flight_dir,
+                                building=threading.Event(),
+                                prompts=_prompts(8, vocab, seed=0))
+
+    def heartbeat(rank):
+        return lambda srv: fleet.FleetHeartbeat(
+            store, rank, 2, interval=FLEET_BEAT_S,
+            extra_fn=lambda: {"queue_depth": srv.queue_depth()})
+
+    def factory(slot, version):
+        rank = FLEET_RANKS.get(slot)
+        ctx.building.set()
+        try:
+            rep = _Replica(models[version],
+                           fleet=agg if slot == "r0" else None,
+                           heartbeat=None if rank is None else heartbeat(rank))
+        finally:
+            ctx.building.clear()
+        spent.append(rep.spent)
+        ctx.builds.append((slot, version, rep.build_s, rep.prime_s))
+        return rep
+    obs.enable(reset=True)
+    fleet.configure_flight_recorder(dir=flight_dir, max_keep=1000)
+    ctx.router = ReplicaRouter().start(probe=False)
+    ctx.launcher = InProcessLauncher(
+        factory, probe_timeout_s=AUTOPILOT_PROBE_TIMEOUT_S)
+    ctx.sup = ReplicaSupervisor(ctx.router, ctx.launcher)
+    ctx.pump = lambda: (ctx.router.probe_all(), ctx.sup.tick())
+    ctx.heartbeat = heartbeat
+    try:
+        kill = _ap_kill(ctx)
+        rollout = _ap_rollout(ctx)
+        crash = _ap_crash_loop(ctx)
+        scale = _ap_autoscale(ctx)
+        fleet_out = _ap_fleet(ctx)
+    finally:
+        obs.disable()
+        for name in ctx.sup.slot_names():
+            ctx.sup.remove_slot(name)
+        ctx.router.stop()
+        fleet.configure_flight_recorder(dir=None)
+        shutil.rmtree(flight_dir, ignore_errors=True)
+        del store, agg
+    launches = _feature_launches("autopilot", counters(), spent,
+                                 cfg.num_hidden_layers,
+                                 "paged_decode_attention")
+    builds = ctx.builds
+    del ctx, models, model2, factory
+    # every engine and v2's weights given back: less than half an engine
+    # above the phase's start (what stays: cuBLAS workspaces, PERF.md §6)
+    end, blocks = _ap_mark()
+    if end - base[0] > kill["engine_bytes"] / 2:
+        came = {k: n for k, n in blocks.items() if n > base[1].get(k, 0)}
+        raise AssertionError(f"autopilot teardown: {end} B allocated, "
+                             f"{(end - base[0]) / 2**20:.1f} MiB above the "
+                             f"phase's start; blocks that came {came}")
+    out = dict(card=card, v2_build_s=v2_build_s, v2_weight_bytes=w2,
+               engine_bytes=kill["engine_bytes"],
+               kill=kill, rollout=rollout, crash_loop=crash,
+               autoscale=scale, fleet=fleet_out, builds=builds,
+               launches=launches, mem_end=end,
+               mem_end_drift_mib=(end - base[0]) / 2**20,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"[autopilot] {card}: phase 17 {out['phase_s']:.1f} s (v2 built "
+          f"in {v2_build_s:.1f} s, {w2} B; an engine {out['engine_bytes']:.0f}"
+          f" B; {len(builds)} replicas built); allocated {end} B at the end, "
+          f"{base[0]} B before ({out['mem_end_drift_mib']:.1f} MiB); "
+          f"launches {launches}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -5200,6 +5970,7 @@ def main(argv=None):
     generation = generation_phase(model, counters, reset, card, serving,
                                   args.profile)
     router = router_phase(model, counters, reset, card, http, serving_prefix)
+    autopilot = autopilot_phase(model, counters, reset, card)
     del model
     _release()
     parity = parity_phase(dev)
@@ -5231,7 +6002,8 @@ def main(argv=None):
                    "generation": generation["launches"].get(name, 0),
                    "generation_int8": generation_int8["launches"].get(name,
                                                                       0),
-                   "router": router["launches"].get(name, 0)}
+                   "router": router["launches"].get(name, 0),
+                   "autopilot": autopilot["launches"].get(name, 0)}
         if sum(by_path.values()) <= 0:
             raise AssertionError(f"{name} was launched on no main path")
         e["launches"] = sum(by_path.values())
@@ -5259,7 +6031,7 @@ def main(argv=None):
                        "features": features, "http": http,
                        "generation": generation,
                        "generation_int8": generation_int8,
-                       "router": router,
+                       "router": router, "autopilot": autopilot,
                        "torch": torch.__version__}, f, indent=1)
     print(json.dumps(line))
     print(card)

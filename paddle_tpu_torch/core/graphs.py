@@ -3,8 +3,10 @@
 The kernel wrappers count their launches on the host, which a replay
 does not run: `capture_graph` takes the capture's counts back out of the
 counters, and each call of the returned program replays the graph and
-adds them again. The warm-up run before the capture is real and stays
-counted. Used by the paged engine's tick (inference/paged.py) and by the
+adds them again. The capture's counts are the capturing thread's own
+(`kernels.capture_tally`): another engine's ticker launching meanwhile
+does not enter them. The warm-up run before the capture is real and
+stays counted. Used by the paged engine's tick (inference/paged.py) and by the
 static-cache generation steps (models/generation.py).
 """
 from __future__ import annotations
@@ -29,7 +31,7 @@ class CapturedProgram:
     def __call__(self):
         self.graph.replay()
         for counter, name, n in self.delta:
-            counter[name] += n
+            counter.add(name, n)
 
 
 def capture_graph(body, device, pool=None, generator=None):
@@ -39,7 +41,7 @@ def capture_graph(body, device, pool=None, generator=None):
     draws from, is registered with the graph, so each replay draws anew.
     The capture is thread-local, so a worker thread may capture; a
     capture that fails raises."""
-    from paddle_tpu_torch.kernels import launch_counters
+    from paddle_tpu_torch.kernels import capture_tally
     cur = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(cur)
@@ -49,22 +51,24 @@ def capture_graph(body, device, pool=None, generator=None):
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     if generator is not None:
         graph.register_generator_state(generator)
-    counters = launch_counters()
-    before = [dict(c) for c in counters]
     # the capture empties the allocator's cache as it starts; emptied
     # first, the reserved bytes grow by the graph's pool alone
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
+    tally = []
     try:
-        with torch.cuda.graph(graph, pool=pool,
-                              capture_error_mode="thread_local"):
+        with capture_tally() as tally, torch.cuda.graph(
+                graph, pool=pool, capture_error_mode="thread_local"):
             body()
     finally:
-        delta = [(c, k, c[k] - b[k]) for c, b in
-                 zip(counters, before) for k in c if c[k] != b[k]]
+        sums = {}
+        for c, k, n in tally:
+            key = (id(c), k)
+            sums[key] = (c, k, n + (sums[key][2] if key in sums else 0))
+        delta = [t for t in sums.values() if t[2]]
         for c, k, n in delta:
-            c[k] -= n
+            c.add(k, -n)
     graph.instantiate()
     return CapturedProgram(graph, delta,
                            torch.cuda.memory_reserved(device) - reserved)

@@ -5,9 +5,9 @@ Counterpart of paddle_tpu/inference/router.py, copied and adapted (the
 module is stdlib-only, but importing it would import the JAX package):
 the same names, constructor keywords, state machine, metrics, chaos
 sites and HTTP surfaces, over the port's servers (whose engines run on
-the card; the router itself has no device). The JAX `GET /debug/
-autopilot` and /stats rollout block stay as duck-typed hooks
-(`attach_autopilot`) for the autopilot slice.
+the card; the router itself has no device). `attach_autopilot` takes the
+port's FleetAutopilot (inference/autopilot.py) for `GET /debug/autopilot`
+and the /stats rollout block.
 
 One `PredictorServer` + one `PagedKVEngine` is a single-chip ceiling;
 serving heavy traffic means N replicas behind a frontend that turns a
@@ -118,11 +118,11 @@ probe recorded as failed — the damping lever), `router.connect.fail`
 `router.replica.kill` (fires the registered `kill_hook` right after a
 relayed stream chunk — the kill-a-replica soak's lever).
 
-On ejection for probe failures / breaker open, the JAX router dumps a
+On ejection for probe failures / breaker open, the router dumps a
 flight-recorder bundle (`observability.fleet.record_crash
-("replica_ejected", ...)`); the port has no flight recorder yet, so it
-counts `router.ejections{reason}` and writes no bundle, as the port's
-server drain does.
+("replica_ejected", ...)` with the replica's last-known stats) when
+observability is enabled — the evidence of WHY a replica left rotation
+survives the incident.
 
 Everything here is stdlib-only (routers run on frontend nodes with no
 accelerator), and reads no environment variable.
@@ -650,11 +650,24 @@ class ReplicaRouter:
         self._refresh_gauges_locked()
 
     def _record_ejection(self, r, reason):
-        """Ejection bookkeeping. The JAX router also dumps a
-        `replica_ejected` flight-recorder bundle here for probe-failure
-        and breaker ejections; the port has no flight recorder yet
-        (observability/fleet.py), so it counts the ejection only."""
+        """Ejection bookkeeping + the flight-recorder hook: probe-
+        failure and breaker ejections dump a `replica_ejected` bundle
+        carrying the replica's last-known stats (a drain is expected
+        lifecycle, not evidence)."""
         self.metrics.inc("router.ejections", reason=reason)
+        if reason in ("draining", "warming") or not observability.ENABLED:
+            return
+        try:
+            from paddle_tpu_torch.observability import fleet
+            fleet.record_crash(
+                "replica_ejected",
+                extra={"replica": r.rid, "url": r.url, "reason": reason,
+                       "consecutive_fail": r.consecutive_fail,
+                       "ejections": r.ejections,
+                       "last_stats": dict(r.last_stats)})
+        except Exception as e:      # noqa: BLE001 — recording must never break routing
+            print(f"WARNING: flight-recorder dump failed: {e!r}",
+                  file=sys.stderr)
 
     def _note_forward_failure(self, r, msg):
         """A forward-path failure (connect refused, stream died): feeds

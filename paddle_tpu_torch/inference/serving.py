@@ -45,9 +45,10 @@ GET  /metrics  -> Prometheus text exposition (observability/): request
                enabled
 GET  /debug/requests -> live traced requests from the bounded in-flight
                registry (observability/requests.py)
-GET  /debug/fleet -> {"enabled": false, "view": null}: the cross-rank
-               fleet aggregator (observability/fleet.py) is not ported;
-               the JAX server answers the same with none attached
+GET  /debug/fleet -> live cross-rank heartbeat scan (observability/
+               fleet.py FleetAggregator passed as `fleet=`): per-rank
+               step, heartbeat age, straggler flags; {"enabled": false,
+               "view": null} with observability off or none attached
 GET  /metadata -> input/output names of the served program
 
 Request tracing (observability/requests.py, enabled with the rest of
@@ -83,9 +84,10 @@ queue quota, and a weighted-fair share of batch/decode service. The
 `tenant.storm` chaos site stamps unlabeled traffic as a synthetic noisy
 neighbor.
 
-The JAX module's `serve()` (which loads an exported program into a
-Predictor) and its drain-time flight-recorder dump (observability/
-fleet.py) wait for their modules.
+With observability on, `drain()` dumps a `serving_drain` flight-recorder
+bundle (observability/fleet.py; a no-op until a bundle directory is
+configured). The JAX module's `serve()` (which loads an exported program
+into a Predictor) waits for its module.
 """
 from __future__ import annotations
 
@@ -94,6 +96,7 @@ import contextlib
 import contextvars
 import json
 import math
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -509,10 +512,13 @@ class PredictorServer:
                  *, max_concurrent=32, max_queue_depth=64,
                  default_timeout_ms=None, breaker_threshold=5,
                  breaker_reset_s=5.0, retry_after_s=1.0, metrics=None,
-                 tenancy=None, start_warming=False):
+                 fleet=None, tenancy=None, start_warming=False):
         self.predictor = predictor
         self.model_name = model_name
         self.generator = generator
+        # optional observability.fleet.FleetAggregator: GET /debug/fleet
+        # then serves a live cross-rank heartbeat scan from this replica
+        self.fleet = fleet
         # optional tenancy.TenantTable: per-tenant admission quotas on
         # top of the global gate, weighted-fair batching, per-tenant
         # /stats rows and tenant.* instruments. None (the default)
@@ -849,12 +855,19 @@ class PredictorServer:
         if ctx is not None:
             ctx.finish(reason)
 
-    @staticmethod
-    def fleet_view():
-        """The GET /debug/fleet body. The cross-rank aggregator
-        (observability/fleet.py) is not ported, so this is the JAX
-        server's reply with no aggregator attached."""
-        return {"enabled": False, "view": None}
+    def fleet_view(self):
+        """The GET /debug/fleet body: a live FleetAggregator scan —
+        step skew, per-rank heartbeat ages, straggler flags — when
+        observability is on and a `fleet=` aggregator is attached;
+        {"enabled": False, "view": None} otherwise (same shape as
+        /debug/requests' disabled reply: routers switch on `enabled`)."""
+        if not observability.ENABLED or self.fleet is None:
+            return {"enabled": False, "view": None}
+        # a view up to 1s old is served without store traffic: routers
+        # poll every replica, and each fresh scan costs world_size
+        # round-trips against the single rendezvous store
+        return {"enabled": True,
+                "view": self.fleet.scan(max_age_s=1.0)}
 
     def queue_depth(self):
         """Requests waiting for execution: buffered in the batcher
@@ -1446,14 +1459,34 @@ class PredictorServer:
         """Graceful shutdown: stop admitting (new requests shed with 503
         + Retry-After, /readyz flips to "draining"), wait up to
         `timeout` seconds for in-flight requests to finish, then stop
-        the server. Returns True when nothing was left in flight."""
+        the server. Returns True when nothing was left in flight.
+
+        With observability on, drain start also dumps a flight-recorder
+        bundle (no-op unless a bundle dir is configured): a SIGTERM
+        drain is usually a preemption, and the in-flight registry /
+        span / metric evidence is about to drain away with the
+        process."""
         self._draining = True
+        if observability.ENABLED:
+            self._flight_dump()
         t_end = time.monotonic() + timeout
         while self.admission.in_flight > 0 and time.monotonic() < t_end:
             time.sleep(poll_s)
         clean = self.admission.in_flight == 0
         self.stop()
         return clean
+
+    def _flight_dump(self):
+        """Flight-recorder bundle at drain start (observability/
+        fleet.py; no-op without a configured bundle dir). Never lets
+        recording break the drain."""
+        try:
+            from paddle_tpu_torch.observability import fleet
+            fleet.record_crash("serving_drain",
+                               extra={"stats": self.stats()})
+        except Exception as e:      # noqa: BLE001 — see docstring
+            print(f"WARNING: flight-recorder dump failed: {e!r}",
+                  file=sys.stderr)
 
     def stop(self, join_timeout=5.0):
         if self.batcher is not None:

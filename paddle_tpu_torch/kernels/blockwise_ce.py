@@ -40,14 +40,15 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import LaunchCounter, _build
 
 __all__ = ["blockwise_ce_loss", "ce_fwd", "ce_bwd", "ce_fwd_ref",
            "ce_bwd_ref", "ce_shape_problems", "check_ce_shapes",
            "ce_super_block", "dense_logits_bytes", "logits_bytes_saved",
            "launches"]
 
-launches = {"ce_fwd": 0, "ce_dlogits": 0, "ce_dx": 0, "ce_dw": 0}
+launches = LaunchCounter({"ce_fwd": 0, "ce_dlogits": 0, "ce_dx": 0,
+                           "ce_dw": 0})
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -332,7 +333,7 @@ def _launch_fwd(x, w, lab):
                             lse.data_ptr(), n, d, v, _DTYPE_CODE[x.dtype],
                             _stream(x))
     _build.check(status, "ce_fwd")
-    launches["ce_fwd"] += 1
+    launches.add("ce_fwd")
     return lse, picked
 
 
@@ -342,7 +343,7 @@ def _launch_dlogits(x, w, lab, lse, scale, ws, v0, vcur):
         scale.data_ptr(), ws.data_ptr(), x.shape[0], x.shape[1], w.shape[0],
         v0, vcur, ws.shape[1], _DTYPE_CODE[x.dtype], _stream(x))
     _build.check(status, "ce_bwd (dlogits)")
-    launches["ce_dlogits"] += 1
+    launches.add("ce_dlogits")
 
 
 def _launch_dx(ws, w, acc, dx, v0, vcur, first, last):
@@ -352,7 +353,7 @@ def _launch_dx(ws, w, acc, dx, v0, vcur, first, last):
         ws.shape[1], int(first), int(last), _DTYPE_CODE[dx.dtype],
         _stream(dx))
     _build.check(status, "ce_bwd (dx)")
-    launches["ce_dx"] += 1
+    launches.add("ce_dx")
 
 
 def _launch_dw(ws, x, dw, v0, vcur):
@@ -360,7 +361,7 @@ def _launch_dw(ws, x, dw, v0, vcur):
         ws.data_ptr(), x.data_ptr(), dw.data_ptr(), x.shape[0], x.shape[1],
         dw.shape[0], v0, vcur, ws.shape[1], _DTYPE_CODE[x.dtype], _stream(x))
     _build.check(status, "ce_bwd (dW)")
-    launches["ce_dw"] += 1
+    launches.add("ce_dw")
 
 
 class _BlockwiseCE(torch.autograd.Function):

@@ -23,14 +23,15 @@ import math
 
 import torch
 
-from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import LaunchCounter, _build
 
 __all__ = ["flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_fwd_ref", "flash_attention_bwd_ref",
            "flash_attention_bshd", "flash_attention_bhsd",
            "flash_shape_problems", "launches"]
 
-launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launches = LaunchCounter({"flash_fwd": 0, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)          # csrc/flash_attention.cu instantiations
@@ -195,7 +196,7 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None):
         _scale(q, sm_scale), int(causal), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_attention_fwd")
-    launches["flash_fwd"] += 1
+    launches.add("flash_fwd")
     return o, lse
 
 
@@ -253,7 +254,7 @@ def _launch_dq(q, k, v, do, lse, delta, causal, sm_scale):
     status = _build.load_library().ptt_flash_bwd_dq(*ptrs, dq.data_ptr(),
                                                      *rest)
     _build.check(status, "flash_attention_bwd (dq)")
-    launches["flash_bwd_dq"] += 1
+    launches.add("flash_bwd_dq")
     return dq
 
 
@@ -265,7 +266,7 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale):
     status = _build.load_library().ptt_flash_bwd_dkv(
         *ptrs, dk.data_ptr(), dv.data_ptr(), *rest)
     _build.check(status, "flash_attention_bwd (dk, dv)")
-    launches["flash_bwd_dkv"] += 1
+    launches.add("flash_bwd_dkv")
     return dk, dv
 
 

@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import LaunchCounter, _build
 
 __all__ = ["plan", "NormPlan", "rms_norm_residual", "rms_norm_residual_ref",
            "rms_norm_residual_bwd", "rms_norm_residual_bwd_ref",
@@ -35,8 +35,8 @@ __all__ = ["plan", "NormPlan", "rms_norm_residual", "rms_norm_residual_ref",
            "rope_apply_bwd_ref", "rope_tables", "norm_shape_problems",
            "rope_shape_problems", "launches"]
 
-launches = {"rms_norm_residual": 0, "rms_norm_residual_bwd": 0,
-            "rope_apply": 0, "rope_apply_bwd": 0}
+launches = LaunchCounter({"rms_norm_residual": 0, "rms_norm_residual_bwd": 0,
+                           "rope_apply": 0, "rope_apply_bwd": 0})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
@@ -186,7 +186,7 @@ def _norm_fwd(x, weight, residual, eps, want_rstd):
              sms=_sm_count(x.device))
     _build.check(_launch_fwd(x, residual, weight, y, h, rstd, n, d, eps, p),
                  "rms_norm_residual")
-    launches["rms_norm_residual"] += 1
+    launches.add("rms_norm_residual")
     return y, h, rstd
 
 
@@ -253,7 +253,7 @@ def rms_norm_residual_bwd(h, weight, rstd, gy, gh=None):
                           device=h.device)
     _build.check(_launch_bwd(h, weight, rstd, gy, gh, dh, dw_part, n, d, p),
                  "rms_norm_residual_bwd")
-    launches["rms_norm_residual_bwd"] += 1
+    launches.add("rms_norm_residual_bwd")
     return dh, torch.sum(dw_part, dim=0).to(weight.dtype)
 
 
@@ -369,7 +369,7 @@ def _rope_launch(x, cos_f, sin_f, sign, counter):
     _check_cuda_inputs("rope_apply", [x, cos_f, sin_f], x.dtype)
     out = torch.empty_like(x)
     _build.check(_launch_rope(x, cos_f, sin_f, out, sign), counter)
-    launches[counter] += 1
+    launches.add(counter)
     return out
 
 

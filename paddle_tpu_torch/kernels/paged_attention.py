@@ -27,14 +27,15 @@ import math
 
 import torch
 
-from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import LaunchCounter, _build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref",
            "gather_window", "decode_shape_problems", "check_decode_shapes",
            "plan", "launches"]
 
 # one count per pool type: float pools, and int8 pools with scales
-launches = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+launches = LaunchCounter({"paged_decode_attention": 0,
+                           "paged_decode_attention_int8": 0})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # (q, pools) types compiled: one type throughout, an f32 model over bf16
@@ -220,6 +221,6 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lens, *,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_decode_attention")
-    launches["paged_decode_attention_int8" if quantized
-             else "paged_decode_attention"] += 1
+    launches.add("paged_decode_attention_int8" if quantized
+                 else "paged_decode_attention")
     return out

@@ -25,14 +25,15 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import LaunchCounter, _build
 
 __all__ = ["weight_only_int8_matmul", "weight_only_int8_matmul_ref",
            "quant_matmul_shape_problems", "check_quant_matmul_shapes",
            "plan", "launches"]
 
 # every launch of either route, and the wgmma route's alone
-launches = {"weight_only_int8_matmul": 0, "weight_only_int8_matmul_wgmma": 0}
+launches = LaunchCounter({"weight_only_int8_matmul": 0,
+                           "weight_only_int8_matmul_wgmma": 0})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/quant_matmul.cu geometry
@@ -160,7 +161,7 @@ def weight_only_int8_matmul(x, qw, scale, out_dtype=None):
             xb.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
             M, K, N, bm, _DTYPE_CODE[out_dtype], stream)
         _build.check(status, "weight_only_int8_matmul (wgmma)")
-        launches["weight_only_int8_matmul_wgmma"] += 1
+        launches.add("weight_only_int8_matmul_wgmma")
     else:
         ws = (torch.empty((splits, M, N), dtype=torch.float32,
                           device=x.device) if splits > 1 else None)
@@ -169,7 +170,7 @@ def weight_only_int8_matmul(x, qw, scale, out_dtype=None):
             None if ws is None else ws.data_ptr(), M, K, N, bm, splits,
             _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], stream)
         _build.check(status, "weight_only_int8_matmul")
-    launches["weight_only_int8_matmul"] += 1
+    launches.add("weight_only_int8_matmul")
     return out
 
 

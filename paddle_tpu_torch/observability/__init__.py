@@ -1,9 +1,8 @@
 """The observability plane of the port: metrics registry, span tracing,
-per-request tracing.
+per-request tracing, the fleet plane and flight recorder.
 
 Counterpart of paddle_tpu/observability/__init__.py, without the
-cross-rank fleet layer (`fleet.py`) and the training telemetry
-(`telemetry.py`), which wait for their slices:
+training telemetry (`telemetry.py`), which waits for its slice:
 
     metrics.py    thread-safe MetricsRegistry of Counter/Gauge/
                   Histogram with the closed name catalogue (METRICS),
@@ -13,6 +12,9 @@ cross-rank fleet layer (`fleet.py`) and the training telemetry
                   chrome-trace JSON
     requests.py   per-request contexts, the TTFT / ITL / queue-wait /
                   prefill / outcome instruments, GET /debug/requests
+    fleet.py      cross-rank heartbeats over a rendezvous store, the
+                  straggler view behind GET /debug/fleet, and the crash
+                  flight recorder (bundles read by tools/obs_dump.py)
 
 Contract with the hot path: when observability is disabled (the
 default), every instrumentation point is a single module-attribute
@@ -38,6 +40,7 @@ from __future__ import annotations
 from paddle_tpu_torch.observability import metrics as metrics  # noqa: PLC0414
 from paddle_tpu_torch.observability import trace as trace      # noqa: PLC0414
 from paddle_tpu_torch.observability import requests as requests  # noqa: PLC0414
+from paddle_tpu_torch.observability import fleet as fleet      # noqa: PLC0414
 from paddle_tpu_torch.observability.metrics import (
     METRICS, MetricsRegistry, REGISTRY)
 from paddle_tpu_torch.observability.trace import Span, export_chrome_trace
@@ -47,7 +50,7 @@ __all__ = [
     "ENABLED", "enable", "disable", "scoped", "inc", "observe",
     "set_gauge", "span", "METRICS", "MetricsRegistry", "REGISTRY",
     "Span", "export_chrome_trace", "metrics", "trace", "requests",
-    "RequestContext",
+    "RequestContext", "fleet",
 ]
 
 # the ONE attribute hot paths branch on
@@ -56,13 +59,14 @@ ENABLED = False
 
 def enable(reset=False):
     """Turn instrumentation on process-wide. `reset=True` also clears
-    the global registry, the span ring and the live request registry
-    (test harness form)."""
+    the global registry, the span ring, the live request registry and
+    the cached fleet view (test harness form)."""
     global ENABLED
     if reset:
         REGISTRY.reset()
         trace.clear()
         requests.clear()
+        fleet.clear()
     ENABLED = True
 
 

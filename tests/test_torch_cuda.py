@@ -1607,6 +1607,43 @@ def test_captured_tick_launch_counts(cuda, kv):
 
 
 @pytest.mark.cuda
+def test_capture_counts_only_the_capturing_threads_launches(cuda):
+    """While one engine captures its tick another thread keeps launching
+    RMSNorm eagerly (a second replica's ticker on the same card): the
+    capture's counts are its own tick's, and every eager launch of the
+    other thread stays counted once."""
+    import threading
+    model = _tick_model(cuda, "bf16")
+    eng = PagedKVEngine(model, device=cuda, **_TICK_GEOM)
+    layers, n = _TICK_CFG["num_hidden_layers"], _TICK_GEOM["steps_per_tick"]
+    x = torch.randn(8, 64, device=cuda)
+    w = torch.ones(64, device=cuda)
+    stop, other = threading.Event(), [0]
+
+    def launch():
+        while not stop.is_set():
+            tfn.rms_norm_residual(x, w, None, 1e-5)
+            other[0] += 1
+    before = dict(tfn.launches)
+    t = threading.Thread(target=launch, daemon=True)
+    t.start()
+    try:
+        eng.generate([[5, 9, 2, 14]], max_new_tokens=10)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and other[0] > 0
+    delta = {k: v for _, k, v in eng._programs[("tick", False)].delta}
+    assert delta == {"paged_decode_attention": layers * n,
+                     "rms_norm_residual": (2 * layers + 1) * n,
+                     "rope_apply": 2 * layers * n}
+    steps = n * (eng.stats["ticks"] + eng.stats["warmup_ticks"])
+    calls = eng.stats["prefill_calls"] + steps
+    assert tfn.launches["rms_norm_residual"] - before["rms_norm_residual"] \
+        == (2 * layers + 1) * calls + other[0]
+
+
+@pytest.mark.cuda
 def test_capture_unsafe_body_raises_and_runs_no_eager_tick(cuda,
                                                            monkeypatch):
     """A host sync planted in the tick body (an `.item()` on the card)

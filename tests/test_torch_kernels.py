@@ -467,3 +467,33 @@ def test_np_process_logits_is_the_jax_copy():
     for args in [(0.8, 10, 0.9), (1.0, 0, 1.0), (1.5, 49, 0.3)]:
         np.testing.assert_array_equal(tpaged._np_process_logits(x, *args),
                                       _np_process_logits(x, *args))
+
+
+def test_capture_tally_holds_only_its_own_threads_launches():
+    """A capture's counts are the capturing thread's: launches another
+    thread adds meanwhile land in the counter and not in the tally, and
+    every add is counted once however the threads interleave."""
+    import threading
+    from paddle_tpu_torch.kernels import LaunchCounter, capture_tally
+    c = LaunchCounter({"a": 0, "b": 0})
+    go = threading.Barrier(2)
+
+    def other():
+        go.wait()
+        for _ in range(20000):
+            c.add("a")
+    t = threading.Thread(target=other)
+    t.start()
+    with capture_tally() as tally:
+        go.wait()
+        for _ in range(20000):
+            c.add("b")
+        c.add("a", 3)
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert c == {"a": 20003, "b": 20000}
+    assert sum(n for _, k, n in tally if k == "b") == 20000
+    assert [(k, n) for _, k, n in tally if k == "a"] == [("a", 3)]
+    assert all(x is c for x, _, _ in tally)
+    c.add("a")                      # outside a capture: no tally
+    assert len(tally) == 20001 and c["a"] == 20004

@@ -173,13 +173,15 @@ def test_port_metric_and_chaos_sites_are_catalogued():
     bad, metrics_seen, sites_seen = _scan(_port_modules())
     assert not bad, "\n".join(bad)
     # the scan saw the engine's, kvtier's, disagg's, serving's, the
-    # request tracer's and the router's sites, and every chaos site the
-    # port wires
+    # request tracer's, the router's, the fleet plane's and the
+    # autopilot's sites, and every chaos site the port wires
     assert {"inference.decode.kernel", "inference.prefix.hits",
             "tenant.decode.slots", "inference.kvtier.spilled_pages",
             "inference.disagg.imported_pages", "engine.pending",
             "request.ttft.seconds", "serving.requests",
-            "router.requests", "router.disagg.handoffs"} <= metrics_seen
+            "router.requests", "router.disagg.handoffs",
+            "fleet.heartbeats", "fleet.flight.records",
+            "autopilot.restarts", "autopilot.quarantines"} <= metrics_seen
     assert sites_seen == {"engine.tick.delay", "prefix.cache.bypass",
                           "kvtier.spill.fail", "kvtier.restore.delay",
                           "tenant.storm", "serving.batch.delay",
@@ -188,7 +190,9 @@ def test_port_metric_and_chaos_sites_are_catalogued():
                           "router.probe.delay", "router.probe.flap",
                           "router.connect.fail", "router.replica.kill",
                           "router.prefix.scramble", "disagg.transfer.fail",
-                          "disagg.transfer.delay"}
+                          "disagg.transfer.delay", "fleet.heartbeat.delay",
+                          "fleet.heartbeat.drop", "autopilot.launch.fail",
+                          "autopilot.replica.hang"}
 
 
 def test_catalogue_check_catches_planted_sites():

@@ -268,6 +268,8 @@ def test_port_imports_without_jax_or_paddle_tpu():
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.distributed.retries\n"
         "import paddle_tpu_torch.inference.router\n"
+        "import paddle_tpu_torch.observability.fleet\n"
+        "import paddle_tpu_torch.inference.autopilot\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "import paddle_tpu_torch.kernels.fused_norm\n"

@@ -5,9 +5,9 @@ package's, on the CPU.
 Every scenario of tests/test_replica_router.py runs over both packages
 (the `pkg` fixture: one package's router, servers, chaos, overload,
 retries and observability), with the JAX tests' status codes, bodies,
-headers and counters. The one difference by design: on a breaker
-ejection the JAX router dumps a flight-recorder bundle and the port,
-which has no flight recorder yet, only counts it. Beside them, one
+headers and counters; on a breaker ejection each router dumps a
+`replica_ejected` bundle through its own package's flight recorder.
+Beside them, one
 script over a two-replica fleet in each package (routing, prefix pins,
 session affinity, shed with Retry-After, `router.connect.fail`, a
 draining replica, a probe flap, a kill mid-stream) gives the same
@@ -43,6 +43,7 @@ from paddle_tpu import observability as j_obs
 from paddle_tpu.distributed import chaos as j_chaos
 from paddle_tpu.observability import fleet as j_fleet
 from paddle_tpu_torch import observability as t_obs
+from paddle_tpu_torch.observability import fleet as t_fleet
 from paddle_tpu_torch.distributed import chaos as t_chaos
 from tools.router_status import fetch, render
 
@@ -54,25 +55,25 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGES = {
     "jax": types.SimpleNamespace(
         name="jax", obs=j_obs, chaos=j_chaos, ovl=j_overload,
-        retries=j_retries, rt=j_router, srv=j_serving,
+        retries=j_retries, rt=j_router, srv=j_serving, fleet=j_fleet,
         src=os.path.join(_ROOT, "paddle_tpu", "inference", "router.py")),
     "port": types.SimpleNamespace(
         name="port", obs=t_obs, chaos=t_chaos, ovl=t_overload,
-        retries=t_retries, rt=t_router, srv=t_serving,
+        retries=t_retries, rt=t_router, srv=t_serving, fleet=t_fleet,
         src=os.path.join(_ROOT, "paddle_tpu_torch", "inference",
                          "router.py"))}
 
 
 @pytest.fixture(params=sorted(PACKAGES))
 def pkg(request):
-    """One package's router, serving, chaos, overload, retries and
-    observability."""
+    """One package's router, serving, chaos, overload, retries,
+    observability and flight recorder."""
     return PACKAGES[request.param]
 
 
 @pytest.fixture(autouse=True)
 def _clean_slate():
-    """Observability, chaos and the JAX flight recorder are process-global;
+    """Observability, chaos and the flight recorders are process-global;
     every test starts disabled and leaves the process the same way."""
     def reset():
         for p in PACKAGES.values():
@@ -80,7 +81,7 @@ def _clean_slate():
             p.obs.REGISTRY.reset()
             p.chaos.disable()
             p.ovl.seed_retry_jitter(None)
-        j_fleet.configure_flight_recorder(dir=None, max_keep=5)
+            p.fleet.configure_flight_recorder(dir=None, max_keep=5)
     reset()
     yield
     reset()
@@ -389,13 +390,13 @@ def test_forward_failures_open_breaker_eject_and_flight_record(pkg,
                                                                tmp_path):
     """A dead replica: forwards fail over to the survivor; the replica's
     breaker opens and it is ejected with reason breaker_open. With
-    observability on the JAX router dumps a `replica_ejected` bundle with
-    its last-known stats; the port counts the ejection and writes none."""
+    observability on the router dumps a `replica_ejected` bundle with
+    its last-known stats."""
     _preds, servers, pairs = _mk_fleet(pkg, 2)
     router = pkg.rt.ReplicaRouter(pairs, breaker_threshold=2,
                                   eject_after=5).start(probe=False)
     pkg.obs.enable(reset=True)
-    j_fleet.configure_flight_recorder(dir=str(tmp_path), max_keep=5)
+    pkg.fleet.configure_flight_recorder(dir=str(tmp_path), max_keep=5)
     try:
         router.probe_all()              # capture last_stats while alive
         servers[0].stop()
@@ -408,17 +409,14 @@ def test_forward_failures_open_breaker_eject_and_flight_record(pkg,
         assert r0.last_stats["model"] == "r0"
         assert router.metrics.counter("router.ejections").value(
             reason="breaker_open") == 1
-        recs = j_fleet.flight_records(str(tmp_path))
-        if pkg.name == "jax":
-            assert len(recs) == 1
-            with open(os.path.join(recs[0], "manifest.json")) as f:
-                manifest = json.load(f)
-            assert manifest["reason"] == "replica_ejected"
-            assert manifest["extra"]["replica"] == "r0"
-            assert manifest["extra"]["reason"] == "breaker_open"
-            assert manifest["extra"]["last_stats"]["model"] == "r0"
-        else:
-            assert recs == [] and os.listdir(tmp_path) == []
+        recs = pkg.fleet.flight_records(str(tmp_path))
+        assert len(recs) == 1
+        with open(os.path.join(recs[0], "manifest.json")) as f:
+            manifest = json.load(f)
+        assert manifest["reason"] == "replica_ejected"
+        assert manifest["extra"]["replica"] == "r0"
+        assert manifest["extra"]["reason"] == "breaker_open"
+        assert manifest["extra"]["last_stats"]["model"] == "r0"
         before = router.stats()["retries"].get("connect", 0)
         for _ in range(3):
             code, _b, hdrs = _req(router.port, "/predict", _BODY)
