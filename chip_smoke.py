@@ -283,6 +283,37 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the six files and `tools/obs_dump.py` renders it. Launches are held to
    phase 11's counts over every engine built and go to the path
    "autopilot".
+18. training telemetry, the fleet heartbeat, training chaos and
+   checkpoints (run right after phase 9). (a) Phase 9's configuration and
+   loop (a warm-up and 10 steps through `data_iter(depth=3)`) under the
+   port's observability: the telemetry's mean tokens/s over its last 8
+   reports within 5 % of the CUDA-event window of the same steps,
+   `train.mfu` = tokens/s x `flops_per_token_for(model, 2048)` /
+   `detect_peak_flops()` (989e12 on an H100 SXM), `train.steps` 10,
+   `train.loss` after `flush()` the last reported step's loss,
+   `train.loss.logits_bytes_saved` = `logits_bytes_saved(...)`, one
+   `train.recompiles` label, the launches phase 9's; two steps with
+   observability on make as many synchronizing calls as two with it off
+   (torch.cuda's sync debug mode); it prints the median step beside phase
+   9's. (b) `trainer.fleet_heartbeat` into a TCPStore during (a): after a
+   last beat the FleetAggregator's row holds the registry's step, tokens/s
+   and MFU, and no `fleet-` thread is left after stop. (c) A 2-layer model
+   at TinyLlama-1.1B's widths (fused norm and RoPE, the blockwise loss),
+   health_probe: a step where `train.grad.nan` fires, and one where
+   `train.loss.spike` fires under a loss cap, report applied 0 and leave
+   every parameter and moment bit-equal; under skip_nonfinite_grads
+   `train.nonfinite_skips` counts both poisoned steps. (d) The same model:
+   3 steps, `save_checkpoint` (sync) and `verify_checkpoint` clean; an
+   `AsyncCheckpointer` save of the same state, a step right after it
+   returns, and files byte-identical to the sync save's; a trainer built
+   from other weights loads the checkpoint bit-equal and takes the
+   uninterrupted run's next 3 losses (bit-equal, or within twice the
+   spread of two uninterrupted runs); a shard torn by `ckpt.write.shards`
+   is quarantined and `load_newest_complete` falls back to the first
+   save. It prints the free disk, the bytes, the sync save's and the async
+   save's return times beside one pinned copy of the same bytes, and the
+   load time. Launches go to the paths "training_obs" ((a)) and
+   "training_ckpt" ((c), (d): every step at the count from the code).
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -316,6 +347,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import warnings
@@ -323,8 +355,10 @@ import warnings
 import numpy as np
 import torch
 
+from paddle_tpu_torch.observability.telemetry import PEAK_FLOPS
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-BF16_TENSOR_FLOPS = 989e12     # H100 SXM dense bf16
+BF16_TENSOR_FLOPS = PEAK_FLOPS["H100 80GB HBM3"]   # H100 SXM dense bf16
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_TOL = 2 ** -7             # one bf16 rounding step, relative
 F32_TOL = 1e-4
@@ -2125,9 +2159,10 @@ def bench_training_phase(dev, counters, reset, card, profile=False):
     t0 = time.perf_counter()
     losses = [float(trainer.step(next(it)))]          # warm-up
     warm = time.perf_counter() - t0
-    step_losses = []
+    step_losses, stamps = [], []
     t0 = time.perf_counter()
     for b in it:
+        stamps.append(time.perf_counter())
         loss = trainer.step(b)
         step_losses.append(loss)
     loss = float(loss)          # the last step's output closes the chain
@@ -2151,7 +2186,8 @@ def bench_training_phase(dev, counters, reset, card, profile=False):
         tokens_per_s=tokens_per_s, step_ms=dt / steps * 1e3, warmup_s=warm,
         mfu=tokens_per_s * ftok / BF16_TENSOR_FLOPS, flops_per_token=ftok,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
-        launches=launches, launches_per_step=per_step)
+        launches=launches, launches_per_step=per_step,
+        step_ms_median=_median(np.diff(stamps).tolist()) * 1e3)
     print(f"[bench-train] {card}: {tokens_per_s:.1f} tokens/s, step "
           f"{metrics['step_ms']:.1f} ms, MFU {metrics['mfu']:.4f} (of 989 "
           f"TF/s, {ftok:.4g} flops/token with recompute), peak memory "
@@ -2196,6 +2232,416 @@ def profile_training(trainer, data, card):
         print(f"[profile]   {ms:9.3f} ms  x{n:<6} {name}")
     for name, ms, n in out["norm"]:
         print(f"[profile] norm {ms:9.3f} ms  x{n:<6} {name}")
+    return out
+
+
+# -- phase 18: training telemetry, heartbeat, chaos and checkpoints ---------
+
+OBS_STEPS = 10              # (a): timed steps after one warm-up, as phase 9
+OBS_WINDOW = 8              # (a): the last reported steps the rate gate reads
+OBS_RATE_TOL = 0.05         # (a): telemetry tokens/s against the event window
+HB_INTERVAL_S = 0.5         # (b): the heartbeat's publish interval
+CKPT_STEPS = 3              # (d): steps before the save, and after the load
+OBS_BATCH = (8, 2048)       # every part's batch: bench.py's 8 x 2048 ids
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return (xs[n // 2] + xs[(n - 1) // 2]) / 2 if n else None
+
+
+def _sync_warnings(run):
+    """How many synchronizing CUDA calls `run()` makes, read through
+    torch.cuda's sync debug mode ("warn") and the warnings it raises."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def _telemetry_part(dev, counters, reset, card, bench):
+    """(a) + (b): phase 9's configuration and loop under observability,
+    with a fleet heartbeat into a TCPStore running beside it."""
+    import datetime
+    import torch.distributed as tdist
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.kernels.blockwise_ce import logits_bytes_saved
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.observability import fleet
+    from paddle_tpu_torch.observability.telemetry import (
+        detect_peak_flops, flops_per_token_for)
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    cfg = _tinyllama_config(loss_chunk=512, loss_vocab_block=0,
+                            fused_norm=False, fused_rope=False)
+    torch.cuda.empty_cache()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    opt = topt.AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                     weight_decay=0.01)
+    trainer = Trainer(model, opt, TrainStepConfig(compute_dtype="bfloat16"))
+    batch, seq = OBS_BATCH
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (batch, seq)) \
+        .astype(np.int32)
+    data = {"input_ids": ids, "labels": ids}
+    store = tdist.TCPStore("127.0.0.1", 0, 1, True, wait_for_workers=False,
+                           timeout=datetime.timedelta(seconds=30))
+    out = {"card": card}
+    with observability.scoped() as reg:
+        hb = trainer.fleet_heartbeat(store, 0, 1, interval=HB_INTERVAL_S)
+        try:
+            reset()
+            it = trainer.data_iter(itertools.repeat(data, OBS_STEPS + 1),
+                                   depth=3)
+            losses = [trainer.step(next(it))]           # warm-up
+            float(losses[0])
+            events, reported = [], []
+            t0 = time.perf_counter()
+            for b in it:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+                losses.append(trainer.step(b))
+                reported.append(reg.gauge("train.tokens_per_sec").value())
+            float(losses[-1])       # the last step's output closes the chain
+            wall = time.perf_counter() - t0
+            it.close()
+            launches = counters()
+            hb.publish()                    # the last beat, after the run
+            row = fleet.FleetAggregator(store, 1).scan()["ranks"][0]
+            beat = {"step": reg.counter("train.steps").value(),
+                    "tokens_per_sec": reg.gauge(
+                        "train.tokens_per_sec").value(),
+                    "mfu": reg.gauge("train.mfu").value()}
+            mfu = beat["mfu"]
+        finally:
+            hb.stop()
+        left = [t.name for t in threading.enumerate()
+                if t.name.startswith("fleet-") and t.is_alive()]
+        tel = trainer.telemetry
+        tel.flush()
+        losses = [float(x) for x in losses]
+        tokens = batch * seq
+        # the event recorded before call k to the one before call k + 8:
+        # the device time of the steps the last 8 reports cover
+        ev_ms = events[1].elapsed_time(events[-1])
+        window = reported[-OBS_WINDOW:]
+        tel_rate = sum(window) / len(window)
+        ev_rate = tokens * OBS_WINDOW / (ev_ms / 1e3)
+        peak = detect_peak_flops()
+        want_mfu = reported[-1] * flops_per_token_for(model, seq) / peak
+        want = expected_train_launches(cfg, tokens)
+        per_step = {k: launches[k] / (OBS_STEPS + 1) for k in want}
+        recompiles = reg.counter("train.recompiles").labeled()
+        problems = []
+        if abs(tel_rate - ev_rate) > OBS_RATE_TOL * ev_rate:
+            problems.append(f"telemetry {tel_rate:.1f} tokens/s against "
+                            f"the event window's {ev_rate:.1f}")
+        if peak != 989e12:
+            problems.append(f"detected peak {peak}")
+        if mfu != want_mfu:
+            problems.append(f"train.mfu {mfu} != {want_mfu}")
+        if reg.counter("train.steps").value() != OBS_STEPS:
+            problems.append("train.steps "
+                            f"{reg.counter('train.steps').value()}")
+        # the last call's interval and loss are reported at a next call
+        if reg.gauge("train.loss").value() != losses[-2]:
+            problems.append(f"train.loss {reg.gauge('train.loss').value()} "
+                            f"!= the last reported step's {losses[-2]}")
+        saved = logits_bytes_saved(tokens, cfg.vocab_size, 512, 0, 2)
+        if reg.gauge("train.loss.logits_bytes_saved").value() != saved:
+            problems.append("logits_bytes_saved")
+        if len(recompiles) != 1:
+            problems.append(f"train.recompiles {recompiles}")
+        if per_step != {k: float(v) for k, v in want.items()}:
+            problems.append(f"launches per step {per_step} != {want}")
+        for k in ("step", "tokens_per_sec", "mfu"):
+            if row.get(k) != fleet._json_value(beat[k]):
+                problems.append(f"heartbeat {k} {row.get(k)} != the "
+                                f"registry's {beat[k]}")
+        if left:
+            problems.append(f"threads left after stop: {left}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            problems.append(f"losses {losses}")
+        # syncs: two steps with observability on, then two with it off
+        placed = trainer._place(data)
+        on = _sync_warnings(lambda: [trainer.step(placed)
+                                     for _ in range(2)])
+    off = _sync_warnings(lambda: [trainer.step(placed) for _ in range(2)])
+    torch.cuda.synchronize()
+    if on != off:
+        problems.append(f"{on} syncs in two steps with observability on, "
+                        f"{off} with it off")
+    dev_step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(len(events) - 1)]
+    step_s = [tokens / r for r in reported]
+    out.update(
+        tokens_per_s_telemetry=tel_rate, tokens_per_s_events=ev_rate,
+        tokens_per_s_synced=tokens * OBS_STEPS / wall,
+        step_ms_median_on=_median(step_s[-OBS_WINDOW:]) * 1e3,
+        step_ms_median_off=bench.get("step_ms_median"),
+        device_step_ms=dev_step_ms, reported_tokens_per_s=reported,
+        mfu=mfu, peak_flops=peak,
+        losses=losses, recompiles={str(k): v for k, v in recompiles.items()},
+        heartbeat=row, syncs_on=on, syncs_off=off, launches=launches,
+        launches_per_step=per_step)
+    print(f"[train-obs] {card}: telemetry {tel_rate:.1f} tokens/s over the "
+          f"last {OBS_WINDOW} reports against {ev_rate:.1f} by CUDA events "
+          f"({100 * (tel_rate / ev_rate - 1):+.2f} %), "
+          f"{out['tokens_per_s_synced']:.1f} over the synced window of "
+          f"{OBS_STEPS}; MFU {out['mfu']:.4f} of {peak / 1e12:.0f} TF/s")
+    print(f"[train-obs] {card}: median step {out['step_ms_median_on']:.1f} ms "
+          f"with observability on, phase 9's {out['step_ms_median_off']} ms "
+          f"off; syncs in two steps: {on} on, {off} off")
+    print(f"[train-obs] heartbeat row {row}")
+    print(f"[train-obs] launches per step {per_step}")
+    del trainer, opt, model, placed
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("train-obs: " + "; ".join(problems))
+    return out
+
+
+def _small_trainer(dev, seed, **step_kw):
+    """A 2-layer model at TinyLlama-1.1B's widths with the fused norm and
+    RoPE and the blockwise loss (every training kernel), AdamW, bf16
+    compute."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    cfg = _tinyllama_config(num_hidden_layers=2, loss_chunk=512)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=seed)
+    opt = topt.AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                     weight_decay=0.01)
+    return Trainer(model, opt, TrainStepConfig(compute_dtype="bfloat16",
+                                               **step_kw))
+
+
+def _train_state(tr):
+    """A copy on the card of every parameter and optimizer-state tensor."""
+    sd = tr.checkpoint_state()
+    out = {f"p/{n}": t.clone() for n, t in sd["params"].items()}
+    for n, st in sd["opt"].items():
+        out.update({f"o/{n}/{k}": t.clone() for k, t in st.items()})
+    return out
+
+
+def _same_state(a, b):
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _chaos_part(dev, data, steps):
+    """(c): the chaos sites on a full-width 2-layer model."""
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.distributed import chaos
+    problems, out = [], {}
+    tr = _small_trainer(dev, 0, health_probe=True)
+    steps.append(float(tr.step(data)))
+    for site, cap in (("train.grad.nan", None), ("train.loss.spike", 0.0)):
+        if cap is not None:
+            cap = 10 * steps[-1]
+            tr.set_loss_cap(cap)
+        before = _train_state(tr)
+        with chaos.scoped(seed=0, rates={site: (1.0, 1)}):
+            loss = float(tr.step(data))
+            steps.append(loss)
+            fired = chaos.fire_count(site)
+        probe = tr.last_probe.tolist()
+        kept = _same_state(_train_state(tr), before)
+        out[site] = dict(fired=fired, loss=loss, probe=probe,
+                         state_unchanged=kept, cap=cap)
+        if fired != 1 or probe[1] != 0.0 or not kept:
+            problems.append(f"{site}: {out[site]}")
+        tr.set_loss_cap(float("inf"))
+        steps.append(float(tr.step(data)))
+        if tr.last_probe.tolist()[1] != 1.0:
+            problems.append(f"{site}: the next step was not applied")
+        print(f"[train-chaos] {site}: fired {fired}, loss {loss:.4f}, "
+              f"probe {probe}, parameters and moments unchanged: {kept}")
+    del tr, before
+    tr = _small_trainer(dev, 0, skip_nonfinite_grads=True)
+    with observability.scoped() as reg:
+        with chaos.scoped(seed=0, rates={"trainer.grad": (1.0, 2)}):
+            for _ in range(3):
+                steps.append(float(tr.step(data)))
+        skips = reg.counter("train.nonfinite_skips").value()
+    out["skip"] = dict(skipped=tr.nonfinite_skipped, counted=skips)
+    if not tr.nonfinite_skipped == skips == 2:
+        problems.append(f"skip: {out['skip']}")
+    print(f"[train-chaos] trainer.grad under skip_nonfinite_grads: "
+          f"{tr.nonfinite_skipped} skipped, train.nonfinite_skips {skips}")
+    return out, problems
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path)
+               if os.path.isfile(os.path.join(path, f)))
+
+
+def _pinned_copy_gbs(nbytes):
+    """GB/s of one device-to-host copy of `nbytes` into pinned memory."""
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    return nbytes / (time.perf_counter() - t0) / 1e9
+
+
+def _ckpt_part(dev, data, steps):
+    """(d): save, verify, load and resume, async against sync, a torn
+    shard, on a full-width 2-layer model."""
+    import filecmp
+    import shutil
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.distributed import chaos
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.distributed.async_checkpoint import AsyncCheckpointer
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    free = shutil.disk_usage(root).free
+    print(f"[train-ckpt] {root}: {free / 1e9:.1f} GB free")
+    problems, out = [], {"free_gb": free / 1e9}
+    try:
+        a = _small_trainer(dev, 0)
+        got = [float(a.step(data)) for _ in range(CKPT_STEPS)]
+        steps.extend(got)
+        first = os.path.join(root, f"step_{CKPT_STEPS:08d}")
+        torch.cuda.synchronize()
+        with observability.scoped() as reg:
+            t0 = time.perf_counter()
+            a.save_checkpoint(first)
+            out["save_s"] = time.perf_counter() - t0
+            # the save's split: the host snapshot, then the files
+            out["save_snapshot_s"] = reg.histogram(
+                "checkpoint.snapshot.seconds").percentile(50)
+            out["save_files_s"] = reg.histogram(
+                "ckpt.save.seconds").percentile(50)
+        out["bytes"] = _dir_bytes(first)
+        issues = ckpt.verify_checkpoint(first)
+        if issues:
+            problems.append(f"verify: {issues}")
+        saved = _train_state(a)
+        # async: the same state, then a step in place right after save()
+        cp = AsyncCheckpointer()
+        a.checkpointer = cp
+        second = os.path.join(root, "async")
+        try:
+            t0 = time.perf_counter()
+            a.save_checkpoint(second)
+            out["snapshot_s"] = time.perf_counter() - t0
+            after = [float(a.step(data))]
+            steps.append(after[0])
+            t1 = time.perf_counter()
+            cp.flush()
+            out["async_write_s"] = out["snapshot_s"] + time.perf_counter() - t1
+        finally:
+            cp.close()
+            a.checkpointer = None
+        same = {f: filecmp.cmp(os.path.join(first, f),
+                               os.path.join(second, f), shallow=False)
+                for f in sorted(os.listdir(first))}
+        out["async_files_identical"] = same
+        if not all(same.values()):
+            problems.append(f"async files differ from the sync save's: {same}")
+        shutil.rmtree(second)
+        after += [float(a.step(data)) for _ in range(CKPT_STEPS - 1)]
+        steps.extend(after[1:])
+        del a
+        # a second uninterrupted run: the run-to-run spread of the losses
+        b = _small_trainer(dev, 0)
+        again = [float(b.step(data)) for _ in range(2 * CKPT_STEPS)]
+        steps.extend(again)
+        del b
+        spread = max(abs(x - y) for x, y in zip(got + after, again))
+        # resume into a trainer built from other weights
+        r = _small_trainer(dev, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.load_checkpoint(first)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        if not _same_state(_train_state(r), saved):
+            problems.append("loaded state differs from the saved one")
+        resumed = [float(r.step(data)) for _ in range(CKPT_STEPS)]
+        steps.extend(resumed)
+        gap = max(abs(x - y) for x, y in zip(resumed, after))
+        out.update(losses=got + after, again=again, resumed=resumed,
+                   spread=spread, gap=gap, bit_equal=resumed == after)
+        if resumed != after and gap > 2 * spread:
+            problems.append(f"resumed losses {resumed} against {after}: gap "
+                            f"{gap} > twice the spread {spread}")
+        # a torn shard: quarantined, and the fallback loads the first
+        torn = os.path.join(root, f"step_{2 * CKPT_STEPS:08d}")
+        with chaos.scoped(seed=0, rates={"ckpt.write.shards": (1.0, 1)}):
+            r.save_checkpoint(torn)
+        issues = ckpt.verify_checkpoint(torn)
+        loaded = ckpt.load_newest_complete(r.checkpoint_state(), root)
+        quarantined = os.path.exists(os.path.join(
+            torn, ".quarantine", "shards_0.npz"))
+        back = _same_state(_train_state(r), saved)
+        out.update(torn_issues=issues, fallback=loaded,
+                   quarantined=quarantined, fallback_state_equal=back)
+        if not issues or loaded != first or not quarantined or not back:
+            problems.append(f"torn shard: issues {issues}, loaded {loaded}, "
+                            f"quarantined {quarantined}, state {back}")
+        del r, saved
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    nb = out["bytes"]
+    out["pinned_copy_gbs"] = _pinned_copy_gbs(nb)
+    out["snapshot_gbs"] = nb / out["snapshot_s"] / 1e9
+    out["sync_write_gbs"] = nb / out["save_s"] / 1e9
+    print(f"[train-ckpt] {nb / 1e9:.3f} GB: sync save_checkpoint "
+          f"{out['save_s']:.2f} s ({out['sync_write_gbs']:.2f} GB/s; snapshot "
+          f"{out['save_snapshot_s']:.2f} s, files {out['save_files_s']:.2f} "
+          f"s), async "
+          f"returns in {out['snapshot_s']:.3f} s ({out['snapshot_gbs']:.2f} "
+          f"GB/s device to host; one pinned copy {out['pinned_copy_gbs']:.2f} "
+          f"GB/s), written in {out['async_write_s']:.2f} s; load "
+          f"{out['load_s']:.2f} s")
+    print(f"[train-ckpt] losses {out['losses']}, resumed {out['resumed']} "
+          f"(bit-equal: {out['bit_equal']}; gap {out['gap']}, spread of two "
+          f"runs {out['spread']})")
+    return out, problems
+
+
+def training_obs_phase(dev, counters, reset, card, bench):
+    """Phase 18: training telemetry and the fleet heartbeat at full width
+    ((a), (b): phase 9's configuration), then the chaos sites and the
+    checkpoints on a full-width 2-layer model ((c), (d))."""
+    t0 = time.perf_counter()
+    out = {"obs": _telemetry_part(dev, counters, reset, card, bench)}
+    cfg = _tinyllama_config(num_hidden_layers=2, loss_chunk=512)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, OBS_BATCH) \
+        .astype(np.int32)
+    data = {"input_ids": torch.from_numpy(ids).to(dev),
+            "labels": torch.from_numpy(ids).to(dev)}
+    steps = []
+    reset()
+    out["chaos"], problems = _chaos_part(dev, data, steps)
+    out["ckpt"], more = _ckpt_part(dev, data, steps)
+    problems += more
+    launches = counters()
+    want = expected_train_launches(cfg, OBS_BATCH[0] * OBS_BATCH[1])
+    launches_ok = all(launches[k] == v * len(steps) for k, v in want.items())
+    if not launches_ok:
+        problems.append(f"chaos and checkpoint launches {launches} != "
+                        f"{len(steps)} x {want}")
+    out.update(launches=launches, steps=len(steps),
+               seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    print(f"[train-ckpt] {len(steps)} steps, launches = {len(steps)} x the "
+          f"count from the code: {launches_ok}; phase 18 "
+          f"{out['seconds']:.1f} s")
+    if problems:
+        raise AssertionError("train-chaos/ckpt: " + "; ".join(problems))
     return out
 
 
@@ -5980,6 +6426,8 @@ def main(argv=None):
     train_parity = training_parity_phase(dev)
     bench_training = bench_training_phase(dev, counters, reset, card,
                                           args.profile)
+    train_obs = training_obs_phase(dev, counters, reset, card,
+                                   bench_training)
     serving_int8, model = int8_serving_phase(dev, counters, reset, card,
                                              serving, args.profile)
     serving_spec["c"] = spec_int8_part(model, counters, reset, card,
@@ -5995,6 +6443,8 @@ def main(argv=None):
                                        for part in serving_spec.values()),
                    "training": training["launches"].get(name, 0),
                    "training_bench": bench_training["launches"].get(name, 0),
+                   "training_obs": train_obs["obs"]["launches"].get(name, 0),
+                   "training_ckpt": train_obs["launches"].get(name, 0),
                    "serving_int8": serving_int8["launches"].get(name, 0),
                    **{path: features[path]["launches"].get(name, 0)
                       for path in ("tenancy", "kvtier", "disagg")},
@@ -6025,6 +6475,7 @@ def main(argv=None):
                        "prefix_parity": prefix_parity,
                        "training": training, "train_parity": train_parity,
                        "training_bench": bench_training,
+                       "training_obs": train_obs,
                        "serving_int8": serving_int8,
                        "serving_spec": serving_spec,
                        "spec_parity": spec_parity,

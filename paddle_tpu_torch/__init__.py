@@ -16,7 +16,9 @@ follow the JAX package so each counterpart is easy to find:
   `distributed.chaos`: metrics, request tracing and fault injection;
 - `optimizer` (with `optimizer.lr`, the LR schedules), `parallel.trainer`
   and `io.prefetch`: the training step, its optimizer and its input
-  pipeline.
+  pipeline; `observability.telemetry`: the step's tokens/s and MFU;
+  `distributed.checkpoint` and `distributed.async_checkpoint`: training
+  checkpoints in the JAX package's format.
 
 Entry points (`LlamaForCausalLM(...)`, `PagedKVEngine(...)`) run on the
 CUDA card unless the caller passes `device="cpu"`; without a card they

@@ -6,10 +6,9 @@ injection points threaded through the serving front end, the paged
 engine and its host KV tier, each firing deterministically from a seed
 so a chaos run is exactly reproducible. The decision stream is the JAX
 module's: the same seed, rates and sequence of calls at a site fire
-the same faults in both packages. The training-only faults
-(`grad_poison`, `loss_spike`, `maybe_corrupt_file`, `maybe_preempt`)
-and `maybe_drop` come with the distributed-training slice; `POINTS` is
-the JAX package's whole catalogue.
+the same faults in both packages. `maybe_preempt` and `maybe_drop` come
+with the elastic and store slices; `POINTS` is the JAX package's whole
+catalogue.
 
 Contract with the hot path: when chaos is disabled (the default), every
 injection point is a single module-attribute load + falsy branch —
@@ -32,6 +31,12 @@ process interleaving, or Python hash randomization.
 
 Injection vocabulary:
     maybe_delay(site)           sleep delay_ms (+hang_ms) if it fires
+    maybe_corrupt_file(s, path) truncate (odd fires) or flip a byte
+                                (even fires) of a just-written file
+    grad_poison(site)           NaN if it fires else 1.0 (a gradient
+                                factor)
+    loss_spike(site, scale)     scale if it fires else 1.0 (a loss and
+                                gradient factor)
     should_fire(site)           the bare decision, for custom faults
 
 Everything is stdlib-only.
@@ -39,6 +44,7 @@ Everything is stdlib-only.
 from __future__ import annotations
 
 import hashlib
+import os
 import threading
 import time
 from contextlib import contextmanager
@@ -48,8 +54,8 @@ from paddle_tpu_torch import observability
 __all__ = [
     "ENABLED", "InjectedFault", "InjectedConnectionDrop", "POINTS",
     "configure", "disable",
-    "scoped", "should_fire", "maybe_delay", "fire_count", "fires",
-    "site_rate",
+    "scoped", "should_fire", "maybe_delay", "maybe_corrupt_file",
+    "grad_poison", "loss_spike", "fire_count", "fires", "site_rate",
 ]
 
 #: Documented injection-point registry (the JAX package's, whole): every
@@ -285,3 +291,38 @@ def maybe_delay(site: str) -> bool:
         time.sleep((_state.delay_ms + _state.hang_ms) / 1000.0)
         return True
     return False
+
+
+def maybe_corrupt_file(site: str, path: str) -> bool:
+    """Tear or corrupt a just-written file. Odd fires truncate to half
+    (a torn write at power loss); even fires flip one mid-file byte
+    (silent media corruption). Both must be caught by checkpoint
+    checksums/quarantine."""
+    if not should_fire(site):
+        return False
+    size = os.path.getsize(path)
+    nth = fire_count(site)
+    with open(path, "r+b") as f:
+        if nth % 2 == 1 or size < 2:
+            f.truncate(max(size // 2, 0))
+        else:
+            f.seek(size // 2)
+            b = f.read(1)
+            f.seek(size // 2)
+            f.write(bytes([b[0] ^ 0xFF]))
+    return True
+
+
+def grad_poison(site: str) -> float:
+    """1.0 normally; NaN when the site fires. The trainer multiplies
+    this into the gradients (parallel/trainer.py: only while chaos is
+    enabled and the site has a rate)."""
+    return float("nan") if should_fire(site) else 1.0
+
+
+def loss_spike(site: str, scale: float = 100.0) -> float:
+    """1.0 normally; `scale` when the site fires. The trainer multiplies
+    this into the loss AND the gradients: a finite blow-up (everything
+    stays finite), the failure mode a NaN check cannot see and the
+    training sentry's loss cap exists for."""
+    return float(scale) if should_fire(site) else 1.0

@@ -1,8 +1,8 @@
 """The observability plane of the port: metrics registry, span tracing,
-per-request tracing, the fleet plane and flight recorder.
+per-request tracing, the training telemetry, the fleet plane and
+flight recorder.
 
-Counterpart of paddle_tpu/observability/__init__.py, without the
-training telemetry (`telemetry.py`), which waits for its slice:
+Counterpart of paddle_tpu/observability/__init__.py:
 
     metrics.py    thread-safe MetricsRegistry of Counter/Gauge/
                   Histogram with the closed name catalogue (METRICS),
@@ -12,6 +12,8 @@ training telemetry (`telemetry.py`), which waits for its slice:
                   chrome-trace JSON
     requests.py   per-request contexts, the TTFT / ITL / queue-wait /
                   prefill / outcome instruments, GET /debug/requests
+    telemetry.py  per-step training reporter: tokens/sec + MFU over the
+                  card's peak (imported on use by parallel/trainer.py)
     fleet.py      cross-rank heartbeats over a rendezvous store, the
                   straggler view behind GET /debug/fleet, and the crash
                   flight recorder (bundles read by tools/obs_dump.py)

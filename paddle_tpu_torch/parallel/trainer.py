@@ -29,11 +29,33 @@ without waiting for the device.
   (io/prefetch.py); `step` moves nothing that is already there.
 - `measure_phase_seconds(batch, iters)` times forward, backward and the
   optimizer apart.
+- Observability (`observability.enable()`): each step reports the one
+  before it to `telemetry` (observability/telemetry.py: tokens/s, MFU,
+  the loss `loss_lag` steps late, read without a stream sync), sets
+  `train.loss.logits_bytes_saved` for a blockwise-loss model, and counts
+  `train.recompiles{shape=...}` at the first step of a batch signature
+  (names, shapes and numpy dtype names) the Trainer has not run before,
+  the port's counterpart of a jit retrace; the signatures are kept with
+  observability off too. `fleet_heartbeat(store, rank, world_size)`
+  publishes them into observability/fleet.py's plane. Disabled, the cost
+  is one attribute check.
+- Chaos (`distributed.chaos`): with chaos enabled, the sites
+  `trainer.grad` and `train.grad.nan` multiply the gradients by NaN and
+  `train.loss.spike` the loss and the gradients by 100 when they fire,
+  decided at each step (the JAX Trainer decides which sites exist when
+  it traces its step). Disabled, the cost is one attribute check.
+- Checkpoints: `checkpoint_state()` is {"params": {name: tensor}, "opt":
+  {name: {moment1, moment2, beta1_pow, beta2_pow[, master]}}} (every
+  trainable parameter's optimizer state, created if no step made it
+  yet); `save_checkpoint(path)` writes it through distributed/
+  checkpoint.py, or through `checkpointer` (an AsyncCheckpointer: the
+  call returns after the host snapshot); `load_checkpoint(path)` fills
+  the parameters and the state in place.
 
 Making the model trainable (every parameter requires a gradient,
 training mode) is the Trainer's job: a model built for serving carries
-no autograd graph. Meshes and sharding, optimizer offload, checkpoints
-and the FSDP overlap columns of the phase timing are not ported yet.
+no autograd graph. Meshes and sharding, optimizer offload and the FSDP
+overlap columns of the phase timing are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,6 +65,8 @@ from typing import Any
 
 import torch
 
+from paddle_tpu_torch import observability
+from paddle_tpu_torch.distributed import chaos
 from paddle_tpu_torch.optimizer import global_grad_norm
 
 __all__ = ["TrainStepConfig", "Trainer", "NonFiniteGradError"]
@@ -71,9 +95,13 @@ class NonFiniteGradError(RuntimeError):
 
 
 class Trainer:
-    def __init__(self, model, optimizer, config: TrainStepConfig | None = None):
+    def __init__(self, model, optimizer, config: TrainStepConfig | None = None,
+                 checkpointer=None):
         self.model = model
         self.optimizer = optimizer
+        # optional distributed.async_checkpoint.AsyncCheckpointer:
+        # save_checkpoint() then returns after the host snapshot
+        self.checkpointer = checkpointer
         self.config = config or TrainStepConfig()
         dt = self.config.compute_dtype
         self._dtype = _DTYPES.get(dt, dt) if isinstance(dt, str) else dt
@@ -93,6 +121,12 @@ class Trainer:
         self._pending_skips = []
         self.nonfinite_streak = 0
         self.nonfinite_skipped = 0
+        # step telemetry, built on the first step with observability on
+        self._telemetry = None
+        self._tel_last_t = None
+        self._tel_prev = None
+        # batch signatures already run (train.recompiles)
+        self._seen_batches = set()
         model.requires_grad_(True)
         model.train()
 
@@ -149,9 +183,51 @@ class Trainer:
         the model's device unless it is there); returns the mean f32 loss
         (0-d tensor)."""
         batch = self._place(batch)
+        if observability.ENABLED:
+            self._telemetry_tick(batch)
+        elif self._tel_last_t is not None:
+            # disabled mid-run: drop the stale stamp, so a re-enable
+            # does not report the whole gap as one step
+            self._tel_last_t = self._tel_prev = None
+        key = tuple((k, tuple(v.shape), v.dtype)
+                    for k, v in sorted(batch.items()))
+        first = key not in self._seen_batches
+        if first:
+            self._seen_batches.add(key)
         self.optimizer.zero_grad()
         loss = self._forward_backward(batch)
+        if chaos.ENABLED:
+            loss = self._chaos_faults(loss)
         self._apply_update(loss)
+        if first and observability.ENABLED:
+            observability.inc("train.recompiles", shape=_batch_sig(key))
+        if self._tel_prev is not None:
+            # reported at the next step, read loss_lag steps later
+            self._tel_prev[2] = loss
+        return loss
+
+    def _chaos_faults(self, loss):
+        """The training chaos sites, each consulted only while it has a
+        rate: `trainer.grad` and `train.grad.nan` multiply the gradients
+        by NaN, `train.loss.spike` the loss and the gradients by its
+        factor (JAX `_step_inner`: spike first, then poison)."""
+        poison = 1.0
+        if chaos.site_rate("trainer.grad") > 0:
+            poison *= chaos.grad_poison("trainer.grad")
+        if chaos.site_rate("train.grad.nan") > 0:
+            poison *= chaos.grad_poison("train.grad.nan")
+        spike = (chaos.loss_spike("train.loss.spike")
+                 if chaos.site_rate("train.loss.spike") > 0 else 1.0)
+        if spike == 1.0 and poison == 1.0:
+            return loss
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        with torch.no_grad():
+            if spike != 1.0:
+                loss = loss * spike
+                torch._foreach_mul_(grads, spike)
+            if poison != 1.0:
+                torch._foreach_mul_(grads, poison)
         return loss
 
     def _apply_update(self, loss):
@@ -193,6 +269,8 @@ class Trainer:
             if bool(f):
                 self.nonfinite_streak += 1
                 self.nonfinite_skipped += 1
+                if observability.ENABLED:
+                    observability.inc("train.nonfinite_skips")
             else:
                 self.nonfinite_streak = 0
         if self.nonfinite_streak >= self.config.max_consecutive_nonfinite:
@@ -200,6 +278,67 @@ class Trainer:
                 f"{self.nonfinite_streak} consecutive steps produced "
                 f"non-finite gradients (limit "
                 f"{self.config.max_consecutive_nonfinite}); aborting")
+
+    def _telemetry_tick(self, batch):
+        """Report the PREVIOUS step now that its interval is known, then
+        stamp this step's token count for the next tick (JAX
+        `_telemetry_tick`)."""
+        now = time.perf_counter()
+        if self._telemetry is None:
+            from paddle_tpu_torch.observability.telemetry import (
+                TrainingTelemetry)
+            self._telemetry = TrainingTelemetry.for_model(self.model)
+        if self._tel_prev is not None and self._tel_last_t is not None:
+            tokens, seq, loss = self._tel_prev
+            self._telemetry.step(tokens, now - self._tel_last_t,
+                                 seq_len=seq, loss=loss)
+        self._tel_last_t = now
+        arr = batch.get("input_ids")
+        if arr is None and batch:
+            arr = next(iter(batch.values()))
+        ndim = getattr(arr, "ndim", 0)
+        if ndim >= 2:
+            tokens = int(arr.shape[0]) * int(arr.shape[1])
+            seq = int(arr.shape[1])
+        elif ndim == 1:
+            tokens = seq = int(arr.shape[0])
+        else:
+            tokens = seq = 0
+        self._tel_prev = [tokens, seq, None]
+        self._note_logits_bytes_saved(tokens)
+
+    def _note_logits_bytes_saved(self, tokens):
+        """With a blockwise-loss model (loss_chunk > 0), the bytes of
+        [tokens, vocab] logits the loss does not build this step."""
+        mcfg = getattr(self.model, "config", None)
+        chunk = getattr(mcfg, "loss_chunk", 0) or 0
+        vocab = getattr(mcfg, "vocab_size", 0) or 0
+        if not (chunk and vocab and tokens):
+            return
+        from paddle_tpu_torch.kernels.blockwise_ce import logits_bytes_saved
+        itemsize = self._dtype.itemsize if self._dtype is not None else 4
+        observability.set_gauge(
+            "train.loss.logits_bytes_saved",
+            logits_bytes_saved(
+                int(tokens), int(vocab), int(chunk),
+                int(getattr(mcfg, "loss_vocab_block", 0) or 0), itemsize))
+
+    def fleet_heartbeat(self, store, rank, world_size, **kw):
+        """Publish this process's training telemetry (step, tokens/s,
+        MFU, recompiles, pending async saves) into the cross-rank
+        heartbeat plane (observability/fleet.py) under
+        ``fleet/hb/{rank}``. Returns the started FleetHeartbeat, or None
+        when observability is disabled: no thread, no store traffic."""
+        if not observability.ENABLED:
+            return None
+        from paddle_tpu_torch.observability.fleet import FleetHeartbeat
+        return FleetHeartbeat(store, rank, world_size, **kw).start()
+
+    @property
+    def telemetry(self):
+        """The TrainingTelemetry reporter (None until a step ran with
+        observability enabled)."""
+        return self._telemetry
 
     def _lr_value(self):
         return self.optimizer._lr_value() * self._lr_scale
@@ -265,3 +404,58 @@ class Trainer:
         t_step = timed(lambda: self.step(batch))
         return {"fwd": t_fwd, "bwd": max(0.0, t_fwd_bwd - t_fwd),
                 "optimizer": max(0.0, t_step - t_fwd_bwd), "step": t_step}
+
+    # -- checkpoints -------------------------------------------------------
+    def sync_to_model(self):
+        """The model (the port's parameters live in it already)."""
+        return self.model
+
+    def checkpoint_state(self):
+        """What a training checkpoint holds: the parameters AND the
+        optimizer state, as a nested dict of the live tensors
+        (save_state_dict flattens it). Resuming parameters without
+        moments would restart Adam's bias correction."""
+        opt = self.optimizer
+        return {"params": {n: p.detach()
+                           for n, p in self.model.named_parameters()},
+                "opt": {n: dict(opt._state_for(n, p))
+                        for n, p in zip(opt._names, opt._params)}}
+
+    def save_checkpoint(self, path):
+        """Save the parameters and optimizer state into `path`. With a
+        `checkpointer` this returns after the host snapshot and the
+        files are written on its thread; without one, a synchronous
+        save. Returns `path`."""
+        sd = self.checkpoint_state()
+        if self.checkpointer is not None:
+            self.checkpointer.save(sd, path)
+        else:
+            from paddle_tpu_torch.distributed import checkpoint as ckpt
+            ckpt.save_state_dict(sd, path)
+        return path
+
+    def load_checkpoint(self, path):
+        """Restore the parameters and optimizer state that
+        save_checkpoint wrote, in place. Flushes the attached
+        checkpointer first, so an in-flight save of `path` is never
+        half-read. Returns `path`."""
+        from paddle_tpu_torch.distributed import checkpoint as ckpt
+        if self.checkpointer is not None:
+            self.checkpointer.flush()
+        sd = self.checkpoint_state()
+        targets = ckpt._flatten_state(sd)
+        ckpt.load_state_dict(sd, path)
+        with torch.no_grad():
+            # an entry saved in another dtype came back as a new tensor
+            for name, got in ckpt._flatten_state(sd).items():
+                if got is not targets[name]:
+                    targets[name].copy_(got)
+        return path
+
+
+def _batch_sig(key):
+    """The `shape` label of train.recompiles: every leaf's name, dims and
+    numpy dtype name, sorted by name (JAX `_batch_sig`)."""
+    return ",".join(f"{k}:{'x'.join(str(d) for d in shape)}:"
+                    f"{str(dtype).removeprefix('torch.')}"
+                    for k, shape, dtype in key)

@@ -2410,3 +2410,127 @@ def test_generation_capture_error_raises_and_runs_no_eager_step(
     torch.cuda.synchronize()
     fresh = _tick_model(cuda, "bf16")
     assert tgen.generate(fresh, ids, 6, attention_mask=mask).shape == (3, 13)
+
+
+# -- checkpoints and training telemetry --------------------------------------
+
+def _ckpt_trainer(dev, seed=0):
+    cfg = tiny_llama_config(num_hidden_layers=2, vocab_size=500,
+                            hidden_size=256, num_attention_heads=4,
+                            num_key_value_heads=2, use_flash_attention=True,
+                            recompute=True, loss_chunk=16)
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    return Trainer(model, topt.AdamW(learning_rate=1e-3,
+                                     parameters=model.named_parameters()),
+                   TrainStepConfig(compute_dtype="bfloat16"))
+
+
+def _ckpt_batch(dev):
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 500, (2, 128)).astype(np.int32)).to(dev)
+    return {"input_ids": ids, "labels": ids}
+
+
+def _card_state(tr):
+    sd = tr.checkpoint_state()
+    out = {f"p/{n}": t.clone() for n, t in sd["params"].items()}
+    for n, st in sd["opt"].items():
+        out.update({f"o/{n}/{k}": t.clone() for k, t in st.items()})
+    return out
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_cuda_tensors_round_trips_bit_equal(cuda, tmp_path):
+    """f32, bf16, int32 and 0-d tensors on the card: saved through the
+    pinned snapshot, loaded in place into card tensors (and into CPU
+    ones) bit for bit."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    g = torch.Generator(device=cuda).manual_seed(0)
+    sd = {"w": torch.randn(300, 70, device=cuda, generator=g),
+          "n": {"b": torch.randn(33, device=cuda, generator=g).to(
+                    torch.bfloat16),
+                "i": torch.arange(-5, 6, device=cuda, dtype=torch.int32),
+                "s": torch.tensor(0.25, device=cuda)},
+          "t": torch.randn(64, 64, device=cuda, generator=g).t()}
+    ckpt.save_state_dict(sd, str(tmp_path))
+    assert ckpt.verify_checkpoint(str(tmp_path)) == {}
+    for dev in (cuda, torch.device("cpu")):
+        tgt = {"w": torch.zeros(300, 70, device=dev),
+               "n": {"b": torch.zeros(33, device=dev, dtype=torch.bfloat16),
+                     "i": torch.zeros(11, device=dev, dtype=torch.int32),
+                     "s": torch.zeros((), device=dev)},
+               "t": torch.zeros(64, 64, device=dev)}
+        keep = tgt["w"]
+        ckpt.load_state_dict(tgt, str(tmp_path))
+        assert tgt["w"] is keep and keep.device.type == dev.type
+        for a, b in ((tgt["w"], sd["w"]), (tgt["n"]["i"], sd["n"]["i"]),
+                     (tgt["n"]["s"], sd["n"]["s"]), (tgt["t"], sd["t"]),
+                     (tgt["n"]["b"].view(torch.int16),
+                      sd["n"]["b"].view(torch.int16))):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+def test_async_snapshot_is_immune_to_the_steps_that_follow(cuda, tmp_path,
+                                                           monkeypatch):
+    """AsyncCheckpointer.save returns after the host snapshot: two
+    in-place steps run while the writer is held, and the checkpoint
+    still loads as the state at save time; a fresh trainer resumed
+    from it takes the uninterrupted run's next steps bit for bit."""
+    import threading
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.distributed.async_checkpoint import (
+        AsyncCheckpointer)
+    gate = threading.Event()
+    write = ckpt._write_files
+
+    def held(*a, **k):
+        assert gate.wait(60)
+        return write(*a, **k)
+
+    monkeypatch.setattr(ckpt, "_write_files", held)
+    batch = _ckpt_batch(cuda)
+    tr = _ckpt_trainer(cuda)
+    for _ in range(2):
+        tr.step(batch)
+    with AsyncCheckpointer() as cp:
+        tr.checkpointer = cp
+        tr.save_checkpoint(str(tmp_path / "c"))
+        at_save = _card_state(tr)
+        after = [float(tr.step(batch)) for _ in range(2)]
+        assert cp.pending == 1
+        gate.set()
+        cp.flush()
+    fresh = _ckpt_trainer(cuda, seed=1)
+    fresh.load_checkpoint(str(tmp_path / "c"))
+    got = _card_state(fresh)
+    assert got.keys() == at_save.keys()
+    assert all(torch.equal(got[k], at_save[k]) for k in got)
+    assert [float(fresh.step(batch)) for _ in range(2)] == after
+
+
+@pytest.mark.cuda
+def test_telemetry_loss_read_adds_no_stream_sync(cuda):
+    """With observability on, steps on placed batches run under
+    torch.cuda's sync debug mode "error": the telemetry stages each loss
+    to pinned memory behind an event and reads it once the event has
+    completed, so it adds no synchronizing call; flush() then publishes
+    the lagged losses."""
+    from paddle_tpu_torch import observability
+    batch = _ckpt_batch(cuda)
+    tr = _ckpt_trainer(cuda)
+    tr.step(batch)
+    torch.cuda.synchronize()
+    with observability.scoped() as reg:
+        losses = [tr.step(batch)]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(12):             # past the 8-step loss lag
+                losses.append(tr.step(batch))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        tel = tr.telemetry
+        assert tel.steps == 12 and reg.counter("train.steps").value() == 12
+        tel.flush()
+        assert reg.gauge("train.loss").value() == float(losses[-2])
+        assert reg.gauge("train.mfu").value() >= 0.0

@@ -99,7 +99,8 @@ _INSTRUMENTS = {"inc": "counter", "observe": "histogram",
                 "set_gauge": "gauge"}
 _ACQUIRERS = {"counter": "counter", "gauge": "gauge",
               "histogram": "histogram"}
-_CHAOS_CALLS = ("should_fire", "maybe_delay")
+_CHAOS_CALLS = ("should_fire", "maybe_delay", "maybe_corrupt_file",
+                "grad_poison", "loss_spike")
 # the registry implementation passes `name` variables around, as the
 # JAX package's metric-names pass allows for its own
 _METRIC_IMPL = {os.path.join("observability", "metrics.py"),
@@ -174,14 +175,17 @@ def test_port_metric_and_chaos_sites_are_catalogued():
     assert not bad, "\n".join(bad)
     # the scan saw the engine's, kvtier's, disagg's, serving's, the
     # request tracer's, the router's, the fleet plane's and the
-    # autopilot's sites, and every chaos site the port wires
+    # autopilot's, the trainer's and the checkpoints' sites, and every
+    # chaos site the port wires
     assert {"inference.decode.kernel", "inference.prefix.hits",
             "tenant.decode.slots", "inference.kvtier.spilled_pages",
             "inference.disagg.imported_pages", "engine.pending",
             "request.ttft.seconds", "serving.requests",
             "router.requests", "router.disagg.handoffs",
             "fleet.heartbeats", "fleet.flight.records",
-            "autopilot.restarts", "autopilot.quarantines"} <= metrics_seen
+            "autopilot.restarts", "autopilot.quarantines",
+            "train.steps", "train.recompiles", "train.nonfinite_skips",
+            "ckpt.saves", "checkpoint.async.pending"} <= metrics_seen
     assert sites_seen == {"engine.tick.delay", "prefix.cache.bypass",
                           "kvtier.spill.fail", "kvtier.restore.delay",
                           "tenant.storm", "serving.batch.delay",
@@ -192,7 +196,10 @@ def test_port_metric_and_chaos_sites_are_catalogued():
                           "router.prefix.scramble", "disagg.transfer.fail",
                           "disagg.transfer.delay", "fleet.heartbeat.delay",
                           "fleet.heartbeat.drop", "autopilot.launch.fail",
-                          "autopilot.replica.hang"}
+                          "autopilot.replica.hang", "ckpt.write.shards",
+                          "ckpt.write.table", "ckpt.async.delay",
+                          "ckpt.async.fail", "trainer.grad",
+                          "train.grad.nan", "train.loss.spike"}
 
 
 def test_catalogue_check_catches_planted_sites():

@@ -270,6 +270,15 @@ def test_port_imports_without_jax_or_paddle_tpu():
         "import paddle_tpu_torch.inference.router\n"
         "import paddle_tpu_torch.observability.fleet\n"
         "import paddle_tpu_torch.inference.autopilot\n"
+        "import paddle_tpu_torch.observability.telemetry\n"
+        "import paddle_tpu_torch.distributed.checkpoint\n"
+        "import paddle_tpu_torch.distributed.async_checkpoint\n"
+        "import paddle_tpu_torch.parallel.trainer\n"
+        "import paddle_tpu_torch.tools.ab_blockwise_ce,"
+        " paddle_tpu_torch.tools.ab_decode_tick,"
+        " paddle_tpu_torch.tools.ab_flash, paddle_tpu_torch.tools.ab_fused_norm,"
+        " paddle_tpu_torch.tools.ab_paged_decode,"
+        " paddle_tpu_torch.tools.ab_w8a16\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "import paddle_tpu_torch.kernels.fused_norm\n"

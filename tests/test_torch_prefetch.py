@@ -175,6 +175,9 @@ def test_slice_modules_import_without_jax_or_paddle_tpu():
         "import paddle_tpu_torch.kernels.blockwise_ce\n"
         "import paddle_tpu_torch.optimizer.lr\n"
         "import paddle_tpu_torch.parallel.trainer\n"
+        "import paddle_tpu_torch.observability.telemetry\n"
+        "import paddle_tpu_torch.distributed.checkpoint\n"
+        "import paddle_tpu_torch.distributed.async_checkpoint\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " (m.split('.')[0] in ('paddle_tpu', 'jax', 'jaxlib'))]\n"
         "assert not bad, bad\n"
