@@ -363,6 +363,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
    of the same global batches, the two ranks' parameters bit-equal, and a
    planted fault (gradients averaged over ranks, not tokens) reading
    outside the gradient's and the parameters' tolerances. Launches go to the path "training_dp" ((a)'s dp run).
+21. tensor-parallel training across processes (run right after phase 20).
+   (a) Two workers (`python -m paddle_tpu_torch.distributed.launch
+   --nnodes 2 --rank r --devices 0 chip_smoke.py --tp-worker DIR`, both
+   on device 0, gloo): `fleet.init` with mp_degree 2,
+   `fleet.distributed_model`, the Trainer on the fleet mesh with its
+   plan; TinyLlama-1.1B at full width and all 22 layers, flash,
+   recompute, fused norm and RoPE, `loss_chunk=512` (the vocab-parallel
+   blockwise loss on each rank's 16000-row shard), AdamW(1e-4, wd 0.01),
+   bf16 compute; a global batch of 2 x 2048 ids (phase 9's 8 cut to 2),
+   row 0 labelled -100 from column 1024, 1 + 3 steps. Each worker first
+   runs the same model and batches through a mesh-free Trainer (the
+   one-process reference) and keeps its own pieces of it. Gates: the
+   loss gap, step 1's gradient (the pieces of both ranks over the whole
+   model) and the parameters after the last step within their
+   tolerances; the parameters that are not cut (the norms) bit-equal on
+   the two ranks; each rank's launches per step the count from the code
+   at its 16000-row vocab shard; two planted faults (the loss from each
+   rank's local lse; a column-parallel f-op whose backward skips its
+   all-reduce) outside the loss's and the gradient's tolerances. It
+   prints each rank's peak memory against the one process's, the step
+   ms and the gloo bytes a step. (b) In this process, the blockwise CE
+   kernels on the two (16000, 2048) shards of a (32000, 2048) bf16 head,
+   x (4096, 2048), labels on both shards and some ignored: each shard
+   against its twin, the combination (lse over the shards, the picked
+   logits and dx summed, dW stacked) against the whole-vocab kernels,
+   and shard 0's kernels timed beside their bound and torch.matmul of the
+   bare product (the kernels' entries carry them as `vocab_shard`).
+   Launches go to the path "training_tp" ((a)'s tensor-parallel run on
+   rank 0).
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -3609,6 +3638,497 @@ def dp_phase(card):
           f"{out['seconds']:.1f} s ((a) {a_s:.1f} s, (b) {b_s:.1f} s)")
     if problems:
         raise AssertionError("dp: " + "; ".join(problems))
+    return out
+
+
+# -- phase 21: tensor-parallel training across processes ---------------------
+
+TP_WARMUP = 1               # (a): the untimed first step
+TP_STEPS = 3                # (a): timed steps after it
+TP_BATCH = (2, 2048)        # (a): the global batch, phase 9's 8 x 2048 cut to 2
+TP_PAD = (1, 1024)          # (a): row 0 labelled -100 from column 1024
+# (a), each against one process's run of the same model and batches, bf16
+# compute, set from a first run on an H100 80GB HBM3 at 700 W (PERF.md): each
+# loss within this fraction of its own (1.15e-4 there; the local-lse
+# fault's 6.4e-2): the mp ranks' partial products, activations and input
+# gradients are rounded to bf16 before their sum
+TP_LOSS_TOL = 2e-3
+# step 1's gradient over the whole model, ||tp - one|| / ||one|| (0.040
+# there, phase 8's bf16 rule; the dropped f-op's 0.936)
+TP_GRAD_TOL = 6e-2
+# the parameters after the last step, ||tp - one|| / ||one - init|| (0.114
+# there)
+TP_PARAM_TOL = 0.2
+TP_WORKER_TIMEOUT_S = 420
+TP_CE = (4096, 2048, 32000)   # (b): x rows (phase 21's batch), hidden, vocab
+
+
+def _tp_config(**overrides):
+    """Phase 21's model: TinyLlama-1.1B at full width and all 22 layers,
+    flash, recompute, the fused norm and RoPE, the blockwise loss."""
+    return _tinyllama_config(loss_chunk=512, **overrides)
+
+
+def _tp_batches(vocab):
+    rng = np.random.RandomState(21)
+    out = []
+    for _ in range(TP_WARMUP + TP_STEPS):
+        ids = rng.randint(0, vocab, TP_BATCH).astype(np.int32)
+        labels = ids.copy()
+        labels[:TP_PAD[0], TP_PAD[1]:] = -100
+        out.append({"input_ids": ids, "labels": labels})
+    return out
+
+
+def _tp_trainer(dev, cfg, fleet=None):
+    """Phase 9's optimizer and compute type over a seed-0 model: mesh-free,
+    or cut by `fleet.distributed_model` and trained on the fleet mesh."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    if fleet is not None:
+        model = fleet.distributed_model(model)
+    opt = topt.AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                     weight_decay=0.01)
+    if fleet is not None:
+        opt = fleet.distributed_optimizer(opt)
+    return Trainer(model, opt, TrainStepConfig(compute_dtype="bfloat16"),
+                   mesh=None if fleet is None else fleet.get_mesh(),
+                   plan=None if fleet is None else model._fleet_plan)
+
+
+def _cut(shards, name, t):
+    """This rank's piece of a whole tensor `t` of parameter `name`."""
+    s = shards[name]
+    return t if s is None else s.local(t)
+
+
+def _tp_sq_gaps(rank, shards, pairs, dev):
+    """(sum of |a - b|^2, sum of |b|^2) over this rank's pieces of (a, b)
+    pairs by parameter name (host tensors, summed in f64 on `dev`), summed
+    over the ranks; a parameter that is not cut counts on rank 0 only."""
+    from paddle_tpu_torch.distributed import collective
+    acc = torch.zeros(2, dtype=torch.float64, device=dev)
+    for name, a, b in pairs:
+        if shards[name] is None and rank != 0:
+            continue
+        a64, b64 = a.to(dev).double(), b.to(dev).double()
+        acc[0] += (a64 - b64).pow(2).sum()
+        acc[1] += b64.pow(2).sum()
+    acc = acc.cpu()
+    collective.all_reduce(acc)
+    return float(acc[0]), float(acc[1])
+
+
+def _tp_gaps(rank, shards, run, ref, dev):
+    """The (a) gaps of one run against the one-process reference: losses,
+    step 1's gradient over its norm, the parameters after the last step
+    over the update's norm (each over the whole model)."""
+    out = {"loss": max(abs(a - b) / abs(b) for a, b in
+                       zip(run["losses"], ref["losses"]))}
+    num, den = _tp_sq_gaps(rank, shards, [
+        (n, run["grad1"][n], ref["grad1"][n]) for n in shards], dev)
+    out["grad"] = (num / den) ** 0.5
+    if "params" in run:
+        num, _ = _tp_sq_gaps(rank, shards, [
+            (n, run["params"][n], ref["params"][n]) for n in shards], dev)
+        _, upd = _tp_sq_gaps(rank, shards, [
+            (n, ref["init"][n], ref["params"][n] - ref["init"][n])
+            for n in shards], dev)
+        out["param"] = (num / upd) ** 0.5
+    return out
+
+
+def _host(t):
+    """A host copy of `t` (never a view of a live tensor)."""
+    return t.to("cpu", copy=True)
+
+
+def _tp_steps(tr, batches, shards, params=True):
+    """The steps of one run, each to its end on the card: losses, step
+    ms, step 1's gradients and the last parameters as this rank's pieces
+    on the host (a mesh-free run's tensors cut by `shards`)."""
+    if tr.mesh is not None:
+        shards = dict.fromkeys(shards)       # its tensors are the pieces
+    losses, step_s, grad1 = [], [], None
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(float(tr.step(b)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if grad1 is None:
+            grad1 = {n: _host(_cut(shards, n, p.grad.detach()))
+                     for n, p in tr.model.named_parameters()}
+    out = dict(losses=losses, step_s=step_s, grad1=grad1)
+    if params:
+        out["params"] = {n: _host(_cut(shards, n, p.detach()))
+                         for n, p in tr.model.named_parameters()}
+    return out
+
+
+@contextlib.contextmanager
+def _gloo_bytes(counts):
+    """Count the bytes of every all-reduce and all-gather while inside,
+    by the group's rank count."""
+    from paddle_tpu_torch.distributed import collective
+    saved = collective.all_reduce, collective.all_gather
+
+    def _add(t, group):
+        n = collective._get_group(group).nranks
+        counts[n] = counts.get(n, 0) + t.numel() * t.element_size()
+
+    def all_reduce(tensor, op=collective.ReduceOp.SUM, group=None,
+                   sync_op=True):
+        _add(tensor, group)
+        return saved[0](tensor, op, group, sync_op)
+
+    def all_gather(tensor_list, tensor=None, group=None, sync_op=True):
+        _add(tensor if tensor is not None else tensor_list, group)
+        return saved[1](tensor_list, tensor, group, sync_op)
+
+    collective.all_reduce, collective.all_gather = all_reduce, all_gather
+    try:
+        yield counts
+    finally:
+        collective.all_reduce, collective.all_gather = saved
+
+
+def tp_worker(outdir, device="cuda"):
+    """Phase 21 (a)'s worker: one of two mp ranks on the one card, gloo
+    (started by the port's launcher, `--nnodes 2 --rank r`); NCCL takes
+    one rank a device."""
+    import dataclasses
+    import hashlib
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.launch.smoke import planted
+    from paddle_tpu_torch.kernels import launch_counters
+    from paddle_tpu_torch.distributed import env
+    dist.init_parallel_env(device=device, backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = env.world_device()
+    cfg = _tp_config()
+    batches = _tp_batches(cfg.vocab_size)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"mp_degree": world}
+    fleet.init(is_collective=True, strategy=strategy)
+    t_phase = time.perf_counter()
+    stage = {}                # seconds since t_phase at each stage's end
+
+    # the shards' layout, from a cut model
+    tr = _tp_trainer(dev, cfg, fleet)
+    shards = {n: getattr(p, "_mp_shard", None)
+              for n, p in tr.model.named_parameters()}
+    local_bytes = sum(p.numel() * p.element_size()
+                      for p in tr.model.parameters())
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the reference: one process, the mesh-free Trainer, the same seed-0
+    # model and batches (each rank runs it, and keeps its own pieces)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _tp_trainer(dev, cfg)
+    ref = _tp_steps(tr, batches, shards)
+    ref_peak = torch.cuda.max_memory_allocated()
+    stage["reference"] = time.perf_counter() - t_phase
+    whole_bytes = sum(p.numel() * p.element_size()
+                      for p in tr.model.parameters())
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the tensor-parallel run, its launches and its gloo bytes counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _tp_trainer(dev, cfg, fleet)
+    # the seed-0 init, this rank's pieces (the reference starts from it)
+    ref["init"] = {n: _host(p.detach())
+                   for n, p in tr.model.named_parameters()}
+    for d in launch_counters():
+        for k in d:
+            d[k] = 0
+    counts = {}
+    red, dp_s = tr._dp["reducer"], []
+    inner = red.all_reduce
+
+    def timed(tensors, *args):
+        # the fleet mesh's dp axis of extent 1: a reduce over one rank
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(tensors, *args)
+        torch.cuda.synchronize()
+        dp_s.append(time.perf_counter() - t0)
+    red.all_reduce = timed
+    with _gloo_bytes(counts):
+        run = _tp_steps(tr, batches, shards)
+    launches = {k: v for d in launch_counters() for k, v in d.items()}
+    tp_peak = torch.cuda.max_memory_allocated()
+    digest = hashlib.sha256()
+    for n, p in tr.model.named_parameters():
+        if shards[n] is None:
+            digest.update(_host(p.detach()).numpy().tobytes())
+    mine = torch.frombuffer(bytearray(digest.digest()), dtype=torch.uint8)
+    replicated_equal = all(torch.equal(d, mine)
+                           for d in dist.all_gather(mine))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage["tp_run"] = time.perf_counter() - t_phase
+    gap = _tp_gaps(rank, shards, run, ref, dev)
+    stage["gaps"] = time.perf_counter() - t_phase
+
+    # the planted faults, each one step from the same weights
+    faults = {}
+    for fault in ("local_lse", "fop"):
+        tr = _tp_trainer(dev, cfg, fleet)
+        with planted(fault):
+            one = _tp_steps(tr, batches[:1], shards, params=False)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        faults[fault] = _tp_gaps(rank, shards, one, ref, dev)
+        stage[fault] = time.perf_counter() - t_phase
+    peaks = dist.all_gather(torch.tensor([tp_peak, ref_peak],
+                                         dtype=torch.float64))
+    steps = len(batches)
+    want = expected_train_launches(
+        dataclasses.replace(cfg, vocab_size=cfg.vocab_size // world),
+        TP_BATCH[0] * TP_BATCH[1])
+    if rank == 0:
+        _write_json(os.path.join(outdir, "tp_a.json"), dict(
+            backend=torch.distributed.get_backend(), world=world,
+            losses=run["losses"], ref_losses=ref["losses"], gap=gap,
+            faults=faults, replicated_equal=replicated_equal,
+            launches=launches,
+            launches_per_step={k: launches.get(k, 0) / steps for k in want},
+            want_per_step=want,
+            step_ms=_median(run["step_s"][TP_WARMUP:]) * 1e3,
+            ref_step_ms=_median(ref["step_s"][TP_WARMUP:]) * 1e3,
+            dp_reduce_ms=_median(dp_s[TP_WARMUP:]) * 1e3,
+            gloo_bytes_per_step={str(k): v / steps
+                                 for k, v in counts.items()},
+            peak_gb=[[float(p[0]) / 1e9, float(p[1]) / 1e9] for p in peaks],
+            param_bytes=[local_bytes, whole_bytes], stages=stage,
+            seconds=time.perf_counter() - t_phase))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _tp_ce_part(dev):
+    """(b): the blockwise CE kernels on the two vocab shards of a
+    (32000, 2048) head, in one process: each shard's forward and backward
+    against its twin (phase 4's rules), the combination (the lse over the
+    shards, the picked logits and dx summed, dW stacked) against the
+    whole-vocab kernels, and shard 0's kernels timed beside their bound
+    and torch.matmul of the bare product."""
+    from paddle_tpu_torch.kernels import blockwise_ce as bce
+    n, d, v = TP_CE
+    vl = v // 2
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(v, d, generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    lab = torch.randint(0, v, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    lab[2047::2048] = -100            # each row's last position, shifted
+    lab[5::97] = -100
+    one = torch.ones((), device=dev)
+    whole_loss, whole_lse, count = bce.ce_fwd(x, w, lab)
+    whole_dx, whole_dw = bce.ce_bwd(x, w, lab, whole_lse, count, one)
+    ws = [w[r * vl:(r + 1) * vl] for r in range(2)]
+    labs = [bce.local_labels(lab, r * vl, vl) for r in range(2)]
+    on_shard = [int(((labs[r] >= 0) & (labs[r] < vl)).sum()) for r in (0, 1)]
+    err, ratio, rows = {}, {}, []
+    for r in range(2):
+        loss_r, lse_r, _ = bce.ce_fwd(x, ws[r], labs[r])
+        t_loss, t_lse, _ = bce.ce_fwd_ref(x, ws[r], labs[r], 512)
+        if abs(float(loss_r) - float(t_loss)) > 1e-5 * abs(float(t_loss)):
+            raise AssertionError(f"tp ce shard {r}: loss {float(loss_r)} "
+                                 f"against the twin's {float(t_loss)}")
+        err[f"lse{r}"] = _check(f"tp ce shard {r} lse", lse_r, t_lse,
+                                F32_TOL)
+        rows.append(bce.ce_fwd_rows(x, ws[r], labs[r]))
+    lse = bce.combine_lse([r[0] for r in rows])
+    picked = rows[0][1] + rows[1][1]
+    valid = lab != -100
+    loss = torch.where(valid, lse - picked, 0.0).sum() / count
+    dxs, dws = [], []
+    for r in range(2):
+        dx_r, dw_r = bce.ce_bwd(x, ws[r], labs[r], lse, count, one)
+        t_dx, t_dw = bce.ce_bwd_ref(x, ws[r], labs[r], lse, count, one, 512)
+        for name, a, b in (("dx", dx_r, t_dx), ("dw", dw_r, t_dw)):
+            err[f"{name}{r}"], ratio[f"{name}{r}"] = _check_rows(
+                f"tp ce shard {r} {name}", a, b, CE_BF16_TOL)
+        dxs.append(dx_r)
+        dws.append(dw_r)
+        del t_dx, t_dw
+    if abs(float(loss) - float(whole_loss)) > 1e-5 * abs(float(whole_loss)):
+        raise AssertionError(f"tp ce combined loss {float(loss)} against the "
+                             f"whole vocab's {float(whole_loss)}")
+    err["lse"] = _check("tp ce combined lse", lse, whole_lse, F32_TOL)
+    err["dx"], ratio["dx"] = _check_rows("tp ce combined dx", dxs[0] + dxs[1],
+                                         whole_dx, CE_BF16_TOL)
+    err["dw"], ratio["dw"] = _check_rows(
+        "tp ce combined dW", torch.cat(dws), whole_dw, CE_BF16_TOL)
+    # shard 0's kernels alone (the shards are the same work)
+    x0, w0, l0 = x, ws[0], labs[0]
+    vs = bce.ce_super_block(n, vl, 2)
+    blocks = [(i * vs, min(vs, vl - i * vs)) for i in range(-(-vl // vs))]
+    scale = torch.where(l0 != -100, one / count, 0.0).contiguous()
+    wsp = torch.empty((n, vs), dtype=x.dtype, device=dev)
+    acc = torch.empty((n, d), dtype=torch.float32, device=dev)
+    dx, dw = torch.empty_like(x), torch.empty_like(w0)
+    last = len(blocks) - 1
+    ms = {"ce_fwd": _time_ms(lambda: bce.ce_fwd(x0, w0, l0), [()], iters=10),
+          "ce_dlogits": _time_ms(lambda: [bce._launch_dlogits(
+              x0, w0, l0, lse, scale, wsp, a, c) for a, c in blocks], [()],
+              iters=4),
+          "ce_dx": _time_ms(lambda: [bce._launch_dx(
+              wsp, w0, acc, dx, a, c, i == 0, i == last)
+              for i, (a, c) in enumerate(blocks)], [()], iters=4),
+          "ce_dw": _time_ms(lambda: [bce._launch_dw(wsp, x0, dw, a, c)
+                                     for a, c in blocks], [()], iters=4)}
+    s_out = torch.empty((n, vl), dtype=x.dtype, device=dev)
+    matmul_ms = {
+        "ce_fwd": _time_ms(lambda: torch.matmul(x0, w0.t(), out=s_out), [()],
+                           iters=10),
+        "ce_dlogits": _time_ms(lambda: [torch.matmul(
+            x0, w0[a:a + c].t(), out=s_out[:, :c]) for a, c in blocks],
+            [()], iters=4),
+        "ce_dx": _time_ms(lambda: [torch.matmul(wsp[:, :c], w0[a:a + c],
+                                                out=dx) for a, c in blocks],
+                          [()], iters=4),
+        "ce_dw": _time_ms(lambda: [torch.matmul(
+            wsp[:, :c].t(), x0, out=dw[a:a + c]) for a, c in blocks], [()],
+            iters=4)}
+    flops = 2 * n * d * vl
+    in_bytes = n * d * 2 + vl * d * 2 + n * 4
+    bounds = {"ce_fwd": _bound(in_bytes + 2 * n * 4, flops,
+                               BF16_TENSOR_FLOPS),
+              "ce_dlogits": _bound(in_bytes + 2 * n * 4 + n * vl * 2, flops,
+                                   BF16_TENSOR_FLOPS),
+              "ce_dx": _bound(n * vl * 2 + vl * d * 2 + n * d * 2, flops,
+                              BF16_TENSOR_FLOPS),
+              "ce_dw": _bound(n * vl * 2 + n * d * 2 + vl * d * 2, flops,
+                              BF16_TENSOR_FLOPS)}
+    shape = (f"x ({n}, {d}), W shard ({vl}, {d}) of ({v}, {d}) bf16, "
+             f"{len(blocks)} super-block(s) of {vs}")
+    out = {k: dict(shape=shape, ms=ms[k], bound_ms=bounds[k][0],
+                   bound_by=bounds[k][1], matmul_ms=matmul_ms[k])
+           for k in ms}
+    del x, w, lab, whole_dx, whole_dw, dxs, dws, wsp, acc, dx, dw, s_out
+    torch.cuda.empty_cache()
+    return dict(kernels=out, err=err, err_over_bound=ratio,
+                labels_on_shard=on_shard, ignored=int((~valid).sum()),
+                shape=shape)
+
+
+def _tp_launch(args, root):
+    """The port's launcher running this script as `--tp-worker DIR`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch", *args,
+         os.path.abspath(__file__), "--tp-worker", root],
+        env=dict(os.environ, PYTHONPATH=here), cwd=here)
+
+
+def tp_phase(card, dev):
+    """Phase 21: tensor-parallel training across processes: (a) two gloo
+    mp ranks on the one card, the workers started through the port's
+    launcher; (b) the CE kernels on a vocab shard, in this process."""
+    import shutil
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-tp-")
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [_tp_launch(["--master", f"127.0.0.1:{port}", "--nnodes",
+                             "2", "--rank", str(r), "--devices", "0"], root)
+                 for r in range(2)]
+        try:
+            codes = [p.wait(timeout=TP_WORKER_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes):
+            raise AssertionError(f"tp: (a)'s workers exited {codes}")
+        a_s = time.perf_counter() - t0
+        with open(os.path.join(root, "tp_a.json")) as f:
+            a = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    b = _tp_ce_part(dev)
+    b_s = time.perf_counter() - t0
+    problems = []
+    gap = a["gap"]
+    if a["backend"] != "gloo" or a["world"] != 2 or not a["replicated_equal"]:
+        problems.append(f"(a) backend {a['backend']}, world {a['world']}, "
+                        f"replicated bit-equal {a['replicated_equal']}")
+    if gap["loss"] > TP_LOSS_TOL or gap["grad"] > TP_GRAD_TOL \
+            or gap["param"] > TP_PARAM_TOL:
+        problems.append(f"(a) against one process: {gap}")
+    want = {k: float(v) for k, v in a["want_per_step"].items()}
+    if a["launches_per_step"] != want:
+        problems.append(f"(a) launches per step {a['launches_per_step']} != "
+                        f"the count from the code {want}")
+    lse_f, fop_f = a["faults"]["local_lse"], a["faults"]["fop"]
+    if not lse_f["loss"] > TP_LOSS_TOL:
+        problems.append(f"(a) the planted local-lse fault reads inside the "
+                        f"loss tolerance: {lse_f}")
+    if not fop_f["grad"] > TP_GRAD_TOL:
+        problems.append(f"(a) the planted dropped f-op reads inside the "
+                        f"gradient tolerance: {fop_f}")
+    out = dict(card=card, a=a, b=b, a_s=a_s, b_s=b_s,
+               launches=a["launches"], seconds=time.perf_counter() - t_phase)
+    peak = a["peak_gb"]
+    gb = {k: v / 1e9 for k, v in a["gloo_bytes_per_step"].items()}
+    print(f"[tp] {card}: (a) 2 mp ranks on {a['backend']} on the one card "
+          f"(fleet.init mp_degree 2, distributed_model, the Trainer on the "
+          f"fleet mesh), TinyLlama-1.1B at 22 layers, {TP_BATCH[0]} x "
+          f"{TP_BATCH[1]} ids, row 0 -100 from column {TP_PAD[1]}, "
+          f"{TP_WARMUP} + {TP_STEPS} steps: losses {a['losses']} against one "
+          f"process {a['ref_losses']}; gaps: loss {gap['loss']:.3e} (tol "
+          f"{TP_LOSS_TOL}), step 1 gradient {gap['grad']:.3e} (tol "
+          f"{TP_GRAD_TOL}), parameters {gap['param']:.3e} of the update (tol "
+          f"{TP_PARAM_TOL}); replicated parameters bit-equal across the ranks "
+          f"{a['replicated_equal']}; launches per step = the count from the "
+          f"code {a['launches_per_step'] == want}")
+    print(f"[tp] {card}: (a) planted faults: the loss from each rank's local "
+          f"lse reads loss {lse_f['loss']:.3e}, gradient {lse_f['grad']:.3e}; "
+          f"a column-parallel f-op without its backward all-reduce reads "
+          f"loss {fop_f['loss']:.3e}, gradient {fop_f['grad']:.3e}")
+    print(f"[tp] {card}: (a) peak memory per rank {peak[0][0]:.2f} and "
+          f"{peak[1][0]:.2f} GB against one process's {peak[0][1]:.2f} GB; "
+          f"parameters {a['param_bytes'][0] / 1e9:.3f} GB a rank against "
+          f"{a['param_bytes'][1] / 1e9:.3f} GB whole; step "
+          f"{a['step_ms']:.1f} ms against one process's "
+          f"{a['ref_step_ms']:.1f} ms (both ranks' references share the "
+          f"card), the fleet mesh's one-rank dp reduce "
+          f"{a['dp_reduce_ms']:.1f} ms of each step; gloo bytes a step by "
+          f"group size "
+          f"{gb} GB; worker {a['seconds']:.1f} s, stages (s from its start) "
+          f"{ {k: round(v, 1) for k, v in a['stages'].items()} }")
+    ker = b["kernels"]
+    print(f"[tp] {card}: (b) blockwise CE on a vocab shard, {b['shape']}, "
+          f"labels on shard 0 / 1 {b['labels_on_shard']}, {b['ignored']} "
+          f"ignored: each shard against its twin and the combination against "
+          f"the whole vocab's kernels, max |err| {b['err']}, |err| / bound "
+          f"{b['err_over_bound']}; shard 0: "
+          + ", ".join(f"{k} {e['ms']:.4f} ms (bound {e['bound_ms']:.4f}, "
+                      f"matmul {e['matmul_ms']:.4f})" for k, e in ker.items())
+          + f"; phase 21 {out['seconds']:.1f} s ((a) {a_s:.1f} s, (b) "
+          f"{b_s:.1f} s)")
+    if problems:
+        raise AssertionError("tp: " + "; ".join(problems))
     return out
 
 
@@ -7330,6 +7850,7 @@ def main(argv=None):
                          "training configuration with torch.profiler")
     ap.add_argument("--relaunch-worker", nargs=2, help=argparse.SUPPRESS)
     ap.add_argument("--dp-worker", nargs=2, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7339,6 +7860,8 @@ def main(argv=None):
     if args.dp_worker:                  # phase 20's worker processes
         part, outdir = args.dp_worker
         return (dp_worker_a if part == "a" else dp_worker_b)(outdir)
+    if args.tp_worker:                  # phase 21 (a)'s worker processes
+        return tp_worker(args.tp_worker)
     from paddle_tpu_torch.kernels import _build, launch_counters
     from paddle_tpu_torch.kernels import blockwise_ce as bce
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -7404,6 +7927,7 @@ def main(argv=None):
                                    bench_training)
     train_sentry = sentry_phase(dev, counters, reset, card, bench_training)
     train_dp = dp_phase(card)
+    train_tp = tp_phase(card, dev)
     serving_int8, model = int8_serving_phase(dev, counters, reset, card,
                                              serving, args.profile)
     serving_spec["c"] = spec_int8_part(model, counters, reset, card,
@@ -7423,6 +7947,7 @@ def main(argv=None):
                    "training_ckpt": train_obs["launches"].get(name, 0),
                    "training_sentry": train_sentry["launches"].get(name, 0),
                    "training_dp": train_dp["launches"].get(name, 0),
+                   "training_tp": train_tp["launches"].get(name, 0),
                    "serving_int8": serving_int8["launches"].get(name, 0),
                    **{path: features[path]["launches"].get(name, 0)
                       for path in ("tenancy", "kvtier", "disagg")},
@@ -7436,6 +7961,8 @@ def main(argv=None):
             raise AssertionError(f"{name} was launched on no main path")
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
+        if name in train_tp["b"]["kernels"]:
+            e["vocab_shard"] = train_tp["b"]["kernels"][name]
     now = time.perf_counter()
     print(f"[time] build {t_start - t_build:.1f} s, phases "
           f"{now - t_start:.1f} s, total {now - t_build:.1f} s")
@@ -7456,6 +7983,7 @@ def main(argv=None):
                        "training_obs": train_obs,
                        "training_sentry": train_sentry,
                        "training_dp": train_dp,
+                       "training_tp": train_tp,
                        "serving_int8": serving_int8,
                        "serving_spec": serving_spec,
                        "spec_parity": spec_parity,

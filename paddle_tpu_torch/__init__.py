@@ -18,7 +18,10 @@ follow the JAX package so each counterpart is easy to find:
   and `io.prefetch`: the training step, its optimizer and its input
   pipeline; `observability.telemetry`: the step's tokens/s and MFU;
   `distributed.checkpoint` and `distributed.async_checkpoint`: training
-  checkpoints in the JAX package's format.
+  checkpoints in the JAX package's format; `distributed` (`env`,
+  `collective`, `mesh`, `launch`, `parallel`): data parallelism across
+  processes; `distributed.fleet`, `distributed.api` and `parallel.plan`:
+  tensor parallelism.
 
 Entry points (`LlamaForCausalLM(...)`, `PagedKVEngine(...)`) run on the
 CUDA card unless the caller passes `device="cpu"`; without a card they

@@ -1,12 +1,19 @@
 """Distributed training runtime of the port: the process group and its
 collectives (`env`, `collective`), meshes and placements (`mesh`,
-`placement`), data parallelism (`parallel`: DataParallel and the
-gradient reducer; `launch`: the job launcher), checkpoints
+`placement`), the semi-auto parallel API over DTensor (`api`: shard_tensor,
+reshard, shard_layer, shard_optimizer, ...), data parallelism
+(`parallel`: DataParallel and the gradient reducer; `launch`: the job
+launcher), tensor parallelism (`fleet`: init, the hybrid topology and
+strategy, the Megatron layers, distributed_model; imported at first
+use, as the JAX package's), checkpoints
 (`checkpoint`, `async_checkpoint`), fault injection (`chaos`), retries
 (`retries`), the rendezvous store (`store`), hang detection
 (`watchdog`), restart and relaunch (`elastic`) and the training anomaly
 sentry (`sentry`)."""
 from paddle_tpu_torch.distributed import watchdog
+from paddle_tpu_torch.distributed.api import (dtensor_from_fn, reshard,
+                                              shard_layer, shard_optimizer,
+                                              shard_tensor, unshard_dtensor)
 from paddle_tpu_torch.distributed.collective import (
     Group, ReduceOp, all_gather, all_reduce, alltoall, barrier, broadcast,
     destroy_process_group, get_group, new_group, pmean, ppermute, psum,
@@ -36,6 +43,16 @@ from paddle_tpu_torch.distributed.watchdog import CommTimeoutError
 
 all_to_all = alltoall   # the torch-style alias the reference also exposes
 
+
+def __getattr__(name):
+    if name == "fleet":
+        import importlib
+        mod = importlib.import_module("paddle_tpu_torch.distributed.fleet")
+        globals()[name] = mod
+        return mod
+    raise AttributeError(
+        f"module 'paddle_tpu_torch.distributed' has no attribute {name!r}")
+
 __all__ = ["watchdog", "ElasticManager", "ElasticSupervisor",
            "StoreHeartbeat", "HaltTraining", "safe_barrier", "run_resilient",
            "ELASTIC_AUTO_PARALLEL_EXIT_CODE", "SentryConfig",
@@ -49,4 +66,6 @@ __all__ = ["watchdog", "ElasticManager", "ElasticSupervisor",
            "broadcast", "reduce", "reduce_scatter", "alltoall", "all_to_all",
            "scatter", "barrier", "send", "recv", "psum", "pmean", "ppermute",
            "DataParallel", "init_parallel_env", "is_initialized", "get_rank",
-           "get_world_size", "parallel_device_count", "ParallelEnv"]
+           "get_world_size", "parallel_device_count", "ParallelEnv",
+           "shard_tensor", "reshard", "shard_layer", "shard_optimizer",
+           "dtensor_from_fn", "unshard_dtensor"]

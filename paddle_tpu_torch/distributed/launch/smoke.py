@@ -1,14 +1,17 @@
-"""A data-parallel training job's worker, for the launcher and the
-elastic supervisor.
+"""A data- or tensor-parallel training job's worker, for the launcher
+and the elastic supervisor.
 
 Counterpart of paddle_tpu/distributed/launch/smoke.py: the proof that
 the port trains as N coordinated processes. Started as
 
     python -m paddle_tpu_torch.distributed.launch --master host:port \\
         --nnodes N --rank r paddle_tpu_torch/distributed/launch/smoke.py \\
-        --out DIR [--device cpu] [--weights W.npz] ...
+        --out DIR [--device cpu] [--weights W.npz] [--mesh dp:2,mp:2] ...
 
-one worker:
+`--mesh` names the mesh's axes and extents, the first axis varying
+slowest (the JAX worker reads SMOKE_MESH from the environment; this one
+reads no environment); the default is `dp` over the world. On a mesh
+whose 'mp' extent is 1 (data parallelism) one worker:
 1. `init_parallel_env()` on `--device`;
 2. with `--store-port`, a cross-process TCPStore exercise (rank 0 hosts);
 3. builds the tiny Llama (LAYERS layers; the JAX package's weights from
@@ -31,6 +34,23 @@ one worker:
    parameter differences;
 9. rank 0 writes DIR/result.json.
 
+On a mesh with an 'mp' extent above 1 (tensor parallelism, `_tp_job`)
+it instead runs every TP_VARIANTS configuration of the tiny Llama
+(`--tp-weights DIR` holds the JAX package's weights as DIR/{variant}.npz)
+for TP_STEPS steps on the Trainer over the mesh with
+`llama_sharding_plan`, f32 compute, AdamW(LR) (with ClipGradByGlobalNorm
+and the health probe where the variant says): the losses, the probes'
+gradient norms and step 1's gradients gathered whole; the replicated
+parameters' bytes across the ranks; the checkpoint of TP_CKPT_VARIANT
+after step TP_CKPT_AT; `fleet.init` + `fleet.distributed_model` + the
+Trainer on the fleet mesh; and three planted faults, each one run from
+the same weights: the loss combined from each rank's LOCAL lse
+(`local_lse`), a column-parallel f-op whose backward skips its
+all-reduce (`fop`), a global norm that counts the replicated gradients
+once per mp rank (`norm`); and `skip_nonfinite_grads` with a NaN in
+one rank's gradient shard only (`_skip_run`: every rank must skip). Rank
+0 writes DIR/result.json and DIR/grads.npz.
+
 With `--elastic-dir` it is instead a worker of `ElasticSupervisor`:
 it heartbeats into the supervisor's store, resumes from the newest
 complete checkpoint under that directory, saves after every step, rank
@@ -40,6 +60,7 @@ attempt 0 exits after step `--kill-at`.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 
@@ -54,6 +75,21 @@ PAD_ROWS = 4
 PAD_FROM = 20
 LR = 1e-3
 SEED = 7
+TP_STEPS = 3
+TP_CLIP = 0.05
+# name -> (LlamaConfig overrides, ClipGradByGlobalNorm + health probe)
+TP_VARIANTS = {
+    "dense": ({}, True),
+    "dense_tied_fused": (dict(tie_word_embeddings=True,
+                              fuse_attention_qkv=True,
+                              fuse_attention_ffn=True), False),
+    "chunk": (dict(loss_chunk=16, loss_vocab_block=48), True),
+    "chunk_tied_fused": (dict(loss_chunk=16, tie_word_embeddings=True,
+                              fuse_attention_qkv=True,
+                              fuse_attention_ffn=True), False),
+}
+TP_CKPT_VARIANT = "chunk_tied_fused"
+TP_CKPT_AT = 2
 
 
 def smoke_batches(vocab, steps, pad_rows=PAD_ROWS, pad_from=PAD_FROM,
@@ -83,7 +119,21 @@ def _parse(argv):
     p.add_argument("--elastic-dir", default=None)
     p.add_argument("--kill-rank", type=int, default=-1)
     p.add_argument("--kill-at", type=int, default=-1)
+    p.add_argument("--mesh", default=None,
+                   help="axis:extent pairs, e.g. mp:2 or dp:2,mp:2")
+    p.add_argument("--tp-weights", default=None)
     return p.parse_args(argv)
+
+
+def _parse_mesh(text, world):
+    """{'dp': 2, 'mp': 2} from "dp:2,mp:2"; None gives {'dp': world}."""
+    if not text:
+        return {"dp": world}
+    out = {}
+    for item in text.split(","):
+        name, _, n = item.partition(":")
+        out[name.strip()] = int(n)
+    return out
 
 
 def _model(args, dev):
@@ -206,6 +256,213 @@ def _elastic(args, dev, mesh, rank, world):
     store.close()
 
 
+def _tp_model(args, dev, name):
+    from paddle_tpu_torch.models.convert import from_paddle_tpu_state
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               tiny_llama_config)
+    cfg = tiny_llama_config(num_hidden_layers=LAYERS,
+                            **TP_VARIANTS[name][0])
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    with np.load(os.path.join(args.tp_weights, f"{name}.npz")) as f:
+        model.load_state_dict(from_paddle_tpu_state(
+            {k: f[k] for k in f.files}, cfg))
+    return cfg, model
+
+
+def _tp_trainer(args, dev, mesh, name, model=None, plan=True):
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.parallel.plan import llama_sharding_plan
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    if model is None:
+        _, model = _tp_model(args, dev, name)
+    clip = TP_VARIANTS[name][1]
+    opt = topt.AdamW(learning_rate=LR, parameters=model.named_parameters(),
+                     grad_clip=ClipGradByGlobalNorm(TP_CLIP) if clip
+                     else None)
+    return Trainer(model, opt, TrainStepConfig(compute_dtype=None,
+                                               health_probe=clip),
+                   mesh=mesh, plan=llama_sharding_plan(mesh.dim_names)
+                   if plan else None)
+
+
+def _gathered_grads(model):
+    """Every parameter's gradient, a cut one gathered whole (a
+    collective over its mp group)."""
+    from paddle_tpu_torch.distributed.fleet.layers import gather_full
+    out = {}
+    for n, p in model.named_parameters():
+        shard = getattr(p, "_mp_shard", None)
+        g = p.grad.detach()
+        out[n] = (g if shard is None else gather_full(g, shard)).cpu()
+    return out
+
+
+def _tp_run(tr, batches, ckpt=None):
+    """(losses, probe norms, step 1's gathered gradients); with `ckpt`, a
+    checkpoint saved after step TP_CKPT_AT."""
+    losses, probes, grad1 = [], [], None
+    for i, b in enumerate(batches):
+        losses.append(float(tr.step(b)))
+        if tr.last_probe is not None:
+            probes.append(float(tr.last_probe[0]))
+        if i == 0:
+            grad1 = _gathered_grads(tr.model)
+        if ckpt is not None and i + 1 == TP_CKPT_AT:
+            tr.save_checkpoint(ckpt)
+    return losses, probes, grad1
+
+
+def _replicated_digest(model, group):
+    """Whether every rank of `group` holds the same bytes of the
+    parameters that are not cut."""
+    import hashlib
+    from paddle_tpu_torch.distributed import collective
+    h = hashlib.sha256()
+    for n, p in model.named_parameters():
+        if getattr(p, "_mp_shard", None) is None:
+            h.update(p.detach().cpu().contiguous().numpy().tobytes())
+    mine = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8)
+    return all(torch.equal(d, mine)
+               for d in collective.all_gather(mine, group=group))
+
+
+def _fleet_run(args, dev, axes, batches):
+    """fleet.init over the world with the mesh's degrees,
+    distributed_model, the Trainer on the fleet mesh: the topology's
+    view of this rank and the "dense" variant's losses."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import layers
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": axes.get("dp", 1),
+                               "mp_degree": axes["mp"]}
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    _, model = _tp_model(args, dev, "dense")
+    model = fleet.distributed_model(model)
+    kinds = {n: type(m).__name__ for n, m in model.named_modules()
+             if isinstance(m, layers._PARALLEL)}
+    tr = _tp_trainer(args, dev, fleet.get_mesh(), "dense", model=model,
+                     plan=False)
+    fleet.distributed_optimizer(tr.optimizer)
+    losses = [float(tr.step(b)) for b in batches]
+    mesh = fleet.get_mesh()
+    return {"losses": losses, "kinds": kinds,
+            "mesh": [mesh.dim_names, mesh.shape],
+            "worker": [fleet.worker_index(), fleet.worker_num(),
+                       fleet.is_first_worker()],
+            "hcg": {"dp_rank": hcg.get_data_parallel_rank(),
+                    "mp_rank": hcg.get_model_parallel_rank(),
+                    "dp_group": hcg.get_data_parallel_group(),
+                    "mp_group": hcg.get_model_parallel_group(),
+                    "mp_world": hcg.get_model_parallel_world_size(),
+                    "dp_world": hcg.get_data_parallel_world_size()}}
+
+
+def _skip_run(args, dev, mesh, rank, batch):
+    """skip_nonfinite_grads with a NaN in rank 1's lm_head gradient shard
+    only: [[skipped steps, parameters unchanged]] of every rank (each
+    must skip)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.parallel.plan import llama_sharding_plan
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    _, model = _tp_model(args, dev, "dense")
+    tr = Trainer(model, topt.AdamW(learning_rate=LR,
+                                   parameters=model.named_parameters()),
+                 TrainStepConfig(compute_dtype=None,
+                                 skip_nonfinite_grads=True),
+                 mesh=mesh, plan=llama_sharding_plan(mesh.dim_names))
+    before = [p.detach().clone() for p in model.parameters()]
+    def poison(p):
+        p.grad.view(-1)[0] = float("nan")
+
+    if rank == 1:
+        model.lm_head.weight.register_post_accumulate_grad_hook(poison)
+    tr.step(batch)
+    same = all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    mine = torch.tensor([float(tr.nonfinite_skipped), float(same)])
+    return [t.tolist() for t in collective.all_gather(mine)]
+
+
+@contextlib.contextmanager
+def planted(fault, group=None):
+    """One planted fault in place for the block: `local_lse` (the
+    blockwise loss from each rank's own lse), `fop` (the column-parallel
+    f-op's backward without its all-reduce), `norm` (every gradient's
+    squares summed over the mp `group`, replicated ones included)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed.fleet import layers
+    from paddle_tpu_torch.kernels import blockwise_ce as bce
+    if fault == "local_lse":
+        target, attr, new = bce, "_combine_lse", lambda lse, g: lse
+    elif fault == "fop":
+        target, attr = layers._CopyToMP, "backward"
+        new = staticmethod(lambda ctx, g: (g, None))
+    elif fault == "norm":
+        orig = topt._group_sums
+        target, attr = topt, "_group_sums"
+
+        def new(sq, groups):
+            return orig(sq, [group] * len(groups))
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    saved = target.__dict__[attr]
+    setattr(target, attr, new)
+    try:
+        yield
+    finally:
+        setattr(target, attr, saved)
+
+
+def _tp_job(args, dev, mesh, rank):
+    """The tensor-parallel run (module docstring)."""
+    from paddle_tpu_torch.distributed import collective
+    axes = dict(zip(mesh.dim_names, mesh.shape))
+    if dev.type == "cpu":
+        # tiny products, and the workers share this host's cores
+        torch.set_num_threads(1)
+    batches = smoke_batches(256, TP_STEPS)
+    result = {"world": torch.distributed.get_world_size(), "rank": rank,
+              "backend": torch.distributed.get_backend(),
+              "mesh": [[k, v] for k, v in axes.items()], "variants": {}}
+    grads = {}
+    for name in TP_VARIANTS:
+        tr = _tp_trainer(args, dev, mesh, name)
+        ckpt = (os.path.join(args.out, "ckpt") if name == TP_CKPT_VARIANT
+                else None)
+        losses, probes, g1 = _tp_run(tr, batches, ckpt)
+        result["variants"][name] = {
+            "losses": losses, "probes": probes,
+            "replicated_equal": _replicated_digest(
+                tr.model, mesh.get_group("mp")),
+            "local_shapes": {n: list(p.shape)
+                             for n, p in tr.model.named_parameters()}}
+        grads.update({f"{name}/{k}": v for k, v in g1.items()})
+    mp_group = mesh.get_group("mp")
+    faults = {}
+    with planted("local_lse"):
+        faults["local_lse"] = _tp_run(
+            _tp_trainer(args, dev, mesh, "chunk"), batches[:1])[0]
+    with planted("fop"):
+        _, _, g1 = _tp_run(_tp_trainer(args, dev, mesh, "dense"),
+                           batches[:1])
+    grads.update({f"fop/{k}": v for k, v in g1.items()})
+    with planted("norm", mp_group):
+        faults["norm"] = _tp_run(_tp_trainer(args, dev, mesh, "dense"),
+                                 batches)[1]
+    result["faults"] = faults
+    result["skip"] = _skip_run(args, dev, mesh, rank, batches[0])
+    result["fleet"] = _fleet_run(args, dev, axes, batches)
+    if rank == 0:
+        np.savez(os.path.join(args.out, "grads.npz"),
+                 **{k: v.numpy() for k, v in grads.items()})
+        with open(os.path.join(args.out, "result.json"), "w") as f:
+            json.dump(result, f)
+    collective.barrier()
+    print(f"SMOKE_OK rank={rank} mesh={axes}", flush=True)
+
+
 def main(argv=None):
     args = _parse(argv)
     from paddle_tpu_torch.distributed import collective, env
@@ -215,7 +472,12 @@ def main(argv=None):
     assert collective_group.nranks == world and env.ParallelEnv().rank == rank
     dev = env.world_device()
     torch.manual_seed(0)
-    mesh = init_mesh({"dp": world})
+    axes = _parse_mesh(args.mesh, world)
+    mesh = init_mesh(axes)
+    if axes.get("mp", 1) > 1:
+        _tp_job(args, dev, mesh, rank)
+        collective.destroy_process_group()
+        return 0
     if args.elastic_dir:
         _elastic(args, dev, mesh, rank, world)
         collective.destroy_process_group()
@@ -229,7 +491,7 @@ def main(argv=None):
     tr.save_checkpoint(os.path.join(args.out, "ckpt"))
     result = {"losses": losses, "world": world, "rank": rank,
               "backend": torch.distributed.get_backend(),
-              "mesh": [["dp", world]]}
+              "mesh": [[k, v] for k, v in axes.items()]}
     if args.fault_steps:
         _, faulty = _trainer(args, dev, mesh)
         _rank_mean(faulty)

@@ -32,6 +32,16 @@ tied embedding both hold it so); the JAX package's is (D, V).
 - `_BlockwiseCE` is the `torch.autograd.Function` (JAX `_bce`
   custom_vjp): its forward keeps x, W, labels, the f32 row lse and the
   count, nothing logits-shaped.
+- `vocab_parallel_ce_loss` is the loss over a vocab shard W_r (V/n, D)
+  of an mp group (tensor parallelism; the JAX package's GSPMD form of
+  `blockwise_ce_loss` under a vocab-sharded head computes the same
+  loss): `ce_fwd_rows` on the shard, with the labels outside the shard
+  moved to V/n, which picks nothing and has no one-hot (`local_labels`;
+  an ignored row stays ignored); the row lse combined over the group
+  (an all-gather of the (N,) rows, `combine_lse`), the picked logits
+  summed; the backward is `ce_bwd` on the shard with the GLOBAL lse, so
+  the shard's dS is its slice of softmax - onehot, dW stays local and
+  dx is all-reduced over the group (the head's f-op). No new kernel.
 
 The wrappers take the twins only for CPU tensors; a CUDA tensor goes to
 the kernels or raises. `launches` counts kernel launches per kernel.
@@ -42,8 +52,9 @@ import torch
 
 from paddle_tpu_torch.kernels import LaunchCounter, _build
 
-__all__ = ["blockwise_ce_loss", "ce_fwd", "ce_bwd", "ce_fwd_ref",
-           "ce_bwd_ref", "ce_shape_problems", "check_ce_shapes",
+__all__ = ["blockwise_ce_loss", "vocab_parallel_ce_loss", "ce_fwd", "ce_bwd",
+           "ce_fwd_rows", "ce_fwd_ref", "ce_bwd_ref", "local_labels",
+           "combine_lse", "ce_shape_problems", "check_ce_shapes",
            "ce_super_block", "dense_logits_bytes", "logits_bytes_saved",
            "launches"]
 
@@ -151,17 +162,19 @@ def _scores(xc, wj):
     return xc.float() @ wj.float().t()
 
 
-def ce_fwd_ref(x, w, labels, chunk, vocab_block=0, ignore_index=-100):
-    """Plain twin of the forward: (loss, lse (N,) f32, count)."""
-    n, v = x.shape[0], w.shape[0]
-    lses, loss_sum = [], x.new_zeros((), dtype=torch.float32)
-    count = x.new_zeros((), dtype=torch.float32)
+def _fwd_rows_ref(x, w, labels, chunk, vocab_block, ignore_index):
+    """Per row chunk: (lse, picked, labels) of `chunk` rows (the last
+    chunk padded). A label outside [0, V) picks nothing (0), as in the
+    kernel, in both paths."""
+    v = w.shape[0]
     for xc, lc in _row_chunks(x, labels.long(), chunk, ignore_index):
         if not vocab_block:
             s = _scores(xc, w)
             m = torch.amax(s, dim=-1)
             lse = m + torch.log(torch.sum(torch.exp(s - m[:, None]), dim=-1))
-            picked = torch.gather(s, 1, lc.clamp(0, v - 1)[:, None])[:, 0]
+            picked = torch.where(
+                (lc >= 0) & (lc < v),
+                torch.gather(s, 1, lc.clamp(0, v - 1)[:, None])[:, 0], 0.0)
         else:
             c = xc.shape[0]
             m = xc.new_full((c,), _NEG_INF, dtype=torch.float32)
@@ -178,6 +191,16 @@ def ce_fwd_ref(x, w, labels, chunk, vocab_block=0, ignore_index=-100):
                     torch.where(col == lc[:, None], s, 0.0), dim=-1)
                 m = m_new
             lse = m + torch.log(torch.clamp(l, min=1e-30))
+        yield lse, picked, lc
+
+
+def ce_fwd_ref(x, w, labels, chunk, vocab_block=0, ignore_index=-100):
+    """Plain twin of the forward: (loss, lse (N,) f32, count)."""
+    n = x.shape[0]
+    lses, loss_sum = [], x.new_zeros((), dtype=torch.float32)
+    count = x.new_zeros((), dtype=torch.float32)
+    for lse, picked, lc in _fwd_rows_ref(x, w, labels, chunk, vocab_block,
+                                         ignore_index):
         valid = lc != ignore_index
         loss_sum = loss_sum + torch.sum(torch.where(valid, lse - picked, 0.0))
         count = count + torch.sum(valid.float())
@@ -402,3 +425,102 @@ def blockwise_ce_loss(x, w, labels, *, chunk, vocab_block=0,
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _BlockwiseCE.apply(*args)
     return ce_fwd(*args)[0]
+
+
+# ---------------------------------------------------------------------------
+# the loss over a vocab shard (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+def ce_fwd_rows(x, w, labels, chunk=512, vocab_block=0, ignore_index=-100):
+    """(lse, picked) (N,) f32: each row's lse over w's rows and its
+    label's score (0 for a label outside [0, V)). On the CPU the twin
+    runs with `chunk` / `vocab_block`; a CUDA tensor goes to the forward
+    kernel."""
+    _check_args("ce_fwd_rows", x, w, labels)
+    if x.device.type == "cpu":
+        rows = list(_fwd_rows_ref(x, w, labels, chunk, vocab_block,
+                                  ignore_index))
+        n = x.shape[0]
+        return (torch.cat([r[0] for r in rows])[:n],
+                torch.cat([r[1] for r in rows])[:n])
+    if x.device.type != "cuda":
+        raise ValueError(f"ce_fwd_rows: unsupported device {x.device}")
+    _check_cuda("ce_fwd_rows", x, w, labels)
+    return _launch_fwd(x, w, labels.to(torch.int32).contiguous())
+
+
+def local_labels(labels, vocab_start, vocab_local, ignore_index=-100):
+    """A vocab shard's labels: label - vocab_start inside [vocab_start,
+    vocab_start + vocab_local), `vocab_local` (a row that picks nothing
+    and has no one-hot) outside it, `ignore_index` kept, so an ignored
+    row stays out of the count on every shard."""
+    loc = labels.long() - int(vocab_start)
+    out = torch.where((loc >= 0) & (loc < vocab_local), loc,
+                      torch.full_like(loc, int(vocab_local)))
+    return torch.where(labels == ignore_index, labels.long(), out).to(
+        labels.dtype)
+
+
+def combine_lse(lses):
+    """The whole vocab's row lse from the shards' (N,) f32 rows, in rank
+    order: log sum_r exp(lse_r)."""
+    return torch.logsumexp(torch.stack(lses), dim=0)
+
+
+def _combine_lse(lse, group):
+    """The global row lse from this rank's, over the mp group (the same
+    bits on every rank)."""
+    from paddle_tpu_torch.distributed import collective
+    return combine_lse(collective.all_gather(lse, group=group))
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The forward keeps x, the shard, its local labels, the GLOBAL row
+    lse and the count; the backward all-reduces dx over the group."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, vocab_start, group, chunk, vocab_block,
+                ignore_index):
+        from paddle_tpu_torch.distributed import collective
+        lab = local_labels(labels, vocab_start, w.shape[0], ignore_index)
+        lse_r, picked = ce_fwd_rows(x, w, lab, chunk, vocab_block,
+                                    ignore_index)
+        lse = _combine_lse(lse_r, group)
+        collective.all_reduce(picked, group=group)
+        valid = labels != ignore_index
+        count = torch.clamp(valid.float().sum(), min=1.0)
+        loss = torch.where(valid, lse - picked, 0.0).sum() / count
+        ctx.save_for_backward(x, w, lab, lse, count)
+        ctx.args = (chunk, vocab_block, ignore_index)
+        ctx.group = group
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        from paddle_tpu_torch.distributed import collective
+        x, w, lab, lse, count = ctx.saved_tensors
+        dx, dw = ce_bwd(x, w, lab, lse, count, g.float(), *ctx.args)
+        collective.all_reduce(dx, group=ctx.group)
+        return dx, dw, None, None, None, None, None, None
+
+
+def vocab_parallel_ce_loss(x, w, labels, *, vocab_start, group, chunk,
+                           vocab_block=0, ignore_index=-100):
+    """`blockwise_ce_loss` of x (N, D) against the whole vocab, given this
+    rank's shard w (V/n, D) of it, whose rows start at global vocab id
+    `vocab_start`, and global int labels (N,): the mean over the rows not
+    labelled `ignore_index`, f32, equal on every rank of `group` (the mp
+    collective.Group; None or one rank: `blockwise_ce_loss`).
+    Differentiable in x (all-reduced over the group) and w (this rank's
+    shard)."""
+    if group is None or group.nranks <= 1:
+        return blockwise_ce_loss(x, w, labels, chunk=chunk,
+                                 vocab_block=vocab_block,
+                                 ignore_index=ignore_index)
+    _check_args("vocab_parallel_ce_loss", x, w, labels)
+    if chunk < 1 or vocab_block < 0:
+        raise ValueError(f"vocab_parallel_ce_loss: chunk must be >= 1 and "
+                         f"vocab_block >= 0 (got {chunk}, {vocab_block})")
+    return _VocabParallelCE.apply(x, w, labels, int(vocab_start), group,
+                                  int(chunk), int(vocab_block),
+                                  int(ignore_index))

@@ -26,6 +26,17 @@ the same function.
 
 Linear weights follow torch's (out, in) layout; models/convert.py
 carries a paddle_tpu state dict ((in, out) layout) across.
+
+Tensor parallelism: parallel/plan.py `apply_plan` (through the Trainer
+or `fleet.distributed_model`) turns the projections, the embedding and
+the head into distributed/fleet/layers.py's classes over this rank's
+shards. The attention and the MLP then run on the local heads and
+columns, the counts read from the projections' own shapes (no config
+field changes), and with a vocab-sharded head (lm_head, or the tied
+embedding) the loss is the vocab-parallel one: `next_token_loss` through
+`parallel_cross_entropy` over the shard's logits, `next_token_loss_
+blockwise` through kernels/blockwise_ce.py `vocab_parallel_ce_loss`.
+The logits the forward returns are gathered to the whole vocab.
 """
 from __future__ import annotations
 
@@ -35,9 +46,12 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.distributed.fleet.layers import (
+    copy_to_mp, gather_from_mp, parallel_cross_entropy)
 from paddle_tpu_torch.distributed.recompute import recompute
 from paddle_tpu_torch.inference.paged import (PagedState,
                                              paged_attention_update)
+from paddle_tpu_torch.kernels.blockwise_ce import vocab_parallel_ce_loss
 from paddle_tpu_torch.kernels.fused_norm import (rms_norm_residual,
                                                  rope_apply, rope_tables)
 from paddle_tpu_torch.models.generation import generate, kv_cache_update
@@ -99,11 +113,18 @@ def tiny_llama_config(**overrides) -> LlamaConfig:
     return LlamaConfig(**base)
 
 
-def next_token_loss(logits, labels, vocab_size):
+def next_token_loss(logits, labels, vocab_size, mp_group=None,
+                    vocab_start=0):
     """Shifted next-token cross entropy: position t scores labels[t+1];
     the last position is marked ignore_index (-100) instead of slicing
     the logits, and the mean leaves ignored rows out (JAX
-    `next_token_loss`)."""
+    `next_token_loss`). With an `mp_group`, `logits` hold this rank's
+    vocab columns from global id `vocab_start` on (a vocab-sharded
+    head)."""
+    if mp_group is not None:
+        return parallel_cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), _shifted(labels),
+            mp_group, vocab_start, ignore_index=-100)
     return F.cross_entropy(logits.reshape(-1, vocab_size),
                            _shifted(labels), ignore_index=-100)
 
@@ -117,12 +138,20 @@ def _shifted(labels):
 
 
 def next_token_loss_blockwise(hidden, weight, labels, config,
-                              transpose_w=False):
+                              transpose_w=False, mp_group=None,
+                              vocab_start=0):
     """Shifted next-token CE straight from the final hidden states, the
     lm_head projection fused into the blockwise loss: the [B*S, vocab]
     logits never exist. `weight` is (D, V), or (V, D) with transpose_w;
     the same label shift and ignore_index as `next_token_loss` (JAX
-    `next_token_loss_blockwise`)."""
+    `next_token_loss_blockwise`). With an `mp_group`, `weight` is this
+    rank's (V/n, D) vocab shard from global id `vocab_start` on."""
+    if mp_group is not None:
+        w = weight if transpose_w else weight.t().contiguous()
+        return vocab_parallel_ce_loss(
+            hidden.reshape(-1, hidden.shape[-1]), w, _shifted(labels),
+            vocab_start=vocab_start, group=mp_group, chunk=config.loss_chunk,
+            vocab_block=config.loss_vocab_block, ignore_index=-100)
     return F.blockwise_cross_entropy(
         hidden.reshape(-1, hidden.shape[-1]), weight, _shifted(labels),
         chunk=config.loss_chunk, vocab_block=config.loss_vocab_block,
@@ -171,8 +200,7 @@ class LlamaAttention(nn.Module):
         mask."""
         cfg = self.config
         b, s = hidden_states.shape[0], hidden_states.shape[1]
-        hq, hk, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                      cfg.head_dim)
+        hq, hk, hd = self.local_heads()
         if cfg.fuse_attention_qkv:
             q, k, v = torch.split(self.qkv_proj(hidden_states),
                                   [hq * hd, hk * hd, hk * hd], dim=-1)
@@ -203,6 +231,23 @@ class LlamaAttention(nn.Module):
                 q, k, v, attn_mask=attn_mask,
                 is_causal=attn_mask is None).reshape(b, s, hq * hd)
         return self.o_proj(out)
+
+    def local_heads(self):
+        """(query heads, kv heads, head dim) this rank computes: the
+        config's, or under tensor parallelism (a column-parallel q/k/v
+        projection with an mp group) its share, read from the
+        projections' shapes."""
+        cfg = self.config
+        hq, hk, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        proj = self.qkv_proj if cfg.fuse_attention_qkv else self.q_proj
+        if getattr(proj, "mp_group", None) is None:
+            return hq, hk, hd
+        if cfg.fuse_attention_qkv:
+            n = (hq + 2 * hk) * hd // proj.weight.shape[0]
+            return hq // n, hk // n, hd
+        return (proj.weight.shape[0] // hd,
+                self.k_proj.weight.shape[0] // hd, hd)
 
 
 def _dense_cache_attention(q, k, v, cache, index, attn_mask):
@@ -370,10 +415,26 @@ class LlamaForCausalLM(nn.Module):
     def dtype(self):
         return self.model.embed_tokens.weight.dtype
 
-    def logits(self, hidden):
+    def _head(self):
+        """(the head module: lm_head, or the tied embedding; its mp group
+        or None; the first vocab id of its rows)."""
+        mod = self.model.embed_tokens if self.lm_head is None \
+            else self.lm_head
+        group = getattr(mod, "mp_group", None)
+        start = 0 if group is None else group.rank * mod.weight.shape[0]
+        return mod, group, start
+
+    def _local_logits(self, hidden):
+        """Logits over the head's rows: the whole vocab, or this rank's
+        shard of it."""
         if self.lm_head is None:
-            return hidden @ self.model.embed_tokens.weight.t()
+            group = getattr(self.model.embed_tokens, "mp_group", None)
+            return copy_to_mp(hidden, group) @ \
+                self.model.embed_tokens.weight.t()
         return self.lm_head(hidden)
+
+    def logits(self, hidden):
+        return gather_from_mp(self._local_logits(hidden), self._head()[1])
 
     def forward(self, input_ids, position_ids=None, caches=None,
                 cache_index=None, labels=None, attn_mask=None):
@@ -394,18 +455,21 @@ class LlamaForCausalLM(nn.Module):
                        attn_mask)
         if caches is not None and not isinstance(cache_index, PagedState):
             return self.logits(h), caches
+        head, group, start = self._head()
         if labels is not None and self.config.loss_chunk:
             # both heads hold W as (V, D): the embedding, and nn.Linear's
             # (out, in) weight
-            w = (self.model.embed_tokens.weight if self.lm_head is None
-                 else self.lm_head.weight)
-            return next_token_loss_blockwise(h, w, labels, self.config,
-                                             transpose_w=True), None
-        logits = self.logits(h)
+            return next_token_loss_blockwise(
+                h, head.weight, labels, self.config, transpose_w=True,
+                mp_group=group, vocab_start=start), None
+        logits = self._local_logits(h)
         if labels is None:
-            return logits
-        return next_token_loss(logits, labels, self.config.vocab_size), \
-            logits
+            return gather_from_mp(logits, group)
+        loss = next_token_loss(logits, labels, self.config.vocab_size,
+                               mp_group=group, vocab_start=start)
+        if group is not None:
+            logits = gather_from_mp(logits.detach(), group)
+        return loss, logits
 
     def generate(self, input_ids, max_new_tokens=32, **kwargs):
         """KV-cache autoregressive generation (models/generation.py

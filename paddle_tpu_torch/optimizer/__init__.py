@@ -21,7 +21,13 @@ keeps one copy of each on the card).
 (`_lr_value`, `get_lr`, `set_lr`, as `paddle_tpu.optimizer.Optimizer`).
 `grad_clip` (nn/clip.py) clips the f32 gradients before the rule, on the
 device: the global norm is sqrt of the sum of the squared per-tensor
-norms, as `_global_norm_clip` computes it. `step(apply=...)` takes a 0-d
+norms, as `_global_norm_clip` computes it. Under tensor parallelism a
+parameter cut over the mp group (its `_mp_shard`, distributed/fleet/
+layers.py) holds a shard of its gradient: the squares of such shards are
+summed over the group (one all-reduce a group) and those of replicated
+gradients, whole on every rank, are counted once, so every rank clips by
+the whole model's norm; `ClipGradByNorm` takes a sharded tensor's norm
+over the group the same way. `step(apply=...)` takes a 0-d
 bool tensor: where it is False the update is suppressed and parameters,
 moments and beta powers keep their values bit for bit, decided on the
 device (select, don't branch), so the step waits for nothing.
@@ -35,25 +41,72 @@ from paddle_tpu_torch.nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
 from paddle_tpu_torch.optimizer import lr
 from paddle_tpu_torch.optimizer.lr import LRScheduler
 
-__all__ = ["Adam", "AdamW", "lr", "LRScheduler", "global_grad_norm"]
+__all__ = ["Adam", "AdamW", "lr", "LRScheduler", "global_grad_norm",
+           "mp_groups"]
 
 
-def global_grad_norm(grads):
+def mp_groups(params):
+    """Each parameter's mp group when it is cut over one (tensor
+    parallelism), else None."""
+    return [getattr(getattr(p, "_mp_shard", None), "group", None)
+            for p in params]
+
+
+def _group_sums(sq, groups):
+    """(squares of the replicated tensors, {group id: the sharded squares
+    of that group, all-reduced over it}) from per-tensor squares `sq`."""
+    from paddle_tpu_torch.distributed import collective
+    rep = [i for i, g in enumerate(groups) if g is None]
+    by_group = {}
+    for i, g in enumerate(groups):
+        if g is not None:
+            by_group.setdefault(id(g), (g, []))[1].append(i)
+    sums = {}
+    for gid, (g, idx) in by_group.items():
+        part = sq[idx].clone()
+        collective.all_reduce(part, group=g)
+        sums[gid] = (idx, part)
+    return rep, sums
+
+
+def global_grad_norm(grads, groups=None):
     """sqrt(sum of squares) over every entry of the f32 tensors `grads`:
-    a 0-d tensor on their device (NaN or Inf when any entry is)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    a 0-d tensor on their device (NaN or Inf when any entry is). With
+    `groups` (`mp_groups` of their parameters), a sharded tensor's squares
+    are summed over its group and a replicated one's counted once."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if groups is None or all(g is None for g in groups):
+        return torch.linalg.vector_norm(norms)
+    rep, sums = _group_sums(norms * norms, groups)
+    total = (norms[rep] * norms[rep]).sum()
+    for _, part in sums.values():
+        total = total + part.sum()
+    return torch.sqrt(total)
 
 
-def _clip(policy, grads):
+def _tensor_norms(grads, groups):
+    """Each tensor's own norm, a sharded one's over its group."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    _, sums = _group_sums(norms * norms, groups)
+    for idx, part in sums.values():
+        norms[idx] = torch.sqrt(part)
+    return list(norms)
+
+
+def _clip(policy, grads, groups=None):
     """The f32 gradients `grads` after the clip `policy` (None: as
-    they are)."""
+    they are); `groups`: their parameters' `mp_groups`."""
     if policy is None:
         return grads
     if isinstance(policy, ClipGradByGlobalNorm):
         scale = torch.clamp(policy.clip_norm / torch.clamp(
-            global_grad_norm(grads), min=1e-12), max=1.0)
+            global_grad_norm(grads, groups), min=1e-12), max=1.0)
         return torch._foreach_mul(grads, scale)
     if isinstance(policy, ClipGradByNorm):
+        if groups is not None and any(g is not None for g in groups):
+            return [g * torch.clamp(policy.clip_norm / torch.clamp(
+                nrm, min=1e-12), max=1.0)
+                for g, nrm in zip(grads, _tensor_norms(grads, groups))]
         return [g * torch.clamp(policy.clip_norm / torch.clamp(
             torch.linalg.vector_norm(g), min=1e-12), max=1.0) for g in grads]
     if isinstance(policy, ClipGradByValue):
@@ -158,7 +211,8 @@ class Adam:
     def _update(self, work, states, params, lr):
         masters = [st.get("master") for st in states]
         pf = [p.float() if m is None else m for p, m in zip(params, masters)]
-        g = _clip(self._grad_clip, [p.grad.float() for p in params])
+        g = _clip(self._grad_clip, [p.grad.float() for p in params],
+                  mp_groups(params))
         wds = [self._wd_for(n) for n, _ in work]
         b1, b2 = self._beta1, self._beta2
         if not self._decoupled() and any(wds):

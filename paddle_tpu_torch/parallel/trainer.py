@@ -70,9 +70,23 @@ without waiting for the device.
   probe and the loss cap read global values, so every rank takes the
   same branch.
   Telemetry counts this rank's tokens: the global batch over the mesh's
-  size, as the JAX Trainer reports. A mesh axis of extent > 1 other
-  than 'dp', or a plan that places a parameter on one, raises
-  NotImplementedError (tensor parallelism and FSDP are later slices).
+  size, as the JAX Trainer reports.
+- Tensor parallelism (an 'mp' axis of extent > 1 in `mesh`): the
+  Trainer cuts the model by `plan` through parallel/plan.py
+  `apply_plan` (a model that `fleet.distributed_model` cut already is
+  taken as it stands; an mp mesh without either raises ValueError).
+  Every rank of an mp group holds its shards and sees the same rows: the
+  batch is cut by this rank's dp coordinate only, and gradients are
+  summed over the dp group only (the mp ranks' gradients are their
+  shards', and whole and equal for replicated parameters). The global
+  norms of the clip and the probe add the shards' squares over the mp
+  group (optimizer/__init__.py), and the non-finite skip's flag is
+  taken over it, so every mp rank takes one branch.
+  `checkpoint_state()` gathers each cut tensor (parameters, moments,
+  masters) into the whole tensor, so a checkpoint is the one a
+  mesh-free Trainer writes, and `load_checkpoint` cuts it back. A mesh without a 'dp' axis gives every
+  rank the whole batch. A 'fsdp', 'sp', 'pp' or 'ep' axis of extent > 1
+  raises NotImplementedError naming the slice it waits for.
 
 Making the model trainable (every parameter requires a gradient,
 training mode) is the Trainer's job: a model built for serving carries
@@ -89,8 +103,9 @@ import torch
 
 from paddle_tpu_torch import observability
 from paddle_tpu_torch.distributed import chaos, collective
+from paddle_tpu_torch.distributed.fleet.layers import gather_full
 from paddle_tpu_torch.io.prefetch import DevicePrefetcher
-from paddle_tpu_torch.optimizer import global_grad_norm
+from paddle_tpu_torch.optimizer import global_grad_norm, mp_groups
 
 __all__ = ["TrainStepConfig", "Trainer", "NonFiniteGradError"]
 
@@ -151,31 +166,41 @@ class Trainer:
         # batch signatures already run (train.recompiles)
         self._seen_batches = set()
         self.mesh, self.plan = mesh, plan
-        self._dp = None if mesh is None else self._data_parallel(mesh, plan)
+        self._dp = None if mesh is None else self._parallel(mesh, plan)
         model.requires_grad_(True)
         model.train()
 
-    def _data_parallel(self, mesh, plan):
-        """(dp size, this rank's dp index, the dp group, the reducer) of
-        a mesh whose only axis of extent > 1 is the batch axis."""
+    def _parallel(self, mesh, plan):
+        """(dp size, this rank's dp index, the dp group and its reducer,
+        None without a 'dp' axis) of a mesh whose axes of extent > 1 are
+        'dp' and 'mp'; the model cut by `plan`."""
+        from paddle_tpu_torch.distributed.fleet.layers import _PARALLEL
         from paddle_tpu_torch.distributed.parallel import GradReducer
-        from paddle_tpu_torch.parallel.plan import batch_spec, check_plan
+        from paddle_tpu_torch.parallel.plan import WAITS, apply_plan
         axes = dict(zip(mesh.dim_names, mesh.shape))
-        others = {a: n for a, n in axes.items() if a != "dp" and n > 1}
+        others = {a: n for a, n in axes.items()
+                  if a not in ("dp", "mp") and n > 1}
         if others:
+            ax = next(iter(others))
             raise NotImplementedError(
-                f"mesh axes {others}: the port's Trainer is data parallel "
-                "only; tensor, FSDP, sequence and pipeline parallelism wait "
-                "for later slices")
+                f"mesh axes {others}: the port's Trainer runs data and "
+                f"tensor parallelism; {ax!r} waits for "
+                f"{WAITS.get(ax, 'a later slice')}")
+        mp = axes.get("mp", 1)
         if plan is not None:
-            check_plan([n for n, _ in self.model.named_parameters()], mesh,
-                       plan)
-        if batch_spec(mesh.dim_names)[0] is None:
-            raise ValueError(f"mesh axes {mesh.dim_names} have no 'dp' axis "
-                             "to split the batch over")
-        group = mesh.get_group("dp")
-        return {"size": group.nranks, "index": group.rank, "group": group,
-                "reducer": GradReducer(group)}
+            apply_plan(self.model, mesh, plan)
+        if mp > 1 and not any(isinstance(m, _PARALLEL) and m.mp_group
+                              is not None for m in self.model.modules()):
+            raise ValueError(
+                f"an mp axis of extent {mp} needs a plan (or a model cut by "
+                "fleet.distributed_model); the port never replicates the "
+                "whole model over the mp ranks")
+        out = {"size": 1, "index": 0, "group": None, "reducer": None}
+        if "dp" in axes:
+            group = mesh.get_group("dp")
+            out.update(size=group.nranks, index=group.rank, group=group,
+                       reducer=GradReducer(group))
+        return out
 
     @property
     def device(self):
@@ -228,7 +253,8 @@ class Trainer:
         global valid tokens)."""
         counts = torch.stack([_valid_tokens(mb) for mb in mbs]).float()
         total = counts.clone()
-        collective.all_reduce(total, group=self._dp["group"])
+        if self._dp["group"] is not None:
+            collective.all_reduce(total, group=self._dp["group"])
         return counts / total.clamp(min=1.0)     # 0 where none is valid
 
     def _forward_backward(self, batch, backward=True):
@@ -286,7 +312,7 @@ class Trainer:
             self._seen_batches.add(key)
         self.optimizer.zero_grad()
         loss = self._forward_backward(batch)
-        if self._dp is not None:
+        if self._dp is not None and self._dp["group"] is not None:
             loss = self._reduce_dp(loss)
         if chaos.ENABLED:
             loss = self._chaos_faults(loss)
@@ -341,19 +367,19 @@ class Trainer:
         if not (cfg.health_probe or cfg.skip_nonfinite_grads):
             self.optimizer.step(lr)
             return
-        grads = [p.grad.float() for p in self.model.parameters()
-                 if p.grad is not None]
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        grads = [p.grad.float() for p in params]
         if cfg.health_probe:
             # one reduction: the norm carries any NaN / Inf, so it is both
             # the all-finite check and the probe's gradient norm
-            gnorm = global_grad_norm(grads)
+            gnorm = global_grad_norm(grads, mp_groups(params))
             healthy = (torch.isfinite(loss) & torch.isfinite(gnorm)
                        & (loss <= self._loss_cap))
             self.optimizer.step(lr, apply=healthy)
             self.last_probe = torch.stack([gnorm, healthy.float()])
             return
-        finite = torch.isfinite(loss) & torch.stack(
-            [torch.isfinite(g).all() for g in grads]).all()
+        finite = _on_every_rank(torch.isfinite(loss) & torch.stack(
+            [torch.isfinite(g).all() for g in grads]).all(), mp_groups(params))
         self.optimizer.step(lr, apply=finite)
         self._note_skip(~finite)
 
@@ -406,6 +432,10 @@ class Trainer:
             tokens = seq = int(arr.shape[0])
         else:
             tokens = seq = 0
+        if self._dp is not None:
+            # this rank's rows are the global batch over dp; its tokens
+            # the global batch over the mesh's size
+            tokens = tokens * self._dp["size"] / self.mesh.size
         self._tel_prev = [tokens, seq, None]
         self._note_logits_bytes_saved(tokens)
 
@@ -516,14 +546,25 @@ class Trainer:
 
     def checkpoint_state(self):
         """What a training checkpoint holds: the parameters AND the
-        optimizer state, as a nested dict of the live tensors
-        (save_state_dict flattens it). Resuming parameters without
-        moments would restart Adam's bias correction."""
+        optimizer state, as a nested dict (save_state_dict flattens it)
+        of the live tensors, each tensor cut over the mp group gathered
+        whole (a collective: every rank calls it). Resuming parameters
+        without moments would restart Adam's bias correction."""
+        return _unflat2({k: v if s is None else gather_full(v, s)
+                         for k, (v, s) in self._state_tensors().items()})
+
+    def _state_tensors(self):
+        """{("params"|"opt", name[, key]): (live tensor, its MPShard or
+        None)} of every checkpointed tensor."""
         opt = self.optimizer
-        return {"params": {n: p.detach()
-                           for n, p in self.model.named_parameters()},
-                "opt": {n: dict(opt._state_for(n, p))
-                        for n, p in zip(opt._names, opt._params)}}
+        out = {}
+        for n, p in self.model.named_parameters():
+            out[("params", n)] = (p.detach(), getattr(p, "_mp_shard", None))
+        for n, p in zip(opt._names, opt._params):
+            shard = getattr(p, "_mp_shard", None)
+            for k, v in opt._state_for(n, p).items():
+                out[("opt", n, k)] = (v, shard if v.dim() else None)
+        return out
 
     def save_checkpoint(self, path):
         """Save the parameters and optimizer state into `path`. With a
@@ -546,15 +587,53 @@ class Trainer:
         from paddle_tpu_torch.distributed import checkpoint as ckpt
         if self.checkpointer is not None:
             self.checkpointer.flush()
-        sd = self.checkpoint_state()
-        targets = ckpt._flatten_state(sd)
+        live = self._state_tensors()
+        sd = _unflat2({k: v if s is None else torch.empty(
+            _whole_shape(v, s), dtype=v.dtype, device=v.device)
+            for k, (v, s) in live.items()})
         ckpt.load_state_dict(sd, path)
         with torch.no_grad():
-            # an entry saved in another dtype came back as a new tensor
-            for name, got in ckpt._flatten_state(sd).items():
-                if got is not targets[name]:
-                    targets[name].copy_(got)
+            # a cut tensor takes this rank's piece; an entry saved in
+            # another dtype came back as a new tensor
+            for k, (v, s) in live.items():
+                got = sd[k[0]][k[1]] if k[0] == "params" \
+                    else sd["opt"][k[1]][k[2]]
+                if s is not None:
+                    v.copy_(s.local(got))
+                elif got is not v:
+                    v.copy_(got)
         return path
+
+
+def _on_every_rank(flag, groups):
+    """0-d bool: `flag` holds on every rank of each distinct mp group in
+    `groups` (a MIN all-reduce), so the ranks of a tensor-parallel model,
+    whose gradient shards differ, take one branch."""
+    distinct = {id(g): g for g in groups if g is not None}
+    if not distinct:
+        return flag
+    f = flag.float().reshape(1)
+    for g in distinct.values():
+        collective.all_reduce(f, collective.ReduceOp.MIN, g)
+    return f.reshape(()) > 0
+
+
+def _unflat2(flat):
+    """{("params", n): t, ("opt", n, k): t} as {"params": {n: t}, "opt":
+    {n: {k: t}}}."""
+    out = {"params": {}, "opt": {}}
+    for key, t in flat.items():
+        if key[0] == "params":
+            out["params"][key[1]] = t
+        else:
+            out["opt"].setdefault(key[1], {})[key[2]] = t
+    return out
+
+
+def _whole_shape(local, shard):
+    shape = list(local.shape)
+    shape[shard.dim] *= shard.group.nranks
+    return shape
 
 
 class _LocalBatch(dict):

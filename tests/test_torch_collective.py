@@ -465,6 +465,10 @@ def test_plan_refuses_sharded_parameters():
     dp_only = t_mesh.ProcessMesh([[0], [1]], ["dp", "mp"])
     assert tplan.apply_plan(model, dp_only, tplan.llama_sharding_plan(
         dp_only.dim_names)) is model
-    tp = t_mesh.ProcessMesh([[0, 1]], ["dp", "mp"])
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tplan.apply_plan(model, tp, tplan.llama_sharding_plan(tp.dim_names))
+    # since tensor parallelism, 'mp' cuts (tests/test_torch_tp.py); a
+    # parameter placed on 'fsdp' of extent > 1 still raises, naming its
+    # slice
+    fsdp = t_mesh.ProcessMesh([[0, 1]], ["dp", "fsdp"])
+    with pytest.raises(NotImplementedError, match="FSDP"):
+        tplan.apply_plan(model, fsdp, tplan.llama_sharding_plan(
+            fsdp.dim_names))

@@ -286,6 +286,12 @@ def test_port_imports_without_jax_or_paddle_tpu():
         "import paddle_tpu_torch.distributed.parallel\n"
         "import paddle_tpu_torch.distributed.launch\n"
         "import paddle_tpu_torch.distributed.launch.smoke\n"
+        "import paddle_tpu_torch.distributed.api\n"
+        "import paddle_tpu_torch.distributed.fleet\n"
+        "import paddle_tpu_torch.distributed.fleet.topology\n"
+        "import paddle_tpu_torch.distributed.fleet.strategy\n"
+        "import paddle_tpu_torch.distributed.fleet.layers\n"
+        "import paddle_tpu_torch.distributed.fleet.utils\n"
         "import paddle_tpu_torch.parallel.plan\n"
         "import paddle_tpu_torch.tools.ab_blockwise_ce,"
         " paddle_tpu_torch.tools.ab_decode_tick,"

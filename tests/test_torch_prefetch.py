@@ -190,6 +190,12 @@ def test_slice_modules_import_without_jax_or_paddle_tpu():
         "import paddle_tpu_torch.distributed.parallel\n"
         "import paddle_tpu_torch.distributed.launch\n"
         "import paddle_tpu_torch.distributed.launch.smoke\n"
+        "import paddle_tpu_torch.distributed.api\n"
+        "import paddle_tpu_torch.distributed.fleet\n"
+        "import paddle_tpu_torch.distributed.fleet.topology\n"
+        "import paddle_tpu_torch.distributed.fleet.strategy\n"
+        "import paddle_tpu_torch.distributed.fleet.layers\n"
+        "import paddle_tpu_torch.distributed.fleet.utils\n"
         "import paddle_tpu_torch.parallel.plan\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " (m.split('.')[0] in ('paddle_tpu', 'jax', 'jaxlib'))]\n"
