@@ -353,8 +353,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    `collective.dispatch/all_reduce` delay past a 200 ms deadline; then
    phase 9's configuration for 6 steps over `init_mesh({"dp": 1})`, its
    losses bit-equal to a mesh-free Trainer's 6 steps in the same worker
-   and its launches per step the count from the code; it prints the
-   step ms of both and the all-reduce's bytes and device ms a step. (b)
+   and its launches per step the count from the code, and 0 all-reduce
+   bytes a step (a dp axis of extent 1 runs no collective: phase 22
+   (c)); it prints the step ms of both. (b)
    Two workers (`--nnodes 2 --rank r`, both on device 0; NCCL takes one
    rank a device, so `init_parallel_env(backend="gloo")`): TinyLlama's
    width at 2 layers, 8 x 2048 ids split 4 + 4, rows 0-3 labelled -100
@@ -392,6 +393,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bare product (the kernels' entries carry them as `vocab_shard`).
    Launches go to the path "training_tp" ((a)'s tensor-parallel run on
    rank 0).
+22. FSDP (ZeRO-3) training across processes and optimizer-state offload
+   (run right after phase 21). (a) Two workers (`--nnodes 2 --rank r
+   --devices 0 chip_smoke.py --fsdp-worker DIR`, gloo on device 0):
+   `fleet.init` with sharding_degree 2, `fleet.distributed_model` (the
+   plan's 'fsdp' entries: every projection, the embedding and the head
+   cut in two, the norms whole), the Trainer on the fleet mesh; phase
+   21's model, optimizer, compute type and batches (the batch split
+   1 + 1 over the fsdp ranks), 1 + FSDP_STEPS steps. Each worker first
+   runs the mesh-free reference and keeps its own pieces. Gates, at
+   phase 20's DP_LOSS_TOL, DP_GRAD_TOL and DP_PARAM_TOL: the loss gap,
+   step 1's gradient and the parameters after the last step (each over
+   the whole model, the ranks' pieces summed); the norms bit-equal on
+   the two ranks; each rank's parameter and optimizer-state bytes the
+   count from the code (half the whole, the norms whole); the launches
+   per step the count from the code at a rank's 1 x 2048 rows; two
+   planted faults, one step each (a reducer that sums the
+   reduce-scattered gradients again over the batch group; a gather whose
+   backward keeps its own piece without the reduce-scatter), each outside
+   the gradient's and the parameters' tolerances. It prints each rank's
+   peak memory against the one process's and phase 21's tensor-parallel
+   rank's, the step ms and the gloo bytes a step. (b) In this process,
+   phase 9's configuration for 1 + OFFLOAD_STEPS steps with
+   `offload_opt_state` off and on: losses and parameters bit-equal, the
+   device peak lower by at least the moments' bytes from the code; both
+   step times printed. (c) is phase 20 (a)'s 0 all-reduce bytes. Launches
+   go to the paths "training_fsdp" ((a) on rank 0) and
+   "training_offload" ((b)).
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -3360,7 +3388,8 @@ def _dp_collectives(dev):
 
 def _dp_trainer_run(dev, cfg, data, mesh, counters, reset):
     """(a): DP_STEPS steps of phase 9's Trainer (over `mesh`, or none),
-    fed by data_iter; each step timed to its end on the card."""
+    fed by data_iter; each step timed to its end on the card, the bytes
+    of its collectives counted."""
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
     from paddle_tpu_torch.parallel.plan import llama_sharding_plan
@@ -3371,23 +3400,11 @@ def _dp_trainer_run(dev, cfg, data, mesh, counters, reset):
     tr = Trainer(model, opt, TrainStepConfig(compute_dtype="bfloat16"),
                  mesh=mesh, plan=None if mesh is None
                  else llama_sharding_plan(mesh.dim_names))
-    events = []
-    if mesh is not None:
-        red = tr._dp["reducer"]
-        inner = red.all_reduce
-
-        def timed(tensors, *a):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            inner(tensors, *a)
-            ev[1].record()
-            events.append(ev)
-        red.all_reduce = timed
     torch.cuda.synchronize()
     reset()
-    losses, step_s = [], []
-    with tr.data_iter(itertools.repeat(data, DP_STEPS), depth=2) as it:
+    losses, step_s, counts = [], [], {}
+    with _gloo_bytes(counts), \
+            tr.data_iter(itertools.repeat(data, DP_STEPS), depth=2) as it:
         for b in it:
             t0 = time.perf_counter()
             losses.append(tr.step(b))
@@ -3395,12 +3412,8 @@ def _dp_trainer_run(dev, cfg, data, mesh, counters, reset):
             step_s.append(time.perf_counter() - t0)
     launches = counters()
     out = dict(losses=[float(x) for x in losses], launches=launches,
-               step_ms=_median(step_s[1:]) * 1e3)
-    if mesh is not None:
-        out.update(allreduce_bytes=red.last_bytes,
-                   allreduce_buckets=red.last_buckets,
-                   allreduce_ms=_median([a.elapsed_time(b)
-                                         for a, b in events[1:]]))
+               step_ms=_median(step_s[1:]) * 1e3,
+               allreduce_bytes=sum(counts.values()) / DP_STEPS)
     del tr, opt, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3598,6 +3611,9 @@ def dp_phase(card):
     if per_step != {k: float(v) for k, v in want.items()}:
         problems.append(f"(a) launches per step {per_step} != the count "
                         f"from the code {want}")
+    if dp["allreduce_bytes"] != 0:
+        problems.append(f"(a) a dp axis of extent 1 moved "
+                        f"{dp['allreduce_bytes']} collective bytes a step")
     gap, fault = b["gap"], b["fault_gap"]
     if b["backend"] != "gloo" or not b["ranks_bit_equal"]:
         problems.append(f"(b) backend {b['backend']}, ranks bit-equal "
@@ -3619,9 +3635,9 @@ def dp_phase(card):
           f"over init_mesh({{'dp': 1}}) bit-equal to the mesh-free run's: "
           f"{dp['losses'] == plain['losses']} {dp['losses']}; step "
           f"{dp['step_ms']:.1f} ms with the mesh, {plain['step_ms']:.1f} ms "
-          f"without; all-reduce {dp['allreduce_bytes'] / 1e9:.3f} GB a step "
-          f"in {dp['allreduce_buckets']} buckets, {dp['allreduce_ms']:.2f} "
-          f"ms on the card; launches per step {per_step}")
+          f"without; collective bytes a step {dp['allreduce_bytes']:.0f} "
+          f"(a dp axis of extent 1 runs none); launches per step "
+          f"{per_step}")
     print(f"[dp] {card}: (b) 2 ranks on {b['backend']} on the one card, "
           f"TinyLlama width at 2 layers, 8 x 2048 split 4 + 4, rows 0-3 "
           f"-100 from column {DP_B_PAD[1]}, {DP_B_STEPS} steps in "
@@ -3699,9 +3715,10 @@ def _tp_trainer(dev, cfg, fleet=None):
 
 
 def _cut(shards, name, t):
-    """This rank's piece of a whole tensor `t` of parameter `name`."""
-    s = shards[name]
-    return t if s is None else s.local(t)
+    """This rank's piece of a whole tensor `t` of parameter `name`
+    (`shards[name]`: its cuts, distributed/sharding.py `cuts_of`)."""
+    from paddle_tpu_torch.distributed.sharding import cut_whole
+    return cut_whole(t, shards[name]) if shards[name] else t
 
 
 def _tp_sq_gaps(rank, shards, pairs, dev):
@@ -3711,7 +3728,7 @@ def _tp_sq_gaps(rank, shards, pairs, dev):
     from paddle_tpu_torch.distributed import collective
     acc = torch.zeros(2, dtype=torch.float64, device=dev)
     for name, a, b in pairs:
-        if shards[name] is None and rank != 0:
+        if not shards[name] and rank != 0:
             continue
         a64, b64 = a.to(dev).double(), b.to(dev).double()
         acc[0] += (a64 - b64).pow(2).sum()
@@ -3745,10 +3762,11 @@ def _host(t):
     return t.to("cpu", copy=True)
 
 
-def _tp_steps(tr, batches, shards, params=True):
+def _tp_steps(tr, batches, shards, params=True, first=False):
     """The steps of one run, each to its end on the card: losses, step
-    ms, step 1's gradients and the last parameters as this rank's pieces
-    on the host (a mesh-free run's tensors cut by `shards`)."""
+    ms, step 1's gradients and the last parameters (with `first`, also
+    those after step 1) as this rank's pieces on the host (a mesh-free
+    run's tensors cut by `shards`)."""
     if tr.mesh is not None:
         shards = dict.fromkeys(shards)       # its tensors are the pieces
     losses, step_s, grad1 = [], [], None
@@ -3760,7 +3778,12 @@ def _tp_steps(tr, batches, shards, params=True):
         if grad1 is None:
             grad1 = {n: _host(_cut(shards, n, p.grad.detach()))
                      for n, p in tr.model.named_parameters()}
+            if first:
+                params1 = {n: _host(_cut(shards, n, p.detach()))
+                           for n, p in tr.model.named_parameters()}
     out = dict(losses=losses, step_s=step_s, grad1=grad1)
+    if first:
+        out["params1"] = params1
     if params:
         out["params"] = {n: _host(_cut(shards, n, p.detach()))
                          for n, p in tr.model.named_parameters()}
@@ -3769,29 +3792,38 @@ def _tp_steps(tr, batches, shards, params=True):
 
 @contextlib.contextmanager
 def _gloo_bytes(counts):
-    """Count the bytes of every all-reduce and all-gather while inside,
-    by the group's rank count."""
+    """Count the bytes of every all-reduce, all-gather and reduce-scatter
+    (each rank's input) while inside, by the group's rank count."""
     from paddle_tpu_torch.distributed import collective
-    saved = collective.all_reduce, collective.all_gather
+    saved = (collective.all_reduce, collective.all_gather,
+             collective.reduce_scatter)
 
-    def _add(t, group):
+    def _add(ts, group):
         n = collective._get_group(group).nranks
-        counts[n] = counts.get(n, 0) + t.numel() * t.element_size()
+        counts[n] = counts.get(n, 0) + sum(t.numel() * t.element_size()
+                                           for t in ts)
 
     def all_reduce(tensor, op=collective.ReduceOp.SUM, group=None,
                    sync_op=True):
-        _add(tensor, group)
+        _add([tensor], group)
         return saved[0](tensor, op, group, sync_op)
 
     def all_gather(tensor_list, tensor=None, group=None, sync_op=True):
-        _add(tensor if tensor is not None else tensor_list, group)
+        _add([tensor if tensor is not None else tensor_list], group)
         return saved[1](tensor_list, tensor, group, sync_op)
 
-    collective.all_reduce, collective.all_gather = all_reduce, all_gather
+    def reduce_scatter(tensor, tensor_list=None, op=collective.ReduceOp.SUM,
+                       group=None, sync_op=True):
+        _add(tensor_list if tensor_list is not None else [tensor], group)
+        return saved[2](tensor, tensor_list, op, group, sync_op)
+
+    (collective.all_reduce, collective.all_gather,
+     collective.reduce_scatter) = all_reduce, all_gather, reduce_scatter
     try:
         yield counts
     finally:
-        collective.all_reduce, collective.all_gather = saved
+        (collective.all_reduce, collective.all_gather,
+         collective.reduce_scatter) = saved
 
 
 def tp_worker(outdir, device="cuda"):
@@ -3817,9 +3849,9 @@ def tp_worker(outdir, device="cuda"):
     stage = {}                # seconds since t_phase at each stage's end
 
     # the shards' layout, from a cut model
+    from paddle_tpu_torch.distributed.sharding import cuts_of
     tr = _tp_trainer(dev, cfg, fleet)
-    shards = {n: getattr(p, "_mp_shard", None)
-              for n, p in tr.model.named_parameters()}
+    shards = {n: cuts_of(p) for n, p in tr.model.named_parameters()}
     local_bytes = sum(p.numel() * p.element_size()
                       for p in tr.model.parameters())
     del tr
@@ -3851,24 +3883,13 @@ def tp_worker(outdir, device="cuda"):
         for k in d:
             d[k] = 0
     counts = {}
-    red, dp_s = tr._dp["reducer"], []
-    inner = red.all_reduce
-
-    def timed(tensors, *args):
-        # the fleet mesh's dp axis of extent 1: a reduce over one rank
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        inner(tensors, *args)
-        torch.cuda.synchronize()
-        dp_s.append(time.perf_counter() - t0)
-    red.all_reduce = timed
     with _gloo_bytes(counts):
         run = _tp_steps(tr, batches, shards)
     launches = {k: v for d in launch_counters() for k, v in d.items()}
     tp_peak = torch.cuda.max_memory_allocated()
     digest = hashlib.sha256()
     for n, p in tr.model.named_parameters():
-        if shards[n] is None:
+        if not shards[n]:
             digest.update(_host(p.detach()).numpy().tobytes())
     mine = torch.frombuffer(bytearray(digest.digest()), dtype=torch.uint8)
     replicated_equal = all(torch.equal(d, mine)
@@ -3907,7 +3928,6 @@ def tp_worker(outdir, device="cuda"):
             want_per_step=want,
             step_ms=_median(run["step_s"][TP_WARMUP:]) * 1e3,
             ref_step_ms=_median(ref["step_s"][TP_WARMUP:]) * 1e3,
-            dp_reduce_ms=_median(dp_s[TP_WARMUP:]) * 1e3,
             gloo_bytes_per_step={str(k): v / steps
                                  for k, v in counts.items()},
             peak_gb=[[float(p[0]) / 1e9, float(p[1]) / 1e9] for p in peaks],
@@ -4112,9 +4132,8 @@ def tp_phase(card, dev):
           f"{a['param_bytes'][1] / 1e9:.3f} GB whole; step "
           f"{a['step_ms']:.1f} ms against one process's "
           f"{a['ref_step_ms']:.1f} ms (both ranks' references share the "
-          f"card), the fleet mesh's one-rank dp reduce "
-          f"{a['dp_reduce_ms']:.1f} ms of each step; gloo bytes a step by "
-          f"group size "
+          f"card; the fleet mesh's dp axis of extent 1 reduces nothing); "
+          f"gloo bytes a step by group size "
           f"{gb} GB; worker {a['seconds']:.1f} s, stages (s from its start) "
           f"{ {k: round(v, 1) for k, v in a['stages'].items()} }")
     ker = b["kernels"]
@@ -4129,6 +4148,316 @@ def tp_phase(card, dev):
           f"{b_s:.1f} s)")
     if problems:
         raise AssertionError("tp: " + "; ".join(problems))
+    return out
+
+
+# -- phase 22: FSDP (ZeRO-3) training across processes, optimizer offload ----
+
+FSDP_STEPS = 3              # (a): timed steps after phase 21's warm-up step
+FSDP_WORKER_TIMEOUT_S = 600
+OFFLOAD_STEPS = 3           # (b): steps after the warm-up, each way
+
+
+def _state_bytes(opt):
+    """Bytes of the optimizer's state tensors."""
+    return sum(v.numel() * v.element_size() for st in opt.state.values()
+               for v in st.values())
+
+
+def _param_tensors(cfg):
+    """How many parameter tensors an unfused, untied Llama of `cfg` has:
+    9 a layer, the embedding, the final norm and the head."""
+    return 9 * cfg.num_hidden_layers + 3
+
+
+def _fsdp_want_bytes(cfg, world):
+    """(a rank's parameter bytes, the whole model's) from the code: every
+    parameter the plan puts on 'fsdp' (the projections, the embedding and
+    the head) cut in `world`, the norms whole; f32."""
+    from paddle_tpu_torch.models.llama import param_count
+    d, layers = cfg.hidden_size, cfg.num_hidden_layers
+    whole = param_count(cfg)
+    norms = (2 * layers + 1) * d
+    return 4 * ((whole - norms) // world + norms), 4 * whole
+
+
+def fsdp_worker(outdir, device="cuda"):
+    """Phase 22 (a)'s worker: one of two fsdp ranks on the one card, gloo
+    (started by the port's launcher, `--nnodes 2 --rank r`)."""
+    import hashlib
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import env, fleet
+    from paddle_tpu_torch.distributed.launch.smoke import planted
+    from paddle_tpu_torch.distributed.sharding import cuts_of
+    from paddle_tpu_torch.kernels import launch_counters
+    dist.init_parallel_env(device=device, backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = env.world_device()
+    cfg = _tp_config()
+    batches = _tp_batches(cfg.vocab_size)[:1 + FSDP_STEPS]
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"sharding_degree": world}
+    fleet.init(is_collective=True, strategy=strategy)
+    t_phase = time.perf_counter()
+    stage = {}                # seconds since t_phase at each stage's end
+
+    def drop():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    # the reference: one process, the mesh-free Trainer, the same seed-0
+    # model and batches (each rank runs it, and keeps its own pieces)
+    drop()
+    tr = _tp_trainer(dev, cfg, fleet)
+    shards = {n: cuts_of(p) for n, p in tr.model.named_parameters()}
+    del tr
+    drop()
+    tr = _tp_trainer(dev, cfg)
+    ref = _tp_steps(tr, batches, shards, first=True)
+    ref_peak = torch.cuda.max_memory_allocated()
+    ref_bytes = [sum(p.numel() * p.element_size()
+                     for p in tr.model.parameters()),
+                 _state_bytes(tr.optimizer)]
+    del tr
+    drop()
+    stage["reference"] = time.perf_counter() - t_phase
+
+    # the FSDP run, its launches and its gloo bytes counted
+    tr = _tp_trainer(dev, cfg, fleet)
+    ref["init"] = {n: _host(p.detach())
+                   for n, p in tr.model.named_parameters()}
+    for d in launch_counters():
+        for k in d:
+            d[k] = 0
+    counts = {}
+    with _gloo_bytes(counts):
+        run = _tp_steps(tr, batches, shards)
+    launches = {k: v for d in launch_counters() for k, v in d.items()}
+    peak = torch.cuda.max_memory_allocated()
+    local_bytes = [sum(p.numel() * p.element_size()
+                       for p in tr.model.parameters()),
+                   _state_bytes(tr.optimizer)]
+    digest = hashlib.sha256()
+    for n, p in tr.model.named_parameters():
+        if not shards[n]:
+            digest.update(_host(p.detach()).numpy().tobytes())
+    mine = torch.frombuffer(bytearray(digest.digest()), dtype=torch.uint8)
+    norms_equal = all(torch.equal(d, mine) for d in dist.all_gather(mine))
+    del tr
+    drop()
+    stage["fsdp_run"] = time.perf_counter() - t_phase
+    gap = _tp_gaps(rank, shards, run, ref, dev)
+
+    # the planted faults, one step each from the same weights, against
+    # the reference's first step
+    faults = {}
+    ref1 = dict(ref, losses=ref["losses"][:1], params=ref["params1"])
+    for fault in ("fsdp_double", "fsdp_local"):
+        with planted(fault):
+            tr = _tp_trainer(dev, cfg, fleet)
+            one = _tp_steps(tr, batches[:1], shards)
+        del tr
+        drop()
+        faults[fault] = _tp_gaps(rank, shards, one, ref1, dev)
+        stage[fault] = time.perf_counter() - t_phase
+    peaks = dist.all_gather(torch.tensor([peak, ref_peak],
+                                         dtype=torch.float64))
+    steps = len(batches)
+    want = expected_train_launches(cfg, TP_BATCH[0] * TP_BATCH[1] // world)
+    want_bytes = _fsdp_want_bytes(cfg, world)
+    if rank == 0:
+        _write_json(os.path.join(outdir, "fsdp_a.json"), dict(
+            backend=torch.distributed.get_backend(), world=world,
+            losses=run["losses"], ref_losses=ref["losses"], gap=gap,
+            faults=faults, norms_equal=norms_equal, launches=launches,
+            launches_per_step={k: launches.get(k, 0) / steps for k in want},
+            want_per_step=want,
+            step_ms=_median(run["step_s"][TP_WARMUP:]) * 1e3,
+            ref_step_ms=_median(ref["step_s"][TP_WARMUP:]) * 1e3,
+            gloo_bytes_per_step={str(k): v / steps
+                                 for k, v in counts.items()},
+            peak_gb=[[float(p[0]) / 1e9, float(p[1]) / 1e9] for p in peaks],
+            bytes=dict(local=local_bytes, whole=ref_bytes,
+                       want_params=want_bytes), stages=stage,
+            seconds=time.perf_counter() - t_phase))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _offload_run(dev, cfg, data, offload):
+    """(b): 1 + OFFLOAD_STEPS steps of phase 9's Trainer from seed-0
+    weights; the losses, the parameters on the host, the device peak
+    over the steps and the steps' ms."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    opt = topt.AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                     weight_decay=0.01)
+    tr = Trainer(model, opt, TrainStepConfig(
+        compute_dtype="bfloat16", offload_opt_state=offload))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(1 + OFFLOAD_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(tr.step(data)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    out = dict(losses=losses, peak=torch.cuda.max_memory_allocated(),
+               step_ms=_median(step_s[1:]) * 1e3,
+               on_device=sum(v.numel() * v.element_size()
+                             for st in opt.state.values()
+                             for v in st.values() if v.is_cuda),
+               params=[_host(p.detach()) for p in model.parameters()],
+               offload=tr.config.offload_opt_state)
+    del tr, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_phase(card, dev, counters, reset, tp):
+    """Phase 22: (a) FSDP on two gloo ranks on the one card, the workers
+    started through the port's launcher; (b) optimizer-state offload in
+    this process. `tp` is phase 21's result (its peak per rank)."""
+    import shutil
+    from paddle_tpu_torch.models.llama import param_count
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-fsdp-")
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--master", f"127.0.0.1:{port}", "--nnodes", "2", "--rank",
+             str(r), "--devices", "0", os.path.abspath(__file__),
+             "--fsdp-worker", root],
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                os.path.abspath(__file__))),
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+            for r in range(2)]
+        try:
+            codes = [p.wait(timeout=FSDP_WORKER_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes):
+            raise AssertionError(f"fsdp: (a)'s workers exited {codes}")
+        a_s = time.perf_counter() - t0
+        with open(os.path.join(root, "fsdp_a.json")) as f:
+            a = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (b): offload off, then on, phase 9's configuration
+    t0 = time.perf_counter()
+    cfg = _dp_config()
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (8, 2048)) \
+        .astype(np.int32)
+    data = {"input_ids": torch.from_numpy(ids).to(dev),
+            "labels": torch.from_numpy(ids).to(dev)}
+    off = _offload_run(dev, cfg, data, False)
+    reset()
+    on = _offload_run(dev, cfg, data, True)
+    b_launches = counters()
+    b_s = time.perf_counter() - t0
+    moments = 8 * param_count(cfg)
+    params_equal = all(torch.equal(x, y)
+                       for x, y in zip(off["params"], on["params"]))
+    drop = off["peak"] - on["peak"]
+    del off["params"], on["params"]
+
+    problems = []
+    gap = a["gap"]
+    if a["backend"] != "gloo" or a["world"] != 2 or not a["norms_equal"]:
+        problems.append(f"(a) backend {a['backend']}, world {a['world']}, "
+                        f"norms bit-equal {a['norms_equal']}")
+    if gap["loss"] > DP_LOSS_TOL or gap["grad"] > DP_GRAD_TOL \
+            or gap["param"] > DP_PARAM_TOL:
+        problems.append(f"(a) against one process: {gap}")
+    want = {k: float(v) for k, v in a["want_per_step"].items()}
+    if a["launches_per_step"] != want:
+        problems.append(f"(a) launches per step {a['launches_per_step']} != "
+                        f"the count from the code {want}")
+    by = a["bytes"]
+    want_params, whole_params = by["want_params"]
+    if by["local"][0] != want_params or by["whole"][0] != whole_params \
+            or by["local"][1] != 2 * want_params + 8 * _param_tensors(
+                _tp_config()):
+        problems.append(f"(a) bytes a rank {by['local']} (whole "
+                        f"{by['whole']}) against the code's parameters "
+                        f"{want_params} of {whole_params}")
+    for name, f in a["faults"].items():
+        if not (f["grad"] > DP_GRAD_TOL and f["param"] > DP_PARAM_TOL):
+            problems.append(f"(a) the planted fault {name} reads inside the "
+                            f"gradient's or the parameters' tolerance: {f}")
+    if off["losses"] != on["losses"] or not params_equal:
+        problems.append(f"(b) offload changed the run: losses "
+                        f"{off['losses']} against {on['losses']}, parameters "
+                        f"bit-equal {params_equal}")
+    if not on["offload"] or on["on_device"] != 8 * _param_tensors(cfg) \
+            or drop < moments:
+        problems.append(f"(b) offload: flag {on['offload']}, state bytes on "
+                        f"the card {on['on_device']}, peak {on['peak']} "
+                        f"against {off['peak']} (a drop of {drop}, the "
+                        f"moments are {moments})")
+    out = dict(card=card, a=a, b=dict(off=off, on=on, peak_drop=drop,
+                                      moment_bytes=moments,
+                                      params_equal=params_equal),
+               a_s=a_s, b_s=b_s, launches=a["launches"],
+               offload_launches=b_launches,
+               seconds=time.perf_counter() - t_phase)
+    peak = a["peak_gb"]
+    tp_peak = tp["a"]["peak_gb"]
+    gb = {k: v / 1e9 for k, v in a["gloo_bytes_per_step"].items()}
+    state_rank = 4 * want_params / 1e9
+    print(f"[fsdp] {card}: (a) 2 fsdp ranks on {a['backend']} on the one "
+          f"card (fleet.init sharding_degree 2, distributed_model, the "
+          f"Trainer on the fleet mesh), TinyLlama-1.1B at 22 layers, "
+          f"{TP_BATCH[0]} x {TP_BATCH[1]} ids split 1 + 1, row 0 -100 from "
+          f"column {TP_PAD[1]}, {TP_WARMUP} + {FSDP_STEPS} steps: losses "
+          f"{a['losses']} against one process {a['ref_losses']}; gaps: loss "
+          f"{gap['loss']:.3e} (tol {DP_LOSS_TOL}), step 1 gradient "
+          f"{gap['grad']:.3e} (tol {DP_GRAD_TOL}), parameters "
+          f"{gap['param']:.3e} of the update (tol {DP_PARAM_TOL}); norms "
+          f"bit-equal across the ranks {a['norms_equal']}; launches per "
+          f"step = the count from the code {a['launches_per_step'] == want}")
+    print(f"[fsdp] {card}: (a) planted faults, one step each: "
+          + "; ".join(f"{k}: loss {f['loss']:.3e}, gradient "
+                      f"{f['grad']:.3e}, parameters {f['param']:.3e}"
+                      for k, f in a["faults"].items()))
+    print(f"[fsdp] {card}: (a) bytes a rank: parameters "
+          f"{by['local'][0] / 1e9:.4f} GB (the code's {want_params / 1e9:.4f})"
+          f" against {by['whole'][0] / 1e9:.4f} GB whole, optimizer state "
+          f"{by['local'][1] / 1e9:.4f} against {by['whole'][1] / 1e9:.4f} GB; "
+          f"f32 parameters, gradients and moments {state_rank:.2f} GB a rank "
+          f"against {4 * whole_params / 1e9:.2f} GB; peak memory per rank "
+          f"{peak[0][0]:.2f} and {peak[1][0]:.2f} GB against one process's "
+          f"{peak[0][1]:.2f} GB and phase 21's mp rank's {tp_peak[0][0]:.2f} "
+          f"GB; step {a['step_ms']:.1f} ms against one process's "
+          f"{a['ref_step_ms']:.1f} ms (both ranks' references share the "
+          f"card); gloo bytes a step by group size {gb} GB; worker "
+          f"{a['seconds']:.1f} s, stages (s from its start) "
+          f"{ {k: round(v, 1) for k, v in a['stages'].items()} }")
+    print(f"[fsdp] {card}: (b) offload_opt_state, phase 9's configuration, "
+          f"1 + {OFFLOAD_STEPS} steps: losses bit-equal "
+          f"{off['losses'] == on['losses']}, parameters bit-equal "
+          f"{params_equal}; device peak {off['peak'] / 1e9:.2f} GB without, "
+          f"{on['peak'] / 1e9:.2f} GB with (a drop of {drop / 1e9:.2f} GB; "
+          f"the moments are {moments / 1e9:.2f} GB); step "
+          f"{off['step_ms']:.1f} ms without, {on['step_ms']:.1f} ms with "
+          f"(a memory feature: no speed is claimed); phase 22 "
+          f"{out['seconds']:.1f} s ((a) {a_s:.1f} s, (b) {b_s:.1f} s)")
+    if problems:
+        raise AssertionError("fsdp: " + "; ".join(problems))
     return out
 
 
@@ -7851,6 +8180,7 @@ def main(argv=None):
     ap.add_argument("--relaunch-worker", nargs=2, help=argparse.SUPPRESS)
     ap.add_argument("--dp-worker", nargs=2, help=argparse.SUPPRESS)
     ap.add_argument("--tp-worker", help=argparse.SUPPRESS)
+    ap.add_argument("--fsdp-worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7862,6 +8192,8 @@ def main(argv=None):
         return (dp_worker_a if part == "a" else dp_worker_b)(outdir)
     if args.tp_worker:                  # phase 21 (a)'s worker processes
         return tp_worker(args.tp_worker)
+    if args.fsdp_worker:                # phase 22 (a)'s worker processes
+        return fsdp_worker(args.fsdp_worker)
     from paddle_tpu_torch.kernels import _build, launch_counters
     from paddle_tpu_torch.kernels import blockwise_ce as bce
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -7928,6 +8260,7 @@ def main(argv=None):
     train_sentry = sentry_phase(dev, counters, reset, card, bench_training)
     train_dp = dp_phase(card)
     train_tp = tp_phase(card, dev)
+    train_fsdp = fsdp_phase(card, dev, counters, reset, train_tp)
     serving_int8, model = int8_serving_phase(dev, counters, reset, card,
                                              serving, args.profile)
     serving_spec["c"] = spec_int8_part(model, counters, reset, card,
@@ -7948,6 +8281,9 @@ def main(argv=None):
                    "training_sentry": train_sentry["launches"].get(name, 0),
                    "training_dp": train_dp["launches"].get(name, 0),
                    "training_tp": train_tp["launches"].get(name, 0),
+                   "training_fsdp": train_fsdp["launches"].get(name, 0),
+                   "training_offload": train_fsdp["offload_launches"].get(
+                       name, 0),
                    "serving_int8": serving_int8["launches"].get(name, 0),
                    **{path: features[path]["launches"].get(name, 0)
                       for path in ("tenancy", "kvtier", "disagg")},
@@ -7984,6 +8320,7 @@ def main(argv=None):
                        "training_sentry": train_sentry,
                        "training_dp": train_dp,
                        "training_tp": train_tp,
+                       "training_fsdp": train_fsdp,
                        "serving_int8": serving_int8,
                        "serving_spec": serving_spec,
                        "spec_parity": spec_parity,

@@ -5,7 +5,9 @@ reshard, shard_layer, shard_optimizer, ...), data parallelism
 (`parallel`: DataParallel and the gradient reducer; `launch`: the job
 launcher), tensor parallelism (`fleet`: init, the hybrid topology and
 strategy, the Megatron layers, distributed_model; imported at first
-use, as the JAX package's), checkpoints
+use, as the JAX package's), ZeRO / FSDP (`sharding`:
+group_sharded_parallel and the gather with a reduce-scatter gradient;
+imported at first use too), checkpoints
 (`checkpoint`, `async_checkpoint`), fault injection (`chaos`), retries
 (`retries`), the rendezvous store (`store`), hang detection
 (`watchdog`), restart and relaunch (`elastic`) and the training anomaly
@@ -45,9 +47,9 @@ all_to_all = alltoall   # the torch-style alias the reference also exposes
 
 
 def __getattr__(name):
-    if name == "fleet":
+    if name in ("fleet", "sharding"):
         import importlib
-        mod = importlib.import_module("paddle_tpu_torch.distributed.fleet")
+        mod = importlib.import_module(f"paddle_tpu_torch.distributed.{name}")
         globals()[name] = mod
         return mod
     raise AttributeError(

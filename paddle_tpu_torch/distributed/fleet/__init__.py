@@ -10,14 +10,17 @@ the topology's order) over the WORLD's processes, one process a device
 it the world is this one process), and sets it as the current mesh.
 
 `distributed_model` cuts the model's parameters by
-`llama_sharding_plan` through parallel/plan.py `apply_plan` (the
-projections, embedding and head become fleet/layers.py's tensor-parallel
-layers over this rank's shards) and tags `_fleet_plan` / `_fleet_mesh`;
-the Trainer on `get_mesh()` with that plan takes such a model as it
-stands. `distributed_optimizer` tags the strategy. Tensor parallelism
-('mp') and data parallelism ('dp') run; a 'pp', 'sharding' or 'sep'
-degree above 1 builds its mesh, and the Trainer refuses it until its
-slice. `worker_index` / `worker_num` are the rank and the world size.
+`llama_sharding_plan` through parallel/plan.py `apply_plan` (with an mp
+degree, the projections, embedding and head become fleet/layers.py's
+tensor-parallel layers over this rank's shards; with a sharding degree,
+the plan's 'fsdp' entries are cut over the 'fsdp' axis,
+distributed/sharding.py) and tags `_fleet_plan` / `_fleet_mesh`; the
+Trainer on `get_mesh()` with that plan takes such a model as it stands.
+`distributed_optimizer` tags the strategy. Tensor parallelism ('mp'),
+data parallelism ('dp') and FSDP ('sharding', the mesh's 'fsdp') run; a
+'pp' or 'sep' degree above 1 builds its mesh, and the Trainer refuses it
+until its slice. `worker_index` / `worker_num` are the rank and the
+world size.
 """
 from __future__ import annotations
 
@@ -129,7 +132,7 @@ def distributed_model(model):
 def distributed_optimizer(optimizer, strategy=None):
     """(reference: fleet/fleet.py distributed_optimizer) Tag the strategy;
     the port's optimizer reads each parameter's cut itself (its global
-    norms add the shards' squares over the mp group)."""
+    norms add the pieces' squares over the mp and fsdp groups)."""
     _require_init()
     optimizer._fleet_strategy = strategy or _fleet_state["strategy"]
     return optimizer

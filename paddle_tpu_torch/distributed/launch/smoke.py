@@ -1,17 +1,17 @@
-"""A data- or tensor-parallel training job's worker, for the launcher
-and the elastic supervisor.
+"""A data-, sharded-data (FSDP) or tensor-parallel training job's
+worker, for the launcher and the elastic supervisor.
 
 Counterpart of paddle_tpu/distributed/launch/smoke.py: the proof that
 the port trains as N coordinated processes. Started as
 
     python -m paddle_tpu_torch.distributed.launch --master host:port \\
         --nnodes N --rank r paddle_tpu_torch/distributed/launch/smoke.py \\
-        --out DIR [--device cpu] [--weights W.npz] [--mesh dp:2,mp:2] ...
+        --out DIR [--device cpu] [--weights W.npz] [--mesh fsdp:2,mp:2] ...
 
 `--mesh` names the mesh's axes and extents, the first axis varying
 slowest (the JAX worker reads SMOKE_MESH from the environment; this one
 reads no environment); the default is `dp` over the world. On a mesh
-whose 'mp' extent is 1 (data parallelism) one worker:
+whose 'mp' and 'fsdp' extents are 1 (data parallelism) one worker:
 1. `init_parallel_env()` on `--device`;
 2. with `--store-port`, a cross-process TCPStore exercise (rank 0 hosts);
 3. builds the tiny Llama (LAYERS layers; the JAX package's weights from
@@ -34,22 +34,33 @@ whose 'mp' extent is 1 (data parallelism) one worker:
    parameter differences;
 9. rank 0 writes DIR/result.json.
 
-On a mesh with an 'mp' extent above 1 (tensor parallelism, `_tp_job`)
-it instead runs every TP_VARIANTS configuration of the tiny Llama
-(`--tp-weights DIR` holds the JAX package's weights as DIR/{variant}.npz)
-for TP_STEPS steps on the Trainer over the mesh with
-`llama_sharding_plan`, f32 compute, AdamW(LR) (with ClipGradByGlobalNorm
-and the health probe where the variant says): the losses, the probes'
-gradient norms and step 1's gradients gathered whole; the replicated
-parameters' bytes across the ranks; the checkpoint of TP_CKPT_VARIANT
-after step TP_CKPT_AT; `fleet.init` + `fleet.distributed_model` + the
-Trainer on the fleet mesh; and three planted faults, each one run from
-the same weights: the loss combined from each rank's LOCAL lse
-(`local_lse`), a column-parallel f-op whose backward skips its
-all-reduce (`fop`), a global norm that counts the replicated gradients
-once per mp rank (`norm`); and `skip_nonfinite_grads` with a NaN in
-one rank's gradient shard only (`_skip_run`: every rank must skip). Rank
-0 writes DIR/result.json and DIR/grads.npz.
+On a mesh with an 'mp' or an 'fsdp' extent above 1 (tensor parallelism,
+FSDP, both: `_parallel_job`) it instead runs every TP_VARIANTS
+configuration of the tiny Llama (`--tp-weights DIR` holds the JAX
+package's weights as DIR/{variant}.npz) for TP_STEPS steps on the
+Trainer over the mesh with `llama_sharding_plan`, f32 compute,
+AdamW(LR) (with ClipGradByGlobalNorm and the health probe where the
+variant says): the losses, the probes' gradient norms and step 1's
+gradients gathered whole; whether the parameters that are not cut hold
+the same bytes on every rank; the checkpoint of TP_CKPT_VARIANT after
+step TP_CKPT_AT, loaded back into a fresh Trainer on the mesh for the
+next step (`resumed`); `fleet.init` + `fleet.distributed_model` + the
+Trainer on the fleet mesh; `skip_nonfinite_grads` with a NaN in one
+rank's gradient piece only (`_skip_run`: every rank must skip); and the
+planted faults, each one run from the same weights (`planted`): with
+mp, the loss combined from each rank's LOCAL lse (`local_lse`), a
+column-parallel f-op whose backward skips its all-reduce (`fop`), a
+global norm that counts the replicated gradients once per mp rank
+(`norm`); with fsdp, a reducer that sums the reduce-scattered gradients
+again over the batch group (`fsdp_double`) and a gather whose backward
+keeps this rank's piece of its own gradient without the reduce-scatter
+(`fsdp_local`). On the `fsdp:2` mesh it also runs
+distributed/sharding.py `group_sharded_parallel` at "p_g_os" on
+`init_mesh({"dp": 2})` (`_group_sharded`): the Sequential of
+DIR/sequential.npz one eager step on this rank's rows of SEQ_X, saved by
+`save_group_sharded_model` to DIR/gs, and the dense variant cut so,
+trained by the Trainer with plan=None. Rank 0 writes DIR/result.json
+and DIR/grads.npz.
 
 With `--elastic-dir` it is instead a worker of `ElasticSupervisor`:
 it heartbeats into the supervisor's store, resumes from the newest
@@ -90,6 +101,15 @@ TP_VARIANTS = {
 }
 TP_CKPT_VARIANT = "chunk_tied_fused"
 TP_CKPT_AT = 2
+# group_sharded_parallel's eager step: Sequential(Linear(16, 16),
+# Linear(16, 8)) (the JAX tests/test_fleet.py model), x of SEQ_ROWS x 16
+SEQ_ROWS = 4
+SEQ_LR = 1e-3
+
+
+def seq_x():
+    """The eager step's global input (tests/test_fleet.py's)."""
+    return np.random.RandomState(2).randn(SEQ_ROWS, 16).astype(np.float32)
 
 
 def smoke_batches(vocab, steps, pad_rows=PAD_ROWS, pad_from=PAD_FROM,
@@ -120,7 +140,7 @@ def _parse(argv):
     p.add_argument("--kill-rank", type=int, default=-1)
     p.add_argument("--kill-at", type=int, default=-1)
     p.add_argument("--mesh", default=None,
-                   help="axis:extent pairs, e.g. mp:2 or dp:2,mp:2")
+                   help="axis:extent pairs, e.g. mp:2, dp:2,fsdp:2")
     p.add_argument("--tp-weights", default=None)
     return p.parse_args(argv)
 
@@ -288,14 +308,10 @@ def _tp_trainer(args, dev, mesh, name, model=None, plan=True):
 
 def _gathered_grads(model):
     """Every parameter's gradient, a cut one gathered whole (a
-    collective over its mp group)."""
-    from paddle_tpu_torch.distributed.fleet.layers import gather_full
-    out = {}
-    for n, p in model.named_parameters():
-        shard = getattr(p, "_mp_shard", None)
-        g = p.grad.detach()
-        out[n] = (g if shard is None else gather_full(g, shard)).cpu()
-    return out
+    collective over its groups)."""
+    from paddle_tpu_torch.distributed.sharding import cuts_of, gather_whole
+    return {n: gather_whole(p.grad.detach(), cuts_of(p)).cpu()
+            for n, p in model.named_parameters()}
 
 
 def _tp_run(tr, batches, ckpt=None):
@@ -313,18 +329,18 @@ def _tp_run(tr, batches, ckpt=None):
     return losses, probes, grad1
 
 
-def _replicated_digest(model, group):
-    """Whether every rank of `group` holds the same bytes of the
+def _replicated_digest(model):
+    """Whether every rank of the world holds the same bytes of the
     parameters that are not cut."""
     import hashlib
     from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.sharding import cuts_of
     h = hashlib.sha256()
     for n, p in model.named_parameters():
-        if getattr(p, "_mp_shard", None) is None:
+        if not cuts_of(p):
             h.update(p.detach().cpu().contiguous().numpy().tobytes())
     mine = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8)
-    return all(torch.equal(d, mine)
-               for d in collective.all_gather(mine, group=group))
+    return all(torch.equal(d, mine) for d in collective.all_gather(mine))
 
 
 def _fleet_run(args, dev, axes, batches):
@@ -335,19 +351,22 @@ def _fleet_run(args, dev, axes, batches):
     from paddle_tpu_torch.distributed.fleet import layers
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs = {"dp_degree": axes.get("dp", 1),
-                               "mp_degree": axes["mp"]}
+                               "mp_degree": axes.get("mp", 1),
+                               "sharding_degree": axes.get("fsdp", 1)}
     fleet.init(is_collective=True, strategy=strategy)
     hcg = fleet.get_hybrid_communicate_group()
     _, model = _tp_model(args, dev, "dense")
     model = fleet.distributed_model(model)
     kinds = {n: type(m).__name__ for n, m in model.named_modules()
              if isinstance(m, layers._PARALLEL)}
+    fsdp_dims = {n: p._fsdp_shard.dim for n, p in model.named_parameters()
+                 if hasattr(p, "_fsdp_shard")}
     tr = _tp_trainer(args, dev, fleet.get_mesh(), "dense", model=model,
                      plan=False)
     fleet.distributed_optimizer(tr.optimizer)
     losses = [float(tr.step(b)) for b in batches]
     mesh = fleet.get_mesh()
-    return {"losses": losses, "kinds": kinds,
+    return {"losses": losses, "kinds": kinds, "fsdp_dims": fsdp_dims,
             "mesh": [mesh.dim_names, mesh.shape],
             "worker": [fleet.worker_index(), fleet.worker_num(),
                        fleet.is_first_worker()],
@@ -356,7 +375,9 @@ def _fleet_run(args, dev, axes, batches):
                     "dp_group": hcg.get_data_parallel_group(),
                     "mp_group": hcg.get_model_parallel_group(),
                     "mp_world": hcg.get_model_parallel_world_size(),
-                    "dp_world": hcg.get_data_parallel_world_size()}}
+                    "dp_world": hcg.get_data_parallel_world_size()},
+            "sharding": [hcg.get_sharding_parallel_rank(),
+                         hcg.get_sharding_parallel_world_size()]}
 
 
 def _skip_run(args, dev, mesh, rank, batch):
@@ -390,11 +411,22 @@ def planted(fault, group=None):
     """One planted fault in place for the block: `local_lse` (the
     blockwise loss from each rank's own lse), `fop` (the column-parallel
     f-op's backward without its all-reduce), `norm` (every gradient's
-    squares summed over the mp `group`, replicated ones included)."""
+    squares summed over the mp `group`, replicated ones included),
+    `fsdp_double` (the Trainer's reducer summing every gradient over the
+    whole batch group, the reduce-scattered ones again: in place when
+    the Trainer is built), `fsdp_local` (the FSDP gather's backward
+    keeping this rank's piece of its own gradient, no reduce-scatter)."""
     from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import sharding
     from paddle_tpu_torch.distributed.fleet import layers
     from paddle_tpu_torch.kernels import blockwise_ce as bce
-    if fault == "local_lse":
+    if fault == "fsdp_double":
+        target, attr, new = sharding, "summed_axes", lambda p: ()
+    elif fault == "fsdp_local":
+        target, attr = sharding._GatherShard, "backward"
+        new = staticmethod(lambda ctx, g: (
+            ctx.cut.local(g).contiguous(), None))
+    elif fault == "local_lse":
         target, attr, new = bce, "_combine_lse", lambda lse, g: lse
     elif fault == "fop":
         target, attr = layers._CopyToMP, "backward"
@@ -404,7 +436,7 @@ def planted(fault, group=None):
         target, attr = topt, "_group_sums"
 
         def new(sq, groups):
-            return orig(sq, [group] * len(groups))
+            return orig(sq, [(group,)] * len(groups))
     else:
         raise ValueError(f"unknown fault {fault!r}")
     saved = target.__dict__[attr]
@@ -415,10 +447,63 @@ def planted(fault, group=None):
         setattr(target, attr, saved)
 
 
-def _tp_job(args, dev, mesh, rank):
-    """The tensor-parallel run (module docstring)."""
+def _resumed(args, dev, mesh, ckpt, batch):
+    """A fresh Trainer on the mesh, the checkpoint loaded back into its
+    pieces, one more step: its loss."""
+    tr = _tp_trainer(args, dev, mesh, TP_CKPT_VARIANT)
+    tr.load_checkpoint(ckpt)
+    return float(tr.step(batch))
+
+
+def _group_sharded(args, dev, rank, world):
+    """group_sharded_parallel at "p_g_os" on init_mesh({"dp": world}): the
+    Sequential's eager step on this rank's rows (a summed loss) and its
+    whole parameters after it, its save_group_sharded_model files, and
+    the dense variant cut so and trained by the Trainer with plan=None
+    (its losses)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed.mesh import init_mesh, set_mesh
+    from paddle_tpu_torch.distributed.sharding import (
+        cuts_of, gather_whole, group_sharded_parallel,
+        save_group_sharded_model)
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    set_mesh(init_mesh({"dp": world}))
+    model = torch.nn.Sequential(torch.nn.Linear(16, 16),
+                                torch.nn.Linear(16, 8)).to(dev)
+    with np.load(os.path.join(args.tp_weights, "sequential.npz")) as f:
+        model.load_state_dict({k: torch.from_numpy(
+            f[k].T.copy() if k.endswith("weight") else f[k])
+            for k in f.files})
+    opt = topt.AdamW(learning_rate=SEQ_LR,
+                     parameters=model.named_parameters())
+    model, opt, _ = group_sharded_parallel(model, opt, "p_g_os")
+    rows = SEQ_ROWS // world
+    x = torch.from_numpy(seq_x()[rank * rows:(rank + 1) * rows]).to(dev)
+    model(x).sum().backward()
+    opt.step()
+    opt.zero_grad()
+    out = {"axis": model._sharding_axis,
+           "local_shapes": {n: list(p.shape)
+                            for n, p in model.named_parameters()},
+           "params": {n: gather_whole(p.detach(), cuts_of(p)).cpu()
+                      .tolist() for n, p in model.named_parameters()}}
+    save_group_sharded_model(model, os.path.join(args.out, "gs"), opt)
+    _, llama = _tp_model(args, dev, "dense")
+    opt = topt.AdamW(learning_rate=LR, parameters=llama.named_parameters())
+    llama, opt, _ = group_sharded_parallel(llama, opt, "p_g_os")
+    from paddle_tpu_torch.distributed.mesh import get_mesh
+    tr = Trainer(llama, opt, TrainStepConfig(compute_dtype=None),
+                 mesh=get_mesh())
+    out["trainer_losses"] = [float(tr.step(b))
+                             for b in smoke_batches(256, TP_STEPS)]
+    return out
+
+
+def _parallel_job(args, dev, mesh, rank):
+    """The tensor-parallel and FSDP runs (module docstring)."""
     from paddle_tpu_torch.distributed import collective
     axes = dict(zip(mesh.dim_names, mesh.shape))
+    mp, fsdp = axes.get("mp", 1), axes.get("fsdp", 1)
     if dev.type == "cpu":
         # tiny products, and the workers share this host's cores
         torch.set_num_threads(1)
@@ -434,26 +519,36 @@ def _tp_job(args, dev, mesh, rank):
         losses, probes, g1 = _tp_run(tr, batches, ckpt)
         result["variants"][name] = {
             "losses": losses, "probes": probes,
-            "replicated_equal": _replicated_digest(
-                tr.model, mesh.get_group("mp")),
+            "replicated_equal": _replicated_digest(tr.model),
             "local_shapes": {n: list(p.shape)
                              for n, p in tr.model.named_parameters()}}
         grads.update({f"{name}/{k}": v for k, v in g1.items()})
-    mp_group = mesh.get_group("mp")
+    result["resumed"] = _resumed(args, dev, mesh,
+                                 os.path.join(args.out, "ckpt"),
+                                 batches[TP_CKPT_AT])
     faults = {}
-    with planted("local_lse"):
-        faults["local_lse"] = _tp_run(
-            _tp_trainer(args, dev, mesh, "chunk"), batches[:1])[0]
-    with planted("fop"):
-        _, _, g1 = _tp_run(_tp_trainer(args, dev, mesh, "dense"),
-                           batches[:1])
-    grads.update({f"fop/{k}": v for k, v in g1.items()})
-    with planted("norm", mp_group):
-        faults["norm"] = _tp_run(_tp_trainer(args, dev, mesh, "dense"),
-                                 batches)[1]
+    if mp > 1:
+        with planted("local_lse"):
+            faults["local_lse"] = _tp_run(
+                _tp_trainer(args, dev, mesh, "chunk"), batches[:1])[0]
+        with planted("fop"):
+            _, _, g1 = _tp_run(_tp_trainer(args, dev, mesh, "dense"),
+                               batches[:1])
+        grads.update({f"fop/{k}": v for k, v in g1.items()})
+        with planted("norm", mesh.get_group("mp")):
+            faults["norm"] = _tp_run(_tp_trainer(args, dev, mesh, "dense"),
+                                     batches)[1]
+    if fsdp > 1:
+        for fault in ("fsdp_double", "fsdp_local"):
+            with planted(fault):
+                faults[fault], _, g1 = _tp_run(
+                    _tp_trainer(args, dev, mesh, "dense"), batches[:1])
+            grads.update({f"{fault}/{k}": v for k, v in g1.items()})
     result["faults"] = faults
     result["skip"] = _skip_run(args, dev, mesh, rank, batches[0])
     result["fleet"] = _fleet_run(args, dev, axes, batches)
+    if axes == {"fsdp": 2}:
+        result["group_sharded"] = _group_sharded(args, dev, rank, 2)
     if rank == 0:
         np.savez(os.path.join(args.out, "grads.npz"),
                  **{k: v.numpy() for k, v in grads.items()})
@@ -474,8 +569,8 @@ def main(argv=None):
     torch.manual_seed(0)
     axes = _parse_mesh(args.mesh, world)
     mesh = init_mesh(axes)
-    if axes.get("mp", 1) > 1:
-        _tp_job(args, dev, mesh, rank)
+    if axes.get("mp", 1) > 1 or axes.get("fsdp", 1) > 1:
+        _parallel_job(args, dev, mesh, rank)
         collective.destroy_process_group()
         return 0
     if args.elastic_dir:

@@ -106,16 +106,52 @@ class ProcessMesh:
         return self._device_mesh
 
     def get_group(self, dim_name):
-        """This process's collective.Group along `dim_name`."""
-        if dim_name not in self._dim_names:
+        """This process's collective.Group along `dim_name`, or, for a
+        tuple of names, over those axes together (the ranks that share
+        every other coordinate, e.g. ("dp", "fsdp"): the batch group)."""
+        names = dim_name if isinstance(dim_name, tuple) else (dim_name,)
+        missing = [n for n in names if n not in self._dim_names]
+        if missing:
             raise ValueError(f"mesh axes {self._dim_names} have no "
-                             f"{dim_name!r}")
+                             f"{missing[0]!r}")
+        if len(names) == 1:
+            dim_name = names[0]
         g = self._groups.get(dim_name)
         if g is None:
             from paddle_tpu_torch.distributed import collective
-            g = collective._adopt(self.device_mesh.get_group(dim_name))
+            if len(names) == 1:
+                g = collective._adopt(self.device_mesh.get_group(dim_name))
+            else:
+                g = self._joint_group(names)
             self._groups[dim_name] = g
         return g
+
+    def _joint_group(self, names):
+        """One group a combination of the other axes' coordinates, every
+        process of the world forming each of them in the same order
+        (torch's rule); returns this process's."""
+        from paddle_tpu_torch.distributed import collective
+        self.device_mesh       # the mesh covers the world; its groups first
+        axes = [self._dim_names.index(n) for n in names]
+        rest = [d for d in range(self.ndim) if d not in axes]
+        ids = np.transpose(self._ids, rest + axes).reshape(
+            -1, int(np.prod([self._ids.shape[a] for a in axes])))
+        me = torch.distributed.get_rank()
+        mine = None
+        for ranks in ids.tolist():
+            g = collective.new_group(ranks)
+            if me in ranks:
+                mine = g
+        _built.add(self)
+        return mine
+
+    def coordinate(self, dim_name):
+        """This process's index along `dim_name`."""
+        rank = torch.distributed.get_rank()
+        where = np.argwhere(self._ids == rank)
+        if not len(where):
+            raise ValueError(f"rank {rank} is not in mesh {self.shape}")
+        return int(where[0][self._dim_names.index(dim_name)])
 
     def get_mesh_with_dim(self, dim_name, index=None):
         """Project out one mesh axis (reference: process_mesh.py

@@ -7,8 +7,8 @@ shifted next-token loss and the logits, with flash attention
 (`use_flash_attention`) and per-layer recomputation (`recompute`) as in
 the JAX package. With `loss_chunk > 0` the loss is the blockwise cross
 entropy (kernels/blockwise_ce.py) straight from the final hidden states,
-and the forward returns (loss, None), as in JAX. The FSDP overlap is not
-ported yet.
+and the forward returns (loss, None), as in JAX. The FSDP overlap
+(paddle_tpu/parallel/overlap.py) is not ported yet.
 
 With an int or 0-d tensor `cache_index` and per-layer (k, v) buffers
 of (B, max_len, Hk, D) as `caches`, the forward is the dense-cache step
@@ -37,6 +37,13 @@ embedding) the loss is the vocab-parallel one: `next_token_loss` through
 `parallel_cross_entropy` over the shard's logits, `next_token_loss_
 blockwise` through kernels/blockwise_ce.py `vocab_parallel_ce_loss`.
 The logits the forward returns are gathered to the whole vocab.
+
+FSDP: a parameter cut over 'fsdp' (distributed/sharding.py) is gathered
+by its module for the module's forward; the reads outside a module's own
+forward (the tied head's embedding, the blockwise loss's head weight,
+the fused RMSNorm's weights) take it whole through `sharding.gathered`.
+The head counts read the layers' `out_features` / `num_embeddings`,
+which an fsdp cut leaves as they are.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.distributed.fleet.layers import (
     copy_to_mp, gather_from_mp, parallel_cross_entropy)
 from paddle_tpu_torch.distributed.recompute import recompute
+from paddle_tpu_torch.distributed.sharding import gathered
 from paddle_tpu_torch.inference.paged import (PagedState,
                                              paged_attention_update)
 from paddle_tpu_torch.kernels.blockwise_ce import vocab_parallel_ce_loss
@@ -244,10 +252,9 @@ class LlamaAttention(nn.Module):
         if getattr(proj, "mp_group", None) is None:
             return hq, hk, hd
         if cfg.fuse_attention_qkv:
-            n = (hq + 2 * hk) * hd // proj.weight.shape[0]
+            n = (hq + 2 * hk) * hd // proj.out_features
             return hq // n, hk // n, hd
-        return (proj.weight.shape[0] // hd,
-                self.k_proj.weight.shape[0] // hd, hd)
+        return proj.out_features // hd, self.k_proj.out_features // hd, hd
 
 
 def _dense_cache_attention(q, k, v, cache, index, attn_mask):
@@ -311,7 +318,8 @@ class LlamaDecoderLayer(nn.Module):
         residual = hidden_states
         if self.config.fused_norm:
             h, _ = rms_norm_residual(hidden_states,
-                                     self.input_layernorm.weight, None, eps)
+                                     gathered(self.input_layernorm), None,
+                                     eps)
         else:
             h = self.input_layernorm(hidden_states)
         h = self.self_attn(h, position_ids, cache, cache_index, rope,
@@ -319,7 +327,7 @@ class LlamaDecoderLayer(nn.Module):
         if self.config.fused_norm:
             # the attention residual add rides the norm's pass
             h2, residual = rms_norm_residual(
-                h, self.post_attention_layernorm.weight, residual, eps)
+                h, gathered(self.post_attention_layernorm), residual, eps)
         else:
             h = residual + h
             residual = h
@@ -364,7 +372,7 @@ class LlamaModel(nn.Module):
             cache = None if caches is None else caches[i]
             h = layer(h, position_ids, cache, cache_index, rope, attn_mask)
         if cfg.fused_norm:
-            return rms_norm_residual(h, self.norm.weight, None,
+            return rms_norm_residual(h, gathered(self.norm), None,
                                      cfg.rms_norm_eps)[0]
         return self.norm(h)
 
@@ -421,8 +429,11 @@ class LlamaForCausalLM(nn.Module):
         mod = self.model.embed_tokens if self.lm_head is None \
             else self.lm_head
         group = getattr(mod, "mp_group", None)
-        start = 0 if group is None else group.rank * mod.weight.shape[0]
-        return mod, group, start
+        if group is None:
+            return mod, None, 0
+        rows = mod.num_embeddings if self.lm_head is None \
+            else mod.out_features
+        return mod, group, group.rank * rows
 
     def _local_logits(self, hidden):
         """Logits over the head's rows: the whole vocab, or this rank's
@@ -430,7 +441,7 @@ class LlamaForCausalLM(nn.Module):
         if self.lm_head is None:
             group = getattr(self.model.embed_tokens, "mp_group", None)
             return copy_to_mp(hidden, group) @ \
-                self.model.embed_tokens.weight.t()
+                gathered(self.model.embed_tokens).t()
         return self.lm_head(hidden)
 
     def logits(self, hidden):
@@ -460,7 +471,7 @@ class LlamaForCausalLM(nn.Module):
             # both heads hold W as (V, D): the embedding, and nn.Linear's
             # (out, in) weight
             return next_token_loss_blockwise(
-                h, head.weight, labels, self.config, transpose_w=True,
+                h, gathered(head), labels, self.config, transpose_w=True,
                 mp_group=group, vocab_start=start), None
         logits = self._local_logits(h)
         if labels is None:

@@ -21,16 +21,27 @@ keeps one copy of each on the card).
 (`_lr_value`, `get_lr`, `set_lr`, as `paddle_tpu.optimizer.Optimizer`).
 `grad_clip` (nn/clip.py) clips the f32 gradients before the rule, on the
 device: the global norm is sqrt of the sum of the squared per-tensor
-norms, as `_global_norm_clip` computes it. Under tensor parallelism a
-parameter cut over the mp group (its `_mp_shard`, distributed/fleet/
-layers.py) holds a shard of its gradient: the squares of such shards are
-summed over the group (one all-reduce a group) and those of replicated
-gradients, whole on every rank, are counted once, so every rank clips by
-the whole model's norm; `ClipGradByNorm` takes a sharded tensor's norm
-over the group the same way. `step(apply=...)` takes a 0-d
+norms, as `_global_norm_clip` computes it. A parameter cut over the mp
+group (its `_mp_shard`, distributed/fleet/layers.py), over the fsdp
+group (its `_fsdp_shard`, distributed/sharding.py) or over both holds a
+piece of its gradient: the squares of such pieces are summed over every
+group the parameter is cut over (`shard_groups`; one all-reduce a
+group) and those of replicated gradients, whole on every rank, are
+counted once, so every rank clips by the whole model's norm;
+`ClipGradByNorm` takes a cut tensor's norm over its groups the same way.
+The update runs on each rank's pieces. `step(apply=...)` takes a 0-d
 bool tensor: where it is False the update is suppressed and parameters,
 moments and beta powers keep their values bit for bit, decided on the
 device (select, don't branch), so the step waits for nothing.
+
+Offload (`park_state()`, which the Trainer calls for
+`TrainStepConfig.offload_opt_state` on the card): moment1, moment2 and
+any master live in pinned host memory between steps. Each update runs
+over chunks of the parameters (`PARK_CHUNK_BYTES` of parked state
+each): a chunk's state is copied to the device, updated there by the
+same arithmetic, and copied back, so the device holds one chunk's state
+at a time. The copies are queued on the current stream; `sync_state()`
+waits for the last one before the host reads the state (checkpoints).
 """
 from __future__ import annotations
 
@@ -42,40 +53,58 @@ from paddle_tpu_torch.optimizer import lr
 from paddle_tpu_torch.optimizer.lr import LRScheduler
 
 __all__ = ["Adam", "AdamW", "lr", "LRScheduler", "global_grad_norm",
-           "mp_groups"]
+           "shard_groups", "PARK_CHUNK_BYTES"]
+
+# parked state (moments and masters) copied to the device at a time
+PARK_CHUNK_BYTES = 1 << 29
+_PARKED = ("moment1", "moment2", "master")
 
 
-def mp_groups(params):
-    """Each parameter's mp group when it is cut over one (tensor
-    parallelism), else None."""
-    return [getattr(getattr(p, "_mp_shard", None), "group", None)
-            for p in params]
+def shard_groups(params):
+    """Each parameter's groups it is cut over, in cut order: () for a
+    replicated one, (mp,) (fsdp,) or (mp, fsdp)."""
+    out = []
+    for p in params:
+        cuts = (getattr(p, "_mp_shard", None), getattr(p, "_fsdp_shard", None))
+        out.append(tuple(c.group for c in cuts
+                         if c is not None and c.dim is not None))
+    return out
+
+
+def _as_groups(g):
+    """A tensor's groups: None (replicated), one group or a tuple."""
+    return () if g is None else g if isinstance(g, tuple) else (g,)
 
 
 def _group_sums(sq, groups):
-    """(squares of the replicated tensors, {group id: the sharded squares
-    of that group, all-reduced over it}) from per-tensor squares `sq`."""
+    """(indices of the replicated tensors, {groups' ids: (indices, their
+    squares all-reduced over each of those groups)}) from per-tensor
+    squares `sq`; `groups[i]` is None, a group or a tuple of groups."""
     from paddle_tpu_torch.distributed import collective
-    rep = [i for i, g in enumerate(groups) if g is None]
-    by_group = {}
+    rep, by_groups = [], {}
     for i, g in enumerate(groups):
-        if g is not None:
-            by_group.setdefault(id(g), (g, []))[1].append(i)
+        gs = _as_groups(g)
+        if not gs:
+            rep.append(i)
+            continue
+        by_groups.setdefault(tuple(id(x) for x in gs), (gs, []))[1].append(i)
     sums = {}
-    for gid, (g, idx) in by_group.items():
+    for key, (gs, idx) in by_groups.items():
         part = sq[idx].clone()
-        collective.all_reduce(part, group=g)
-        sums[gid] = (idx, part)
+        for g in gs:
+            collective.all_reduce(part, group=g)
+        sums[key] = (idx, part)
     return rep, sums
 
 
 def global_grad_norm(grads, groups=None):
     """sqrt(sum of squares) over every entry of the f32 tensors `grads`:
     a 0-d tensor on their device (NaN or Inf when any entry is). With
-    `groups` (`mp_groups` of their parameters), a sharded tensor's squares
-    are summed over its group and a replicated one's counted once."""
+    `groups` (`shard_groups` of their parameters: a tuple of groups, or
+    one group, or None, a tensor), a cut tensor's squares are summed over
+    its groups and a replicated one's counted once."""
     norms = torch.stack(torch._foreach_norm(grads))
-    if groups is None or all(g is None for g in groups):
+    if groups is None or not any(_as_groups(g) for g in groups):
         return torch.linalg.vector_norm(norms)
     rep, sums = _group_sums(norms * norms, groups)
     total = (norms[rep] * norms[rep]).sum()
@@ -85,7 +114,7 @@ def global_grad_norm(grads, groups=None):
 
 
 def _tensor_norms(grads, groups):
-    """Each tensor's own norm, a sharded one's over its group."""
+    """Each tensor's own norm, a cut one's over its groups."""
     norms = torch.stack(torch._foreach_norm(grads))
     _, sums = _group_sums(norms * norms, groups)
     for idx, part in sums.values():
@@ -95,7 +124,7 @@ def _tensor_norms(grads, groups):
 
 def _clip(policy, grads, groups=None):
     """The f32 gradients `grads` after the clip `policy` (None: as
-    they are); `groups`: their parameters' `mp_groups`."""
+    they are); `groups`: their parameters' `shard_groups`."""
     if policy is None:
         return grads
     if isinstance(policy, ClipGradByGlobalNorm):
@@ -103,7 +132,7 @@ def _clip(policy, grads, groups=None):
             global_grad_norm(grads, groups), min=1e-12), max=1.0)
         return torch._foreach_mul(grads, scale)
     if isinstance(policy, ClipGradByNorm):
-        if groups is not None and any(g is not None for g in groups):
+        if groups is not None and any(_as_groups(g) for g in groups):
             return [g * torch.clamp(policy.clip_norm / torch.clamp(
                 nrm, min=1e-12), max=1.0)
                 for g, nrm in zip(grads, _tensor_norms(grads, groups))]
@@ -113,6 +142,27 @@ def _clip(policy, grads, groups=None):
         return [torch.clamp(g, policy.min, policy.max) for g in grads]
     raise TypeError(f"grad_clip must be a ClipGradBy* policy (got "
                     f"{type(policy).__name__})")
+
+
+def _park(st):
+    """A state's moments and master moved to pinned host memory."""
+    for k in _PARKED:
+        if k in st and not st[k].is_pinned():
+            st[k] = st[k].to("cpu").pin_memory()
+
+
+def _chunks(states):
+    """[lo, hi) runs of `states` holding at most PARK_CHUNK_BYTES of
+    parked state each (a larger one alone)."""
+    out, lo, size = [], 0, 0
+    for i, st in enumerate(states):
+        nbytes = sum(st[k].numel() * 4 for k in _PARKED if k in st)
+        if i > lo and size + nbytes > PARK_CHUNK_BYTES:
+            out.append((lo, i))
+            lo, size = i, 0
+        size += nbytes
+    out.append((lo, len(states)))
+    return out
 
 
 class Adam:
@@ -141,6 +191,8 @@ class Adam:
         self._multi_precision = multi_precision
         self._apply_decay_fun = None
         self.state = {}          # name -> {moment1, moment2, beta*_pow, master}
+        self._parked = False     # park_state(): moments in pinned host memory
+        self._parked_done = None     # the last update's copies back
 
     def _decoupled(self):
         return False
@@ -175,8 +227,23 @@ class Adam:
                   "beta2_pow": torch.ones((), **f32)}
             if self._multi_precision and p.dtype != torch.float32:
                 st["master"] = p.detach().float()
+            if self._parked:
+                _park(st)
             self.state[name] = st
         return st
+
+    def park_state(self):
+        """Keep moment1, moment2 and any master in pinned host memory
+        between steps (module docstring); state made before moves now."""
+        self._parked = True
+        for st in self.state.values():
+            _park(st)
+
+    def sync_state(self):
+        """Wait for the parked state's copies back to the host."""
+        if self._parked_done is not None:
+            self._parked_done.synchronize()
+            self._parked_done = None
 
     def zero_grad(self):
         for p in self._params:
@@ -195,6 +262,27 @@ class Adam:
             return
         states = [self._state_for(n, p) for n, p in work]
         params = [p for _, p in work]
+        lr = self._lr_value() if learning_rate is None \
+            else float(learning_rate)
+        g = _clip(self._grad_clip, [p.grad.float() for p in params],
+                  shard_groups(params))
+        if not self._parked:
+            self._gated_update(work, states, params, lr, g, apply)
+            return
+        for lo, hi in _chunks(states):
+            dev = [{k: v.to(p.device, non_blocking=True) if k in _PARKED
+                    else v for k, v in st.items()}
+                   for st, p in zip(states[lo:hi], params[lo:hi])]
+            self._gated_update(work[lo:hi], dev, params[lo:hi], lr,
+                               g[lo:hi], apply)
+            for st, d in zip(states[lo:hi], dev):
+                for k in _PARKED:
+                    if k in st:
+                        st[k].copy_(d[k], non_blocking=True)
+        self._parked_done = torch.cuda.Event()
+        self._parked_done.record()
+
+    def _gated_update(self, work, states, params, lr, g, apply):
         if apply is not None:
             # a snapshot of everything the update writes, selected back
             # where `apply` is False
@@ -202,17 +290,14 @@ class Adam:
                                    ("moment1", "moment2", "beta1_pow",
                                     "beta2_pow", "master") if k in st]
             old = [t.clone() for t in kept]
-        self._update(work, states, params, self._lr_value()
-                     if learning_rate is None else float(learning_rate))
+        self._update(work, states, params, lr, g)
         if apply is not None:
             for t, o in zip(kept, old):
                 t.copy_(torch.where(apply, t, o))
 
-    def _update(self, work, states, params, lr):
+    def _update(self, work, states, params, lr, g):
         masters = [st.get("master") for st in states]
         pf = [p.float() if m is None else m for p, m in zip(params, masters)]
-        g = _clip(self._grad_clip, [p.grad.float() for p in params],
-                  mp_groups(params))
         wds = [self._wd_for(n) for n, _ in work]
         b1, b2 = self._beta1, self._beta2
         if not self._decoupled() and any(wds):

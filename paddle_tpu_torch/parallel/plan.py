@@ -22,11 +22,21 @@ them. A fused projection's shard is not a contiguous cut: rank r's
 GSPMD reshards to split it: paddle_tpu/models/llama.py:57-62); the
 function is the same.
 
-A dim that does not divide by the mp extent, and fewer kv (or query)
-heads than the mp extent, raise ValueError naming the parameter (the JAX
-package pads such a dim). A parameter placed on 'fsdp', 'sp', 'pp' or
-'ep' of extent > 1 raises NotImplementedError naming the slice it waits
-for; axes of extent 1 replicate, as the JAX plan does through `_axis`.
+An 'fsdp' entry is mapped the same way (a Linear's JAX dim i is the
+port's dim 1 - i; any other parameter's dims are the JAX ones) and cut
+after the 'mp' cut, on the other dim, through distributed/sharding.py
+`cut_param`: the owning module gathers the whole tensor for its forward
+and the gradient comes back reduce-scattered. `P(fsdp, mp)` on q/k/v,
+gate/up and lm_head cuts the port's input columns, `P(mp, fsdp)` on
+o/down its output rows, and on the (V, D) embedding its D columns; the
+norms stay whole.
+
+A dim that does not divide by the mp or the fsdp extent, and fewer kv
+(or query) heads than the mp extent, raise ValueError naming the
+parameter (the JAX package pads such a dim). A parameter placed on
+'sp', 'pp' or 'ep' of extent > 1 raises NotImplementedError naming the
+slice it waits for; axes of extent 1 replicate, as the JAX plan does
+through `_axis`.
 """
 from __future__ import annotations
 
@@ -103,8 +113,7 @@ def batch_spec(mesh_axes: Sequence[str], seq_sharded: bool = True) -> P:
 
 
 # the slice each axis still waits for
-WAITS = {"fsdp": "the FSDP slice (distributed/sharding.py)",
-         "sp": "the context-parallel slice (distributed/context_parallel.py)",
+WAITS = {"sp": "the context-parallel slice (distributed/context_parallel.py)",
          "pp": "the pipeline slice (distributed/pipeline.py)",
          "ep": "the expert-parallel (MoE) slice"}
 
@@ -115,11 +124,11 @@ def _axes_of(entry):
 
 def check_plan(names, mesh, plan: ShardingPlan):
     """Raise NotImplementedError when `plan` places any of `names` on an
-    axis of `mesh` other than 'mp' of extent > 1."""
+    axis of `mesh` other than 'mp' and 'fsdp' of extent > 1."""
     for name in names:
         for entry in plan.spec_for(name):
             for ax in _axes_of(entry):
-                if ax is not None and ax != "mp" \
+                if ax is not None and ax not in ("mp", "fsdp") \
                         and mesh.get_dim_size(ax) > 1:
                     raise NotImplementedError(
                         f"{name}: spec {plan.spec_for(name)} on mesh "
@@ -142,11 +151,11 @@ def _fused_parts(name, cfg):
     return None
 
 
-def _check_cut(name, size, n, what):
+def _check_cut(name, size, n, what, axis="mp"):
     if size % n:
-        raise ValueError(f"{name}: {what} {size} does not divide by the mp "
-                         f"extent {n} (the JAX package pads it; the port "
-                         "refuses it)")
+        raise ValueError(f"{name}: {what} {size} does not divide by the "
+                         f"{axis} extent {n} (the JAX package pads it; the "
+                         "port refuses it)")
 
 
 def _check_heads(name, cfg, n):
@@ -209,28 +218,62 @@ def _mp_cuts(model, plan, n):
     return cuts
 
 
+def _fsdp_cuts(model, plan, n):
+    """[(module name, parameter name, port dim)] for the parameters the
+    plan puts on 'fsdp' (a Linear weight's JAX dim i is the port's dim
+    1 - i); each dim must divide by the fsdp extent `n`. Parameters cut
+    over 'fsdp' before are left out."""
+    from torch import nn
+    cuts = []
+    for mname, mod in model.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            if hasattr(p, "_fsdp_shard"):
+                continue
+            name = f"{mname}.{pname}" if mname else pname
+            spec = plan.spec_for(name)
+            on = [i for i in range(len(spec)) if "fsdp" in _axes_of(spec[i])]
+            if not on:
+                continue
+            dim = on[0]
+            if isinstance(mod, nn.Linear) and pname == "weight":
+                dim = 1 - dim
+            _check_cut(name, p.shape[dim], n, f"dim {dim}", "fsdp")
+            cuts.append((mname, pname, dim))
+    return cuts
+
+
 def apply_plan(model, mesh, plan: ShardingPlan):
     """Cut every parameter of `model` that the plan puts on the mesh's
     'mp' axis to this rank's shard, in place, the modules becoming
-    fleet/layers.py's tensor-parallel layers (module docstring); modules
-    cut before are left as they are. Every process of the world calls it
-    (the mp group is formed here). Returns the model."""
+    fleet/layers.py's tensor-parallel layers, then every parameter it
+    puts on 'fsdp' (module docstring); what was cut before is left as it
+    is. Every process of the world calls it (the groups are formed
+    here). Every dim is checked before anything is cut. Returns the
+    model."""
+    from paddle_tpu_torch.distributed import sharding
     from paddle_tpu_torch.distributed.fleet import layers
     check_plan([n for n, _ in model.named_parameters()], mesh, plan)
-    if "mp" not in mesh.dim_names or mesh.get_dim_size("mp") <= 1:
-        return model
-    cuts = _mp_cuts(model, plan, mesh.get_dim_size("mp"))
-    if not cuts:
-        return model
-    group = mesh.get_group("mp")
-    for mname, mod, kind, parts in cuts:
-        if kind == "column":
-            new = layers.ColumnParallelLinear.from_linear(mod, group,
-                                                          parts=parts)
-        elif kind == "row":
-            new = layers.RowParallelLinear.from_linear(mod, group)
-        else:
-            new = layers.VocabParallelEmbedding.from_embedding(mod, group)
-        parent, _, leaf = mname.rpartition(".")
-        setattr(model.get_submodule(parent) if parent else model, leaf, new)
+    names = mesh.dim_names
+    mp = mesh.get_dim_size("mp") if "mp" in names else 1
+    fsdp = mesh.get_dim_size("fsdp") if "fsdp" in names else 1
+    cuts = _mp_cuts(model, plan, mp) if mp > 1 else []
+    fsdp_cuts = _fsdp_cuts(model, plan, fsdp) if fsdp > 1 else []
+    if cuts:
+        group = mesh.get_group("mp")
+        for mname, mod, kind, parts in cuts:
+            if kind == "column":
+                new = layers.ColumnParallelLinear.from_linear(mod, group,
+                                                              parts=parts)
+            elif kind == "row":
+                new = layers.RowParallelLinear.from_linear(mod, group)
+            else:
+                new = layers.VocabParallelEmbedding.from_embedding(mod, group)
+            parent, _, leaf = mname.rpartition(".")
+            setattr(model.get_submodule(parent) if parent else model, leaf,
+                    new)
+    if fsdp_cuts:
+        group = mesh.get_group("fsdp")
+        for mname, pname, dim in fsdp_cuts:
+            sharding.cut_param(model.get_submodule(mname), pname,
+                               sharding.FSDPShard(group, dim, axis="fsdp"))
     return model

@@ -55,22 +55,37 @@ without waiting for the device.
 - Data parallelism (`mesh=`, a distributed/mesh.py ProcessMesh over the
   world's processes, and `plan=`, a parallel/plan.py ShardingPlan, the
   JAX constructor's): every process passes the same global batch; rank
-  r keeps its rows along `batch_spec`'s batch axis (with
-  grad_accum_steps, its share of each microbatch, so the microbatches
-  are the JAX loop's), and `data_iter` moves only those rows to the
-  device. The loss and the gradients are the mean over the GLOBAL valid
-  tokens (labels other than -100 after the next-token shift), as GSPMD
-  computes them: each microbatch's local mean loss is weighted by this
-  rank's share of the group's valid tokens (one small all-reduce of the
-  counts before the forward; a slice with none adds 0, even where the
-  model's mean over no token is NaN), and the gradients and the loss
-  are summed over the dp group once a step (distributed/parallel.py
-  GradReducer), after the microbatches, before clipping and the update.
-  The returned loss is the global one, and the non-finite flags, the
-  probe and the loss cap read global values, so every rank takes the
-  same branch.
+  r keeps its rows along `batch_spec`'s batch axes, 'dp' and 'fsdp'
+  (its index over dp x fsdp, dp major; with grad_accum_steps, its share
+  of each microbatch, so the microbatches are the JAX loop's), and
+  `data_iter` moves only those rows to the device. The loss and the
+  gradients are the mean over the GLOBAL valid tokens (labels other
+  than -100 after the next-token shift), as GSPMD computes them: each
+  microbatch's local mean loss is weighted by this rank's share of the
+  batch group's valid tokens (one small all-reduce of the counts before
+  the forward; a slice with none adds 0, even where the model's mean
+  over no token is NaN), and the gradients and the loss are summed over
+  the batch group once a step (distributed/parallel.py GradReducer),
+  after the microbatches, before clipping and the update. The returned
+  loss is the global one, and the non-finite flags, the probe and the
+  loss cap read global values, so every rank takes the same branch. A
+  batch group of one rank (a 'dp' axis of extent 1, as the fleet mesh
+  has) runs no collective: no reducer and no all-reduce of the counts
+  (each microbatch weighs exactly 1, or 0 without a valid label).
   Telemetry counts this rank's tokens: the global batch over the mesh's
   size, as the JAX Trainer reports.
+- FSDP (an 'fsdp' axis of extent > 1, or a model that
+  distributed/sharding.py `group_sharded_parallel` cut): `plan` cuts
+  the parameters it puts on 'fsdp' through `apply_plan` (after any 'mp'
+  cut, on the other dim); each module gathers its pieces for its
+  forward and the gradient comes back reduce-scattered, already summed
+  over the cut's axis. So a gradient is summed over the batch axes its
+  cut did not sum over (`sharding.summed_axes`): a replicated one over
+  dp x fsdp, an fsdp-cut one over dp only, one that
+  `group_sharded_parallel` cut over 'dp' over nothing more. The update
+  runs on the pieces; the clip's and the probe's norms add the pieces'
+  squares over every group a parameter is cut over, and the non-finite
+  flag is taken over those groups.
 - Tensor parallelism (an 'mp' axis of extent > 1 in `mesh`): the
   Trainer cuts the model by `plan` through parallel/plan.py
   `apply_plan` (a model that `fleet.distributed_model` cut already is
@@ -83,19 +98,29 @@ without waiting for the device.
   group (optimizer/__init__.py), and the non-finite skip's flag is
   taken over it, so every mp rank takes one branch.
   `checkpoint_state()` gathers each cut tensor (parameters, moments,
-  masters) into the whole tensor, so a checkpoint is the one a
-  mesh-free Trainer writes, and `load_checkpoint` cuts it back. A mesh without a 'dp' axis gives every
-  rank the whole batch. A 'fsdp', 'sp', 'pp' or 'ep' axis of extent > 1
-  raises NotImplementedError naming the slice it waits for.
+  masters) into the whole tensor, over fsdp and then mp, so a
+  checkpoint is the one a mesh-free Trainer writes, and
+  `load_checkpoint` cuts it back. A mesh without a 'dp' or 'fsdp' axis
+  gives every rank the whole batch. An 'sp', 'pp' or 'ep' axis of
+  extent > 1 raises NotImplementedError naming the slice it waits for.
+- `offload_opt_state` (or the `_sharding_offload` hint that
+  `group_sharded_parallel(offload=True)` leaves on the model): on the
+  card, the optimizer's moments and masters live in pinned host memory
+  between steps and are copied to the device a chunk at a time for the
+  update (optimizer/__init__.py `park_state`). On the CPU, as the JAX
+  Trainer off the TPU, it warns (naming `pinned_host`) and turns the flag
+  off on the Trainer's private copy of the config.
 
 Making the model trainable (every parameter requires a gradient,
 training mode) is the Trainer's job: a model built for serving carries
-no autograd graph. Optimizer offload and the FSDP overlap columns of the
-phase timing are not ported yet.
+no autograd graph. The FSDP overlap (parallel/overlap.py) and its
+columns of the phase timing are not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Any
 
@@ -103,9 +128,10 @@ import torch
 
 from paddle_tpu_torch import observability
 from paddle_tpu_torch.distributed import chaos, collective
-from paddle_tpu_torch.distributed.fleet.layers import gather_full
+from paddle_tpu_torch.distributed.sharding import (cut_whole, cuts_of,
+                                                   gather_whole, whole_shape)
 from paddle_tpu_torch.io.prefetch import DevicePrefetcher
-from paddle_tpu_torch.optimizer import global_grad_norm, mp_groups
+from paddle_tpu_torch.optimizer import global_grad_norm, shard_groups
 
 __all__ = ["TrainStepConfig", "Trainer", "NonFiniteGradError"]
 
@@ -125,6 +151,10 @@ class TrainStepConfig:
     # last_probe = [global grad norm, applied]; suppresses non-finite
     # updates and those whose loss exceeds the cap (subsumes the skip)
     health_probe: bool = False
+    # keep Adam's moments (and masters) in pinned host memory between
+    # steps, copied to the card for the update: frees 8 bytes a
+    # parameter of device memory for a host round trip a step
+    offload_opt_state: bool = False
 
 
 class NonFiniteGradError(RuntimeError):
@@ -140,7 +170,12 @@ class Trainer:
         # optional distributed.async_checkpoint.AsyncCheckpointer:
         # save_checkpoint() then returns after the host snapshot
         self.checkpointer = checkpointer
-        self.config = config or TrainStepConfig()
+        # a private copy: the Trainer turns offload_opt_state on (the
+        # model's hint) or off (off the card)
+        self.config = dataclasses.replace(config) if config is not None \
+            else TrainStepConfig()
+        if getattr(model, "_sharding_offload", False):
+            self.config.offload_opt_state = True
         dt = self.config.compute_dtype
         self._dtype = _DTYPES.get(dt, dt) if isinstance(dt, str) else dt
         if self._dtype not in (None, *_DTYPES.values()):
@@ -169,23 +204,37 @@ class Trainer:
         self._dp = None if mesh is None else self._parallel(mesh, plan)
         model.requires_grad_(True)
         model.train()
+        if self.config.offload_opt_state:
+            if self.device.type == "cuda":
+                optimizer.park_state()
+            else:
+                warnings.warn(
+                    "offload_opt_state: parking the optimizer state in "
+                    "pinned_host memory needs the model on a CUDA device "
+                    f"(it is on {self.device.type}); keeping the optimizer "
+                    "state where it is")
+                self.config.offload_opt_state = False
 
     def _parallel(self, mesh, plan):
-        """(dp size, this rank's dp index, the dp group and its reducer,
-        None without a 'dp' axis) of a mesh whose axes of extent > 1 are
-        'dp' and 'mp'; the model cut by `plan`."""
+        """{"size", "index": this rank's batch group (dp x fsdp) and its
+        index in it, "group": that group (None for one rank), "batch":
+        its axes, "sums": [(axes, GradReducer, parameters)], each
+        parameter's gradient summed over the batch axes its cut did not
+        sum over} for a mesh whose axes of extent > 1 are 'dp', 'fsdp'
+        and 'mp'; the model cut by `plan`."""
+        from paddle_tpu_torch.distributed import sharding
         from paddle_tpu_torch.distributed.fleet.layers import _PARALLEL
         from paddle_tpu_torch.distributed.parallel import GradReducer
         from paddle_tpu_torch.parallel.plan import WAITS, apply_plan
         axes = dict(zip(mesh.dim_names, mesh.shape))
         others = {a: n for a, n in axes.items()
-                  if a not in ("dp", "mp") and n > 1}
+                  if a not in ("dp", "fsdp", "mp") and n > 1}
         if others:
             ax = next(iter(others))
             raise NotImplementedError(
-                f"mesh axes {others}: the port's Trainer runs data and "
-                f"tensor parallelism; {ax!r} waits for "
-                f"{WAITS.get(ax, 'a later slice')}")
+                f"mesh axes {others}: the port's Trainer runs data, "
+                f"sharded-data (FSDP) and tensor parallelism; {ax!r} waits "
+                f"for {WAITS.get(ax, 'a later slice')}")
         mp = axes.get("mp", 1)
         if plan is not None:
             apply_plan(self.model, mesh, plan)
@@ -195,11 +244,23 @@ class Trainer:
                 f"an mp axis of extent {mp} needs a plan (or a model cut by "
                 "fleet.distributed_model); the port never replicates the "
                 "whole model over the mp ranks")
-        out = {"size": 1, "index": 0, "group": None, "reducer": None}
-        if "dp" in axes:
-            group = mesh.get_group("dp")
-            out.update(size=group.nranks, index=group.rank, group=group,
-                       reducer=GradReducer(group))
+        batch = tuple(a for a in ("dp", "fsdp") if axes.get(a, 1) > 1)
+        out = {"size": 1, "index": 0, "group": None, "batch": batch,
+               "sums": []}
+        if not batch:
+            return out
+        index = 0
+        for a in batch:
+            index = index * axes[a] + mesh.coordinate(a)
+        group = mesh.get_group(batch)
+        out.update(size=group.nranks, index=index, group=group)
+        by_axes = {batch: []}            # the loss rides the batch group
+        for p in self.model.parameters():
+            done = sharding.summed_axes(p)
+            rest = tuple(a for a in batch if a not in done)
+            by_axes.setdefault(rest, []).append(p)
+        out["sums"] = [(rest, GradReducer(mesh.get_group(rest)), params)
+                       for rest, params in by_axes.items() if rest]
         return out
 
     @property
@@ -230,7 +291,7 @@ class Trainer:
     def _local_rows(self, batch):
         """This rank's rows of a global batch: microbatch i of the JAX
         loop is global rows [i B/n, (i+1) B/n), and rank r keeps the r-th
-        of its dp slices."""
+        of its batch group's slices."""
         dp, r = self._dp["size"], self._dp["index"]
         n_mb = self.config.grad_accum_steps
         out = {}
@@ -241,16 +302,16 @@ class Trainer:
             b = v.shape[0]
             if b % (dp * n_mb):
                 raise ValueError(
-                    f"batch leaf {k!r} of {b} rows does not split over dp "
-                    f"{dp} x {n_mb} microbatches")
+                    f"batch leaf {k!r} of {b} rows does not split over the "
+                    f"batch group's {dp} ranks x {n_mb} microbatches")
             rows = v.reshape((n_mb, dp, b // (dp * n_mb)) + tuple(v.shape[1:]))
             out[k] = rows[:, r].reshape((b // dp,) + tuple(v.shape[1:]))
         return _LocalBatch(out)
 
     def _token_scales(self, mbs):
         """(n_mb,) f32: each microbatch's weight on this rank, its valid
-        tokens over the dp group's (the loss is the mean over the
-        global valid tokens)."""
+        tokens over the batch group's (the loss is the mean over the
+        global valid tokens); a group of one rank all-reduces nothing."""
         counts = torch.stack([_valid_tokens(mb) for mb in mbs]).float()
         total = counts.clone()
         if self._dp["group"] is not None:
@@ -325,13 +386,16 @@ class Trainer:
         return loss
 
     def _reduce_dp(self, loss):
-        """Sum the gradients and the loss over the dp group, in one set
-        of buckets; returns the global loss."""
+        """Sum each gradient over the batch axes its cut did not sum over,
+        the loss over the whole batch group (with the gradients summed
+        there, in one set of buckets); returns the global loss."""
         loss = loss.reshape(1).clone()
-        grads = [p.grad for p in self.model.parameters()
-                 if p.grad is not None]
         with torch.no_grad():
-            self._dp["reducer"].all_reduce(grads + [loss])
+            for axes, reducer, params in self._dp["sums"]:
+                grads = [p.grad for p in params if p.grad is not None]
+                if axes == self._dp["batch"]:
+                    grads.append(loss)
+                reducer.all_reduce(grads)
         return loss.reshape(())
 
     def _chaos_faults(self, loss):
@@ -372,14 +436,15 @@ class Trainer:
         if cfg.health_probe:
             # one reduction: the norm carries any NaN / Inf, so it is both
             # the all-finite check and the probe's gradient norm
-            gnorm = global_grad_norm(grads, mp_groups(params))
+            gnorm = global_grad_norm(grads, shard_groups(params))
             healthy = (torch.isfinite(loss) & torch.isfinite(gnorm)
                        & (loss <= self._loss_cap))
             self.optimizer.step(lr, apply=healthy)
             self.last_probe = torch.stack([gnorm, healthy.float()])
             return
         finite = _on_every_rank(torch.isfinite(loss) & torch.stack(
-            [torch.isfinite(g).all() for g in grads]).all(), mp_groups(params))
+            [torch.isfinite(g).all() for g in grads]).all(),
+            shard_groups(params))
         self.optimizer.step(lr, apply=finite)
         self._note_skip(~finite)
 
@@ -547,23 +612,26 @@ class Trainer:
     def checkpoint_state(self):
         """What a training checkpoint holds: the parameters AND the
         optimizer state, as a nested dict (save_state_dict flattens it)
-        of the live tensors, each tensor cut over the mp group gathered
-        whole (a collective: every rank calls it). Resuming parameters
-        without moments would restart Adam's bias correction."""
-        return _unflat2({k: v if s is None else gather_full(v, s)
-                         for k, (v, s) in self._state_tensors().items()})
+        of the live tensors, each cut tensor gathered whole over fsdp and
+        then mp (a collective: every rank calls it; a parked moment is
+        gathered on the card). Resuming parameters without moments would
+        restart Adam's bias correction."""
+        return _unflat2({k: gather_whole(v.to(dev), c) if c else v
+                         for k, (v, c, dev) in self._state_tensors().items()})
 
     def _state_tensors(self):
-        """{("params"|"opt", name[, key]): (live tensor, its MPShard or
-        None)} of every checkpointed tensor."""
+        """{("params"|"opt", name[, key]): (live tensor, its cuts (()
+        when whole), its parameter's device)} of every checkpointed
+        tensor; parked state is waited for."""
         opt = self.optimizer
+        opt.sync_state()
         out = {}
         for n, p in self.model.named_parameters():
-            out[("params", n)] = (p.detach(), getattr(p, "_mp_shard", None))
+            out[("params", n)] = (p.detach(), cuts_of(p), p.device)
         for n, p in zip(opt._names, opt._params):
-            shard = getattr(p, "_mp_shard", None)
+            cuts = cuts_of(p)
             for k, v in opt._state_for(n, p).items():
-                out[("opt", n, k)] = (v, shard if v.dim() else None)
+                out[("opt", n, k)] = (v, cuts if v.dim() else (), p.device)
         return out
 
     def save_checkpoint(self, path):
@@ -588,28 +656,29 @@ class Trainer:
         if self.checkpointer is not None:
             self.checkpointer.flush()
         live = self._state_tensors()
-        sd = _unflat2({k: v if s is None else torch.empty(
-            _whole_shape(v, s), dtype=v.dtype, device=v.device)
-            for k, (v, s) in live.items()})
+        sd = _unflat2({k: torch.empty(whole_shape(v, c), dtype=v.dtype,
+                                      device=v.device) if c else v
+                       for k, (v, c, _) in live.items()})
         ckpt.load_state_dict(sd, path)
         with torch.no_grad():
             # a cut tensor takes this rank's piece; an entry saved in
             # another dtype came back as a new tensor
-            for k, (v, s) in live.items():
+            for k, (v, c, _) in live.items():
                 got = sd[k[0]][k[1]] if k[0] == "params" \
                     else sd["opt"][k[1]][k[2]]
-                if s is not None:
-                    v.copy_(s.local(got))
+                if c:
+                    v.copy_(cut_whole(got, c))
                 elif got is not v:
                     v.copy_(got)
         return path
 
 
 def _on_every_rank(flag, groups):
-    """0-d bool: `flag` holds on every rank of each distinct mp group in
-    `groups` (a MIN all-reduce), so the ranks of a tensor-parallel model,
-    whose gradient shards differ, take one branch."""
-    distinct = {id(g): g for g in groups if g is not None}
+    """0-d bool: `flag` holds on every rank of each distinct group in
+    `groups` (`shard_groups`: tuples of mp and fsdp groups; a MIN
+    all-reduce a group), so the ranks of a cut model, whose gradient
+    pieces differ, take one branch."""
+    distinct = {id(g): g for gs in groups for g in gs}
     if not distinct:
         return flag
     f = flag.float().reshape(1)
@@ -628,12 +697,6 @@ def _unflat2(flat):
         else:
             out["opt"].setdefault(key[1], {})[key[2]] = t
     return out
-
-
-def _whole_shape(local, shard):
-    shape = list(local.shape)
-    shape[shard.dim] *= shard.group.nranks
-    return shape
 
 
 class _LocalBatch(dict):

@@ -465,10 +465,21 @@ def test_plan_refuses_sharded_parameters():
     dp_only = t_mesh.ProcessMesh([[0], [1]], ["dp", "mp"])
     assert tplan.apply_plan(model, dp_only, tplan.llama_sharding_plan(
         dp_only.dim_names)) is model
-    # since tensor parallelism, 'mp' cuts (tests/test_torch_tp.py); a
-    # parameter placed on 'fsdp' of extent > 1 still raises, naming its
-    # slice
+    # since tensor parallelism, 'mp' cuts (tests/test_torch_tp.py); since
+    # FSDP, 'fsdp' cuts too (tests/test_torch_fsdp.py): the plan's cut of
+    # each parameter, the JAX spec's 'fsdp' dim read on the port's
+    # layout; a parameter placed on 'sp' of extent > 1 still raises,
+    # naming its slice
     fsdp = t_mesh.ProcessMesh([[0, 1]], ["dp", "fsdp"])
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        tplan.apply_plan(model, fsdp, tplan.llama_sharding_plan(
-            fsdp.dim_names))
+    cuts = {f"{m}.{p}": d for m, p, d in tplan._fsdp_cuts(
+        model, tplan.llama_sharding_plan(fsdp.dim_names), 2)}
+    assert cuts["model.embed_tokens.weight"] == 1
+    assert cuts["model.layers.0.self_attn.q_proj.weight"] == 1
+    assert cuts["model.layers.0.self_attn.o_proj.weight"] == 0
+    assert cuts["model.layers.0.mlp.down_proj.weight"] == 0
+    assert not any("norm" in n for n in cuts)
+    sp = t_mesh.ProcessMesh([[0, 1]], ["dp", "sp"])
+    on_sp = tplan.ShardingPlan(
+        [(r"lm_head\.weight$", t_pl.PartitionSpec("sp", None))])
+    with pytest.raises(NotImplementedError, match="context-parallel"):
+        tplan.apply_plan(model, sp, on_sp)

@@ -65,6 +65,7 @@ kernel nodes their captures counted; a tail block stays inside max_len;
 a sampled block's graph is seeded per stream; a capture that fails
 raises.
 """
+import gc
 import os
 import shutil
 import time
@@ -2625,3 +2626,86 @@ def _nan_seed_at(k, rate=0.3):
         if True in fires and fires.index(True) == k:
             return seed
     raise AssertionError("no seed")
+
+
+def _offload_trainer(cuda, offload):
+    """A 2-layer Llama on the card, bf16 compute, AdamW with the global
+    norm clip, the health probe; `offload_opt_state` on or off."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               tiny_llama_config)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    cfg = tiny_llama_config(num_hidden_layers=2, hidden_size=256,
+                            intermediate_size=512, num_attention_heads=4,
+                            num_key_value_heads=2, vocab_size=512)
+    model = LlamaForCausalLM(cfg, device=cuda, seed=0)
+    opt = topt.AdamW(learning_rate=1e-3, parameters=model.named_parameters(),
+                     grad_clip=ClipGradByGlobalNorm(1.0))
+    return Trainer(model, opt, TrainStepConfig(
+        compute_dtype="bfloat16", health_probe=True,
+        offload_opt_state=offload))
+
+
+def _offload_batch(cuda):
+    g = torch.Generator(device=cuda).manual_seed(26)
+    ids = torch.randint(0, 512, (4, 64), generator=g, device=cuda)
+    return {"input_ids": ids, "labels": ids}
+
+
+@pytest.mark.cuda
+def test_offloaded_optimizer_state_trains_bit_equal(cuda, monkeypatch):
+    """offload_opt_state: the moments live in pinned host memory between
+    steps and the update runs a chunk at a time on the card (chunks of
+    64 KiB here, so several), by the same arithmetic: the losses, the
+    probes, the parameters and the moments (read back through
+    checkpoint_state) are bit-equal to the run without it."""
+    from paddle_tpu_torch import optimizer as topt
+    monkeypatch.setattr(topt, "PARK_CHUNK_BYTES", 1 << 16)
+    batch = _offload_batch(cuda)
+    runs = {}
+    for offload in (False, True):
+        tr = _offload_trainer(cuda, offload)
+        losses, probes = [], []
+        for _ in range(3):
+            losses.append(float(tr.step(batch)))
+            probes.append(tr.last_probe.tolist())
+        assert tr.config.offload_opt_state is offload
+        st = tr.optimizer.state["lm_head.weight"]
+        assert st["moment1"].is_cuda is not offload
+        assert st["moment1"].is_pinned() is offload
+        flat = {}
+        for part, tensors in tr.checkpoint_state().items():
+            for n, v in tensors.items():
+                if isinstance(v, dict):
+                    flat.update({(part, n, k): t.cpu() for k, t in v.items()})
+                else:
+                    flat[(part, n)] = v.cpu()
+        runs[offload] = (losses, probes, flat)
+    (l0, p0, s0), (l1, p1, s1) = runs[False], runs[True]
+    assert l0 == l1 and p0 == p1
+    assert s0.keys() == s1.keys()
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+
+
+@pytest.mark.cuda
+def test_offload_keeps_the_moments_off_the_card(cuda):
+    """After a step the card holds the moments' bytes less with
+    offload_opt_state (8 bytes a parameter; the beta powers stay)."""
+    allocated = {}
+    for offload in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        tr = _offload_trainer(cuda, offload)
+        tr.step(_offload_batch(cuda))
+        torch.cuda.synchronize()
+        allocated[offload] = torch.cuda.memory_allocated() - base
+        n = sum(p.numel() for p in tr.model.parameters())
+        on_card = sum(v.numel() * v.element_size()
+                      for st in tr.optimizer.state.values()
+                      for v in st.values() if v.is_cuda)
+        assert on_card == (8 * n + 8 * len(tr.optimizer.state)
+                           if not offload else 8 * len(tr.optimizer.state))
+        del tr
+    assert allocated[False] - allocated[True] >= 8 * n

@@ -197,6 +197,9 @@ def test_slice_modules_import_without_jax_or_paddle_tpu():
         "import paddle_tpu_torch.distributed.fleet.layers\n"
         "import paddle_tpu_torch.distributed.fleet.utils\n"
         "import paddle_tpu_torch.parallel.plan\n"
+        "import paddle_tpu_torch.distributed.sharding\n"
+        "import paddle_tpu_torch.framework\n"
+        "import paddle_tpu_torch.framework.io_utils\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " (m.split('.')[0] in ('paddle_tpu', 'jax', 'jaxlib'))]\n"
         "assert not bad, bad\n"

@@ -362,10 +362,54 @@ def test_non_divisible_dims_and_few_kv_heads_raise(overrides, param):
         tplan.apply_plan(model, mesh, tplan.llama_sharding_plan(["mp"]))
 
 
+_BUILD_ON_FSDP = """
+import numpy as np
+from paddle_tpu_torch import optimizer as topt
+from paddle_tpu_torch.distributed import collective, env
+from paddle_tpu_torch.distributed.mesh import ProcessMesh
+from paddle_tpu_torch.models import llama as tllama
+from paddle_tpu_torch.parallel import plan as tplan
+from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+env.init_parallel_env(device="cpu")
+model = tllama.LlamaForCausalLM(
+    tllama.tiny_llama_config(num_hidden_layers=1), device="cpu")
+mesh = ProcessMesh([[0, 1]], ["dp", "fsdp"])
+tr = Trainer(model, topt.AdamW(parameters=model.named_parameters()),
+             TrainStepConfig(compute_dtype=None), mesh=mesh,
+             plan=tplan.llama_sharding_plan(mesh.dim_names))
+ids = np.random.RandomState(0).randint(0, 256, (4, 16)).astype(np.int32)
+loss = float(tr.step({"input_ids": ids, "labels": ids}))
+print("BUILT", list(model.model.embed_tokens.weight.shape), loss,
+      flush=True)
+collective.destroy_process_group()
+"""
+
+
 @pytest.mark.parametrize("axis,slice_name", [
     ("fsdp", "FSDP"), ("sp", "context-parallel"), ("pp", "pipeline"),
     ("ep", "expert-parallel")])
-def test_trainer_refuses_the_axes_still_to_come(axis, slice_name):
+def test_trainer_refuses_the_axes_still_to_come(axis, slice_name, tmp_path):
+    """Each axis a later slice ports is refused, naming that slice; the
+    FSDP slice has come, so on a {"dp": 1, "fsdp": 2} mesh the Trainer
+    builds (two gloo ranks through the launcher), cuts the embedding's D
+    columns and steps."""
+    if axis == "fsdp":
+        script = tmp_path / "build.py"
+        script.write_text(_BUILD_ON_FSDP)
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--devices", "0,1", "--log_dir", str(tmp_path / "logs"),
+             str(script)], env=dict(os.environ, PYTHONPATH=REPO),
+            timeout=JOB_TIMEOUT_S)
+        logs = "".join((tmp_path / "logs" / f).read_text()
+                       for f in sorted(os.listdir(tmp_path / "logs")))
+        assert proc.returncode == 0, logs[-4000:]
+        built = [ln.split() for ln in logs.splitlines()
+                 if ln.startswith("BUILT")]
+        assert len(built) == 2 and all(b[1:3] == ["[256,", "32]"]
+                                       for b in built), built
+        assert built[0][3] == built[1][3]          # the one global loss
+        return
     model = _tiny()
     mesh = ProcessMesh([[0, 1]], ["dp", axis])
     opt = topt.AdamW(parameters=model.named_parameters())
