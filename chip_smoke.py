@@ -420,6 +420,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
    step times printed. (c) is phase 20 (a)'s 0 all-reduce bytes. Launches
    go to the paths "training_fsdp" ((a) on rank 0) and
    "training_offload" ((b)).
+23. the ring paths (run right after phase 22). (a) The FSDP overlap
+   (parallel/overlap.py): two workers (`--overlap-worker DIR`, gloo on
+   device 0) on `init_mesh({"fsdp": 2})`: first `ppermute` and `send` /
+   `recv` of seeded random bits (bf16 and f32, 1 and 128 MB) held bit
+   for bit; then, with `llama_sharding_plan`,
+   phase 21's model, optimizer, compute type and batches, 1 + OVL_STEPS
+   steps with `overlap_fsdp=True, overlap_chunks=OVL_CHUNKS` against the
+   same run with the overlap off, at phase 20's DP_LOSS_TOL, DP_GRAD_TOL
+   and DP_PARAM_TOL; every fsdp-cut projection's rings and the bytes a
+   rank sends over them a step the count from the code
+   (ring_smoke.py `ring_counts_per_step`); the launches per step the
+   count from the code; a planted contract ring that multiplies its own
+   piece twice, one step, outside the gradient tolerance; and
+   `measure_phase_seconds`' fwd_comm, bwd_comm and overlap_fraction at
+   OVL_PHASE_LAYERS layers (gloo through the host: no rate). (b) Context
+   parallelism (distributed/context_parallel.py): two workers
+   (`--cp-worker DIR`) on `init_mesh({"sp": 2})`, the same model at
+   full width and CP_LAYERS layers (the whole run's time: every step
+   all-reduces every gradient through the host), 1 x CP_SEQ ids (labels
+   -100 from CP_PAD), "ring" and then "ulysses", 1 + CP_STEPS steps
+   each, against each worker's one-process run of the whole sequence at
+   phase 20's tolerances; the launches per step each rank's count from
+   the code (the ring: one flash forward, dq and dk/dv a live block,
+   rank r attending to r + 1 shards); two planted faults, one ring step
+   each (a merge that sums the blocks without their lse weights; a
+   future shard that is not skipped), outside the tolerances. (c) In
+   this process, the flash ring's per-block forward, lse merge and
+   backward over RING_N shards of RING_BLOCKS bf16, causal (no
+   transport): o, lse, dq, dk and dv against the whole-sequence kernels
+   by the flash row rule, the blocks' ms beside the whole sequence's.
+   Launches go to the paths "training_overlap" ((a) rank 0),
+   "training_cp_ring" and "training_cp_ulysses" ((b) rank 0).
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -4461,6 +4493,544 @@ def fsdp_phase(card, dev, counters, reset, tp):
     return out
 
 
+# -- phase 23: the ring paths: FSDP overlap and context parallelism ----------
+
+OVL_STEPS = 3               # (a): steps after the warm-up, each way
+OVL_CHUNKS = 2              # (a): overlap_chunks
+OVL_PHASE_LAYERS = 2        # (a): measure_phase_seconds' model, 2 of 22 layers
+CP_SEQ = 4096               # (b): one row of 4096 ids, 2048 a rank
+CP_PAD = 3072               # (b): labels -100 from this column
+CP_STEPS = 2                # (b): steps after the warm-up, each mode
+CP_LAYERS = 4               # (b): the model's depth, of 22 (the phase's time)
+RING_BLOCKS = (1, 16384, 32, 8, 128)   # (c): b, S, hq, hk, d (Llama-3-8B)
+RING_N = 4                  # (c): sequence shards
+RING_WORKER_TIMEOUT_S = 600
+
+
+def _drop():
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def _ring_trainer(dev, cfg, mesh, **step_kw):
+    """Phase 9's optimizer and compute type over a seed-0 model cut by
+    `llama_sharding_plan` on `mesh` (None: mesh-free)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.parallel.plan import llama_sharding_plan
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    opt = topt.AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                     weight_decay=0.01)
+    return Trainer(model, opt, TrainStepConfig(compute_dtype="bfloat16",
+                                               **step_kw),
+                   mesh=mesh, plan=None if mesh is None
+                   else llama_sharding_plan(mesh.dim_names))
+
+
+@contextlib.contextmanager
+def _planted_ring(fault):
+    """One planted fault of the ring paths for the block: `own_twice`
+    (the contract ring multiplies its own piece at every step, never the
+    piece that arrived), `unweighted_merge` (the flash ring sums its
+    blocks' outputs without their lse weights), `future_shard` (the
+    flash ring attends to the shards after its own)."""
+    from paddle_tpu_torch.distributed import context_parallel as cp
+    from paddle_tpu_torch.parallel import overlap as ov
+    if fault == "own_twice":
+        target, attr = ov, "_ring_linear"
+        orig = ov._ring_linear
+
+        def new(x, piece, group, chunks, dim, t=False):
+            if dim != 1 or t:
+                return orig(x, piece, group, chunks, dim, t)
+            n, idx, size = group.nranks, group.rank, piece.shape[1]
+            acc = torch.zeros(x.shape[:-1] + (piece.shape[0],),
+                              dtype=torch.float32, device=x.device)
+            for j in range(n):
+                lo = ((idx - j) % n) * size
+                acc.add_(torch.matmul(x[..., lo:lo + size],
+                                      piece.t()).float())
+            return acc.to(torch.result_type(x, piece))
+    elif fault == "unweighted_merge":
+        target, attr = cp, "_merge_partial"
+
+        def new(acc, lse, o_j, lse_j):
+            return acc + o_j.float(), torch.logaddexp(lse, lse_j)
+    elif fault == "future_shard":
+        target, attr = cp, "_mode"
+        orig = cp._mode
+
+        def new(causal, src, idx):
+            return 0 if src > idx else orig(causal, src, idx)
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    saved = getattr(target, attr)
+    setattr(target, attr, new)
+    try:
+        yield
+    finally:
+        setattr(target, attr, saved)
+
+
+def _stage_note(rank, what, stage):
+    """Rank 0's progress line: the stages' seconds so far."""
+    if rank == 0:
+        print(f"[ring] {what} done: "
+              f"{ {k: round(v, 1) for k, v in stage.items()} }", flush=True)
+
+
+def _launches_reset():
+    from paddle_tpu_torch.kernels import launch_counters
+    for d in launch_counters():
+        for k in d:
+            d[k] = 0
+
+
+def _launches():
+    from paddle_tpu_torch.kernels import launch_counters
+    return {k: v for d in launch_counters() for k, v in d.items()}
+
+
+def _p2p_bit_exact(rank, dev, axis):
+    """Whether `collective.ppermute` (each rank of the mesh's 2-rank
+    `axis` group to the other) and `send` / `recv` carry seeded random
+    bits, bf16 and f32, 1 MB and 128 MB, bit for bit (the port stages a
+    gloo group's CUDA tensors through pinned host memory)."""
+    from paddle_tpu_torch.distributed import collective
+
+    def bits(nbytes, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(-2 ** 15, 2 ** 15, (nbytes // 2,),
+                             dtype=torch.int16, device=dev,
+                             generator=g).view(dtype)
+
+    ok = True
+    for dtype in (torch.bfloat16, torch.float32):
+        for nbytes in (1 << 20, 128 << 20):
+            got = collective.ppermute(bits(nbytes, dtype, rank), axis,
+                                      [(0, 1), (1, 0)])
+            ok &= got.is_cuda and torch.equal(
+                got.view(torch.int16),
+                bits(nbytes, dtype, 1 - rank).view(torch.int16))
+            if rank == 0:
+                collective.send(bits(nbytes, dtype, 7), dst=1)
+            else:
+                got = collective.recv(src=0)
+                ok &= got.is_cuda and torch.equal(
+                    got.view(torch.int16),
+                    bits(nbytes, dtype, 7).view(torch.int16))
+    flags = collective.all_gather(torch.tensor([float(ok)], device=dev))
+    return all(bool(f[0]) for f in flags)
+
+
+def overlap_worker(outdir, device="cuda"):
+    """Phase 23 (a)'s worker: one of two fsdp ranks on the one card, gloo
+    (started by the port's launcher, `--nnodes 2 --rank r`)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.distributed.launch.ring_smoke import (
+        ring_counts_per_step)
+    from paddle_tpu_torch.distributed.mesh import init_mesh, set_mesh
+    from paddle_tpu_torch.distributed.sharding import cuts_of
+    from paddle_tpu_torch.parallel import overlap as ov
+    dist.init_parallel_env(device=device, backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = env.world_device()
+    mesh = init_mesh({"fsdp": world})
+    set_mesh(mesh)
+    cfg = _tp_config()
+    batches = _tp_batches(cfg.vocab_size)[:1 + OVL_STEPS]
+    t_phase = time.perf_counter()
+    stage = {}
+    p2p = _p2p_bit_exact(rank, dev, "fsdp")
+
+    # the reference: the same FSDP run with the overlap off
+    tr = _ring_trainer(dev, cfg, mesh, overlap_fsdp=False)
+    shards = {n: cuts_of(p) for n, p in tr.model.named_parameters()}
+    init = {n: _host(p.detach()) for n, p in tr.model.named_parameters()}
+    ref = _tp_steps(tr, batches, shards, first=True)
+    ref["init"] = init
+    del tr
+    _drop()
+    stage["off"] = time.perf_counter() - t_phase
+    _stage_note(rank, "(a) overlap off", stage)
+
+    # the overlap run, its launches and its rings counted
+    tr = _ring_trainer(dev, cfg, mesh, overlap_fsdp=True,
+                       overlap_chunks=OVL_CHUNKS)
+    _launches_reset()
+    rings0 = dict(ov.counts)
+    run = _tp_steps(tr, batches, shards)
+    launches = _launches()
+    steps = len(batches)
+    rings = {k: (ov.counts[k] - rings0[k]) / steps for k in ov.counts}
+    del tr
+    _drop()
+    stage["on"] = time.perf_counter() - t_phase
+    _stage_note(rank, "(a) overlap on", stage)
+    gap = _tp_gaps(rank, shards, run, ref, dev)
+
+    # the planted fault, one step against the reference's first
+    ref1 = dict(ref, losses=ref["losses"][:1], params=ref["params1"])
+    with _planted_ring("own_twice"):
+        tr = _ring_trainer(dev, cfg, mesh, overlap_fsdp=True,
+                           overlap_chunks=OVL_CHUNKS)
+        one = _tp_steps(tr, batches[:1], shards)
+    del tr
+    _drop()
+    fault = _tp_gaps(rank, shards, one, ref1, dev)
+    stage["fault"] = time.perf_counter() - t_phase
+
+    # the phase timing's comm columns, at OVL_PHASE_LAYERS layers
+    tr = _ring_trainer(dev, _tp_config(num_hidden_layers=OVL_PHASE_LAYERS),
+                       mesh, overlap_fsdp=True, overlap_chunks=OVL_CHUNKS)
+    phases = tr.measure_phase_seconds(batches[0], iters=1)
+    del tr
+    _drop()
+    stage["phases"] = time.perf_counter() - t_phase
+    want = expected_train_launches(cfg, TP_BATCH[0] * TP_BATCH[1] // world)
+    if rank == 0:
+        _write_json(os.path.join(outdir, "ring_a.json"), dict(
+            backend=torch.distributed.get_backend(), world=world,
+            p2p_bit_exact=p2p, losses=run["losses"],
+            ref_losses=ref["losses"], gap=gap,
+            fault=fault, launches=launches,
+            launches_per_step={k: launches.get(k, 0) / steps for k in want},
+            want_per_step=want, rings_per_step=rings,
+            want_rings=ring_counts_per_step(cfg, world, 2, recompute=True),
+            step_ms=_median(run["step_s"][TP_WARMUP:]) * 1e3,
+            ref_step_ms=_median(ref["step_s"][TP_WARMUP:]) * 1e3,
+            phases=phases, stages=stage,
+            seconds=time.perf_counter() - t_phase))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _cp_batches(vocab):
+    rng = np.random.RandomState(23)
+    out = []
+    for _ in range(1 + CP_STEPS):
+        ids = rng.randint(0, vocab, (1, CP_SEQ)).astype(np.int32)
+        labels = ids.copy()
+        labels[:, CP_PAD:] = -100
+        out.append({"input_ids": ids, "labels": labels})
+    return out
+
+
+def _cp_want(cfg, mode, rank):
+    """Kernel launches per step of sp rank `rank` (of 2): the training
+    step's count on its 2048 rows, the ring's flash kernels once a live
+    block (rank r attends to r + 1 shards)."""
+    want = expected_train_launches(cfg, CP_SEQ // 2)
+    if mode == "ring":
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            want[k] *= rank + 1
+    return want
+
+
+def cp_worker(outdir, device="cuda"):
+    """Phase 23 (b)'s worker: one of two sp ranks on the one card, gloo
+    (started by the port's launcher, `--nnodes 2 --rank r`)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import context_parallel as cp
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.distributed.mesh import init_mesh, set_mesh
+    dist.init_parallel_env(device=device, backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = env.world_device()
+    mesh = init_mesh({"sp": world})
+    set_mesh(mesh)
+    cfg = _tp_config(num_hidden_layers=CP_LAYERS)
+    batches = _cp_batches(cfg.vocab_size)
+    t_phase = time.perf_counter()
+    stage = {}
+
+    # the reference: one process over the whole 4096 tokens, mesh-free
+    # (each rank runs it); no parameter is cut
+    tr = _ring_trainer(dev, cfg, None)
+    shards = {n: () for n, _ in tr.model.named_parameters()}
+    init = {n: _host(p.detach()) for n, p in tr.model.named_parameters()}
+    ref = _tp_steps(tr, batches, shards, first=True)
+    ref["init"] = init
+    del tr
+    _drop()
+    stage["reference"] = time.perf_counter() - t_phase
+    modes, faults = {}, {}
+    for mode in ("ring", "ulysses"):
+        tr = _ring_trainer(dev, cfg, mesh, context_parallel=mode)
+        _launches_reset()
+        cp0 = dict(cp.counts)
+        run = _tp_steps(tr, batches, shards)
+        launches = _launches()
+        steps = len(batches)
+        del tr
+        _drop()
+        want = _cp_want(cfg, mode, rank)
+        got = {k: launches.get(k, 0) / steps for k in want}
+        mine = torch.tensor([float(got[k] == want[k]) for k in want]
+                            + [float(launches.get("flash_fwd", 0))])
+        every = dist.all_gather(mine)
+        modes[mode] = dict(
+            losses=run["losses"], gap=_tp_gaps(rank, shards, run, ref, dev),
+            launches=launches, launches_per_step=got, want_per_step=want,
+            launches_ok=all(bool(t[:-1].all()) for t in every),
+            flash_fwd_by_rank=[float(t[-1]) / steps for t in every],
+            counts_per_step={k: (cp.counts[k] - cp0[k]) / steps
+                             for k in cp.counts},
+            step_ms=_median(run["step_s"][TP_WARMUP:]) * 1e3)
+        stage[mode] = time.perf_counter() - t_phase
+        _stage_note(rank, f"(b) {mode}", stage)
+    ref1 = dict(ref, losses=ref["losses"][:1], params=ref["params1"])
+    for fault in ("unweighted_merge", "future_shard"):
+        with _planted_ring(fault):
+            tr = _ring_trainer(dev, cfg, mesh, context_parallel="ring")
+            one = _tp_steps(tr, batches[:1], shards)
+        del tr
+        _drop()
+        faults[fault] = _tp_gaps(rank, shards, one, ref1, dev)
+        stage[fault] = time.perf_counter() - t_phase
+    if rank == 0:
+        _write_json(os.path.join(outdir, "ring_b.json"), dict(
+            backend=torch.distributed.get_backend(), world=world,
+            ref_losses=ref["losses"], modes=modes, faults=faults,
+            ref_step_ms=_median(ref["step_s"][TP_WARMUP:]) * 1e3,
+            stages=stage, seconds=time.perf_counter() - t_phase))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _ring_blocks_part(dev):
+    """(c): the flash ring's per-block forward, merge and backward over
+    RING_N shards of one sequence, in this process (no transport), against
+    the whole-sequence flash kernels."""
+    from paddle_tpu_torch.distributed import context_parallel as cp
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    b, s, hq, hk, d = RING_BLOCKS
+    n, sl = RING_N, RING_BLOCKS[1] // RING_N
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, do = (randn(b, s, hq, d), randn(b, s, hk, d),
+                   randn(b, s, hk, d), randn(b, s, hq, d))
+
+    def shard(t, r):
+        return t[:, r * sl:(r + 1) * sl]
+
+    def ring_fwd(q, k, v):
+        outs = []
+        for r in range(n):
+            acc = torch.zeros((b, sl, hq, d), dtype=torch.float32,
+                              device=dev)
+            lse = torch.full((b, hq, sl), float("-inf"), device=dev)
+            for j in range(n):
+                src = (r - j) % n
+                mode = cp._mode(True, src, r)
+                if mode != 2:
+                    acc, lse = cp._merge_partial(
+                        acc, lse, *fa.flash_attention_fwd(
+                            shard(q, r), shard(k, src), shard(v, src),
+                            mode == 1))
+            outs.append((acc.to(torch.bfloat16), lse))
+        return outs
+
+    def ring_bwd(q, k, v, outs, do):
+        dq = [None] * n
+        dk = [torch.zeros((b, sl, hk, d), dtype=torch.float32, device=dev)
+              for _ in range(n)]
+        dv = [torch.zeros_like(t) for t in dk]
+        for r in range(n):
+            o_r, lse_r = outs[r]
+            do_r = shard(do, r).contiguous()
+            acc = torch.zeros((b, sl, hq, d), dtype=torch.float32,
+                              device=dev)
+            for src in range(n):
+                mode = cp._mode(True, src, r)
+                if mode == 2:
+                    continue
+                dq_j, dk_j, dv_j = fa.flash_attention_bwd(
+                    shard(q, r), shard(k, src), shard(v, src), o_r, lse_r,
+                    do_r, mode == 1)
+                acc += dq_j.float()
+                dk[src] += dk_j.float()
+                dv[src] += dv_j.float()
+            dq[r] = acc
+        return dq, dk, dv
+
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    outs = ring_fwd(q, k, v)
+    rdq, rdk, rdv = ring_bwd(q, k, v, outs, do)
+    got = {"o": torch.cat([t[0] for t in outs], 1),
+           "lse": torch.cat([t[1] for t in outs], 2),
+           "dq": torch.cat(rdq, 1).to(torch.bfloat16),
+           "dk": torch.cat(rdk, 1).to(torch.bfloat16),
+           "dv": torch.cat(rdv, 1).to(torch.bfloat16)}
+    want = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    errs = {name: _check_rows(f"ring blocks {name}", got[name], want[name],
+                              FLASH_BF16_TOL) for name in want}
+    ms = {"whole_fwd": _time_eager_ms(
+              lambda: fa.flash_attention_fwd(q, k, v, True), [()], 5),
+          "whole_bwd": _time_eager_ms(
+              lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True),
+              [()], 5),
+          "ring_fwd": _time_eager_ms(lambda: ring_fwd(q, k, v), [()], 5),
+          "ring_bwd": _time_eager_ms(
+              lambda: ring_bwd(q, k, v, outs, do), [()], 5)}
+    return dict(shape=list(RING_BLOCKS), shards=n,
+                blocks=n * (n + 1) // 2,
+                err={k: e[0] for k, e in errs.items()},
+                err_over_bound={k: e[1] for k, e in errs.items()}, ms=ms)
+
+
+def _ring_launch(flag, port, root):
+    """The two ranks of one (a) or (b) job: the port's launcher running
+    this script as `flag root`, `--nnodes 2 --rank r` on device 0."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--master", f"127.0.0.1:{port}", "--nnodes", "2", "--rank", str(r),
+         "--devices", "0", os.path.abspath(__file__), flag, root],
+        env=dict(os.environ, PYTHONPATH=here), cwd=here) for r in range(2)]
+    try:
+        codes = [p.wait(timeout=RING_WORKER_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        raise AssertionError(f"ring: {flag}'s workers exited {codes}")
+
+
+def ring_phase(card, dev):
+    """Phase 23: (a) the FSDP overlap on two gloo fsdp ranks, (b) the
+    ring and Ulysses on two gloo sp ranks, both on the one card through
+    the port's launcher; (c) the flash ring's blocks in this process."""
+    import shutil
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-ring-")
+    _drop()
+    try:
+        t0 = time.perf_counter()
+        _ring_launch("--overlap-worker", _free_port(), root)
+        a_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _ring_launch("--cp-worker", _free_port(), root)
+        b_s = time.perf_counter() - t0
+        with open(os.path.join(root, "ring_a.json")) as f:
+            a = json.load(f)
+        with open(os.path.join(root, "ring_b.json")) as f:
+            b = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _drop()
+    t0 = time.perf_counter()
+    c = _ring_blocks_part(dev)
+    c_s = time.perf_counter() - t0
+
+    problems = []
+    for name, part in (("(a)", a), ("(b)", b)):
+        if part["backend"] != "gloo" or part["world"] != 2:
+            problems.append(f"{name} backend {part['backend']}, world "
+                            f"{part['world']}")
+
+    def within(gap):
+        return gap["loss"] <= DP_LOSS_TOL and gap["grad"] <= DP_GRAD_TOL \
+            and gap["param"] <= DP_PARAM_TOL
+
+    if not a["p2p_bit_exact"]:
+        problems.append("(a) point-to-point between the gloo ranks on the "
+                        "card is not bit-exact")
+    if not within(a["gap"]):
+        problems.append(f"(a) overlap on against off: {a['gap']}")
+    want = {k: float(v) for k, v in a["want_per_step"].items()}
+    if a["launches_per_step"] != want:
+        problems.append(f"(a) launches per step {a['launches_per_step']} != "
+                        f"the count from the code {want}")
+    if a["rings_per_step"] != {k: float(v)
+                               for k, v in a["want_rings"].items()}:
+        problems.append(f"(a) rings and bytes per step {a['rings_per_step']}"
+                        f" != the count from the code {a['want_rings']}")
+    if not a["fault"]["grad"] > DP_GRAD_TOL:
+        problems.append(f"(a) the planted contract ring that multiplies its "
+                        f"own piece twice reads inside the gradient "
+                        f"tolerance: {a['fault']}")
+    for mode, m in b["modes"].items():
+        if not within(m["gap"]):
+            problems.append(f"(b) {mode} against one process: {m['gap']}")
+        if not m["launches_ok"]:
+            problems.append(f"(b) {mode} launches per step "
+                            f"{m['launches_per_step']} != the count from the "
+                            f"code {m['want_per_step']} (rank 0)")
+    for name, f in b["faults"].items():
+        if within(f):
+            problems.append(f"(b) the planted fault {name} reads inside the "
+                            f"tolerances: {f}")
+    ph = a["phases"]
+    out = dict(card=card, a=a, b=b, c=c, a_s=a_s, b_s=b_s, c_s=c_s,
+               launches={"overlap": a["launches"],
+                         **{mode: m["launches"]
+                            for mode, m in b["modes"].items()}},
+               seconds=time.perf_counter() - t_phase)
+    gap, rings = a["gap"], a["rings_per_step"]
+    print(f"[ring] {card}: (a) 2 fsdp ranks on {a['backend']} on the one "
+          f"card, TinyLlama-1.1B at 22 layers, {TP_BATCH[0]} x {TP_BATCH[1]} "
+          f"ids, overlap_fsdp with {OVL_CHUNKS} chunks, {TP_WARMUP} + "
+          f"{OVL_STEPS} steps: losses {a['losses']} against overlap off "
+          f"{a['ref_losses']}; gaps: loss {gap['loss']:.3e} (tol "
+          f"{DP_LOSS_TOL}), step 1 gradient {gap['grad']:.3e} (tol "
+          f"{DP_GRAD_TOL}), parameters {gap['param']:.3e} of the update (tol "
+          f"{DP_PARAM_TOL}); rings per step {rings} (the code's "
+          f"{a['want_rings']}); point-to-point bit-exact "
+          f"{a['p2p_bit_exact']}; launches per step = the count from the code "
+          f"{a['launches_per_step'] == want}; step {a['step_ms']:.1f} ms on, "
+          f"{a['ref_step_ms']:.1f} ms off (gloo through the host: no rate)")
+    print(f"[ring] {card}: (a) planted contract ring that multiplies its own "
+          f"piece twice: loss {a['fault']['loss']:.3e}, gradient "
+          f"{a['fault']['grad']:.3e}, parameters {a['fault']['param']:.3e}; "
+          f"measure_phase_seconds at {OVL_PHASE_LAYERS} layers: fwd "
+          f"{ph['fwd']:.3f} s, bwd {ph['bwd']:.3f} s, fwd_comm "
+          f"{ph['fwd_comm']:.3f} s, bwd_comm {ph['bwd_comm']:.3f} s, "
+          f"overlap_fraction {ph['overlap_fraction']} (gloo through the "
+          f"host, staged through pinned buffers: not a rate); worker "
+          f"{a['seconds']:.1f} s, stages "
+          f"{ {k: round(v, 1) for k, v in a['stages'].items()} }")
+    for mode, m in b["modes"].items():
+        print(f"[ring] {card}: (b) {mode}, 2 sp ranks on {b['backend']}, "
+              f"the same model at {CP_LAYERS} layers, 1 x {CP_SEQ} ids "
+              f"(2048 a rank), -100 from column {CP_PAD}, {TP_WARMUP} + "
+              f"{CP_STEPS} steps: losses {m['losses']} against one process "
+              f"{b['ref_losses']}; gaps "
+              f"{ {k: float(f'{v:.3e}') for k, v in m['gap'].items()} }; "
+              f"launches per step = the code's {m['launches_ok']}, flash "
+              f"forwards a step by rank {m['flash_fwd_by_rank']}; transport "
+              f"a step {m['counts_per_step']}; step {m['step_ms']:.1f} ms "
+              f"against one process's {b['ref_step_ms']:.1f} ms")
+    print(f"[ring] {card}: (b) planted faults, one step each: "
+          + "; ".join(f"{k}: loss {f['loss']:.3e}, gradient {f['grad']:.3e}, "
+                      f"parameters {f['param']:.3e}"
+                      for k, f in b["faults"].items())
+          + f"; worker {b['seconds']:.1f} s, stages "
+          f"{ {k: round(v, 1) for k, v in b['stages'].items()} }")
+    print(f"[ring] {card}: (c) the flash ring's {c['blocks']} live blocks "
+          f"over {c['shards']} shards of {RING_BLOCKS} bf16, causal, in this "
+          f"process: max |err| {c['err']}, |err| / bound "
+          f"{ {k: round(v, 3) for k, v in c['err_over_bound'].items()} } "
+          f"(the flash row rule, 2^-5) against the whole-sequence kernels; "
+          f"ms {c['ms']}; phase 23 {out['seconds']:.1f} s ((a) {a_s:.1f} s, "
+          f"(b) {b_s:.1f} s, (c) {c_s:.1f} s)")
+    if problems:
+        raise AssertionError("ring: " + "; ".join(problems))
+    return out
+
+
 # -- phase 8: training parity, card against CPU -----------------------------
 
 # bf16-compute parity: the loss within this fraction of itself, and each
@@ -8181,6 +8751,8 @@ def main(argv=None):
     ap.add_argument("--dp-worker", nargs=2, help=argparse.SUPPRESS)
     ap.add_argument("--tp-worker", help=argparse.SUPPRESS)
     ap.add_argument("--fsdp-worker", help=argparse.SUPPRESS)
+    ap.add_argument("--overlap-worker", help=argparse.SUPPRESS)
+    ap.add_argument("--cp-worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8194,6 +8766,10 @@ def main(argv=None):
         return tp_worker(args.tp_worker)
     if args.fsdp_worker:                # phase 22 (a)'s worker processes
         return fsdp_worker(args.fsdp_worker)
+    if args.overlap_worker:             # phase 23 (a)'s worker processes
+        return overlap_worker(args.overlap_worker)
+    if args.cp_worker:                  # phase 23 (b)'s worker processes
+        return cp_worker(args.cp_worker)
     from paddle_tpu_torch.kernels import _build, launch_counters
     from paddle_tpu_torch.kernels import blockwise_ce as bce
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -8261,6 +8837,7 @@ def main(argv=None):
     train_dp = dp_phase(card)
     train_tp = tp_phase(card, dev)
     train_fsdp = fsdp_phase(card, dev, counters, reset, train_tp)
+    train_ring = ring_phase(card, dev)
     serving_int8, model = int8_serving_phase(dev, counters, reset, card,
                                              serving, args.profile)
     serving_spec["c"] = spec_int8_part(model, counters, reset, card,
@@ -8284,6 +8861,12 @@ def main(argv=None):
                    "training_fsdp": train_fsdp["launches"].get(name, 0),
                    "training_offload": train_fsdp["offload_launches"].get(
                        name, 0),
+                   "training_overlap": train_ring["launches"][
+                       "overlap"].get(name, 0),
+                   "training_cp_ring": train_ring["launches"]["ring"].get(
+                       name, 0),
+                   "training_cp_ulysses": train_ring["launches"][
+                       "ulysses"].get(name, 0),
                    "serving_int8": serving_int8["launches"].get(name, 0),
                    **{path: features[path]["launches"].get(name, 0)
                       for path in ("tenancy", "kvtier", "disagg")},
@@ -8321,6 +8904,7 @@ def main(argv=None):
                        "training_dp": train_dp,
                        "training_tp": train_tp,
                        "training_fsdp": train_fsdp,
+                       "training_ring": train_ring,
                        "serving_int8": serving_int8,
                        "serving_spec": serving_spec,
                        "spec_parity": spec_parity,

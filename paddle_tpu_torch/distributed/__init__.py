@@ -7,7 +7,9 @@ launcher), tensor parallelism (`fleet`: init, the hybrid topology and
 strategy, the Megatron layers, distributed_model; imported at first
 use, as the JAX package's), ZeRO / FSDP (`sharding`:
 group_sharded_parallel and the gather with a reduce-scatter gradient;
-imported at first use too), checkpoints
+imported at first use too), context parallelism (`context_parallel`: the
+flash-kernel ring and Ulysses over 'sp'; imported at first use too),
+checkpoints
 (`checkpoint`, `async_checkpoint`), fault injection (`chaos`), retries
 (`retries`), the rendezvous store (`store`), hang detection
 (`watchdog`), restart and relaunch (`elastic`) and the training anomaly
@@ -18,8 +20,8 @@ from paddle_tpu_torch.distributed.api import (dtensor_from_fn, reshard,
                                               shard_tensor, unshard_dtensor)
 from paddle_tpu_torch.distributed.collective import (
     Group, ReduceOp, all_gather, all_reduce, alltoall, barrier, broadcast,
-    destroy_process_group, get_group, new_group, pmean, ppermute, psum,
-    recv, reduce, reduce_scatter, scatter, send)
+    destroy_process_group, get_group, new_group, pmean, ppermute,
+    ppermute_start, psum, recv, reduce, reduce_scatter, scatter, send)
 from paddle_tpu_torch.distributed.elastic import (
     ELASTIC_AUTO_PARALLEL_EXIT_CODE, ElasticManager, ElasticSupervisor,
     HaltTraining, StoreHeartbeat, run_resilient, safe_barrier)
@@ -47,7 +49,7 @@ all_to_all = alltoall   # the torch-style alias the reference also exposes
 
 
 def __getattr__(name):
-    if name in ("fleet", "sharding"):
+    if name in ("fleet", "sharding", "context_parallel"):
         import importlib
         mod = importlib.import_module(f"paddle_tpu_torch.distributed.{name}")
         globals()[name] = mod
@@ -67,6 +69,7 @@ __all__ = ["watchdog", "ElasticManager", "ElasticSupervisor",
            "get_group", "destroy_process_group", "all_reduce", "all_gather",
            "broadcast", "reduce", "reduce_scatter", "alltoall", "all_to_all",
            "scatter", "barrier", "send", "recv", "psum", "pmean", "ppermute",
+           "ppermute_start",
            "DataParallel", "init_parallel_env", "is_initialized", "get_rank",
            "get_world_size", "parallel_device_count", "ParallelEnv",
            "shard_tensor", "reshard", "shard_layer", "shard_optimizer",

@@ -32,7 +32,19 @@ the port takes each rank's own.
   and dtype, so `recv(tensor=None)` works); a send to this process's own
   rank queues locally for its `recv`, as the JAX facade pairs them.
 - `psum`, `pmean` and `ppermute(x, axis_name, perm)` work over the
-  current mesh's (mesh.py `get_mesh`) group for `axis_name`.
+  current mesh's (mesh.py `get_mesh`) group for `axis_name`;
+  `ppermute_start` posts the same transfer and returns a `P2PWork`
+  whose `wait()` gives the result, so a ring posts its next hop before
+  it launches the work on the resident piece (parallel/overlap.py,
+  distributed/context_parallel.py).
+- Gloo's point-to-point path reads and writes a tensor's memory from the
+  host, and a gloo group's `alltoall` runs as point-to-point pairs (gloo
+  has no all-to-all in every torch build), so for these a CUDA tensor on
+  a gloo group is staged through pinned host buffers: copied out
+  before the send, copied back onto the card after the receive, on the
+  caller's stream. The result stays on the card; a
+  group with NCCL for CUDA never stages (gloo's collectives stage CUDA
+  tensors internally).
 - Every collective registers with the watchdog for its dispatch and
   completion (`collective/<name>`), under the chaos site
   ``collective.dispatch/<name>`` while chaos is enabled, and completes
@@ -55,7 +67,8 @@ from paddle_tpu_torch.distributed import chaos, env, watchdog
 __all__ = ["ReduceOp", "Group", "new_group", "get_group",
            "destroy_process_group", "all_reduce", "all_gather", "broadcast",
            "reduce", "reduce_scatter", "alltoall", "scatter", "barrier",
-           "send", "recv", "psum", "pmean", "ppermute"]
+           "send", "recv", "psum", "pmean", "ppermute", "ppermute_start",
+           "P2PWork"]
 
 
 class ReduceOp:
@@ -363,17 +376,42 @@ def alltoall(in_tensor_list, out_tensor_list=None, group=None, sync_op=True):
         raise ValueError(f"{len(ins)} chunks for a {g.nranks}-rank group")
     if not g.is_member:
         return ins if listed else _tensor(in_tensor_list)
-    outs = [torch.empty_like(c) for c in ins]
+    staged = _staged(g, ins[0].device)
+    wire = [_to_host(c) for c in ins] if staged else ins
+    outs = [_host_buffer(c) if staged else torch.empty_like(c)
+            for c in wire]
     with _watched("alltoall", g, *outs):
         if chaos.ENABLED:
             chaos.maybe_delay("collective.dispatch/alltoall")
-        tdist.all_to_all(outs, ins, group=g.process_group)
+        if "gloo" in str(tdist.get_backend(g.process_group)):
+            _alltoall_p2p(outs, wire, g)
+        else:
+            tdist.all_to_all(outs, wire, group=g.process_group)
+    if staged:
+        outs = [o.to(ins[0].device, non_blocking=True) for o in outs]
     if not listed:
         return torch.stack(outs)
     if out_tensor_list is not None:
         out_tensor_list.clear()
         out_tensor_list.extend(outs)
     return outs
+
+
+def _alltoall_p2p(outs, ins, g):
+    """All-to-all as point-to-point pairs (gloo has no all_to_all in
+    every torch build): this rank keeps its own chunk and exchanges one
+    with each other rank."""
+    me = g.rank
+    outs[me].copy_(ins[me])
+    ops = []
+    for r in range(g.nranks):
+        if r != me:
+            ops.append(tdist.P2POp(tdist.isend, ins[r], g.ranks[r],
+                                   g.process_group))
+            ops.append(tdist.P2POp(tdist.irecv, outs[r], g.ranks[r],
+                                   g.process_group))
+    for w in tdist.batch_isend_irecv(ops) if ops else ():
+        w.wait()
 
 
 def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
@@ -423,6 +461,24 @@ _DTYPES = [torch.float32, torch.float16, torch.bfloat16, torch.float64,
            torch.bool]
 
 
+def _staged(g, dev):
+    """Whether a tensor on `dev` crosses group `g` through host memory: a
+    CUDA tensor on a group without NCCL for CUDA (module docstring)."""
+    return dev.type == "cuda" and "nccl" not in str(
+        tdist.get_backend(g.process_group))
+
+
+def _to_host(t):
+    """A pinned host copy of CUDA tensor `t`, complete when it returns."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _host_buffer(t):
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
 def send(tensor, dst=0, group=None, sync_op=True):
     """Point-to-point send to global rank `dst` (reference:
     communication/send.py), paired with its `recv`."""
@@ -433,19 +489,22 @@ def send(tensor, dst=0, group=None, sync_op=True):
     if dst == tdist.get_rank():
         _self_queue.setdefault(g.id, []).append(t.clone())
         return
-    head = torch.zeros(_HEADER, dtype=torch.int64, device=t.device)
+    staged = _staged(g, t.device)
+    head = torch.zeros(_HEADER, dtype=torch.int64,
+                       device="cpu" if staged else t.device)
     head[0], head[1] = _DTYPES.index(t.dtype), t.ndim
     head[2:2 + t.ndim] = torch.tensor(t.shape, dtype=torch.int64)
     with _watched("send", g, t):
         if chaos.ENABLED:
             chaos.maybe_delay("collective.dispatch/send")
         tdist.send(head, dst, group=g.process_group)
-        tdist.send(t, dst, group=g.process_group)
+        tdist.send(_to_host(t) if staged else t, dst, group=g.process_group)
 
 
 def recv(tensor=None, src=0, group=None, sync_op=True):
     """Receive global rank `src`'s next `send`: into `tensor` when given,
-    else into a new tensor on the group's device. Returns it."""
+    else into a new tensor on the world's device (the CPU before
+    init_parallel_env). Returns it."""
     g = _get_group(group)
     if src == tdist.get_rank():
         queued = _self_queue.get(g.id)
@@ -457,16 +516,23 @@ def recv(tensor=None, src=0, group=None, sync_op=True):
             return val
         tensor.copy_(val)
         return tensor
-    dev = tensor.device if tensor is not None else _device(g)
-    head = torch.zeros(_HEADER, dtype=torch.int64, device=dev)
+    dev = tensor.device if tensor is not None else (
+        env.world_device() or torch.device("cpu"))
+    staged = _staged(g, dev)
+    wire = torch.device("cpu") if staged else dev
+    head = torch.zeros(_HEADER, dtype=torch.int64, device=wire)
     with _watched("recv", g, head):
         if chaos.ENABLED:
             chaos.maybe_delay("collective.dispatch/recv")
         tdist.recv(head, src, group=g.process_group)
     code, ndim, *dims = head.tolist()
-    buf = torch.empty(dims[:ndim], dtype=_DTYPES[code], device=dev)
+    shape, dtype = dims[:ndim], _DTYPES[code]
+    buf = (torch.empty(shape, dtype=dtype, pin_memory=True) if staged
+           else torch.empty(shape, dtype=dtype, device=dev))
     with _watched("recv", g, buf):
         tdist.recv(buf, src, group=g.process_group)
+    if staged:
+        buf = buf.to(dev, non_blocking=True)
     if tensor is None:
         return buf
     tensor.copy_(buf)
@@ -493,28 +559,73 @@ def pmean(x, axis_name):
     return all_reduce(_tensor(x).clone(), ReduceOp.AVG, _axis_group(axis_name))
 
 
-def ppermute(x, axis_name, perm):
-    """`perm` = [(source index, destination index)] along `axis_name`:
-    this rank's `x` goes to its destinations; it returns what its source
-    sent, or zeros when nothing is sent to it (jax.lax.ppermute)."""
-    g = _axis_group(axis_name)
+class P2PWork:
+    """An in-flight `ppermute_start`. `wait()` waits for the transfer
+    (on the card: orders the caller's stream after it) and returns what
+    this rank's source sent, or zeros when nothing is sent to it; a
+    second `wait()` returns the same tensor. `nbytes` is what this rank
+    sent."""
+
+    def __init__(self, out, works, host_out, keep, op, nbytes):
+        self._out, self._works, self._host_out = out, works, host_out
+        self._keep, self._op, self.nbytes = keep, op, nbytes
+
+    def wait(self):
+        if self._works is None:
+            return self._out
+        try:
+            for w in self._works:
+                w.wait()
+        except BaseException:
+            watchdog.end(self._op)
+            raise
+        if self._host_out is not None:
+            self._out.copy_(self._host_out, non_blocking=True)
+        self._works = self._keep = self._host_out = None
+        watchdog.complete_when_ready(self._op, (self._out,))
+        return self._out
+
+
+def ppermute_start(x, axis_name, perm, group=None):
+    """Post `ppermute(x, axis_name, perm)` and return its `P2PWork`
+    without waiting for the transfer. `group` (a collective.Group) stands
+    for the current mesh's `axis_name` group when given."""
+    g = group if group is not None else _axis_group(axis_name)
     x = _tensor(x).contiguous()
     out = torch.zeros_like(x)
     me = g.rank
+    staged = _staged(g, x.device)
+    send_to = [d for s, d in perm if s == me and d != me]
+    recv_from = [s for s, d in perm if d == me and s != me]
+    src = x if not (staged and send_to) else _to_host(x)
+    host_out = _host_buffer(x) if staged and recv_from else None
+    if host_out is not None:
+        host_out.zero_()
     ops = []
     for s, d in perm:
         if s == me and d == me:
             out.copy_(x)
         elif s == me:
-            ops.append(tdist.P2POp(tdist.isend, x, g.ranks[d],
+            ops.append(tdist.P2POp(tdist.isend, src, g.ranks[d],
                                    g.process_group))
         elif d == me:
-            ops.append(tdist.P2POp(tdist.irecv, out, g.ranks[s],
-                                   g.process_group))
-
-    with _watched("ppermute", g, out):
+            ops.append(tdist.P2POp(
+                tdist.irecv, out if host_out is None else host_out,
+                g.ranks[s], g.process_group))
+    op = watchdog.begin(f"collective/ppermute ranks={g.ranks}", g.timeout_ms)
+    try:
         if chaos.ENABLED:
             chaos.maybe_delay("collective.dispatch/ppermute")
-        for w in tdist.batch_isend_irecv(ops) if ops else ():
-            w.wait()
-    return out
+        works = tdist.batch_isend_irecv(ops) if ops else []
+    except BaseException:
+        watchdog.end(op)
+        raise
+    return P2PWork(out, works, host_out, src, op,
+                   len(send_to) * x.numel() * x.element_size())
+
+
+def ppermute(x, axis_name, perm):
+    """`perm` = [(source index, destination index)] along `axis_name`:
+    this rank's `x` goes to its destinations; it returns what its source
+    sent, or zeros when nothing is sent to it (jax.lax.ppermute)."""
+    return ppermute_start(x, axis_name, perm).wait()

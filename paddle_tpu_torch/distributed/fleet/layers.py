@@ -26,6 +26,11 @@ carries `_mp_shard` (an `MPShard`: the group, the dim cut and, for a
 fused projection, the parts cut one by one), which the optimizer's
 norms, the Trainer's checkpoints and `gather_full` read.
 
+Inside parallel/overlap.py's `overlap_fsdp_guard`, a column- or
+row-parallel layer whose mp-local weight is also cut over 'fsdp' takes
+its local product through the overlap ring (`overlap.ring_product`),
+between the f-op and the g-op, which stay as they are.
+
 `ParallelCrossEntropy` over vocab-sharded logits runs the reference
 layer's three all-reduces: the row max, the sum of exponents and the
 label's logit (the JAX layer is plain cross entropy under GSPMD). The
@@ -53,6 +58,7 @@ from torch.nn import functional as tF
 
 from paddle_tpu_torch.distributed import collective
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.parallel import overlap
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy",
@@ -241,7 +247,7 @@ class ColumnParallelLinear(nn.Linear):
     def forward(self, x):
         if self.mp_group is None:
             return super().forward(x)
-        out = tF.linear(copy_to_mp(x, self.mp_group), self.weight, self.bias)
+        out = overlap.ring_product(self, copy_to_mp(x, self.mp_group))
         return gather_from_mp(out, self.mp_group) if self.gather_output \
             else out
 
@@ -282,8 +288,9 @@ class RowParallelLinear(nn.Linear):
             return super().forward(x)
         if not self.input_is_parallel:
             x = scatter_to_mp(x, g)
-        out = reduce_from_mp(tF.linear(x, self.weight), g)
-        return out if self.bias is None else out + self.bias
+        if self.bias is None:
+            return reduce_from_mp(overlap.ring_product(self, x), g)
+        return reduce_from_mp(tF.linear(x, self.weight), g) + self.bias
 
 
 class VocabParallelEmbedding(nn.Embedding):

@@ -22,6 +22,9 @@ itself, as parallel/plan.py `apply_plan` and fleet/layers.py do for 'mp':
   piece back. A read outside the module's own forward (the tied head,
   the blockwise loss's head weight, the fused RMSNorm's weight) goes
   through `gathered(module, name)`.
+- a module whose weight the FSDP overlap ring carries (parallel/
+  overlap.py `linear` sets `_fsdp_ring` for the call) does not gather
+  it: the ring streams its pieces under the products instead.
 
 Under `recompute` a checkpointed layer's gathers run again in the
 backward's recomputation, ZeRO-3's re-gather, and the forward keeps only
@@ -125,8 +128,11 @@ def _pre_forward(module, args):
     cuts = module._fsdp_cuts
     saved = {name: module._parameters[name] for name in cuts}
     module._fsdp_saved.append(saved)
+    # a weight the FSDP overlap ring carries stays cut (parallel/overlap.py)
+    ring = getattr(module, "_fsdp_ring", None)
     for name, cut in cuts.items():
-        module._parameters[name] = gather_param(saved[name], cut)
+        if ring is None or name != "weight":
+            module._parameters[name] = gather_param(saved[name], cut)
 
 
 def _post_forward(module, args, out):
@@ -201,8 +207,9 @@ def whole_shape(local, cuts):
 
 
 def summed_axes(p):
-    """The mesh axes over which the gather of `p` already sums its
-    gradient (the Trainer's reducer leaves them out)."""
+    """The mesh axes over which the gather of `p` (or the overlap ring
+    that carries it) already sums its gradient (the Trainer's reducer
+    leaves them out)."""
     cut = getattr(p, "_fsdp_shard", None)
     return () if cut is None else (cut.axis,)
 

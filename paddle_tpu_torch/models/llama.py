@@ -7,8 +7,15 @@ shifted next-token loss and the logits, with flash attention
 (`use_flash_attention`) and per-layer recomputation (`recompute`) as in
 the JAX package. With `loss_chunk > 0` the loss is the blockwise cross
 entropy (kernels/blockwise_ce.py) straight from the final hidden states,
-and the forward returns (loss, None), as in JAX. The FSDP overlap
-(paddle_tpu/parallel/overlap.py) is not ported yet.
+and the forward returns (loss, None), as in JAX. Each projection goes
+through parallel/overlap.py `linear` (JAX `_maybe_overlap_linear`):
+inside the Trainer's `overlap_fsdp_guard` an fsdp-cut projection takes
+the overlap ring, else it is the module's own call. Inside
+distributed/context_parallel.py's guard the causal attention (flash or
+plain) runs over the sequence cut; `position_ids` then carry the shard's
+global positions, for the plain and the fused RoPE alike, and the
+Trainer passes labels already shifted over the whole sequence with
+`label_shift=False`.
 
 With an int or 0-d tensor `cache_index` and per-layer (k, v) buffers
 of (B, max_len, Hk, D) as `caches`, the forward is the dense-cache step
@@ -64,10 +71,12 @@ from paddle_tpu_torch.kernels.fused_norm import (rms_norm_residual,
                                                  rope_apply, rope_tables)
 from paddle_tpu_torch.models.generation import generate, kv_cache_update
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.parallel.overlap import linear as _project
 
 __all__ = ["LlamaConfig", "llama3_8b_config", "tiny_llama_config",
            "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
            "LlamaForCausalLM", "next_token_loss", "next_token_loss_blockwise",
+           "shift_labels",
            "param_count", "flops_per_token"]
 
 
@@ -122,46 +131,55 @@ def tiny_llama_config(**overrides) -> LlamaConfig:
 
 
 def next_token_loss(logits, labels, vocab_size, mp_group=None,
-                    vocab_start=0):
+                    vocab_start=0, shift=True):
     """Shifted next-token cross entropy: position t scores labels[t+1];
     the last position is marked ignore_index (-100) instead of slicing
     the logits, and the mean leaves ignored rows out (JAX
     `next_token_loss`). With an `mp_group`, `logits` hold this rank's
     vocab columns from global id `vocab_start` on (a vocab-sharded
-    head)."""
+    head). `shift=False`: position t scores labels[t] (shifted before)."""
+    target = _shifted(labels) if shift else labels.reshape(-1)
     if mp_group is not None:
         return parallel_cross_entropy(
-            logits.reshape(-1, logits.shape[-1]), _shifted(labels),
+            logits.reshape(-1, logits.shape[-1]), target,
             mp_group, vocab_start, ignore_index=-100)
-    return F.cross_entropy(logits.reshape(-1, vocab_size),
-                           _shifted(labels), ignore_index=-100)
+    return F.cross_entropy(logits.reshape(-1, vocab_size), target,
+                           ignore_index=-100)
+
+
+def shift_labels(labels):
+    """(B, S) next-token targets: labels[:, t + 1] at position t, -100 at
+    the last (what the loss scores; the Trainer's sequence cut takes them
+    before it cuts)."""
+    b = labels.shape[0]
+    return torch.cat([labels[:, 1:], torch.full(
+        (b, 1), -100, dtype=labels.dtype, device=labels.device)], dim=1)
 
 
 def _shifted(labels):
     """labels[:, t + 1] at position t, -100 at the last, flattened."""
-    b = labels.shape[0]
-    return torch.cat([labels[:, 1:], torch.full(
-        (b, 1), -100, dtype=labels.dtype, device=labels.device)],
-        dim=1).reshape(-1)
+    return shift_labels(labels).reshape(-1)
 
 
 def next_token_loss_blockwise(hidden, weight, labels, config,
                               transpose_w=False, mp_group=None,
-                              vocab_start=0):
+                              vocab_start=0, shift=True):
     """Shifted next-token CE straight from the final hidden states, the
     lm_head projection fused into the blockwise loss: the [B*S, vocab]
     logits never exist. `weight` is (D, V), or (V, D) with transpose_w;
     the same label shift and ignore_index as `next_token_loss` (JAX
     `next_token_loss_blockwise`). With an `mp_group`, `weight` is this
-    rank's (V/n, D) vocab shard from global id `vocab_start` on."""
+    rank's (V/n, D) vocab shard from global id `vocab_start` on.
+    `shift=False`: position t scores labels[t] (shifted before)."""
+    target = _shifted(labels) if shift else labels.reshape(-1)
     if mp_group is not None:
         w = weight if transpose_w else weight.t().contiguous()
         return vocab_parallel_ce_loss(
-            hidden.reshape(-1, hidden.shape[-1]), w, _shifted(labels),
+            hidden.reshape(-1, hidden.shape[-1]), w, target,
             vocab_start=vocab_start, group=mp_group, chunk=config.loss_chunk,
             vocab_block=config.loss_vocab_block, ignore_index=-100)
     return F.blockwise_cross_entropy(
-        hidden.reshape(-1, hidden.shape[-1]), weight, _shifted(labels),
+        hidden.reshape(-1, hidden.shape[-1]), weight, target,
         chunk=config.loss_chunk, vocab_block=config.loss_vocab_block,
         ignore_index=-100, transpose_w=transpose_w)
 
@@ -210,12 +228,12 @@ class LlamaAttention(nn.Module):
         b, s = hidden_states.shape[0], hidden_states.shape[1]
         hq, hk, hd = self.local_heads()
         if cfg.fuse_attention_qkv:
-            q, k, v = torch.split(self.qkv_proj(hidden_states),
+            q, k, v = torch.split(_project(self.qkv_proj, hidden_states),
                                   [hq * hd, hk * hd, hk * hd], dim=-1)
         else:
-            q = self.q_proj(hidden_states)
-            k = self.k_proj(hidden_states)
-            v = self.v_proj(hidden_states)
+            q = _project(self.q_proj, hidden_states)
+            k = _project(self.k_proj, hidden_states)
+            v = _project(self.v_proj, hidden_states)
         # contiguous: the RoPE kernel takes dense (B, S, H, D) rows
         q = q.reshape(b, s, hq, hd).contiguous()
         k = k.reshape(b, s, hk, hd).contiguous()
@@ -238,7 +256,7 @@ class LlamaAttention(nn.Module):
             out = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask,
                 is_causal=attn_mask is None).reshape(b, s, hq * hd)
-        return self.o_proj(out)
+        return _project(self.o_proj, out)
 
     def local_heads(self):
         """(query heads, kv heads, head dim) this rank computes: the
@@ -295,10 +313,11 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x):
         if self.fuse_ffn:
-            h = F.swiglu(self.gate_up_fused_proj(x))
+            h = F.swiglu(_project(self.gate_up_fused_proj, x))
         else:
-            h = F.swiglu(self.gate_proj(x), self.up_proj(x))
-        return self.down_proj(h)
+            h = F.swiglu(_project(self.gate_proj, x),
+                         _project(self.up_proj, x))
+        return _project(self.down_proj, h)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -448,7 +467,8 @@ class LlamaForCausalLM(nn.Module):
         return gather_from_mp(self._local_logits(hidden), self._head()[1])
 
     def forward(self, input_ids, position_ids=None, caches=None,
-                cache_index=None, labels=None, attn_mask=None):
+                cache_index=None, labels=None, attn_mask=None,
+                label_shift=True):
         """Logits (B, S, vocab). With `caches`/`cache_index` (a
         PagedState), the paged forward: pools are updated in place. With
         dense (k_buf, v_buf) `caches` and an int or 0-d tensor
@@ -458,7 +478,8 @@ class LlamaForCausalLM(nn.Module):
         it takes the plain masked attention. With `labels` (B, S), (loss,
         logits): the shifted next-token loss, f32 (a no-cache forward
         only); with `loss_chunk > 0`, (loss, None): the blockwise loss
-        builds no logits to return."""
+        builds no logits to return. `label_shift=False`: `labels` are
+        the next-token targets already (position t scores labels[t])."""
         if labels is not None and caches is not None:
             raise ValueError("KV-cache decode is inference-only; drop "
                              "labels or caches")
@@ -472,12 +493,13 @@ class LlamaForCausalLM(nn.Module):
             # (out, in) weight
             return next_token_loss_blockwise(
                 h, gathered(head), labels, self.config, transpose_w=True,
-                mp_group=group, vocab_start=start), None
+                mp_group=group, vocab_start=start, shift=label_shift), None
         logits = self._local_logits(h)
         if labels is None:
             return gather_from_mp(logits, group)
         loss = next_token_loss(logits, labels, self.config.vocab_size,
-                               mp_group=group, vocab_start=start)
+                               mp_group=group, vocab_start=start,
+                               shift=label_shift)
         if group is not None:
             logits = gather_from_mp(logits.detach(), group)
         return loss, logits

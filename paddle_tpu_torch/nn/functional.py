@@ -14,6 +14,10 @@
   the mask hides entirely gives 0, not NaN;
 - `flash_attention`: nn/functional/attention.py `flash_attention` over
   the flash kernels (kernels/flash_attention.py);
+- inside distributed/context_parallel.py's `context_parallel_guard`, a
+  causal, mask-free attention of either kind runs over the sequence cut
+  (the flash ring or Ulysses for `flash_attention`, their plain
+  versions for `scaled_dot_product_attention`);
 - `cross_entropy`: the pretrain-shape fast path of nn/functional/loss.py
   (`_ce_mean_fused`): f32 log-softmax, mean over the rows that are not
   `ignore_index`, the gradient in the logits' type;
@@ -72,6 +76,18 @@ def rope_neox(x, position_ids=None, theta=10000.0):
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, is_causal=False,
                                  scale=None):
+    """`_sdpa_plain`; inside distributed/context_parallel.py's guard a
+    causal, mask-free call on this rank's sequence shard goes to the
+    guard's plain ring or Ulysses attention instead (JAX `_sdpa`)."""
+    if is_causal and attn_mask is None and scale is None:
+        from paddle_tpu_torch.distributed import context_parallel as cp
+        if cp._cp_state["mode"]:
+            return cp.dispatch_context_parallel(q, k, v, True,
+                                                use_flash=False)
+    return _sdpa_plain(q, k, v, attn_mask, is_causal, scale)
+
+
+def _sdpa_plain(q, k, v, attn_mask=None, is_causal=False, scale=None):
     """softmax(q kᵀ · scale + mask) v on (B, S, H, D) inputs, k/v (B, L,
     Hk, D): query head h reads kv head h // (H/Hk), the head a repeat of
     the kv heads gives it, without the repeated copy. `attn_mask` is
@@ -106,7 +122,15 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, is_causal=False,
 
 def flash_attention(query, key, value, causal=False):
     """(B, S, H, D) flash attention; returns (out, None) like the JAX
-    package's (out, softmax placeholder) pair."""
+    package's (out, softmax placeholder) pair. Inside distributed/
+    context_parallel.py's guard a causal call on this rank's sequence
+    shard goes to the guard's flash ring or Ulysses attention (JAX
+    `_flash_attention`)."""
+    if causal:
+        from paddle_tpu_torch.distributed import context_parallel as cp
+        if cp._cp_state["mode"]:
+            return cp.dispatch_context_parallel(query, key, value, True), \
+                None
     return flash_attention_bshd(query, key, value, causal=causal), None
 
 

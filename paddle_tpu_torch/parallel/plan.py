@@ -34,9 +34,10 @@ norms stay whole.
 A dim that does not divide by the mp or the fsdp extent, and fewer kv
 (or query) heads than the mp extent, raise ValueError naming the
 parameter (the JAX package pads such a dim). A parameter placed on
-'sp', 'pp' or 'ep' of extent > 1 raises NotImplementedError naming the
-slice it waits for; axes of extent 1 replicate, as the JAX plan does
-through `_axis`.
+'sp' of extent > 1 raises NotImplementedError (the sequence axis cuts
+activations, never weights: distributed/context_parallel.py), and one
+placed on 'pp' or 'ep' names the slice it waits for; axes of extent 1
+replicate, as the JAX plan does through `_axis`.
 """
 from __future__ import annotations
 
@@ -113,8 +114,7 @@ def batch_spec(mesh_axes: Sequence[str], seq_sharded: bool = True) -> P:
 
 
 # the slice each axis still waits for
-WAITS = {"sp": "the context-parallel slice (distributed/context_parallel.py)",
-         "pp": "the pipeline slice (distributed/pipeline.py)",
+WAITS = {"pp": "the pipeline slice (distributed/pipeline.py)",
          "ep": "the expert-parallel (MoE) slice"}
 
 
@@ -130,11 +130,14 @@ def check_plan(names, mesh, plan: ShardingPlan):
             for ax in _axes_of(entry):
                 if ax is not None and ax not in ("mp", "fsdp") \
                         and mesh.get_dim_size(ax) > 1:
+                    why = ("the context-parallel axis cuts activations "
+                           "(distributed/context_parallel.py), never "
+                           "parameters" if ax == "sp" else "it waits for "
+                           + WAITS.get(ax, "a later slice"))
                     raise NotImplementedError(
                         f"{name}: spec {plan.spec_for(name)} on mesh "
                         f"{dict(zip(mesh.dim_names, mesh.shape))}: placing "
-                        f"a parameter on {ax!r} of extent > 1 waits for "
-                        f"{WAITS.get(ax, 'a later slice')}")
+                        f"a parameter on {ax!r} of extent > 1: {why}")
 
 
 def _on_mp(spec, dim):

@@ -101,8 +101,27 @@ without waiting for the device.
   masters) into the whole tensor, over fsdp and then mp, so a
   checkpoint is the one a mesh-free Trainer writes, and
   `load_checkpoint` cuts it back. A mesh without a 'dp' or 'fsdp' axis
-  gives every rank the whole batch. An 'sp', 'pp' or 'ep' axis of
-  extent > 1 raises NotImplementedError naming the slice it waits for.
+  gives every rank the whole batch. A 'pp' or 'ep' axis of extent > 1
+  raises NotImplementedError naming the slice it waits for.
+- FSDP overlap (`overlap_fsdp`, `overlap_chunks`; on an 'fsdp' axis of
+  extent > 1, else nothing): the forward and the backward run inside
+  parallel/overlap.py's `overlap_fsdp_guard`, so each fsdp-cut
+  projection of the model is a point-to-point ring that streams the
+  weight pieces under its products instead of a gather ahead of them
+  (the same math); `measure_phase_seconds` then adds the weight
+  collectives' seconds and the overlap fraction.
+- Context parallelism (an 'sp' axis of extent > 1, with
+  `context_parallel` "ring" or "ulysses"; None raises ValueError, since
+  the port's flash kernel refuses the sq != sk attention XLA would run):
+  rank r of the sp group keeps tokens [r S/n, (r+1) S/n) of its rows
+  (contiguous shards, as the JAX package lays them out). The labels are
+  shifted over the whole sequence before the cut (a shard's last
+  position scores the next shard's first label) and the model takes
+  them with `label_shift=False`; `position_ids` carry the shard's
+  global positions; the forward and backward run inside
+  distributed/context_parallel.py's guard, so the causal attention
+  spans the whole sequence; and 'sp' joins the batch group: the valid
+  tokens, the loss and every gradient are summed over dp x fsdp x sp.
 - `offload_opt_state` (or the `_sharding_offload` hint that
   `group_sharded_parallel(offload=True)` leaves on the model): on the
   card, the optimizer's moments and masters live in pinned host memory
@@ -113,11 +132,11 @@ without waiting for the device.
 
 Making the model trainable (every parameter requires a gradient,
 training mode) is the Trainer's job: a model built for serving carries
-no autograd graph. The FSDP overlap (parallel/overlap.py) and its
-columns of the phase timing are not ported yet.
+no autograd graph.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -133,7 +152,8 @@ from paddle_tpu_torch.distributed.sharding import (cut_whole, cuts_of,
 from paddle_tpu_torch.io.prefetch import DevicePrefetcher
 from paddle_tpu_torch.optimizer import global_grad_norm, shard_groups
 
-__all__ = ["TrainStepConfig", "Trainer", "NonFiniteGradError"]
+__all__ = ["TrainStepConfig", "Trainer", "NonFiniteGradError",
+           "ContextParallelRequired"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -155,6 +175,22 @@ class TrainStepConfig:
     # steps, copied to the card for the update: frees 8 bytes a
     # parameter of device memory for a host round trip a step
     offload_opt_state: bool = False
+    # cut each row's sequence over 'sp' (the port cuts it to run 'sp')
+    shard_batch_seq: bool = True
+    # the attention over an 'sp' axis: "ring" | "ulysses"
+    # (distributed/context_parallel.py)
+    context_parallel: str | None = None
+    # the fsdp-cut projections as point-to-point rings over 'fsdp' that
+    # stream the weight pieces under the products (parallel/overlap.py);
+    # overlap_chunks = sub-chunks per resident piece
+    overlap_fsdp: bool = False
+    overlap_chunks: int = 1
+
+
+class ContextParallelRequired(ValueError, NotImplementedError):
+    """An 'sp' axis of extent > 1 without `context_parallel`: a bad
+    configuration, and what the port does not run (the attention XLA
+    would run there takes sq != sk)."""
 
 
 class NonFiniteGradError(RuntimeError):
@@ -216,25 +252,42 @@ class Trainer:
                 self.config.offload_opt_state = False
 
     def _parallel(self, mesh, plan):
-        """{"size", "index": this rank's batch group (dp x fsdp) and its
-        index in it, "group": that group (None for one rank), "batch":
-        its axes, "sums": [(axes, GradReducer, parameters)], each
-        parameter's gradient summed over the batch axes its cut did not
-        sum over} for a mesh whose axes of extent > 1 are 'dp', 'fsdp'
-        and 'mp'; the model cut by `plan`."""
+        """{"size", "index": this rank's row group (dp x fsdp) and its
+        index in it, "sp": (extent, this rank's coordinate) of an 'sp'
+        axis of extent > 1 or None, "group": the batch group, the row
+        group times 'sp' (None for one rank), "batch": its axes, "sums":
+        [(axes, GradReducer, parameters)], each parameter's gradient
+        summed over the batch axes its cut did not sum over} for a mesh
+        whose axes of extent > 1 are 'dp', 'fsdp', 'sp' and 'mp'; the
+        model cut by `plan`."""
         from paddle_tpu_torch.distributed import sharding
         from paddle_tpu_torch.distributed.fleet.layers import _PARALLEL
         from paddle_tpu_torch.distributed.parallel import GradReducer
         from paddle_tpu_torch.parallel.plan import WAITS, apply_plan
         axes = dict(zip(mesh.dim_names, mesh.shape))
         others = {a: n for a, n in axes.items()
-                  if a not in ("dp", "fsdp", "mp") and n > 1}
+                  if a not in ("dp", "fsdp", "sp", "mp") and n > 1}
         if others:
             ax = next(iter(others))
             raise NotImplementedError(
                 f"mesh axes {others}: the port's Trainer runs data, "
-                f"sharded-data (FSDP) and tensor parallelism; {ax!r} waits "
-                f"for {WAITS.get(ax, 'a later slice')}")
+                f"sharded-data (FSDP), sequence (context) and tensor "
+                f"parallelism; {ax!r} waits for "
+                f"{WAITS.get(ax, 'a later slice')}")
+        sp = axes.get("sp", 1)
+        if sp > 1 and self.config.context_parallel not in ("ring",
+                                                           "ulysses"):
+            raise ContextParallelRequired(
+                f"an 'sp' axis of extent {sp} needs the context-parallel "
+                f"attention, TrainStepConfig.context_parallel 'ring' or "
+                f"'ulysses' (got "
+                f"{self.config.context_parallel!r}): the JAX package lets "
+                "XLA gather K/V and attend at sq != sk, which the port's "
+                "flash kernel refuses (ROADMAP.md queue 2 A item 1)")
+        if sp > 1 and not self.config.shard_batch_seq:
+            raise ValueError(
+                f"an 'sp' axis of extent {sp} with shard_batch_seq=False: "
+                "the port runs 'sp' by cutting each row's sequence over it")
         mp = axes.get("mp", 1)
         if plan is not None:
             apply_plan(self.model, mesh, plan)
@@ -244,16 +297,18 @@ class Trainer:
                 f"an mp axis of extent {mp} needs a plan (or a model cut by "
                 "fleet.distributed_model); the port never replicates the "
                 "whole model over the mp ranks")
-        batch = tuple(a for a in ("dp", "fsdp") if axes.get(a, 1) > 1)
+        rows = tuple(a for a in ("dp", "fsdp") if axes.get(a, 1) > 1)
+        batch = rows + (("sp",) if sp > 1 else ())
         out = {"size": 1, "index": 0, "group": None, "batch": batch,
+               "sp": (sp, mesh.coordinate("sp")) if sp > 1 else None,
                "sums": []}
         if not batch:
             return out
         index = 0
-        for a in batch:
+        for a in rows:
             index = index * axes[a] + mesh.coordinate(a)
-        group = mesh.get_group(batch)
-        out.update(size=group.nranks, index=index, group=group)
+            out["size"] *= axes[a]
+        out.update(index=index, group=mesh.get_group(batch))
         by_axes = {batch: []}            # the loss rides the batch group
         for p in self.model.parameters():
             done = sharding.summed_axes(p)
@@ -268,6 +323,10 @@ class Trainer:
         return next(self.model.parameters()).device
 
     def _loss(self, batch):
+        if self._dp is not None and self._dp.get("sp") is not None \
+                and "labels" in batch:
+            # the sequence cut shifted the labels over the whole sequence
+            batch = dict(batch, label_shift=False)
         if self._dtype is None:
             out = self.model(**batch)
         else:
@@ -276,6 +335,32 @@ class Trainer:
             out = torch.func.functional_call(self.model, params, (), batch)
         loss = out[0] if isinstance(out, (tuple, list)) else out
         return loss.float()
+
+    def _guards(self, overlap=None):
+        """The step's parallel contexts, around its forward AND backward
+        (a recomputed layer reruns its forward there):
+        distributed/context_parallel.py's guard over 'sp' and
+        parallel/overlap.py's over 'fsdp' (`overlap` overrides
+        config.overlap_fsdp; it does nothing without an 'fsdp' axis of
+        extent > 1)."""
+        stack = contextlib.ExitStack()
+        cfg = self.config
+        if self._dp is None:
+            return stack
+        if self._dp.get("sp") is not None:
+            from paddle_tpu_torch.distributed.context_parallel import (
+                context_parallel_guard)
+            stack.enter_context(context_parallel_guard(
+                self.mesh, axis="sp", mode=cfg.context_parallel))
+        if cfg.overlap_fsdp if overlap is None else overlap:
+            if "fsdp" in self.mesh.dim_names \
+                    and self.mesh.get_dim_size("fsdp") > 1:
+                from paddle_tpu_torch.parallel.overlap import (
+                    overlap_fsdp_guard)
+                stack.enter_context(overlap_fsdp_guard(
+                    self.mesh, axis="fsdp",
+                    chunks=max(1, cfg.overlap_chunks)))
+        return stack
 
     def _place(self, batch):
         """The batch's leaves as tensors on the model's device; a leaf
@@ -291,7 +376,8 @@ class Trainer:
     def _local_rows(self, batch):
         """This rank's rows of a global batch: microbatch i of the JAX
         loop is global rows [i B/n, (i+1) B/n), and rank r keeps the r-th
-        of its batch group's slices."""
+        of its row group's slices; with 'sp', its sequence shard of
+        them (`_seq_shard`)."""
         dp, r = self._dp["size"], self._dp["index"]
         n_mb = self.config.grad_accum_steps
         out = {}
@@ -306,22 +392,30 @@ class Trainer:
                     f"batch group's {dp} ranks x {n_mb} microbatches")
             rows = v.reshape((n_mb, dp, b // (dp * n_mb)) + tuple(v.shape[1:]))
             out[k] = rows[:, r].reshape((b // dp,) + tuple(v.shape[1:]))
+        if self._dp.get("sp") is not None:
+            out = _seq_shard(out, *self._dp["sp"])
         return _LocalBatch(out)
 
     def _token_scales(self, mbs):
         """(n_mb,) f32: each microbatch's weight on this rank, its valid
         tokens over the batch group's (the loss is the mean over the
         global valid tokens); a group of one rank all-reduces nothing."""
-        counts = torch.stack([_valid_tokens(mb) for mb in mbs]).float()
+        shifted = self._dp.get("sp") is not None
+        counts = torch.stack([_valid_tokens(mb, shifted)
+                              for mb in mbs]).float()
         total = counts.clone()
         if self._dp["group"] is not None:
             collective.all_reduce(total, group=self._dp["group"])
         return counts / total.clamp(min=1.0)     # 0 where none is valid
 
-    def _forward_backward(self, batch, backward=True):
+    def _forward_backward(self, batch, backward=True, overlap=None):
         """The mean loss over the microbatches, and, with `backward`,
         their mean gradients in the parameters' `.grad` (with a mesh:
-        this rank's share of the global ones)."""
+        this rank's share of the global ones), inside `_guards`."""
+        with self._guards(overlap):
+            return self._microbatches(batch, backward)
+
+    def _microbatches(self, batch, backward):
         n_mb = self.config.grad_accum_steps
         if n_mb == 1:
             mbs = [batch]
@@ -498,9 +592,12 @@ class Trainer:
         else:
             tokens = seq = 0
         if self._dp is not None:
-            # this rank's rows are the global batch over dp; its tokens
-            # the global batch over the mesh's size
-            tokens = tokens * self._dp["size"] / self.mesh.size
+            # this rank's rows (and sequence shard) are the global batch
+            # over its batch group; its tokens the global batch over the
+            # mesh's size
+            group = self._dp["group"]
+            tokens = tokens * (1 if group is None else group.nranks) \
+                / self.mesh.size
         self._tel_prev = [tokens, seq, None]
         self._note_logits_bytes_saved(tokens)
 
@@ -574,7 +671,18 @@ class Trainer:
 
         each a mean over `iters` runs after one warm-up, synchronised on
         the card. Returns {"fwd", "bwd", "optimizer", "step"} seconds. The
-        full-step timing drives `iters + 1` real optimizer steps."""
+        full-step timing drives `iters + 1` real optimizer steps.
+
+        With overlap_fsdp on an 'fsdp' axis of extent > 1 two more twin
+        pairs run: `propagated` (the ring forced off: gather-at-use) and
+        `nocomm` (every fsdp-cut weight whole on each rank, gathered once
+        before and cut back after, so no weight collective runs), and the
+        result grows {"fwd_comm", "bwd_comm"} (propagated - nocomm per
+        phase: the weight collectives' seconds) and {"overlap_fraction"}
+        (overlap.py `overlap_fraction_from_spans` over the six timings,
+        recorded as `train.overlap.phase` spans). With observability on,
+        `train.phase.seconds`, `train.overlap.comm.seconds` and
+        `train.overlap.fraction` are recorded."""
         batch = self._place(batch)
         dev = self.device
 
@@ -589,20 +697,61 @@ class Trainer:
                 torch.cuda.synchronize(dev)
             return (time.perf_counter() - t0) / max(1, iters)
 
-        def fwd():
-            with torch.no_grad():
-                self._forward_backward(batch, backward=False)
+        def twins(overlap=None):
+            def fwd():
+                with torch.no_grad():
+                    self._forward_backward(batch, backward=False,
+                                           overlap=overlap)
 
-        def fwd_bwd():
-            self.optimizer.zero_grad()
-            self._forward_backward(batch)
+            def fwd_bwd():
+                self.optimizer.zero_grad()
+                self._forward_backward(batch, overlap=overlap)
+            return timed(fwd), timed(fwd_bwd)
 
-        t_fwd = timed(fwd)
-        t_fwd_bwd = timed(fwd_bwd)
+        t_fwd, t_fwd_bwd = twins()
         self.optimizer.zero_grad()
         t_step = timed(lambda: self.step(batch))
-        return {"fwd": t_fwd, "bwd": max(0.0, t_fwd_bwd - t_fwd),
-                "optimizer": max(0.0, t_step - t_fwd_bwd), "step": t_step}
+        phases = {"fwd": t_fwd, "bwd": max(0.0, t_fwd_bwd - t_fwd),
+                  "optimizer": max(0.0, t_step - t_fwd_bwd), "step": t_step}
+        if self.config.overlap_fsdp and self._dp is not None \
+                and "fsdp" in self.mesh.dim_names \
+                and self.mesh.get_dim_size("fsdp") > 1:
+            self._comm_columns(phases, twins)
+        if observability.ENABLED:
+            for ph in ("fwd", "bwd", "optimizer"):
+                observability.observe("train.phase.seconds", phases[ph],
+                                      phase=ph)
+        return phases
+
+    def _comm_columns(self, phases, twins):
+        """`measure_phase_seconds`' overlap columns (its docstring)."""
+        from paddle_tpu_torch.observability import trace
+        from paddle_tpu_torch.parallel.overlap import (
+            overlap_fraction_from_spans)
+        t = {"overlapped": (phases["fwd"], phases["fwd"] + phases["bwd"]),
+             "propagated": twins(overlap=False)}
+        self.optimizer.zero_grad()
+        with _whole_fsdp_weights(self.model):
+            t["nocomm"] = twins(overlap=False)
+            self.optimizer.zero_grad()
+        wall = time.perf_counter()
+        for variant, (f, fb) in t.items():
+            trace.record_span("train.overlap.phase", wall, f * 1e6,
+                              attrs={"variant": variant, "phase": "fwd"})
+            trace.record_span("train.overlap.phase", wall,
+                              max(0.0, fb - f) * 1e6,
+                              attrs={"variant": variant, "phase": "bwd"})
+        (p_f, p_fb), (n_f, n_fb) = t["propagated"], t["nocomm"]
+        phases["fwd_comm"] = max(0.0, p_f - n_f)
+        phases["bwd_comm"] = max(0.0, (p_fb - p_f) - (n_fb - n_f))
+        phases["overlap_fraction"] = frac = overlap_fraction_from_spans()
+        if observability.ENABLED:
+            observability.observe("train.overlap.comm.seconds",
+                                  phases["fwd_comm"], phase="fwd")
+            observability.observe("train.overlap.comm.seconds",
+                                  phases["bwd_comm"], phase="bwd")
+            if frac is not None:
+                observability.set_gauge("train.overlap.fraction", frac)
 
     # -- checkpoints -------------------------------------------------------
     def sync_to_model(self):
@@ -673,6 +822,36 @@ class Trainer:
         return path
 
 
+@contextlib.contextmanager
+def _whole_fsdp_weights(model):
+    """Every fsdp-cut parameter whole on each rank for the block (one
+    all-gather each on entry), its modules' gather-at-use hooks idle (no
+    cut to gather) and the overlap ring off (no cut to carry); the pieces
+    and the cuts come back on exit, the whole copies and their gradients
+    dropped."""
+    from paddle_tpu_torch.distributed.sharding import gather_full
+    mods = [m for m in model.modules() if getattr(m, "_fsdp_cuts", None)]
+    saved = []
+    with torch.no_grad():
+        for m in mods:
+            for name, cut in m._fsdp_cuts.items():
+                p = m._parameters[name]
+                if cut.dim is not None:
+                    saved.append((p, p.data))
+                    p.data = gather_full(p.data, cut)
+            saved.append((m, m._fsdp_cuts))
+            m._fsdp_cuts = {}
+    try:
+        yield
+    finally:
+        for obj, keep in reversed(saved):
+            if isinstance(obj, torch.nn.Module):
+                obj._fsdp_cuts = keep
+            else:
+                obj.data = keep
+                obj.grad = None
+
+
 def _on_every_rank(flag, groups):
     """0-d bool: `flag` holds on every rank of each distinct group in
     `groups` (`shard_groups`: tuples of mp and fsdp groups; a MIN
@@ -718,16 +897,44 @@ def _weigh(loss, scale):
     return torch.where(scale > 0, loss * scale, torch.zeros_like(loss))
 
 
-def _valid_tokens(batch):
+def _valid_tokens(batch, shifted=False):
     """0-d count of the tokens a microbatch's loss averages over: labels
     other than -100 after the next-token shift (models/llama.py
-    `next_token_loss`), or its rows without labels."""
+    `next_token_loss`; `shifted`: the labels are shifted already), or
+    its rows without labels."""
     labels = batch.get("labels")
     if labels is None:
         rows = next(iter(batch.values())).shape[0]
         return torch.tensor(float(rows), device=next(
             iter(batch.values())).device)
-    return (labels[:, 1:] != -100).sum()
+    return ((labels if shifted else labels[:, 1:]) != -100).sum()
+
+
+def _seq_shard(batch, n, r):
+    """Rank r of n's tokens [r S/n, (r+1) S/n) of every leaf of two dims
+    or more (S: input_ids' dim 1): the labels shifted over the whole
+    sequence first (position t scores labels[t + 1], so a shard's last
+    position scores the next shard's first label), and position_ids
+    (rows, S/n) of the shard's global positions added when the batch has
+    none (RoPE at global positions)."""
+    from paddle_tpu_torch.models.llama import shift_labels
+    ids = torch.as_tensor(batch["input_ids"])
+    rows, s = ids.shape[0], ids.shape[1]
+    if s % n:
+        raise ValueError(f"a sequence of {s} tokens does not split over "
+                         f"the 'sp' axis's {n} ranks")
+    lo, hi = r * s // n, (r + 1) * s // n
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        if k == "labels":
+            v = shift_labels(v)
+        elif k == "position_ids" and v.ndim == 1:
+            v = v.expand(rows, s)
+        out[k] = v[:, lo:hi] if v.ndim >= 2 else v
+    if "position_ids" not in out:
+        out["position_ids"] = torch.arange(lo, hi).expand(rows, hi - lo)
+    return out
 
 
 def _batch_sig(key):
