@@ -369,7 +369,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    --nnodes 2 --rank r --devices 0 chip_smoke.py --tp-worker DIR`, both
    on device 0, gloo): `fleet.init` with mp_degree 2,
    `fleet.distributed_model`, the Trainer on the fleet mesh with its
-   plan; TinyLlama-1.1B at full width and all 22 layers, flash,
+   plan; TinyLlama-1.1B at full width and TP_LAYERS of its 22 layers
+   (the whole run's time: every step sums the mp partials through the
+   host), flash,
    recompute, fused norm and RoPE, `loss_chunk=512` (the vocab-parallel
    blockwise loss on each rank's 16000-row shard), AdamW(1e-4, wd 0.01),
    bf16 compute; a global batch of 2 x 2048 ids (phase 9's 8 cut to 2),
@@ -452,6 +454,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    by the flash row rule, the blocks' ms beside the whole sequence's.
    Launches go to the paths "training_overlap" ((a) rank 0),
    "training_cp_ring" and "training_cp_ulysses" ((b) rank 0).
+24. pipeline parallelism (parallel/pipeline.py; run right after phase
+   23): two workers (`--pp-worker DIR`, gloo on device 0) on
+   `init_mesh({"pp": 2})`, one stage each, activations and gradients
+   crossing between them point to point. (a) TinyLlama-1.1B at full
+   width and all 22 layers (11 a stage; flash, recompute, the fused norm
+   and RoPE, the dense tail), phase 9's optimizer and bf16 compute,
+   PP_BATCH ids (row 0 labelled -100 from PP_PAD's column) in PP_M
+   microbatches of one row, 1F1B, 1 + PP_STEPS steps, against each
+   worker's one-process mesh-free Trainer of the same model and batches
+   (loss_chunk=0: the same function) at phase 20's DP_LOSS_TOL,
+   DP_GRAD_TOL and DP_PARAM_TOL; each rank's launches per step and its
+   hops and bytes per step the count from the code; each rank's peak
+   memory beside one process's. (b) At PP_B_LAYERS layers, PP_B_BATCH
+   ids in PP_B_M microbatches: GPipe and 1F1B (stage 0's 1F1B peak below
+   its GPipe peak; the microbatches each rank held), VPP with
+   interleave=2 and stage_boundaries=(0, 3, 8), each against one
+   process at the same tolerances. (c) A planted fault, one 1F1B step of
+   (b)'s model: the backward pairs an incoming gradient with the newest
+   saved microbatch, not its own, outside the gradient tolerance. One
+   card shows no rate across cards and no real bubble. Launches go to
+   the path "training_pp" ((a), both ranks).
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -3695,6 +3718,9 @@ TP_WARMUP = 1               # (a): the untimed first step
 TP_STEPS = 3                # (a): timed steps after it
 TP_BATCH = (2, 2048)        # (a): the global batch, phase 9's 8 x 2048 cut to 2
 TP_PAD = (1, 1024)          # (a): row 0 labelled -100 from column 1024
+# (a), and phases 22 (a) and 23 (a): the model's depth, of 22 (the whole
+# run's time: a gloo step of these phases moves its sums through the host)
+TP_LAYERS = 8
 # (a), each against one process's run of the same model and batches, bf16
 # compute, set from a first run on an H100 80GB HBM3 at 700 W (PERF.md): each
 # loss within this fraction of its own (1.15e-4 there; the local-lse
@@ -3712,9 +3738,12 @@ TP_CE = (4096, 2048, 32000)   # (b): x rows (phase 21's batch), hidden, vocab
 
 
 def _tp_config(**overrides):
-    """Phase 21's model: TinyLlama-1.1B at full width and all 22 layers,
-    flash, recompute, the fused norm and RoPE, the blockwise loss."""
-    return _tinyllama_config(loss_chunk=512, **overrides)
+    """Phase 21's model: TinyLlama-1.1B at full width and TP_LAYERS of its
+    22 layers, flash, recompute, the fused norm and RoPE, the blockwise
+    loss."""
+    base = dict(loss_chunk=512, num_hidden_layers=TP_LAYERS)
+    base.update(overrides)
+    return _tinyllama_config(**base)
 
 
 def _tp_batches(vocab):
@@ -4145,7 +4174,8 @@ def tp_phase(card, dev):
     gb = {k: v / 1e9 for k, v in a["gloo_bytes_per_step"].items()}
     print(f"[tp] {card}: (a) 2 mp ranks on {a['backend']} on the one card "
           f"(fleet.init mp_degree 2, distributed_model, the Trainer on the "
-          f"fleet mesh), TinyLlama-1.1B at 22 layers, {TP_BATCH[0]} x "
+          f"fleet mesh), TinyLlama-1.1B at {TP_LAYERS} layers, "
+          f"{TP_BATCH[0]} x "
           f"{TP_BATCH[1]} ids, row 0 -100 from column {TP_PAD[1]}, "
           f"{TP_WARMUP} + {TP_STEPS} steps: losses {a['losses']} against one "
           f"process {a['ref_losses']}; gaps: loss {gap['loss']:.3e} (tol "
@@ -4453,7 +4483,8 @@ def fsdp_phase(card, dev, counters, reset, tp):
     state_rank = 4 * want_params / 1e9
     print(f"[fsdp] {card}: (a) 2 fsdp ranks on {a['backend']} on the one "
           f"card (fleet.init sharding_degree 2, distributed_model, the "
-          f"Trainer on the fleet mesh), TinyLlama-1.1B at 22 layers, "
+          f"Trainer on the fleet mesh), TinyLlama-1.1B at {TP_LAYERS} "
+          f"layers, "
           f"{TP_BATCH[0]} x {TP_BATCH[1]} ids split 1 + 1, row 0 -100 from "
           f"column {TP_PAD[1]}, {TP_WARMUP} + {FSDP_STEPS} steps: losses "
           f"{a['losses']} against one process {a['ref_losses']}; gaps: loss "
@@ -4981,10 +5012,10 @@ def ring_phase(card, dev):
                seconds=time.perf_counter() - t_phase)
     gap, rings = a["gap"], a["rings_per_step"]
     print(f"[ring] {card}: (a) 2 fsdp ranks on {a['backend']} on the one "
-          f"card, TinyLlama-1.1B at 22 layers, {TP_BATCH[0]} x {TP_BATCH[1]} "
-          f"ids, overlap_fsdp with {OVL_CHUNKS} chunks, {TP_WARMUP} + "
-          f"{OVL_STEPS} steps: losses {a['losses']} against overlap off "
-          f"{a['ref_losses']}; gaps: loss {gap['loss']:.3e} (tol "
+          f"card, TinyLlama-1.1B at {TP_LAYERS} layers, {TP_BATCH[0]} x "
+          f"{TP_BATCH[1]} ids, overlap_fsdp with {OVL_CHUNKS} chunks, "
+          f"{TP_WARMUP} + {OVL_STEPS} steps: losses {a['losses']} against "
+          f"overlap off {a['ref_losses']}; gaps: loss {gap['loss']:.3e} (tol "
           f"{DP_LOSS_TOL}), step 1 gradient {gap['grad']:.3e} (tol "
           f"{DP_GRAD_TOL}), parameters {gap['param']:.3e} of the update (tol "
           f"{DP_PARAM_TOL}); rings per step {rings} (the code's "
@@ -5028,6 +5059,333 @@ def ring_phase(card, dev):
           f"(b) {b_s:.1f} s, (c) {c_s:.1f} s)")
     if problems:
         raise AssertionError("ring: " + "; ".join(problems))
+    return out
+
+
+# -- phase 24: pipeline parallelism on two gloo stage ranks ------------------
+
+PP_BATCH = (4, 2048)        # (a): the global batch, four microbatches of a row
+PP_PAD = (1, 1024)          # (a), (b): row 0 labelled -100 from column 1024
+PP_M = 4                    # (a): microbatches
+PP_STEPS = 2                # (a), (b): steps after the warm-up
+PP_B_LAYERS = 8             # (b), (c): the model's depth, of 22
+PP_B_BATCH = (8, 2048)      # (b), (c): eight microbatches of a row
+PP_B_M = 8
+
+
+def _pp_batches(vocab, shape, steps):
+    rng = np.random.RandomState(24)
+    out = []
+    for _ in range(steps):
+        ids = rng.randint(0, vocab, shape).astype(np.int32)
+        labels = ids.copy()
+        labels[:PP_PAD[0], PP_PAD[1]:] = -100
+        out.append({"input_ids": ids, "labels": labels})
+    return out
+
+
+def expected_pp_launches(cfg, layers, microbatches, last):
+    """Kernel launches per step of a stage holding `layers` of `cfg`'s
+    layers over `microbatches` microbatches: each microbatch the
+    training step's count for those layers (`expected_train_launches`),
+    the final norm on the last stage only (the dense tail: no CE
+    kernel)."""
+    import dataclasses
+    want = expected_train_launches(
+        dataclasses.replace(cfg, num_hidden_layers=layers, loss_chunk=0),
+        PP_BATCH[1])
+    if not last and cfg.fused_norm:
+        want["rms_norm_residual"] -= 1
+        want["rms_norm_residual_bwd"] -= 1
+    return {k: v * microbatches for k, v in want.items()}
+
+
+@contextlib.contextmanager
+def _planted_pp():
+    """The planted fault of (c): each backward takes the newest saved
+    microbatch of its rank, not its own."""
+    from paddle_tpu_torch.parallel import pipeline as pl
+    saved = pl._take_saved
+    pl._take_saved = lambda held, key: held.pop(list(held)[-1])
+    try:
+        yield
+    finally:
+        pl._take_saved = saved
+
+
+def _pp_steps(tr, batches, names):
+    """One run's losses, step seconds, and step 1's gradients, the
+    parameters before and after the steps of `names` (None: every
+    parameter) on the host."""
+    def keep(n):
+        return names is None or n in names
+    model = tr.model
+    init = {n: _host(p.detach()) for n, p in model.named_parameters()
+            if keep(n)}
+    losses, step_s, grad1 = [], [], None
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(float(tr.step(b)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if grad1 is None:
+            grad1 = {n: _host(p.grad.detach())
+                     for n, p in model.named_parameters() if keep(n)}
+    return dict(losses=losses, step_s=step_s, grad1=grad1, init=init,
+                params={n: _host(p.detach())
+                        for n, p in model.named_parameters() if keep(n)})
+
+
+def _pp_reference(dev, cfg, batches, names=None):
+    """Each rank's one-process mesh-free run, one rank at a time (two
+    whole models would share the card): phase 9's optimizer and bf16
+    compute, `names`' tensors kept."""
+    import paddle_tpu_torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            tr = _ring_trainer(dev, cfg, None)
+            torch.cuda.reset_peak_memory_stats()
+            out = _pp_steps(tr, batches, names)
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del tr
+            _drop()
+        dist.barrier()
+    return out
+
+
+def _pp_run(dev, cfg, batches, mesh, fault=False, **pp_kw):
+    """One PipelineTrainer run of phase 9's optimizer and bf16 compute:
+    `_pp_steps`' record, this rank's launches, hops and bytes per step,
+    peak microbatches held, layers and peak memory (from after the
+    stage cut)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.parallel import pipeline as pl
+    from paddle_tpu_torch.parallel.plan import llama_sharding_plan
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    opt = topt.AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                     weight_decay=0.01)
+    tr = pl.PipelineTrainer(model, opt, mesh,
+                            llama_sharding_plan(mesh.dim_names),
+                            pl.PipelineConfig(compute_dtype="bfloat16",
+                                              **pp_kw))
+    del model, opt
+    _drop()
+    torch.cuda.reset_peak_memory_stats()
+    _launches_reset()
+    hops0, peak = dict(pl.counts), 0
+    with _planted_pp() if fault else contextlib.nullcontext():
+        run = _pp_steps(tr, batches, None)
+    steps = len(batches)
+    run.update(
+        launches=_launches(), in_flight=tr.last_schedule["in_flight"],
+        hops={k: (pl.counts[k] - hops0[k]) / steps for k in pl.counts},
+        layers=sum(len(c) for c in tr._layer_ids),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        stage=tr._s)
+    del tr
+    _drop()
+    return run
+
+
+def _pp_gaps(run, ref, dev):
+    """The gaps of a pipeline run against the one-process run, each over
+    the whole model (this rank's stage summed over the ranks, in f64 on
+    `dev`): the losses, step 1's gradient over its norm, the parameters
+    after the last step over the update's norm."""
+    from paddle_tpu_torch.distributed import collective
+    acc = torch.zeros(4, dtype=torch.float64, device=dev)
+    for n in run["params"]:
+        g, gr = run["grad1"][n].to(dev).double(), ref["grad1"][n].to(dev)
+        p, pr = run["params"][n].to(dev).double(), ref["params"][n].to(dev)
+        acc[0] += (g - gr.double()).pow(2).sum()
+        acc[1] += gr.double().pow(2).sum()
+        acc[2] += (p - pr.double()).pow(2).sum()
+        acc[3] += (pr.double() - ref["init"][n].to(dev).double()).pow(2).sum()
+    acc = acc.cpu()
+    collective.all_reduce(acc)
+    return {"loss": max(abs(a - b) / abs(b) for a, b in
+                        zip(run["losses"], ref["losses"])),
+            "grad": float(acc[0] / acc[1]) ** 0.5,
+            "param": float(acc[2] / acc[3]) ** 0.5}
+
+
+def _pp_summary(run, gap, want=None):
+    out = {k: run[k] for k in ("losses", "in_flight", "hops", "layers",
+                                "peak_gb", "stage")}
+    steps = len(run["losses"])
+    out.update(gap=gap, step_ms=_median(run["step_s"][1:]) * 1e3,
+               launches=run["launches"],
+               launches_per_step={k: run["launches"].get(k, 0) / steps
+                                  for k in (want or {})},
+               want_per_step=want)
+    return out
+
+
+def pp_worker(outdir, device="cuda"):
+    """Phase 24's worker: one of two stage ranks on the one card, gloo
+    (started by the port's launcher, `--nnodes 2 --rank r`)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.distributed.mesh import init_mesh
+    from paddle_tpu_torch.parallel import pipeline as pl
+    dist.init_parallel_env(device=device, backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = env.world_device()
+    mesh = init_mesh({"pp": world})
+    t_phase = time.perf_counter()
+    stage, out = {}, {"rank": rank, "world": world,
+                      "backend": torch.distributed.get_backend()}
+
+    # (a) 22 layers, 11 a stage, 1F1B, four microbatches of one row
+    cfg = _tinyllama_config()
+    batches = _pp_batches(cfg.vocab_size, PP_BATCH, 1 + PP_STEPS)
+    run = _pp_run(dev, cfg, batches, mesh, num_microbatches=PP_M)
+    ref = _pp_reference(dev, cfg, batches, set(run["params"]))
+    want = expected_pp_launches(cfg, run["layers"], PP_M, rank == world - 1)
+    out["a"] = _pp_summary(run, _pp_gaps(run, ref, dev), want)
+    out["a"].update(ref_losses=ref["losses"], ref_peak_gb=ref["peak_gb"],
+                    ref_step_ms=_median(ref["step_s"][1:]) * 1e3,
+                    want_hops=pl.hops_per_step(world, rank, PP_M),
+                    hop_bytes=PP_BATCH[1] * cfg.hidden_size * 2)
+    del run, ref
+    stage["a"] = time.perf_counter() - t_phase
+
+    # (b) 8 layers: GPipe, 1F1B, VPP, custom boundaries; (c) the fault
+    cfg = _tinyllama_config(num_hidden_layers=PP_B_LAYERS)
+    batches = _pp_batches(cfg.vocab_size, PP_B_BATCH, 1 + PP_STEPS)
+    ref = _pp_reference(dev, cfg, batches)
+    out["b_ref"] = dict(losses=ref["losses"], peak_gb=ref["peak_gb"],
+                        step_ms=_median(ref["step_s"][1:]) * 1e3)
+    variants = {"gpipe": dict(schedule="gpipe"), "1f1b": {},
+                "vpp": dict(interleave=2),
+                "bounds": dict(stage_boundaries=(0, 3, PP_B_LAYERS))}
+    out["b"] = {}
+    for name, kw in variants.items():
+        run = _pp_run(dev, cfg, batches, mesh, num_microbatches=PP_B_M,
+                      **kw)
+        want = expected_pp_launches(cfg, run["layers"], PP_B_M,
+                                    rank == world - 1)
+        out["b"][name] = _pp_summary(run, _pp_gaps(run, ref, dev), want)
+        del run
+        stage[name] = time.perf_counter() - t_phase
+    ref1 = dict(ref, losses=ref["losses"][:1])
+    run = _pp_run(dev, cfg, batches[:1], mesh, fault=True,
+                  num_microbatches=PP_B_M)
+    out["c"] = _pp_gaps(run, dict(ref1, params=run["params"],
+                                  init=run["init"]), dev)
+    del run, ref
+    stage["fault"] = time.perf_counter() - t_phase
+    out.update(stages=stage, seconds=time.perf_counter() - t_phase)
+    _write_json(os.path.join(outdir, f"pp_rank{rank}.json"), out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def pipeline_phase(card):
+    """Phase 24: the pipeline on two gloo stage ranks of the one card,
+    started through the port's launcher."""
+    import shutil
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-pp-")
+    _drop()
+    try:
+        _ring_launch("--pp-worker", _free_port(), root)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(root, f"pp_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return _pp_report(card, ranks, t_phase)
+
+
+def _pp_report(card, ranks, t_phase):
+    """Phase 24's gates and readings over the two workers' records."""
+    problems = []
+
+    def within(gap):
+        return gap["loss"] <= DP_LOSS_TOL and gap["grad"] <= DP_GRAD_TOL \
+            and gap["param"] <= DP_PARAM_TOL
+
+    for w in ranks:
+        r = w["rank"]
+        if w["backend"] != "gloo" or w["world"] != 2:
+            problems.append(f"rank {r}: backend {w['backend']}, world "
+                            f"{w['world']}")
+        a = w["a"]
+        if not within(a["gap"]):
+            problems.append(f"(a) against one process: {a['gap']}")
+        want = {k: float(v) for k, v in a["want_per_step"].items()}
+        if a["launches_per_step"] != want:
+            problems.append(f"(a) rank {r} launches per step "
+                            f"{a['launches_per_step']} != the count from "
+                            f"the code {want}")
+        if a["hops"] != {"hops": float(a["want_hops"]),
+                         "bytes": float(a["want_hops"] * a["hop_bytes"])}:
+            problems.append(f"(a) rank {r} hops and bytes per step "
+                            f"{a['hops']} != the code's {a['want_hops']} "
+                            f"x {a['hop_bytes']}")
+        for name, b in w["b"].items():
+            if not within(b["gap"]):
+                problems.append(f"(b) {name} against one process: "
+                                f"{b['gap']}")
+        if w["c"]["grad"] <= DP_GRAD_TOL:
+            problems.append(f"(c) the planted pairing of a gradient with "
+                            f"the newest microbatch reads inside the "
+                            f"gradient tolerance: {w['c']}")
+    s0 = next(w for w in ranks if w["b"]["1f1b"]["stage"] == 0)["b"]
+    if not s0["1f1b"]["peak_gb"] < s0["gpipe"]["peak_gb"]:
+        problems.append(f"(b) stage 0's 1F1B peak {s0['1f1b']['peak_gb']} GB "
+                        f"is not below its GPipe peak "
+                        f"{s0['gpipe']['peak_gb']} GB")
+    launches = {}
+    for w in ranks:
+        for k, v in w["a"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out = dict(card=card, ranks=ranks, launches=launches,
+               seconds=time.perf_counter() - t_phase)
+    for w in ranks:
+        a = w["a"]
+        print(f"[pp] {card}: (a) rank {w['rank']} (stage {a['stage']}, "
+              f"{a['layers']} layers), TinyLlama-1.1B at 22 layers, "
+              f"{PP_BATCH[0]} x {PP_BATCH[1]} ids in {PP_M} microbatches, "
+              f"1F1B, {1 + PP_STEPS} steps: losses {a['losses']} against "
+              f"one process {a['ref_losses']}; gaps: loss "
+              f"{a['gap']['loss']:.3e} (tol {DP_LOSS_TOL}), step 1 gradient "
+              f"{a['gap']['grad']:.3e} (tol {DP_GRAD_TOL}), parameters "
+              f"{a['gap']['param']:.3e} of the update (tol {DP_PARAM_TOL}); "
+              f"launches per step = the code's "
+              f"{a['launches_per_step'] == a['want_per_step']} "
+              f"{a['launches_per_step']}; hops a step {a['hops']} (the "
+              f"code's {a['want_hops']} of {a['hop_bytes']} bytes); "
+              f"microbatches held {a['in_flight']}; peak memory "
+              f"{a['peak_gb']:.2f} GB against one process's "
+              f"{a['ref_peak_gb']:.2f}; step {a['step_ms']:.1f} ms against "
+              f"one process's {a['ref_step_ms']:.1f} (gloo through the "
+              f"host, both stages on one card: no rate, no real bubble)")
+    for w in ranks:
+        print(f"[pp] {card}: (b) rank {w['rank']}, {PP_B_LAYERS} layers, "
+              f"{PP_B_BATCH[0]} x {PP_B_BATCH[1]} ids in {PP_B_M} "
+              f"microbatches (one process: losses "
+              f"{w['b_ref']['losses']}, peak {w['b_ref']['peak_gb']:.2f} "
+              f"GB, step {w['b_ref']['step_ms']:.1f} ms): " + "; ".join(
+                  f"{k}: stage {b['stage']} of {b['layers']} layers, gaps "
+                  f"{ {g: float(f'{v:.3e}') for g, v in b['gap'].items()} }"
+                  f", held {b['in_flight']}, peak {b['peak_gb']:.2f} GB, "
+                  f"hops {b['hops']['hops']:.0f}, step {b['step_ms']:.1f} "
+                  f"ms, launches per step = the code's "
+                  f"{b['launches_per_step'] == b['want_per_step']}"
+                  for k, b in w["b"].items()))
+    print(f"[pp] {card}: (c) planted pairing of each gradient with the "
+          f"newest saved microbatch, one step: "
+          f"{ {g: float(f'{v:.3e}') for g, v in ranks[0]['c'].items()} }; "
+          f"phase 24 {out['seconds']:.1f} s (worker stages "
+          f"{ {k: round(v, 1) for k, v in ranks[0]['stages'].items()} })")
+    if problems:
+        raise AssertionError("pp: " + "; ".join(problems))
     return out
 
 
@@ -8753,6 +9111,7 @@ def main(argv=None):
     ap.add_argument("--fsdp-worker", help=argparse.SUPPRESS)
     ap.add_argument("--overlap-worker", help=argparse.SUPPRESS)
     ap.add_argument("--cp-worker", help=argparse.SUPPRESS)
+    ap.add_argument("--pp-worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8770,6 +9129,8 @@ def main(argv=None):
         return overlap_worker(args.overlap_worker)
     if args.cp_worker:                  # phase 23 (b)'s worker processes
         return cp_worker(args.cp_worker)
+    if args.pp_worker:                  # phase 24's worker processes
+        return pp_worker(args.pp_worker)
     from paddle_tpu_torch.kernels import _build, launch_counters
     from paddle_tpu_torch.kernels import blockwise_ce as bce
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -8838,6 +9199,7 @@ def main(argv=None):
     train_tp = tp_phase(card, dev)
     train_fsdp = fsdp_phase(card, dev, counters, reset, train_tp)
     train_ring = ring_phase(card, dev)
+    train_pp = pipeline_phase(card)
     serving_int8, model = int8_serving_phase(dev, counters, reset, card,
                                              serving, args.profile)
     serving_spec["c"] = spec_int8_part(model, counters, reset, card,
@@ -8867,6 +9229,7 @@ def main(argv=None):
                        name, 0),
                    "training_cp_ulysses": train_ring["launches"][
                        "ulysses"].get(name, 0),
+                   "training_pp": train_pp["launches"].get(name, 0),
                    "serving_int8": serving_int8["launches"].get(name, 0),
                    **{path: features[path]["launches"].get(name, 0)
                       for path in ("tenancy", "kvtier", "disagg")},
@@ -8905,6 +9268,7 @@ def main(argv=None):
                        "training_tp": train_tp,
                        "training_fsdp": train_fsdp,
                        "training_ring": train_ring,
+                       "training_pp": train_pp,
                        "serving_int8": serving_int8,
                        "serving_spec": serving_spec,
                        "spec_parity": spec_parity,

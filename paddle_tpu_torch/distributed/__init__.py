@@ -9,6 +9,8 @@ use, as the JAX package's), ZeRO / FSDP (`sharding`:
 group_sharded_parallel and the gather with a reduce-scatter gradient;
 imported at first use too), context parallelism (`context_parallel`: the
 flash-kernel ring and Ulysses over 'sp'; imported at first use too),
+pipeline parallelism (`pipeline`: PipelineTrainer over 'pp', a
+re-export of parallel/pipeline.py; imported at first use too),
 checkpoints
 (`checkpoint`, `async_checkpoint`), fault injection (`chaos`), retries
 (`retries`), the rendezvous store (`store`), hang detection
@@ -49,7 +51,7 @@ all_to_all = alltoall   # the torch-style alias the reference also exposes
 
 
 def __getattr__(name):
-    if name in ("fleet", "sharding", "context_parallel"):
+    if name in ("fleet", "sharding", "context_parallel", "pipeline"):
         import importlib
         mod = importlib.import_module(f"paddle_tpu_torch.distributed.{name}")
         globals()[name] = mod

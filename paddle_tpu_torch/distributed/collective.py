@@ -36,7 +36,10 @@ the port takes each rank's own.
   `ppermute_start` posts the same transfer and returns a `P2PWork`
   whose `wait()` gives the result, so a ring posts its next hop before
   it launches the work on the resident piece (parallel/overlap.py,
-  distributed/context_parallel.py).
+  distributed/context_parallel.py). The private `_p2p_start` posts a
+  set of sends and receives of known shapes together (a pipeline
+  stage's hop out and its next hop in: parallel/pipeline.py) and waits
+  for the receives apart from the sends, each wait under a timeout.
 - Gloo's point-to-point path reads and writes a tensor's memory from the
   host, and a gloo group's `alltoall` runs as point-to-point pairs (gloo
   has no all-to-all in every torch build), so for these a CUDA tensor on
@@ -629,3 +632,89 @@ def ppermute(x, axis_name, perm):
     this rank's `x` goes to its destinations; it returns what its source
     sent, or zeros when nothing is sent to it (jax.lax.ppermute)."""
     return ppermute_start(x, axis_name, perm).wait()
+
+
+class _Hops:
+    """Point-to-point transfers posted together by `_p2p_start`."""
+
+    def __init__(self, works, n_sends, outs, keep, op):
+        # one work an op (gloo): the receives' are the last; one for the
+        # whole batch (a coalescing backend): every wait waits for it
+        split = len(works) == n_sends + len(outs)
+        self._recv_works = works[n_sends:] if split else works
+        self._send_works = works[:n_sends] if split else []
+        self._outs, self._keep, self._op = outs, keep, op
+        self._done = False
+
+    def wait(self, timeout=None):
+        """Wait for the receives, each for at most `timeout` seconds
+        (None: the backend's own), and return the received tensors in
+        the order of `recvs`, on their devices; a second call returns
+        them again."""
+        self._wait(self._recv_works, timeout)
+        self._recv_works = []
+        if not self._done:
+            self._outs = [buf if dev is None
+                          else buf.to(dev, non_blocking=True)
+                          for buf, dev in self._outs]
+            self._done = True
+        return self._outs
+
+    def wait_all(self, timeout=None):
+        """Wait for every transfer, the sends too (their buffers are
+        kept until then); returns the received tensors."""
+        outs = self.wait(timeout)
+        if self._keep is not None:
+            self._wait(self._send_works, timeout)
+            self._send_works = self._keep = None
+            watchdog.complete_when_ready(self._op, outs)
+        return outs
+
+    def _wait(self, works, timeout):
+        kw = {} if timeout is None else {
+            "timeout": datetime.timedelta(seconds=float(timeout))}
+        try:
+            for w in works:
+                w.wait(**kw)
+        except BaseException:
+            watchdog.end(self._op)
+            raise
+
+
+def _p2p_start(sends, recvs, group):
+    """Post point-to-point sends and receives over `group` together and
+    return their `_Hops` without waiting (Megatron's `batch_isend_irecv`
+    pairing: a send forward and a receive backward posted at once cannot
+    block each other). `sends`: [(tensor, group rank, tag)]; `recvs`:
+    [(shape, dtype, device, group rank, tag)], the shapes known to both
+    sides, so no header crosses. A CUDA tensor on a gloo group is staged
+    through pinned host buffers, as `ppermute_start` stages it. The
+    caller waits for the receives (`wait`) before it reads them, and for
+    the sends (`wait_all`) before it depends on their peers having
+    them."""
+    g = group
+    ops, keep, outs = [], [], []
+    for t, dst, tag in sends:
+        t = _tensor(t).contiguous()
+        wire = _to_host(t) if _staged(g, t.device) else t
+        keep.append(wire)
+        ops.append(tdist.P2POp(tdist.isend, wire, g.ranks[dst],
+                               g.process_group, tag))
+    for shape, dtype, dev, src, tag in recvs:
+        staged = _staged(g, dev)
+        buf = (torch.empty(shape, dtype=dtype, pin_memory=True) if staged
+               else torch.empty(shape, dtype=dtype, device=dev))
+        outs.append((buf, dev if staged else None))
+        ops.append(tdist.P2POp(tdist.irecv, buf, g.ranks[src],
+                               g.process_group, tag))
+    # registered and delayed as `ppermute`'s: its hops are a permutation's
+    op = watchdog.begin(f"collective/ppermute ranks={g.ranks}",
+                        g.timeout_ms)
+    try:
+        if chaos.ENABLED:
+            chaos.maybe_delay("collective.dispatch/ppermute")
+        works = tdist.batch_isend_irecv(ops) if ops else []
+    except BaseException:
+        watchdog.end(op)
+        raise
+    return _Hops(works, len(keep), outs, keep, op)

@@ -18,9 +18,10 @@ distributed/sharding.py) and tags `_fleet_plan` / `_fleet_mesh`; the
 Trainer on `get_mesh()` with that plan takes such a model as it stands.
 `distributed_optimizer` tags the strategy. Tensor parallelism ('mp'),
 data parallelism ('dp') and FSDP ('sharding', the mesh's 'fsdp') run; a
-'pp' or 'sep' degree above 1 builds its mesh, and the Trainer refuses it
-until its slice. `worker_index` / `worker_num` are the rank and the
-world size.
+'pp' degree above 1 builds its mesh, which parallel/pipeline.py's
+PipelineTrainer takes (with 'dp'; the Trainer refuses it), and a 'sep'
+degree above 1 one the Trainer refuses until its slice. `worker_index` /
+`worker_num` are the rank and the world size.
 """
 from __future__ import annotations
 

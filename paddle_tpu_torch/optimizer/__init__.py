@@ -29,6 +29,9 @@ group the parameter is cut over (`shard_groups`; one all-reduce a
 group) and those of replicated gradients, whole on every rank, are
 counted once, so every rank clips by the whole model's norm;
 `ClipGradByNorm` takes a cut tensor's norm over its groups the same way.
+A pipeline stage's optimizer holds its stage's parameters only
+(`split_over`): the global norm adds the other stages' squares over the
+pp group, a tied embedding's second copy left out.
 The update runs on each rank's pieces. `step(apply=...)` takes a 0-d
 bool tensor: where it is False the update is suppressed and parameters,
 moments and beta powers keep their values bit for bit, decided on the
@@ -97,19 +100,33 @@ def _group_sums(sq, groups):
     return rep, sums
 
 
-def global_grad_norm(grads, groups=None):
+def global_grad_norm(grads, groups=None, across=None, counted=None):
     """sqrt(sum of squares) over every entry of the f32 tensors `grads`:
     a 0-d tensor on their device (NaN or Inf when any entry is). With
     `groups` (`shard_groups` of their parameters: a tuple of groups, or
     one group, or None, a tensor), a cut tensor's squares are summed over
-    its groups and a replicated one's counted once."""
+    its groups and a replicated one's counted once. `across`: a group
+    whose ranks hold the model's other tensors (a pipeline's stages):
+    the total is summed over it too; `counted` (a bool a tensor): False
+    leaves a tensor out (a copy another rank of `across` counts)."""
     norms = torch.stack(torch._foreach_norm(grads))
-    if groups is None or not any(_as_groups(g) for g in groups):
+    cut = groups is not None and any(_as_groups(g) for g in groups)
+    if across is None and counted is None and not cut:
         return torch.linalg.vector_norm(norms)
-    rep, sums = _group_sums(norms * norms, groups)
-    total = (norms[rep] * norms[rep]).sum()
-    for _, part in sums.values():
-        total = total + part.sum()
+    sq = norms * norms
+    if counted is not None:
+        sq = torch.where(torch.tensor(counted, device=sq.device), sq,
+                         torch.zeros_like(sq))
+    if cut:
+        rep, sums = _group_sums(sq, groups)
+        total = sq[rep].sum()
+        for _, part in sums.values():
+            total = total + part.sum()
+    else:
+        total = sq.sum()
+    if across is not None:
+        from paddle_tpu_torch.distributed import collective
+        total = collective.all_reduce(total.reshape(1), group=across)[0]
     return torch.sqrt(total)
 
 
@@ -122,14 +139,16 @@ def _tensor_norms(grads, groups):
     return list(norms)
 
 
-def _clip(policy, grads, groups=None):
+def _clip(policy, grads, groups=None, across=None, counted=None):
     """The f32 gradients `grads` after the clip `policy` (None: as
-    they are); `groups`: their parameters' `shard_groups`."""
+    they are); `groups`: their parameters' `shard_groups`; `across` and
+    `counted`: the global norm's (`global_grad_norm`)."""
     if policy is None:
         return grads
     if isinstance(policy, ClipGradByGlobalNorm):
         scale = torch.clamp(policy.clip_norm / torch.clamp(
-            global_grad_norm(grads, groups), min=1e-12), max=1.0)
+            global_grad_norm(grads, groups, across, counted), min=1e-12),
+            max=1.0)
         return torch._foreach_mul(grads, scale)
     if isinstance(policy, ClipGradByNorm):
         if groups is not None and any(_as_groups(g) for g in groups):
@@ -193,6 +212,8 @@ class Adam:
         self.state = {}          # name -> {moment1, moment2, beta*_pow, master}
         self._parked = False     # park_state(): moments in pinned host memory
         self._parked_done = None     # the last update's copies back
+        self._across = None      # split_over(): the other parts' group
+        self._uncounted = set()  # ids of parameters the norm leaves out
 
     def _decoupled(self):
         return False
@@ -232,6 +253,22 @@ class Adam:
             self.state[name] = st
         return st
 
+    def split_over(self, group, uncounted=()):
+        """The parameters are this rank's part of a model whose other
+        parts live on the other ranks of `group` (a pipeline's stages,
+        parallel/pipeline.py): ClipGradByGlobalNorm's norm adds their
+        squares, and the parameters in `uncounted` (copies another rank
+        of `group` counts: a tied embedding's last stage) add none."""
+        self._across = group
+        self._uncounted = {id(p) for p in uncounted}
+
+    def _span(self, params):
+        """(`across`, `counted`) of `global_grad_norm` for `params`
+        (`split_over`): (None, None) for a whole model."""
+        counted = ([id(p) not in self._uncounted for p in params]
+                   if self._uncounted else None)
+        return self._across, counted
+
     def park_state(self):
         """Keep moment1, moment2 and any master in pinned host memory
         between steps (module docstring); state made before moves now."""
@@ -265,7 +302,7 @@ class Adam:
         lr = self._lr_value() if learning_rate is None \
             else float(learning_rate)
         g = _clip(self._grad_clip, [p.grad.float() for p in params],
-                  shard_groups(params))
+                  shard_groups(params), *self._span(params))
         if not self._parked:
             self._gated_update(work, states, params, lr, g, apply)
             return

@@ -34,9 +34,10 @@ norms stay whole.
 A dim that does not divide by the mp or the fsdp extent, and fewer kv
 (or query) heads than the mp extent, raise ValueError naming the
 parameter (the JAX package pads such a dim). A parameter placed on
-'sp' of extent > 1 raises NotImplementedError (the sequence axis cuts
-activations, never weights: distributed/context_parallel.py), and one
-placed on 'pp' or 'ep' names the slice it waits for; axes of extent 1
+'sp' or 'pp' of extent > 1 raises NotImplementedError (the sequence axis
+cuts activations, never weights: distributed/context_parallel.py; a
+pipeline stage holds whole layers: parallel/pipeline.py), and one
+placed on 'ep' names the slice it waits for; axes of extent 1
 replicate, as the JAX plan does through `_axis`.
 """
 from __future__ import annotations
@@ -114,8 +115,7 @@ def batch_spec(mesh_axes: Sequence[str], seq_sharded: bool = True) -> P:
 
 
 # the slice each axis still waits for
-WAITS = {"pp": "the pipeline slice (distributed/pipeline.py)",
-         "ep": "the expert-parallel (MoE) slice"}
+WAITS = {"ep": "the expert-parallel (MoE) slice"}
 
 
 def _axes_of(entry):
@@ -132,7 +132,10 @@ def check_plan(names, mesh, plan: ShardingPlan):
                         and mesh.get_dim_size(ax) > 1:
                     why = ("the context-parallel axis cuts activations "
                            "(distributed/context_parallel.py), never "
-                           "parameters" if ax == "sp" else "it waits for "
+                           "parameters" if ax == "sp" else
+                           "a pipeline's stages own whole layers "
+                           "(parallel/pipeline.py), never a cut of a "
+                           "parameter" if ax == "pp" else "it waits for "
                            + WAITS.get(ax, "a later slice"))
                     raise NotImplementedError(
                         f"{name}: spec {plan.spec_for(name)} on mesh "

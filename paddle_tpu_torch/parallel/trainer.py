@@ -101,8 +101,9 @@ without waiting for the device.
   masters) into the whole tensor, over fsdp and then mp, so a
   checkpoint is the one a mesh-free Trainer writes, and
   `load_checkpoint` cuts it back. A mesh without a 'dp' or 'fsdp' axis
-  gives every rank the whole batch. A 'pp' or 'ep' axis of extent > 1
-  raises NotImplementedError naming the slice it waits for.
+  gives every rank the whole batch. An 'ep' axis of extent > 1 raises
+  NotImplementedError naming the slice it waits for, and a 'pp' axis
+  one naming parallel/pipeline.py's PipelineTrainer, which trains it.
 - FSDP overlap (`overlap_fsdp`, `overlap_chunks`; on an 'fsdp' axis of
   extent > 1, else nothing): the forward and the backward run inside
   parallel/overlap.py's `overlap_fsdp_guard`, so each fsdp-cut
@@ -122,6 +123,10 @@ without waiting for the device.
   distributed/context_parallel.py's guard, so the causal attention
   spans the whole sequence; and 'sp' joins the batch group: the valid
   tokens, the loss and every gradient are summed over dp x fsdp x sp.
+- Pipeline parallelism is parallel/pipeline.py's PipelineTrainer, a
+  subclass: its optimizer holds one stage (`split_over`), and the
+  probe's norm and the non-finite skip's flag span the stages as the
+  clip's norm does.
 - `offload_opt_state` (or the `_sharding_offload` hint that
   `group_sharded_parallel(offload=True)` leaves on the model): on the
   card, the optimizer's moments and masters live in pinned host memory
@@ -269,11 +274,14 @@ class Trainer:
                   if a not in ("dp", "fsdp", "sp", "mp") and n > 1}
         if others:
             ax = next(iter(others))
+            why = ("the plain Trainer runs no pipeline: a 'pp' axis trains "
+                   "through parallel/pipeline.py's PipelineTrainer"
+                   if ax == "pp" else
+                   f"{ax!r} waits for {WAITS.get(ax, 'a later slice')}")
             raise NotImplementedError(
                 f"mesh axes {others}: the port's Trainer runs data, "
                 f"sharded-data (FSDP), sequence (context) and tensor "
-                f"parallelism; {ax!r} waits for "
-                f"{WAITS.get(ax, 'a later slice')}")
+                f"parallelism; {why}")
         sp = axes.get("sp", 1)
         if sp > 1 and self.config.context_parallel not in ("ring",
                                                            "ulysses"):
@@ -379,7 +387,7 @@ class Trainer:
         of its row group's slices; with 'sp', its sequence shard of
         them (`_seq_shard`)."""
         dp, r = self._dp["size"], self._dp["index"]
-        n_mb = self.config.grad_accum_steps
+        n_mb = self._row_groups()
         out = {}
         for k, v in batch.items():
             if getattr(v, "ndim", 0) == 0:
@@ -395,6 +403,11 @@ class Trainer:
         if self._dp.get("sp") is not None:
             out = _seq_shard(out, *self._dp["sp"])
         return _LocalBatch(out)
+
+    def _row_groups(self):
+        """The microbatches a global batch's rows are cut into before the
+        batch group cuts each of them (`_local_rows`)."""
+        return self.config.grad_accum_steps
 
     def _token_scales(self, mbs):
         """(n_mb,) f32: each microbatch's weight on this rank, its valid
@@ -527,10 +540,14 @@ class Trainer:
             return
         params = [p for p in self.model.parameters() if p.grad is not None]
         grads = [p.grad.float() for p in params]
+        # the groups the model is cut over, and (a pipeline stage's
+        # optimizer, optimizer/__init__.py `split_over`) split across
+        groups = shard_groups(params)
+        across, counted = self.optimizer._span(params)
         if cfg.health_probe:
             # one reduction: the norm carries any NaN / Inf, so it is both
             # the all-finite check and the probe's gradient norm
-            gnorm = global_grad_norm(grads, shard_groups(params))
+            gnorm = global_grad_norm(grads, groups, across, counted)
             healthy = (torch.isfinite(loss) & torch.isfinite(gnorm)
                        & (loss <= self._loss_cap))
             self.optimizer.step(lr, apply=healthy)
@@ -538,7 +555,7 @@ class Trainer:
             return
         finite = _on_every_rank(torch.isfinite(loss) & torch.stack(
             [torch.isfinite(g).all() for g in grads]).all(),
-            shard_groups(params))
+            groups + ([(across,)] if across is not None else []))
         self.optimizer.step(lr, apply=finite)
         self._note_skip(~finite)
 
@@ -854,7 +871,8 @@ def _whole_fsdp_weights(model):
 
 def _on_every_rank(flag, groups):
     """0-d bool: `flag` holds on every rank of each distinct group in
-    `groups` (`shard_groups`: tuples of mp and fsdp groups; a MIN
+    `groups` (`shard_groups`: tuples of mp and fsdp groups, and a
+    pipeline's pp group; a MIN
     all-reduce a group), so the ranks of a cut model, whose gradient
     pieces differ, take one branch."""
     distinct = {id(g): g for gs in groups for g in gs}
