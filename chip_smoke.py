@@ -315,7 +315,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    load time. Launches go to the paths "training_obs" ((a)) and
    "training_ckpt" ((c), (d): every step at the count from the code).
 19. the training sentry, run_resilient and a relaunch (run right after
-   phase 18). (a) Phase 9's configuration with `health_probe=True`:
+   phase 18). (a) Phase 9's configuration at SENTRY_LAYERS of its 22
+   layers with `health_probe=True`:
    bench.py's A/B (bench.py:863-939) in interleaved rounds of the step
    without the probe, the probe step reading its loss (off), the step
    under the sentry's host plane (cap, the one read of loss and probe,
@@ -351,7 +352,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    distributed/collective.py on CUDA tensors gives its one-rank result,
    with 0 watchdog expiries, and exactly 1 under a
    `collective.dispatch/all_reduce` delay past a 200 ms deadline; then
-   phase 9's configuration for 6 steps over `init_mesh({"dp": 1})`, its
+   phase 9's configuration at DP_A_LAYERS of its 22 layers for 6 steps
+   over `init_mesh({"dp": 1})`, its
    losses bit-equal to a mesh-free Trainer's 6 steps in the same worker
    and its launches per step the count from the code, and 0 all-reduce
    bytes a step (a dp axis of extent 1 runs no collective: phase 22
@@ -475,6 +477,42 @@ Phases, each of which fails the run (non-zero exit) on any error:
    saved microbatch, not its own, outside the gradient tolerance. One
    card shows no rate across cards and no real bubble. Launches go to
    the path "training_pp" ((a), both ranks).
+25. the Qwen2-MoE family (models/qwen2_moe.py, nn/moe.py) at
+   Qwen1.5-MoE-A2.7B's published width (hidden 2048, 24 layers, 16/16
+   heads of 128, 60 experts, 4 a token, expert FFN 1408, shared expert
+   5632, vocab 151936; dropless, fused RoPE, plain norms; 14.3 B
+   parameters, bf16 from a seed; run last, after phase 10's model is
+   freed). (a) A PagedKVEngine (MOE_GEOM) serves 8 prompts of 128-512
+   tokens, MOE_MAX_NEW new tokens each, one joining mid-decode, through
+   the captured tick: the decode kernel's launches L a decode step, RoPE
+   2 L and the expert products (torch._grouped_mm) 3 L a model call, the
+   norms none; the private eager tick the same tokens; prefill ms, tick
+   ms and decode tokens/s. (b) `generate` on prompts 0 and 1 (one
+   left-padded batch): its captured steps' tokens bit for bit those of
+   their eager bodies; with its routing pinned to a cold engine's, its
+   logits at each row's prefill and one teacher-forced decode step
+   within MOE_GEN_LOGITS_RMS of that engine's, the planted faults above
+   it; where its tokens leave the engine's, the routers' top-k flips
+   between the two bf16 paths on the common prefix, and the pinned
+   logits there the engine's token (or a tie in the engine's logits)
+   within the limit (bf16 noise flips this random router; the token
+   equality is held at f32 in (d)). (c) Layer MOE_LAYER's MoE on the served model's own inputs (8
+   prompts' first 128 tokens, and their last rows as a decode step's
+   8): each grouped product against the plain per-expert loop
+   (BF16_TOL), the whole dropless output and the capacity path at k = 2
+   against their plain versions (MOE_BF16_TOL), the products' ms beside
+   the plain loop's and their bound (the bytes of the experts the
+   tokens touch over 3.35 TB/s). (d) MOE_TRAIN_LAYERS layers at the same
+   widths, f32 weights: first the engine's eager tick with f32 KV and
+   `generate` on prompts 0 and 1 give the same greedy tokens (the expert
+   products through the plain loop: torch._grouped_mm takes bf16 only);
+   then the Trainer (bf16 compute, AdamW, flash attention, fused RoPE)
+   on MOE_TRAIN_BATCH ids for 1 + MOE_TRAIN_STEPS steps: step 1's loss
+   within TRAIN_BF16_LOSS_TOL of an f32 forward on the card, the loss
+   falling, the flash and RoPE launches and the expert products (3 L
+   forward, 6 L backward a step) the count from the code; tokens/s.
+   Launches go to the paths "serving_moe" ((a)) and "training_moe"
+   ((d)).
 
 Phase 4 also holds the blockwise cross-entropy kernels (forward, dS,
 dx, dW) against their twin at the training shape (N 16384, D 2048,
@@ -2809,6 +2847,7 @@ def training_obs_phase(dev, counters, reset, card, bench):
 # -- phase 19: the sentry, run_resilient and a relaunch ---------------------
 
 SENTRY_AB_BLOCK = 4         # (a): steps an arm runs a round (bench.py, chip)
+SENTRY_LAYERS = 8           # (a): the model's depth, of 22 (the phase's time)
 SENTRY_AB_ROUNDS = 2        # (a): rounds of plain, off, on, off
 RECOVER_BATCH = (4, 1024)   # (b), (c): bench.py's recovery batch on the chip
 RECOVER_STEPS = 8           # (b), (c): bench.py's recovery run on the chip
@@ -2888,15 +2927,22 @@ def _bundle_reasons(flight):
     return out
 
 
+def _sentry_config():
+    """(a)'s model: phase 9's configuration at SENTRY_LAYERS layers."""
+    return _tinyllama_config(loss_chunk=512, loss_vocab_block=0,
+                             fused_norm=False, fused_rope=False,
+                             num_hidden_layers=SENTRY_LAYERS)
+
+
 def _sentry_cost_part(dev, steps, card, bench):
     """(a): the sentry's host work and the probe's cost at phase 9's
-    configuration, bench.py's interleaved A/B (bench.py:863-939)."""
+    configuration cut to SENTRY_LAYERS layers, bench.py's interleaved
+    A/B (bench.py:863-939)."""
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.distributed import sentry
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
     from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
-    cfg = _tinyllama_config(loss_chunk=512, loss_vocab_block=0,
-                            fused_norm=False, fused_rope=False)
+    cfg = _sentry_config()
     torch.cuda.empty_cache()
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
     opt = topt.AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
@@ -2975,7 +3021,8 @@ def _sentry_cost_part(dev, steps, card, bench):
         syncs_on=syncs_on, syncs_off=syncs_off,
         capped_on_steps=capped[0], on_steps=on_i[0],
         phase9_step_ms_median=bench.get("step_ms_median"))
-    print(f"[sentry] {card}: (a) step p2 {out['step_ms_p2_off']:.2f} ms "
+    print(f"[sentry] {card}: (a) {SENTRY_LAYERS} layers: step p2 "
+          f"{out['step_ms_p2_off']:.2f} ms "
           f"off, {out['step_ms_p2_on']:.2f} on, {out['step_ms_p2_plain']:.2f} "
           f"without the probe; host {out['host_us_per_step']:.1f} us a step "
           f"= overhead {out['overhead_pct']:.4f} %; A/B "
@@ -3332,9 +3379,7 @@ def sentry_phase(dev, counters, reset, card, bench):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     tokens_a = OBS_BATCH[0] * OBS_BATCH[1]
-    want_a = expected_train_launches(
-        _tinyllama_config(loss_chunk=512, loss_vocab_block=0,
-                          fused_norm=False, fused_rope=False), tokens_a)
+    want_a = expected_train_launches(_sentry_config(), tokens_a)
     want_b = expected_train_launches(_recover_config(),
                                      RECOVER_BATCH[0] * RECOVER_BATCH[1])
     want = {k: steps["a"] * want_a[k] + steps["b"] * want_b[k]
@@ -3359,6 +3404,7 @@ def sentry_phase(dev, counters, reset, card, bench):
 # -- phase 20: data-parallel training across processes -----------------------
 
 DP_STEPS = 6                # (a): steps of each Trainer, phase 9's batch
+DP_A_LAYERS = 8             # (a): the model's depth, of 22 (the phase's time)
 DP_B_STEPS = 3              # (b): steps of the two-rank job
 DP_B_PAD = (4, 1024)        # (b): rows below 4 labelled -100 from column 1024
 # (b), against one process's run of the same global batches, bf16 compute:
@@ -3491,7 +3537,7 @@ def dp_worker_a(outdir):
     dist.init_parallel_env()
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {"collectives": _dp_collectives(dev)}
-    cfg = _dp_config()
+    cfg = _dp_config(num_hidden_layers=DP_A_LAYERS)
     ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (8, 2048)) \
         .astype(np.int32)
     data = {"input_ids": ids, "labels": ids}
@@ -3661,7 +3707,8 @@ def dp_phase(card):
     if dp["losses"] != plain["losses"]:
         problems.append(f"(a) dp losses {dp['losses']} != the mesh-free "
                         f"Trainer's {plain['losses']}")
-    want = expected_train_launches(_dp_config(), 8 * 2048)
+    want = expected_train_launches(
+        _dp_config(num_hidden_layers=DP_A_LAYERS), 8 * 2048)
     per_step = {k: dp["launches"][k] / DP_STEPS for k in want}
     if per_step != {k: float(v) for k, v in want.items()}:
         problems.append(f"(a) launches per step {per_step} != the count "
@@ -3686,7 +3733,8 @@ def dp_phase(card):
           f"{len(coll['ok'])} collectives equal to their one-rank results; "
           f"watchdog expiries {coll['expired']}, under the dispatch delay "
           f"{coll['expired_chaos']} ({coll['last_expired']})")
-    print(f"[dp] {card}: (a) phase 9's Trainer, {DP_STEPS} steps: losses "
+    print(f"[dp] {card}: (a) phase 9's Trainer at {DP_A_LAYERS} layers, "
+          f"{DP_STEPS} steps: losses "
           f"over init_mesh({{'dp': 1}}) bit-equal to the mesh-free run's: "
           f"{dp['losses'] == plain['losses']} {dp['losses']}; step "
           f"{dp['step_ms']:.1f} ms with the mesh, {plain['step_ms']:.1f} ms "
@@ -9099,6 +9147,619 @@ def autopilot_phase(model, counters, reset, card):
     return out
 
 
+# -- phase 25: the Qwen2-MoE family at Qwen1.5-MoE-A2.7B width ----------------
+
+MOE_GEOM = dict(max_slots=8, page_size=16, num_pages=321,
+                max_pages_per_slot=40, steps_per_tick=4, kv_dtype="bf16")
+MOE_PROMPT_LENS = (128, 512)    # (a): 8 prompts of this many tokens
+MOE_MAX_NEW = 32                # (a), (b): new tokens a request
+MOE_LAYER = 12                  # (c): the layer whose MoE inputs are taken
+MOE_TRAIN_LAYERS = 2            # (d): the model's depth, of 24
+MOE_TRAIN_BATCH = (4, 2048)     # (d): ids a step
+MOE_TRAIN_STEPS = 3             # (d): timed steps after the warm-up
+# (c): a layer's whole MoE output against its plain version, entry by
+# entry (`_check_rows`): four bf16 steps, since each of the three products
+# and silu(a) b round once on each side, in other orders (each product
+# alone is held to BF16_TOL)
+MOE_BF16_TOL = 2 ** -5
+# (b): generate's logits, its routing pinned to a cold engine's, within
+# this x the RMS of the engine's at the same prefix (RMS of the
+# difference); set from the MoE readings on an H100 (sound 0.0158-0.0173,
+# the planted decode-position fault 0.128-0.138, the pad-mask fault
+# 1.38-1.40), a factor of 3.6 above the one and 2 below the other
+MOE_GEN_LOGITS_RMS = 2 ** -4
+
+
+def _qwen15_moe_config(**overrides):
+    """Qwen1.5-MoE-A2.7B's published widths (its config.json: hidden 2048,
+    24 layers, 16 heads and 16 kv heads of 128, 60 experts, 4 a token,
+    moe_intermediate_size 1408, shared_expert_intermediate_size 5632,
+    vocab 151936, rope_theta 1e6, rms_norm_eps 1e-6, untied embeddings),
+    on the dropless path (the capacity path would take top-1 at k = 4),
+    with the fused RoPE kernel."""
+    from paddle_tpu_torch.models.qwen2_moe import Qwen2MoeConfig
+    base = dict(vocab_size=151936, hidden_size=2048, intermediate_size=5632,
+                num_hidden_layers=24, num_attention_heads=16,
+                num_key_value_heads=16, max_position_embeddings=8192,
+                rope_theta=1e6, rms_norm_eps=1e-6, tie_word_embeddings=False,
+                num_experts=60, num_experts_per_tok=4,
+                moe_intermediate_size=1408,
+                shared_expert_intermediate_size=5632, moe_dropless=True,
+                fused_rope=True, seq_length=2048)
+    base.update(overrides)
+    return Qwen2MoeConfig(**base)
+
+
+def _moe_zero():
+    from paddle_tpu_torch.nn import moe
+    for k in moe.launches:
+        moe.launches[k] = 0
+
+
+@contextlib.contextmanager
+def _plain_grouped_products():
+    """The expert products through their plain per-expert loop, for a
+    reference computation (torch._grouped_mm takes bf16 only)."""
+    from paddle_tpu_torch.nn import moe
+    card = moe.grouped_mm
+    moe.grouped_mm = moe.grouped_mm_plain
+    try:
+        yield
+    finally:
+        moe.grouped_mm = card
+
+
+def _moe_serving_part(model, counters, reset, card):
+    """(a): 8 prompts through the captured tick, one joining mid-decode;
+    launch gates; the eager tick's tokens."""
+    from paddle_tpu_torch.nn import moe
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    prompts = _prompts(8, cfg.vocab_size, seed=25, lo=MOE_PROMPT_LENS[0],
+                       hi=MOE_PROMPT_LENS[1])
+    _moe_zero()
+    reset()
+    t0 = time.perf_counter()
+    eng, toks = _serve(model, prompts, MOE_MAX_NEW, late=7, **MOE_GEOM)
+    wall = time.perf_counter() - t0
+    counted, grouped = counters(), dict(moe.launches)
+    _check_tokens("moe", toks, MOE_MAX_NEW, cfg.vocab_size)
+    if sorted(eng._free) != list(range(1, eng.num_pages)) \
+            or eng._reserved_unalloc != 0:
+        raise AssertionError(f"moe: pages not returned: free "
+                             f"{len(eng._free)}, reserved "
+                             f"{eng._reserved_unalloc}")
+    if ("tick", False) not in eng._programs or not eng.stats["ticks"]:
+        raise AssertionError("moe: the decode tick was not captured")
+    st = dict(eng.stats)
+    steps = _decode_steps(eng)
+    calls = st["prefill_calls"] + steps
+    # the decode kernel L a decode step; RoPE 2 L and the grouped products
+    # 3 L a model call (decode step or prefill call); the norms are plain
+    want = {"paged_decode_attention": layers * steps,
+            "paged_decode_attention_int8": 0, "rms_norm_residual": 0,
+            "rope_apply": 2 * layers * calls, "weight_only_int8_matmul": 0}
+    got = {k: counted[k] for k in want}
+    want_g = {"grouped_mm": 3 * layers * calls, "grouped_mm_bwd": 0}
+    if got != want or grouped != want_g:
+        raise AssertionError(f"moe: launches {got} {grouped}, want {want} "
+                             f"{want_g} ({steps} decode steps, "
+                             f"{st['prefill_calls']} prefill calls)")
+    del eng
+    _release()
+    eager = _eager_run(model, prompts, MOE_MAX_NEW, MOE_GEOM, toks, "moe")
+    out = dict(card=card, prompt_lens=[int(p.size) for p in prompts],
+               **_tick_metrics(st),
+               prefill_ms=st["prefill_s"] / st["prefill_calls"] * 1e3,
+               prefill_calls=st["prefill_calls"],
+               prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_s"],
+               decode_steps=steps, wall_s=wall,
+               launches={k: v for k, v in got.items() if v},
+               grouped_products=grouped,
+               launches_per_step={"paged_decode_attention": layers,
+                                  "rope_apply": 2 * layers,
+                                  "grouped_mm": 3 * layers},
+               eager=eager, tokens=toks)
+    print(f"[moe] {card}: (a) Qwen1.5-MoE-A2.7B width, {layers} layers, "
+          f"captured tick: prefill {out['prefill_ms']:.2f} ms a call "
+          f"({st['prefill_calls']} calls, {out['prefill_tokens_per_s']:.1f} "
+          f"tok/s), tick {out['tick_ms']:.2f} ms ({MOE_GEOM['steps_per_tick']}"
+          f" steps of 8 slots), decode {out['decode_tokens_per_s']:.1f} "
+          f"tok/s; eager tick the same tokens, tick "
+          f"{eager['tick_ms']:.2f} ms, decode "
+          f"{eager['decode_tokens_per_s']:.1f} tok/s; launches {got} over "
+          f"{steps} decode steps and {st['prefill_calls']} prefill calls "
+          f"(= the count from the code), grouped products {grouped}")
+    return out, prompts
+
+
+def _moe_generation_part(model, prompts, toks, card):
+    """(b) at bf16, `generate` (its captured decode steps) on prompts 0
+    and 1 as one left-padded batch:
+    - its tokens bit for bit those of the same bodies run eagerly, with
+      the same grouped products (the graphs hold nothing else);
+    - its logits at each row's prefill and at one teacher-forced decode
+      step against a cold engine's at the same prefix (phase 15's
+      `_gen_logits_readings`), with generate's routing pinned to the
+      engine's (`_moe_pins`): within MOE_GEN_LOGITS_RMS, and the planted
+      decode-position and pad-mask faults above it. Unpinned, the two
+      paths' bf16 noise flips the routers' top-k choices at many (layer,
+      position) pairs of this random model, and each flip moves the
+      logits further; those readings are reported;
+    - where its tokens leave the engine's, `_moe_divergence`: the
+      routers' flips on the common prefix, and the step's logits with
+      the routing pinned, which must pick the engine's token (or meet
+      a tie in the engine's own logits) within MOE_GEN_LOGITS_RMS.
+    `_moe_f32_tokens` holds its tokens equal to the engine's at f32."""
+    from paddle_tpu_torch.models import generation
+    two = prompts[:2]
+    ids, mask = _left_pad(two)
+    t0 = time.perf_counter()
+    out = generation.generate(model, ids, max_new_tokens=MOE_MAX_NEW,
+                              attention_mask=mask)
+    secs = time.perf_counter() - t0
+    greedy = out[:, ids.shape[1]:].numpy()
+    _check_tokens("moe generate", greedy.tolist(), MOE_MAX_NEW,
+                  model.config.vocab_size)
+    model.__dict__.pop("_gen_step_cache", None)
+    with _eager_generation():
+        eager = generation.generate(model, ids, max_new_tokens=MOE_MAX_NEW,
+                                    attention_mask=mask)
+    model.__dict__.pop("_gen_step_cache", None)
+    if not torch.equal(eager, out):
+        raise AssertionError("moe generate: the captured steps' tokens are "
+                             "not the eager bodies'")
+    refs = _memo_logits(_ref_logits(model))
+    diverge = [_moe_divergence(model, two[r], greedy[r].tolist(), toks[r],
+                               refs)
+               for r in (0, 1) if greedy[r].tolist() != list(toks[r])]
+    free = _gen_logits_readings(model, two, ids, mask, greedy, refs)
+    pins = _moe_pins(model, two, ids, greedy, refs)
+    with _routes(pins):
+        logits = _gen_logits_readings(model, two, ids, mask, greedy, refs)
+    _release()
+    print(f"[moe] {card}: (b) generate on prompts 0 and 1 (left-padded to "
+          f"{ids.shape[1]}, {secs:.2f} s with the captures): the eager "
+          f"bodies' tokens bit for bit; with the routing pinned to the "
+          f"engine's, logits against a cold engine's {logits['sound']} of "
+          f"RMS (limit {MOE_GEN_LOGITS_RMS}), the planted faults at "
+          f"{logits['position_fault_min']:.4g} (decode position) and "
+          f"{logits['pad_fault_min']:.4g} (pad mask); unpinned "
+          f"{free['sound']}, faults {free['position_fault_min']:.4g} and "
+          f"{free['pad_fault_min']:.4g}; {len(diverge)} of 2 rows leave "
+          f"the engine's tokens")
+    res = dict(tokens=greedy.tolist(), eager_bodies_same=True, seconds=secs,
+               logits_pinned=logits, logits_unpinned=free,
+               divergence=diverge, limit=MOE_GEN_LOGITS_RMS)
+    problems = []
+    if logits["sound_max"] > MOE_GEN_LOGITS_RMS:
+        problems.append(f"with the routing pinned, the logits are "
+                        f"{logits['sound_max']:.4g} of RMS from a cold "
+                        f"engine's")
+    for name in ("position_fault_min", "pad_fault_min"):
+        if logits[name] <= MOE_GEN_LOGITS_RMS:
+            problems.append(f"a planted fault reads {name} "
+                            f"{logits[name]:.4g}: the check is blind")
+    for d in diverge:
+        if d["rms_pinned"] > MOE_GEN_LOGITS_RMS or not (
+                d["pinned_token"] == d["engine_token"] or d["engine_tie"]):
+            problems.append(f"the divergence at step {d['step']} is not "
+                            f"the routers': {d}")
+    if problems:
+        raise AssertionError(f"moe gen (limit {MOE_GEN_LOGITS_RMS}): "
+                             + "; ".join(problems))
+    return res
+
+
+def _memo_logits(ref_logits):
+    """`ref_logits` computing each prefix once (so a later call runs no
+    model); its `fresh` always runs the engine (and keeps the result)."""
+    seen = {}
+
+    def fresh(ids):
+        seen[np.asarray(ids, np.int32).tobytes()] = out = ref_logits(ids)
+        return out
+
+    def logits(ids):
+        key = np.asarray(ids, np.int32).tobytes()
+        return seen[key] if key in seen else fresh(ids)
+    logits.fresh = fresh
+    return logits
+
+
+def _moe_pins(model, prompts, ids, greedy, ref_logits):
+    """The routes a cold engine takes on each row's prompt + its first
+    token (`ref_logits`, `_memo_logits`', so `_gen_logits_readings` runs
+    no engine after this), laid out for generate's bodies on the left-padded
+    batch `ids`: one (b s, k) array a layer for the prefill call (a
+    padded position takes experts 0..k-1), then one (b, k) a layer for
+    the decode step; `_routes` pins them call by call, cyclically."""
+    layers = model.config.num_hidden_layers
+    b, s = ids.shape
+    routes = []
+    for r in range(b):
+        ref_logits(prompts[r].astype(np.int32))
+        with _routes() as log:
+            ref_logits.fresh(np.concatenate([prompts[r], greedy[r, :1]])
+                             .astype(np.int32))
+        routes.append(log[:layers])
+    k = routes[0][0].shape[1]
+    prefill, step = [], []
+    for i in range(layers):
+        p = np.tile(np.arange(k, dtype=np.int32), (b, s, 1))
+        for r in range(b):
+            n = prompts[r].size
+            p[r, s - n:] = routes[r][i][:n]
+        prefill.append(p.reshape(b * s, k))
+        step.append(np.stack([routes[r][i][prompts[r].size]
+                              for r in range(b)]))
+    return prefill + step
+
+
+@contextlib.contextmanager
+def _routes(pinned=None):
+    """Every dropless gate's expert ids while the block runs, one (tokens,
+    k) int array a call, in call order (a capture in progress is not
+    read); with `pinned` (such a list), call i takes pinned[i % n]
+    instead of its own top-k, its gates its own probabilities at those
+    ids, renormalised."""
+    from paddle_tpu_torch.nn import moe
+    real = moe.topk_gating_dropless
+    log = []
+
+    def gate(logits, k):
+        idx, gates, aux = real(logits, k)
+        if torch.cuda.is_current_stream_capturing():
+            return idx, gates, aux
+        if pinned is not None:
+            want = pinned[len(log) % len(pinned)]
+            if want.shape != tuple(idx.shape):
+                raise AssertionError(f"pinned routes {want.shape} for a "
+                                     f"gate of {tuple(idx.shape)}")
+            idx = torch.from_numpy(want).to(idx.device)
+            probs = torch.softmax(logits.float(), dim=-1).gather(
+                -1, idx.long())
+            gates = probs / probs.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        log.append(idx.cpu().numpy())
+        return idx, gates, aux
+    moe.topk_gating_dropless = gate
+    try:
+        yield log
+    finally:
+        moe.topk_gating_dropless = real
+
+
+def _moe_divergence(model, prompt, chosen, other, ref_logits):
+    """At the first step t where generate's tokens `chosen` leave the
+    engine's `other` for `prompt`: the routers of generate's eager bodies
+    (this prompt alone, teacher-forced with `chosen`) against a cold
+    engine's prefill of the same prefix (prompt + chosen[:t]), every
+    layer and position: the (layer, position) pairs whose top-k sets
+    differ; the lead of chosen[t] over other[t] in each path's logits at
+    t; and generate's logits at t again with its routing pinned to the
+    engine's (their RMS difference to the engine's, `_rms_rel`, and the
+    token they pick). `ref_logits` is `_memo_logits`'."""
+    layers = model.config.num_hidden_layers
+    t = _first_diff(chosen, other)
+    s = prompt.size
+    prefix = np.concatenate([prompt, np.asarray(chosen[:t], np.int32)])
+    with _routes() as log:
+        ref = np.asarray(ref_logits.fresh(prefix), np.float64)
+    engine_ids = [log[i][:prefix.size] for i in range(layers)]
+    ids, mask = prompt[None].astype(np.int32), np.ones((1, s), bool)
+    forced = np.asarray(chosen, np.int32)[None]
+    max_len = s + MOE_MAX_NEW
+    with _routes() as log:
+        own = _gen_exact_logits(model, ids, mask, forced, max_len,
+                                [(0, t)])[(0, t)].astype(np.float64)
+    own_ids = [np.concatenate([log[i]] + [log[layers * j + i]
+                                          for j in range(1, t + 1)])
+               for i in range(layers)]
+    pinned = ([engine_ids[i][:s] for i in range(layers)]
+              + [engine_ids[i][s + j - 1:s + j]
+                 for j in range(1, t + 1) for i in range(layers)])
+    with _routes(pinned):
+        pin = _gen_exact_logits(model, ids, mask, forced, max_len,
+                                [(0, t)])[(0, t)].astype(np.float64)
+    flips = [int(np.sum(np.any(np.sort(a, -1) != np.sort(b, -1), -1)))
+             for a, b in zip(own_ids, engine_ids)]
+    last = [bool(np.any(np.sort(a[-1]) != np.sort(b[-1])))
+            for a, b in zip(own_ids, engine_ids)]
+    c, o = chosen[t], other[t]
+    top = max(abs(ref[c]), abs(ref[o]), 2.0 ** -126)
+    out = dict(step=t, positions=int(prefix.size), layers=layers,
+               flips=int(sum(flips)), flips_by_layer=flips,
+               first_flip_layer=next((i for i, n in enumerate(flips) if n),
+                                     None),
+               last_position_flips=int(sum(last)),
+               lead_generate=float(own[c] - own[o]),
+               lead_engine=float(ref[c] - ref[o]),
+               engine_tie=bool(abs(ref[c] - ref[o])
+                               <= 2.0 ** (np.floor(np.log2(top)) - 7)),
+               rms_generate=_rms_rel(own, ref), rms_pinned=_rms_rel(pin, ref),
+               pinned_token=int(np.argmax(pin)), engine_token=int(o),
+               generate_token=int(c))
+    print(f"[moe] divergence at step {t} ({prefix.size} positions x "
+          f"{layers} layers): {out['flips']} router flips "
+          f"({out['last_position_flips']} at the last position, first at "
+          f"layer {out['first_flip_layer']}); lead of {c} over {o}: "
+          f"{out['lead_generate']:.4g} (generate), {out['lead_engine']:.4g}"
+          f" (engine); logits against the engine's {out['rms_generate']:.4g}"
+          f" of RMS, {out['rms_pinned']:.4g} with the routing pinned, "
+          f"which picks {out['pinned_token']}")
+    return out
+
+
+@contextlib.contextmanager
+def _eager_generation():
+    """generate's decode steps run eagerly instead of captured (the
+    plain grouped products read their offsets on the host)."""
+    from paddle_tpu_torch.models import generation
+    capture = generation.capture_graph
+    generation.capture_graph = lambda body, device, **kw: body
+    try:
+        yield
+    finally:
+        generation.capture_graph = capture
+
+
+def _moe_f32_tokens(model, prompts, card):
+    """(b) at f32, exactly: the 2-layer full-width f32 model, its expert
+    products through the plain loop (torch._grouped_mm takes bf16 only),
+    served by the engine's eager tick with f32 KV (prompt 1 joining
+    mid-decode of prompt 0) and by `generate` (eager steps) on each
+    prompt alone: the same greedy tokens."""
+    from paddle_tpu_torch.models.generation import generate
+    two = prompts[:2]
+    with torch.no_grad(), _plain_grouped_products(), _eager_generation():
+        eng, toks = _serve(model, two, MOE_MAX_NEW, late=1, eager=True,
+                           **dict(MOE_GEOM, kv_dtype=None))
+        del eng
+        _release()
+        got = [[int(x) for x in generate(model, p[None],
+                                         max_new_tokens=MOE_MAX_NEW)
+                [0, p.size:].tolist()] for p in two]
+    _release()
+    if got != toks:
+        raise AssertionError(f"moe f32: generate's tokens {got} != the "
+                             f"engine's {toks}")
+    print(f"[moe] {card}: (b) f32, {model.config.num_hidden_layers} layers:"
+          f" generate's greedy tokens on prompts 0 and 1 equal the engine's "
+          f"(eager tick, prompt 1 joining mid-decode), {MOE_MAX_NEW} each")
+    return dict(tokens=toks, same=True)
+
+
+def _dropless_operands(x, m):
+    """(ids, gates, the rows of x sorted by expert, the offsets) of the
+    dropless path at MoE layer m, as nn/moe.py `moe_dropless_mlp`
+    builds them."""
+    from paddle_tpu_torch.nn import moe
+    k = m.top_k
+    idx, gates, _ = moe.topk_gating_dropless(
+        x.float() @ m.router_weight.float(), k)
+    order, offsets = moe.sort_by_expert(idx, m.num_experts)
+    return idx, gates, x.index_select(0, order // k), offsets
+
+
+def _capacity_plain(x, m, k):
+    """The capacity path with its expert products as a loop of plain
+    matmuls, one expert at a time."""
+    from paddle_tpu_torch.nn import moe
+    combine, dispatch, _ = moe.top2_gating(
+        x.float() @ m.router_weight.float(),
+        capacity_factor=m.capacity_factor)
+    h = moe.moe_dispatch(x, dispatch)
+    outs = []
+    for e in range(h.shape[0]):
+        a = h[e] @ m.experts_gate_weight[e]
+        b = h[e] @ m.experts_up_weight[e]
+        act = torch.nn.functional.silu(a.float()).to(h.dtype) * b
+        outs.append(act @ m.experts_down_weight[e])
+    return moe.moe_combine(torch.stack(outs), combine)
+
+
+def _moe_products_part(model, prompts, card):
+    """(c): one layer's MoE on the inputs the served model gives it (the
+    post-attention norm's output at MOE_LAYER over 8 prompts' first 128
+    tokens: 1024 prefill rows, and their last rows as a decode step's
+    8), on the card: the dropless grouped products, each against the
+    plain per-expert loop, the whole dropless output, and the capacity
+    path at k = 2 against its plain version; the products' ms beside
+    their bound."""
+    from paddle_tpu_torch.nn import moe
+    cfg, dev = model.config, model.device
+    layer = model.model.layers[MOE_LAYER]
+    m = layer.mlp.moe
+    wg, wu, wd = (m.experts_gate_weight, m.experts_up_weight,
+                  m.experts_down_weight)
+    d, f = cfg.hidden_size, cfg.moe_intermediate_size
+    seen = []
+    hook = layer.post_attention_layernorm.register_forward_hook(
+        lambda mod, inp, out: seen.append(out.detach()))
+    ids = np.stack([p[:MOE_PROMPT_LENS[0]] for p in prompts])
+    with torch.no_grad():
+        model.model(torch.from_numpy(ids).to(dev))
+    hook.remove()
+    shapes = {"decode": seen[0][:, -1].contiguous(),
+              "prefill": seen[0].reshape(-1, d).contiguous()}
+    out = {}
+    for name, x in shapes.items():
+        idx, gates, xs, offs = _dropless_operands(x, m)
+        rows = xs.shape[0]
+        a = moe.grouped_mm(xs, wg, offs)
+        b = moe.grouped_mm(xs, wu, offs)
+        act = torch.nn.functional.silu(a.float()).to(x.dtype) * b
+        o = moe.grouped_mm(act, wd, offs)
+        errs = {}
+        for tag, got, lhs, w in (("gate", a, xs, wg), ("up", b, xs, wu),
+                                 ("down", o, act, wd)):
+            errs[tag] = _check_rows(f"moe {name} {tag}", got,
+                                    moe.grouped_mm_plain(lhs, w, offs),
+                                    BF16_TOL)
+        whole = moe.moe_dropless_mlp(x, wg, wu, wd, idx, gates)
+        with _plain_grouped_products():
+            whole_ref = moe.moe_dropless_mlp(x, wg, wu, wd, idx, gates)
+        errs["dropless"] = _check_rows(f"moe {name} dropless", whole,
+                                       whole_ref, MOE_BF16_TOL)
+        cap = moe.moe_mlp(x, m.router_weight, wg, wu, wd, k=2,
+                          capacity_factor=m.capacity_factor)[0]
+        errs["capacity_k2"] = _check_rows(f"moe {name} capacity k=2", cap,
+                                          _capacity_plain(x, m, 2),
+                                          MOE_BF16_TOL)
+
+        def products(mm, xs=xs, act=act, offs=offs):
+            mm(xs, wg, offs)
+            mm(xs, wu, offs)
+            return mm(act, wd, offs)
+        ms = _time_ms(products, [(moe.grouped_mm,)], iters=20)
+        plain_ms = _time_eager_ms(products, [(moe.grouped_mm_plain,)])
+        touched = int((torch.diff(offs, prepend=offs.new_zeros(1)) > 0)
+                      .sum())
+        nbytes = 2 * (3 * touched * d * f + rows * (2 * d + 3 * f + d))
+        bound_ms, bound_by = _bound(nbytes, 6.0 * rows * d * f,
+                                    BF16_TENSOR_FLOPS)
+        cap_ms = _time_ms(lambda x=x: moe.moe_mlp(
+            x, m.router_weight, wg, wu, wd, k=2,
+            capacity_factor=m.capacity_factor), [()], iters=20)
+        out[name] = dict(tokens=int(x.shape[0]), rows=rows,
+                         experts_touched=touched, bytes=nbytes,
+                         products_ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         capacity_k2_ms=cap_ms,
+                         max_abs_err={k: v[0] for k, v in errs.items()},
+                         err_over_bound={k: v[1] for k, v in errs.items()})
+        print(f"[moe] {card}: (c) layer {MOE_LAYER} {name} ({x.shape[0]} "
+              f"tokens, {rows} rows, {touched} of {cfg.num_experts} experts"
+              f"): the three grouped products {ms:.4f} ms (plain loop "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: "
+              f"{nbytes / 1e6:.1f} MB); capacity path k=2 {cap_ms:.4f} ms; "
+              f"max |err| {out[name]['max_abs_err']} (err / bound "
+              f"{out[name]['err_over_bound']}; products {BF16_TOL}, whole "
+              f"outputs {MOE_BF16_TOL})")
+    dec = out["decode"]
+    out["decode_step_ms"] = dec["products_ms"] * cfg.num_hidden_layers
+    out["decode_step_bound_ms"] = dec["bound_ms"] * cfg.num_hidden_layers
+    print(f"[moe] {card}: (c) a decode step's grouped products, layer "
+          f"{MOE_LAYER}'s time x {cfg.num_hidden_layers} layers: "
+          f"{out['decode_step_ms']:.3f} ms, bound "
+          f"{out['decode_step_bound_ms']:.3f} ms")
+    return out
+
+
+def _moe_training_part(dev, prompts, counters, reset, card):
+    """(d): the same widths at MOE_TRAIN_LAYERS layers through the Trainer
+    (f32 weights from a seed, bf16 compute, AdamW, flash attention, fused
+    RoPE) on MOE_TRAIN_BATCH ids, 1 + MOE_TRAIN_STEPS steps; step 1's
+    loss against an f32 forward of the same model on the card
+    (TRAIN_BF16_LOSS_TOL). Before the Trainer takes the model, (b)'s f32
+    token check (`_moe_f32_tokens`)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM
+    from paddle_tpu_torch.nn import moe
+    from paddle_tpu_torch.parallel.trainer import Trainer, TrainStepConfig
+    cfg = _qwen15_moe_config(num_hidden_layers=MOE_TRAIN_LAYERS,
+                             use_flash_attention=True, fused_norm=False,
+                             recompute=False)
+    t0 = time.perf_counter()
+    model = Qwen2MoeForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = np.random.RandomState(25).randint(0, cfg.vocab_size,
+                                            MOE_TRAIN_BATCH).astype(np.int64)
+    ids = torch.from_numpy(ids).to(dev)
+    data = {"input_ids": ids, "labels": ids}
+    with torch.no_grad(), _plain_grouped_products():
+        ref = float(model(**data)[0])
+    f32_tokens = _moe_f32_tokens(model, prompts, card)
+    opt = topt.AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                     weight_decay=0.01)
+    tr = Trainer(model, opt, TrainStepConfig(compute_dtype="bfloat16"))
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _moe_zero()
+    reset()
+    t0 = time.perf_counter()
+    losses = [tr.step(data)]
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(MOE_TRAIN_STEPS):
+        losses.append(tr.step(data))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, grouped = counters(), dict(moe.launches)
+    losses = [float(x) for x in losses]
+    steps = MOE_TRAIN_STEPS + 1
+    tokens = MOE_TRAIN_BATCH[0] * MOE_TRAIN_BATCH[1]
+    want = expected_train_launches(cfg, tokens)
+    per_step = {k: launches[k] / steps for k in want}
+    layers = cfg.num_hidden_layers
+    want_g = {"grouped_mm": 3 * layers * steps,
+              "grouped_mm_bwd": 6 * layers * steps}
+    rel = abs(losses[0] - ref) / abs(ref)
+    problems = []
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"losses {losses} (finite, falling)")
+    if rel > TRAIN_BF16_LOSS_TOL:
+        problems.append(f"step 1's loss {losses[0]} against the f32 "
+                        f"forward's {ref}: {rel:.3g} relative")
+    if per_step != {k: float(v) for k, v in want.items()} \
+            or grouped != want_g:
+        problems.append(f"launches per step {per_step} {grouped}, want "
+                        f"{want} {want_g} over {steps} steps")
+    out = dict(card=card, layers=layers, params=n_params,
+               batch=list(MOE_TRAIN_BATCH), losses=losses, f32_loss=ref,
+               loss_rel=rel, tokens_per_s=tokens * MOE_TRAIN_STEPS / wall,
+               step_ms=wall / MOE_TRAIN_STEPS * 1e3, warmup_s=warm,
+               build_s=built_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches={k: v for k, v in launches.items() if v},
+               launches_per_step=per_step, grouped_products=grouped,
+               f32_tokens=f32_tokens)
+    print(f"[moe] {card}: (d) {layers} layers ({n_params / 1e9:.3f} B "
+          f"params), {MOE_TRAIN_BATCH[0]} x {MOE_TRAIN_BATCH[1]} ids: "
+          f"{out['tokens_per_s']:.1f} tokens/s, step {out['step_ms']:.1f} ms"
+          f", peak {out['peak_mem_gb']:.2f} GB; losses {losses}; step 1 "
+          f"against the f32 forward {ref:.6f}: {rel:.3g} relative (tol "
+          f"{TRAIN_BF16_LOSS_TOL}); launches per step {per_step} (= the "
+          f"count from the code), grouped products {grouped}")
+    del tr, opt, model, data
+    _release()
+    if problems:
+        raise AssertionError("moe training: " + "; ".join(problems))
+    return out
+
+
+def moe_phase(dev, counters, reset, card):
+    """Phase 25: the Qwen2-MoE family (models/qwen2_moe.py) at
+    Qwen1.5-MoE-A2.7B's width: (a) served at full depth through the
+    captured tick, (b) `generate`, (c) the expert products against their
+    plain versions, (d) trained at MOE_TRAIN_LAYERS layers."""
+    from paddle_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM
+    t_phase = time.perf_counter()
+    cfg = _qwen15_moe_config()
+    t0 = time.perf_counter()
+    model = Qwen2MoeForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[moe] Qwen1.5-MoE-A2.7B width bf16 built on the card in "
+          f"{time.perf_counter() - t0:.1f} s ({n_params / 1e9:.3f} B params,"
+          f" {cfg.num_hidden_layers} layers)")
+    out = {"params": n_params}
+    out["serving"], prompts = _moe_serving_part(model, counters, reset, card)
+    out["generation"] = _moe_generation_part(model, prompts,
+                                             out["serving"]["tokens"], card)
+    out["products"] = _moe_products_part(model, prompts, card)
+    del model
+    _release()
+    out["training"] = _moe_training_part(dev, prompts, counters, reset,
+                                         card)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[moe] {card}: phase 25 {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -9208,6 +9869,7 @@ def main(argv=None):
                                            serving)
     del model
     _release()
+    moe_out = moe_phase(dev, counters, reset, card)
     for name, e in kernels.items():
         by_path = {"serving": serving["launches"].get(name, 0),
                    "serving_prefix": serving_prefix["launches"].get(name, 0),
@@ -9238,7 +9900,11 @@ def main(argv=None):
                    "generation_int8": generation_int8["launches"].get(name,
                                                                       0),
                    "router": router["launches"].get(name, 0),
-                   "autopilot": autopilot["launches"].get(name, 0)}
+                   "autopilot": autopilot["launches"].get(name, 0),
+                   "serving_moe": moe_out["serving"]["launches"].get(name,
+                                                                     0),
+                   "training_moe": moe_out["training"]["launches"].get(
+                       name, 0)}
         if sum(by_path.values()) <= 0:
             raise AssertionError(f"{name} was launched on no main path")
         e["launches"] = sum(by_path.values())
@@ -9276,6 +9942,7 @@ def main(argv=None):
                        "generation": generation,
                        "generation_int8": generation_int8,
                        "router": router, "autopilot": autopilot,
+                       "moe": moe_out,
                        "torch": torch.__version__}, f, indent=1)
     print(json.dumps(line))
     print(card)

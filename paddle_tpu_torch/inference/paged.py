@@ -512,8 +512,11 @@ _TICK_INPUTS = {"tok": (torch.int32, 0), "lens": (torch.int32, 0),
 class PagedKVEngine:
     """Continuous-batching scheduler over paged KV pools (module doc).
 
-    model: a port LlamaForCausalLM (its attention takes PagedState cache
-        coordinates), on `device`.
+    model: a port LlamaForCausalLM or Qwen2MoeForCausalLM (its attention
+        takes PagedState cache coordinates), on `device`. A Qwen2-MoE
+        model's idle slots go through its MoE with the live ones, as in
+        the JAX engine: on the capacity path they take capacity in token
+        order.
     max_slots: decode batch width.
     page_size / num_pages: pool geometry; page 0 is the trash page, so
         num_pages - 1 pages are allocatable (each pool also holds one

@@ -1,10 +1,14 @@
-"""Carry weights from a paddle_tpu Llama state dict into the port.
+"""Carry weights from a paddle_tpu Llama or Qwen2-MoE state dict into the
+port.
 
 paddle_tpu keeps a Linear weight as (in, out) (paddle_tpu/nn/layer/
 common.py); torch.nn.Linear keeps (out, in). Parameter names are the same
 in both packages, so conversion is a transpose of every Linear weight
-and a copy of everything else (embeddings (vocab, d) and norm weights
-(d,) keep their layout). Training configs (flash attention, recompute,
+(the `*_proj` projections, the lm_head, and Qwen2-MoE's
+`shared_expert_gate`) and a copy of everything else (embeddings (vocab,
+d) and norm weights (d,) keep their layout, and so do Qwen2-MoE's
+router (D, E) and stacked experts (E, D, F) / (E, F, D), which are plain
+parameters in both packages). Training configs (flash attention, recompute,
 the fused kernels) hold the same parameters, so one conversion serves
 serving and training; bf16 arrays (numpy's `ml_dtypes.bfloat16`, which
 torch cannot take directly) come across exactly as torch.bfloat16.
@@ -24,21 +28,27 @@ __all__ = ["from_paddle_tpu_state"]
 
 
 def _is_linear_weight(name):
-    return name == "lm_head.weight" or name.endswith("_proj.weight")
+    return name == "lm_head.weight" or name.endswith(
+        ("_proj.weight", "shared_expert_gate.weight"))
 
 
 def _expected_shapes(config, weight_only_int8=False):
-    """Parameter name -> shape of the port's LlamaForCausalLM(config),
-    from a storage-free copy of the model; with `weight_only_int8`, of
-    that model after `quantize_weight_only` (each Linear weight (N, K)
-    replaced by qweight (K, N) and w_scale (N,))."""
-    from paddle_tpu_torch.models.llama import LlamaModel
+    """Parameter name -> shape of the port's LlamaForCausalLM(config), or
+    Qwen2MoeForCausalLM(config) for a Qwen2MoeConfig, from a storage-free
+    copy of the model; with `weight_only_int8`, of that model after
+    `quantize_weight_only` (each Linear weight (N, K) replaced by qweight
+    (K, N) and w_scale (N,))."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.models.qwen2_moe import (Qwen2MoeConfig,
+                                                   Qwen2MoeForCausalLM)
+    cls = Qwen2MoeForCausalLM if isinstance(config, Qwen2MoeConfig) \
+        else LlamaForCausalLM
     with torch.device("meta"):
-        body = LlamaModel(config)
+        body, head = cls._build(config)
     shapes = {"model." + k: tuple(v.shape)
               for k, v in body.state_dict().items()}
-    if not config.tie_word_embeddings:
-        shapes["lm_head.weight"] = (config.vocab_size, config.hidden_size)
+    if head is not None:
+        shapes["lm_head.weight"] = tuple(head.weight.shape)
     if weight_only_int8:
         for name in [n for n in shapes if _is_linear_weight(n)]:
             n_out, n_in = shapes.pop(name)
@@ -50,8 +60,9 @@ def _expected_shapes(config, weight_only_int8=False):
 
 def from_paddle_tpu_state(np_state, config):
     """`np_state`: {name: np.ndarray} from a paddle_tpu LlamaForCausalLM
-    (e.g. `{k: np.asarray(v._value) for k, v in m.state_dict().items()}`).
-    Returns a torch state dict for the port's LlamaForCausalLM(config),
+    or Qwen2MoeForCausalLM (e.g. `{k: np.asarray(v._value) for k, v in
+    m.state_dict().items()}`). Returns a torch state dict for the port's
+    model of `config` (Qwen2MoeForCausalLM for a Qwen2MoeConfig),
     or, when the JAX model is weight-only int8, for that model after
     `quantize_weight_only`; raises ValueError on a missing, unexpected or
     misshapen entry."""

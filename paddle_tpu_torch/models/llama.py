@@ -355,13 +355,16 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
+    # the decoder layer a subclass stacks (models/qwen2_moe.py)
+    decoder_layer = LlamaDecoderLayer
+
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
         self.embed_tokens = nn.Embedding(config.vocab_size,
                                          config.hidden_size)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config)
+            [self.decoder_layer(config)
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
 
@@ -390,9 +393,12 @@ class LlamaModel(nn.Module):
                 continue
             cache = None if caches is None else caches[i]
             h = layer(h, position_ids, cache, cache_index, rope, attn_mask)
-        if cfg.fused_norm:
+        return self._final_norm(h)
+
+    def _final_norm(self, h):
+        if self.config.fused_norm:
             return rms_norm_residual(h, gathered(self.norm), None,
-                                     cfg.rms_norm_eps)[0]
+                                     self.config.rms_norm_eps)[0]
         return self.norm(h)
 
 
@@ -417,10 +423,7 @@ class LlamaForCausalLM(nn.Module):
         super().__init__()
         self.config = config
         with torch.device("meta"):
-            self.model = LlamaModel(config)
-            self.lm_head = (None if config.tie_word_embeddings
-                            else _linear(config.hidden_size,
-                                         config.vocab_size))
+            self.model, self.lm_head = self._build(config)
         # cast while still storage-free, so the device only ever holds
         # the parameters once, in `dtype`
         self.to(dtype)
@@ -433,6 +436,13 @@ class LlamaForCausalLM(nn.Module):
             else:
                 p.normal_(0.0, config.initializer_range, generator=gen)
         self.eval()
+
+    @staticmethod
+    def _build(config):
+        """(the body, the lm_head Linear or None for a tied head)."""
+        return LlamaModel(config), (
+            None if config.tie_word_embeddings
+            else _linear(config.hidden_size, config.vocab_size))
 
     @property
     def device(self):

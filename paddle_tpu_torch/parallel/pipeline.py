@@ -360,6 +360,8 @@ class PipelineTrainer(Trainer):
         return the Trainer's batch-group record over 'dp' (its
         GradReducer over the stage's parameters)."""
         from paddle_tpu_torch.distributed.parallel import GradReducer
+        from paddle_tpu_torch.parallel.plan import refuse_moe
+        refuse_moe(self.model, mesh, plan, pipeline=True)
         axes = dict(zip(mesh.dim_names, mesh.shape))
         others = {a: n for a, n in axes.items()
                   if a not in ("pp", "dp") and n > 1}

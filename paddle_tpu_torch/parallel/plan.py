@@ -38,7 +38,11 @@ parameter (the JAX package pads such a dim). A parameter placed on
 cuts activations, never weights: distributed/context_parallel.py; a
 pipeline stage holds whole layers: parallel/pipeline.py), and one
 placed on 'ep' names the slice it waits for; axes of extent 1
-replicate, as the JAX plan does through `_axis`.
+replicate, as the JAX plan does through `_axis`. `refuse_moe` names it
+too for the layouts a MoE model (nn/moe.py `MoEMLP`) cannot take yet:
+its stacked expert weights on ANY axis of extent > 1, 'mp' and 'fsdp'
+included (no layer of the port takes an (E, D, F) cut yet), an 'sp'
+axis or a pipeline; `apply_plan` and both Trainers call it.
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ from typing import Sequence
 from paddle_tpu_torch.distributed.placement import PartitionSpec as P
 
 __all__ = ["ShardingPlan", "llama_sharding_plan", "fsdp_partition",
-           "batch_spec", "check_plan", "apply_plan", "WAITS"]
+           "batch_spec", "check_plan", "refuse_moe", "apply_plan", "WAITS"]
 
 
 class ShardingPlan:
@@ -115,7 +119,7 @@ def batch_spec(mesh_axes: Sequence[str], seq_sharded: bool = True) -> P:
 
 
 # the slice each axis still waits for
-WAITS = {"ep": "the expert-parallel (MoE) slice"}
+WAITS = {"ep": "the expert-parallel slice (ROADMAP.md queue 1 item 7.5)"}
 
 
 def _axes_of(entry):
@@ -141,6 +145,42 @@ def check_plan(names, mesh, plan: ShardingPlan):
                         f"{name}: spec {plan.spec_for(name)} on mesh "
                         f"{dict(zip(mesh.dim_names, mesh.shape))}: placing "
                         f"a parameter on {ax!r} of extent > 1: {why}")
+
+
+def refuse_moe(model, mesh, plan=None, pipeline=False):
+    """Raise NotImplementedError naming WAITS['ep'] when `model` holds a
+    MoE layer and the layout is one the port cannot train it in yet: a
+    pipeline (`pipeline`, or a 'pp' axis of extent > 1), an 'sp' axis of
+    extent > 1, or `plan` placing a stacked expert weight on any axis of
+    extent > 1. The batch axes ('dp', 'fsdp') are fine: the gates take
+    their statistics over the Trainer's batch group (nn/moe.py
+    `batch_group`)."""
+    from paddle_tpu_torch.nn.moe import MoEMLP
+    moes = [n for n, m in model.named_modules() if isinstance(m, MoEMLP)]
+    if not moes:
+        return
+    axes = dict(zip(mesh.dim_names, mesh.shape))
+    why = None
+    if pipeline or axes.get("pp", 1) > 1:
+        why = ("under pipeline parallelism, the last stage's loss would "
+               "carry no router aux term")
+    elif axes.get("sp", 1) > 1:
+        why = ("on an 'sp' axis, each rank would gate its sequence shard "
+               "alone, out of the JAX package's token order")
+    elif plan is not None:
+        names = [f"{m}.{leaf}" if m else leaf for m in moes
+                 for leaf in ("experts_gate_weight", "experts_up_weight",
+                              "experts_down_weight")]
+        why = next((f"{name}: spec {plan.spec_for(name)} would cut the "
+                    f"stacked expert weights over {ax!r}"
+                    for name in names for entry in plan.spec_for(name)
+                    for ax in _axes_of(entry)
+                    if ax is not None and axes.get(ax, 1) > 1), None)
+    if why is not None:
+        raise NotImplementedError(
+            f"a MoE model on mesh {axes}: {why}; MoE beyond the batch axes "
+            f"waits for {WAITS['ep']}, which cuts the expert weights over "
+            "'ep', 'mp' and 'fsdp'")
 
 
 def _on_mp(spec, dim):
@@ -258,6 +298,7 @@ def apply_plan(model, mesh, plan: ShardingPlan):
     model."""
     from paddle_tpu_torch.distributed import sharding
     from paddle_tpu_torch.distributed.fleet import layers
+    refuse_moe(model, mesh, plan)
     check_plan([n for n, _ in model.named_parameters()], mesh, plan)
     names = mesh.dim_names
     mp = mesh.get_dim_size("mp") if "mp" in names else 1

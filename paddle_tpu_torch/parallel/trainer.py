@@ -104,6 +104,17 @@ without waiting for the device.
   gives every rank the whole batch. An 'ep' axis of extent > 1 raises
   NotImplementedError naming the slice it waits for, and a 'pp' axis
   one naming parallel/pipeline.py's PipelineTrainer, which trains it.
+- MoE models (models/qwen2_moe.py): mesh-free and on the batch axes
+  'dp' / 'fsdp'; the model's own loss carries the router aux term. On a
+  batch group of more than one rank the step runs inside nn/moe.py's
+  `batch_group`, so the gates take the aux loss's means and the capacity
+  path's capacity and buffer positions over the group's tokens, as the
+  JAX package does over the global batch; the model's
+  `router_aux_loss()`, then this rank's share of the group's, is left
+  out of the token weighting (`_weighed`). A plan that places the
+  stacked expert weights on 'mp', 'fsdp' or 'ep', an 'sp' axis, and
+  parallel/pipeline.py's PipelineTrainer raise NotImplementedError
+  naming the expert-parallel slice (parallel/plan.py `refuse_moe`).
 - FSDP overlap (`overlap_fsdp`, `overlap_chunks`; on an 'fsdp' axis of
   extent > 1, else nothing): the forward and the backward run inside
   parallel/overlap.py's `overlap_fsdp_guard`, so each fsdp-cut
@@ -268,7 +279,8 @@ class Trainer:
         from paddle_tpu_torch.distributed import sharding
         from paddle_tpu_torch.distributed.fleet.layers import _PARALLEL
         from paddle_tpu_torch.distributed.parallel import GradReducer
-        from paddle_tpu_torch.parallel.plan import WAITS, apply_plan
+        from paddle_tpu_torch.parallel.plan import (WAITS, apply_plan,
+                                                    refuse_moe)
         axes = dict(zip(mesh.dim_names, mesh.shape))
         others = {a: n for a, n in axes.items()
                   if a not in ("dp", "fsdp", "sp", "mp") and n > 1}
@@ -282,6 +294,7 @@ class Trainer:
                 f"mesh axes {others}: the port's Trainer runs data, "
                 f"sharded-data (FSDP), sequence (context) and tensor "
                 f"parallelism; {why}")
+        refuse_moe(self.model, mesh, plan)
         sp = axes.get("sp", 1)
         if sp > 1 and self.config.context_parallel not in ("ring",
                                                            "ulysses"):
@@ -347,14 +360,19 @@ class Trainer:
     def _guards(self, overlap=None):
         """The step's parallel contexts, around its forward AND backward
         (a recomputed layer reruns its forward there):
-        distributed/context_parallel.py's guard over 'sp' and
+        distributed/context_parallel.py's guard over 'sp',
         parallel/overlap.py's over 'fsdp' (`overlap` overrides
         config.overlap_fsdp; it does nothing without an 'fsdp' axis of
-        extent > 1)."""
+        extent > 1) and nn/moe.py's `batch_group` over a batch group of
+        more than one rank."""
+        from paddle_tpu_torch.nn.moe import batch_group
         stack = contextlib.ExitStack()
         cfg = self.config
         if self._dp is None:
             return stack
+        if self._dp["group"] is not None and self._dp.get("sp") is None:
+            stack.enter_context(batch_group(
+                self._dp["group"], self._dp["index"], self._dp["size"]))
         if self._dp.get("sp") is not None:
             from paddle_tpu_torch.distributed.context_parallel import (
                 context_parallel_guard)
@@ -443,7 +461,7 @@ class Trainer:
         if n_mb == 1:
             loss = self._loss(batch)
             if scales is not None:
-                loss = _weigh(loss, scales[0])
+                loss = self._weighed(loss, scales[0])
             if backward:
                 loss.backward()
             return loss.detach()
@@ -451,7 +469,7 @@ class Trainer:
         for i, mb in enumerate(mbs):
             mb_loss = self._loss(mb)
             if scales is not None:
-                mb_loss = _weigh(mb_loss, scales[i])
+                mb_loss = self._weighed(mb_loss, scales[i])
             if backward:
                 mb_loss.backward()
             loss = loss + mb_loss.detach()
@@ -461,6 +479,16 @@ class Trainer:
                     if p.grad is not None:
                         p.grad.div_(n_mb)
         return loss / n_mb
+
+    def _weighed(self, loss, scale):
+        """The last forward's `loss` weighted by this rank's token share
+        (`_weigh`); a MoE model's `router_aux_loss()`, already this
+        rank's share of the batch group's, rides unweighted."""
+        aux = getattr(self.model, "router_aux_loss", None)
+        if aux is None:
+            return _weigh(loss, scale)
+        aux = aux()
+        return _weigh(loss - aux, scale) + aux
 
     def step(self, batch: dict) -> torch.Tensor:
         """One optimizer step on `batch` ({name: tensor or array}, moved to
